@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (flexflow_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+1. prints the software versions and the card's name and power limit;
+2. builds the CUDA kernels from ``flexflow_tpu_torch/csrc`` with nvcc;
+3. kernel phase: holds the max-pool kernel against its plain PyTorch
+   version (bit-equal) at AlexNet's pool shapes and at edge cases, and
+   times the kernel, the plain version and ``F.max_pool2d`` (the library
+   yardstick; the port never calls it) with CUDA events;
+4. slice phase: serves full-width AlexNet (229x229, 10 classes, bf16,
+   random weights from seed 0) through ``ServingEngine`` from two
+   threads, checks the outputs, that the pool kernel ran 3 times per
+   dispatch, and the model against its CPU twin in float32;
+5. prints one ``kernels`` JSON line and, last, the ok line.
+
+Any failure raises and exits non-zero before the ok line.  Needs one
+CUDA device; exits 2 without one, or without the package beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+BATCH = 64
+# device memory bandwidth and the non-tensor-core float32 rate of an
+# H100 SXM (NVIDIA data sheet), for the kernels' least possible time
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# AlexNet's three max pools at 229x229: (C, H, W), all 3x3 / s2 / p0
+ALEXNET_POOLS = [(64, 56, 56), (192, 27, 27), (256, 13, 13)]
+POOL_GEOM = ((3, 3), (2, 2), (0, 0))
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def bits(t):
+    import torch
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[t.dtype]
+    return t.view(view)
+
+
+def assert_bit_equal(a, b, what: str) -> float:
+    """Same NaN positions and the same bits everywhere else; returns
+    the max abs difference over the non-NaN values (0.0)."""
+    import torch
+    assert a.shape == b.shape and a.dtype == b.dtype, what
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(na, nb), f"{what}: NaN positions differ"
+    ba = torch.where(na, torch.zeros_like(bits(a)), bits(a))
+    bb = torch.where(nb, torch.zeros_like(bits(b)), bits(b))
+    assert torch.equal(ba, bb), f"{what}: kernel and plain version differ"
+    d = (a.float() - b.float()).abs()
+    return float(d[~na].max()) if (~na).any() else 0.0
+
+
+def rotation(x, min_bytes: int = 128 << 20):
+    """Copies of ``x`` covering ``min_bytes``, so that timing loops that
+    cycle through them find the 50 MB L2 cache cold."""
+    import torch
+    n = max(1, -(-min_bytes // (x.numel() * x.element_size())))
+    return [x.clone(memory_format=torch.channels_last) for _ in range(n)]
+
+
+def time_ms(fn, xs, iters: int) -> float:
+    """Device time per call: a GPU spin first lets the host enqueue
+    every call before the GPU reaches them, so the events time GPU
+    work and not host launch overhead."""
+    import torch
+    for i in range(3):
+        fn(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for i in range(iters):
+        fn(xs[i % len(xs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_breakdown(fn, steps: int, card: str) -> None:
+    """Device time by kernel over ``steps`` calls of ``fn`` (torch
+    profiler), and the device's busy share of the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(t for _, t in rows)
+    if not total:
+        print("kernel breakdown: the profiler saw no device time "
+              "(not measured)")
+        return
+    rows.sort(key=lambda r: -r[1])
+    print(f"kernel breakdown over {steps} forwards: device busy "
+          f"{total / steps / 1e3:.3f} ms per forward, "
+          f"{100 * total / wall_us:.1f}% of the wall time of the "
+          f"{steps} back-to-back calls [{card}]")
+    for name, t in rows[:10]:
+        print(f"  {100 * t / total:5.1f}%  {t / steps / 1e3:8.4f} ms  "
+              f"{name[:90]}")
+
+
+def kernel_phase(cuda_pool, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def rand(shape, dtype, kind="normal"):
+        if kind == "ties":
+            x = torch.randint(-2, 3, shape, generator=gen, device=dev)
+        else:
+            x = torch.randn(shape, generator=gen, device=dev)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        if kind == "nan":
+            m = torch.rand(shape, generator=gen, device=dev) < 0.01
+            x = x.masked_fill(m, float("nan"))
+            m = torch.rand(shape, generator=gen, device=dev) < 0.01
+            x = x.masked_fill(m, float("-inf"))
+            x = x.contiguous(memory_format=torch.channels_last)
+        return x
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, h, w in ALEXNET_POOLS:
+            cases.append((f"alexnet {c}x{h}x{w}", (BATCH, c, h, w), dtype,
+                          POOL_GEOM, "normal"))
+    cases += [
+        ("padded", (8, 32, 13, 13), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "normal"),
+        ("pad > kernel/2", (2, 8, 9, 9), torch.float32,
+         ((3, 3), (1, 1), (2, 2)), "normal"),
+        ("asymmetric k/s/p", (4, 16, 7, 9), torch.float16,
+         ((3, 2), (1, 2), (0, 1)), "normal"),
+        ("windows miss the tail", (2, 24, 10, 10), torch.bfloat16,
+         ((3, 3), (3, 3), (0, 0)), "normal"),
+        ("tie-heavy", (16, 64, 28, 28), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "ties"),
+        ("NaN and -inf", (8, 64, 27, 27), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "nan"),
+        ("NaN f32", (4, 40, 15, 15), torch.float32,
+         ((2, 2), (2, 2), (0, 0)), "nan"),
+    ]
+    max_err = 0.0
+    for name, shape, dtype, (k, s, p), kind in cases:
+        x = rand(shape, dtype, kind)
+        y = cuda_pool.max_pool_nhwc(x, k, s, p)
+        torch.cuda.synchronize()
+        ref = cuda_pool.max_pool_nhwc_reference(x, k, s, p)
+        torch.cuda.synchronize()
+        err = assert_bit_equal(y, ref, f"{name} {dtype}")
+        max_err = max(max_err, err)
+        print(f"kernel == plain (bit-equal): {name} {tuple(shape)} "
+              f"{str(dtype).replace('torch.', '')} k={k} s={s} p={p}")
+
+    shapes = []
+    for c, h, w in ALEXNET_POOLS:
+        x = rand((BATCH, c, h, w), torch.bfloat16)
+        xs = rotation(x)
+        k, s, p = POOL_GEOM
+        y = cuda_pool.max_pool_nhwc(x, k, s, p)
+        in_b = x.numel() * x.element_size()
+        out_b = y.numel() * y.element_size()
+        ops = y.numel() * (k[0] * k[1] - 1)
+        bytes_s = (in_b + out_b) / HBM_BYTES_PER_S
+        ops_s = ops / SCALAR_OPS_PER_S
+        row = {
+            "shape": [BATCH, h, w, c], "dtype": "bf16",
+            "kernel_ms": time_ms(
+                lambda t: cuda_pool.max_pool_nhwc(t, k, s, p), xs, 200),
+            "plain_ms": time_ms(
+                lambda t: cuda_pool.max_pool_nhwc_reference(t, k, s, p),
+                xs, 20),
+            "library_ms": time_ms(
+                lambda t: F.max_pool2d(t, k, s, p), xs, 200),
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": in_b + out_b,
+        }
+        shapes.append(row)
+        print("pool timing: " + json.dumps(row))
+    torch.cuda.synchronize()
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def serve_phase(ft, cuda_pool, card: str) -> int:
+    """Serve full-width AlexNet; returns the pool kernel's launches
+    during the serving run."""
+    import numpy as np
+    from flexflow_tpu_torch.models import build_alexnet
+
+    cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
+    model, _, _ = build_alexnet(cfg)   # 229x229, 10 classes, on cuda
+    model.compile()
+    t0 = time.perf_counter()
+    model.init_layers(seed=SEED)
+    print(f"AlexNet: {model.num_parameters} parameters, layout "
+          f"{model.resolved_conv_layout}, init "
+          f"{time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    engine = ft.ServingEngine(model, max_batch=BATCH)
+    print(f"engine warmup ({len(engine.buckets)} buckets): "
+          f"{time.perf_counter() - t0:.3f}s")
+
+    rng = np.random.default_rng(SEED)
+    sizes = [[1, 17, 64, 3, 40, 100, 8, 2, 64, 33],
+             [3, 64, 5, 130, 16, 1, 64, 48, 7, 64]]
+    reqs = [[rng.standard_normal((n, 3, 229, 229)).astype(np.float32)
+             for n in ss] for ss in sizes]
+    results = [[None] * len(ss) for ss in sizes]
+
+    def producer(t: int) -> None:
+        futs = [engine.submit(x) for x in reqs[t]]
+        for i, f in enumerate(futs):
+            results[t][i] = f.result(timeout=300)
+
+    cuda_pool.max_pool_nhwc.launches = 0
+    t0 = time.perf_counter()
+    with engine:
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in range(len(sizes))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+            assert not th.is_alive(), "producer thread did not finish"
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    launches = cuda_pool.max_pool_nhwc.launches
+
+    n_req = sum(len(s) for s in sizes)
+    rows = sum(sum(s) for s in sizes)
+    assert stats["requests"] == n_req and stats["errors"] == 0, stats
+    assert stats["submitted"] == (
+        stats["requests"] + stats["rejected"] + stats["shed"]
+        + stats["expired"] + stats["errors"] + stats["cancelled"]), stats
+    assert launches == 3 * stats["dispatches"] > 0, (launches, stats)
+    xs = np.concatenate([x for r in reqs for x in r])
+    ys = np.concatenate([y for r in results for y in r])
+    assert ys.shape == (rows, 10), ys.shape
+    assert np.isfinite(ys).all(), "non-finite outputs"
+    np.testing.assert_allclose(ys.sum(axis=1), 1.0, atol=1e-2)
+    # the same rows through predict: other batch compositions, so bf16
+    # rounding may differ in the last bits of a probability
+    ref = model.predict(xs, batch_size=BATCH)
+    err = float(np.abs(ys - ref).max())
+    assert err <= 1e-2, f"engine vs predict max abs err {err}"
+    print(f"serve: {n_req} requests ({rows} rows) from {len(sizes)} "
+          f"threads, {stats['dispatches']} dispatches, pool launches "
+          f"{launches} (= 3 x dispatches), {rows / wall:.1f} rows/s, "
+          f"p50 {stats['p50_ms']} ms, p99 {stats['p99_ms']} ms, "
+          f"engine vs predict max abs err {err:.3g} [{card}]")
+
+    # one bucket-64 forward with its input already on the card: device
+    # time, then device time by kernel
+    x64 = model._to_device((xs[:BATCH],))
+    fwd = model.forward_compiled(BATCH)
+    fwd_ms = time_ms(lambda t: fwd(model._params, t), [x64], 20)
+    print(f"forward at batch {BATCH} (bf16): {fwd_ms:.4f} ms device time; "
+          f"engine dispatch (pack + forward + fetch) mean "
+          f"{stats['dispatch_ms']} ms wall [{card}]")
+    kernel_breakdown(lambda: fwd(model._params, x64), 5, card)
+
+    # float32 full-width AlexNet on the card against its CPU twin (same
+    # seed, so the same weights): kernel path vs plain path end to end
+    cfg32 = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=SEED)
+    outs = []
+    for device in ("cuda", "cpu"):
+        m, _, _ = build_alexnet(cfg32, device=device)
+        m.compile()
+        m.init_layers(seed=SEED)
+        outs.append(m.predict(xs[:4]))
+    err32 = float(np.abs(outs[0] - outs[1]).max())
+    assert err32 <= 1e-4, f"f32 cuda vs cpu max abs err {err32}"
+    print(f"f32 AlexNet cuda (nhwc, kernel) vs cpu (nchw, plain): max abs "
+          f"err {err32:.3g} on probabilities")
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "flexflow_tpu_torch")):
+        print("chip_smoke: flexflow_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.ops import cuda_pool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}")
+    card = card_line()
+    print(card)
+
+    path, secs, log = kernels.build("max_pool_nhwc")
+    print(f"built {os.path.relpath(path, HERE)} in {secs:.2f}s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kp = kernel_phase(cuda_pool, gen)
+    launches = serve_phase(ft, cuda_pool, card)
+
+    shapes = kp["shapes"]
+    entry = {
+        "name": "max_pool_nhwc",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/csrc/max_pool_nhwc.cu",
+        "replaces": "flexflow_tpu/ops/pallas_pool.py:89",
+        "launches": launches,
+        "max_abs_err": kp["max_abs_err"],
+        # one forward's three pools at batch 64, bf16
+        "ms": sum(r["kernel_ms"] for r in shapes),
+        "plain_ms": sum(r["plain_ms"] for r in shapes),
+        "bound_ms": sum(r["bound_ms"] for r in shapes),
+        "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": sum(r["library_ms"] for r in shapes),
+        "shapes": shapes,
+    }
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

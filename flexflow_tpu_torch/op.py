@@ -1,0 +1,109 @@
+"""Op — abstract operator base, the counterpart of ``flexflow_tpu/op.py``.
+
+``forward(params, inputs, ctx)`` keeps the JAX package's signature: a
+function of the parameter dict and the input tensors that returns the
+output tensors.  The port runs it eagerly on ``ctx.device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from .config import ParallelConfig
+from .tensor import Parameter, Tensor
+
+
+class OpType(enum.Enum):
+    CONV2D = "conv2d"
+    POOL2D = "pool2d"
+    LINEAR = "linear"
+    EMBEDDING = "embedding"
+    FLAT = "flat"
+    SOFTMAX = "softmax"
+    CONCAT = "concat"
+    SPLIT = "split"
+    RESHAPE = "reshape"
+    TRANSPOSE = "transpose"
+    DROPOUT = "dropout"
+    BATCHNORM = "batchnorm"
+    LAYERNORM = "layernorm"
+    RMSNORM = "rmsnorm"
+    ELEMENT_UNARY = "element_unary"
+    ELEMENT_BINARY = "element_binary"
+    MSELOSS = "mse_loss"
+    ATTENTION = "attention"
+    LSTM = "lstm"
+    PIPELINE = "pipeline"
+    MOE = "moe"
+    INPUT = "input"
+
+
+def resolve_conv_layout(value: str, device: torch.device) -> str:
+    """Normalize and validate a conv_layout setting; a typo fails.
+
+    ``auto`` resolves to ``nhwc`` on a CUDA device — the max-pool
+    kernel reads channels-last, so a channels-last conv trunk pays no
+    conversion between conv and pool — and to ``nchw`` elsewhere, as
+    the JAX package stays NCHW off the TPU."""
+    v = (value or "auto").lower()
+    if v not in ("nchw", "nhwc", "auto"):
+        raise ValueError(
+            f"conv_layout must be 'nchw', 'nhwc' or 'auto', got {value!r}")
+    if v != "auto":
+        return v
+    return "nhwc" if torch.device(device).type == "cuda" else "nchw"
+
+
+@dataclasses.dataclass
+class OpContext:
+    """Per-forward execution context threaded through op forwards."""
+
+    device: torch.device = dataclasses.field(
+        default_factory=lambda: torch.device("cpu"))
+    generator: Optional[torch.Generator] = None
+    training: bool = False
+    compute_dtype: str = "bfloat16"
+    # "nchw" or "nhwc" (torch.channels_last).  Tensor metadata stays
+    # NCHW either way; ops convert memory format at their own boundary
+    conv_layout: str = "nchw"
+
+
+class Op:
+    """Base operator.  Subclasses set ``op_type`` and implement
+    ``forward``."""
+
+    op_type: OpType = OpType.INPUT
+
+    def __init__(self, name: str, inputs: Sequence[Tensor]):
+        self.name = name
+        self.inputs: List[Tensor] = list(inputs)
+        self.outputs: List[Tensor] = []
+        self.weights: List[Parameter] = []
+        self.parallel_config: Optional[ParallelConfig] = None
+
+    def _add_output(self, shape, dtype="float32", idx: int = 0) -> Tensor:
+        t = Tensor(shape=tuple(int(s) for s in shape), dtype=dtype,
+                   name=f"{self.name}:out{idx}", owner_op=self,
+                   owner_idx=idx)
+        self.outputs.append(t)
+        return t
+
+    def _add_weight(self, shape, initializer, name: str, dtype="float32",
+                    trainable: bool = True) -> Parameter:
+        p = Parameter(shape=tuple(int(s) for s in shape), dtype=dtype,
+                      name=f"{self.name}/{name}", pcname=self.name,
+                      initializer=initializer, trainable=trainable)
+        self.weights.append(p)
+        return p
+
+    def forward(self, params: Dict[str, torch.Tensor],
+                inputs: List[torch.Tensor],
+                ctx: OpContext) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(name={self.name!r})"

@@ -1,0 +1,72 @@
+"""Shared op helpers: dtype policy and activation epilogues.
+
+The policy is the JAX package's (``flexflow_tpu/ops/common.py``):
+matmuls and convolutions run in the configured compute dtype (bfloat16
+by default) and parameters stay float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..config import PRECISION_DTYPES
+
+F32 = "float32"
+BF16 = "bfloat16"
+
+
+def torch_dtype(name) -> torch.dtype:
+    """The torch dtype of a dtype name ("bfloat16") or torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def resolve_op_dtype(op, base_dtype: str) -> str:
+    """The per-op compute dtype: the strategy's ``precision`` override
+    when one is set ("bf16"/"f32"), else the session dtype."""
+    pc = getattr(op, "parallel_config", None)
+    prec = getattr(pc, "precision", "") if pc is not None else ""
+    return PRECISION_DTYPES.get(prec, base_dtype)
+
+
+def dtype_itemsize(dtype) -> int:
+    """Byte width of a dtype (torch dtype or name)."""
+    return torch_dtype(dtype).itemsize
+
+
+def cast_compute(x: torch.Tensor, ctx) -> torch.Tensor:
+    dt = torch_dtype(ctx.compute_dtype)
+    if x.is_floating_point() and x.dtype != dt:
+        return x.to(dt)
+    return x
+
+
+def apply_activation(x: torch.Tensor, activation):
+    """Activation epilogue, with the JAX package's definitions (its
+    gelu is the tanh approximation)."""
+    if activation is None or activation == "none":
+        return x
+    if activation == "relu":
+        return torch.relu(x)
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation == "elu":
+        return F.elu(x)
+    if activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if activation == "exp":
+        return torch.exp(x)
+    if activation == "silu":
+        return F.silu(x)
+    if activation == "softmax":
+        return torch.softmax(x, dim=-1)
+    if callable(activation):
+        return activation(x)
+    raise ValueError(f"unknown activation {activation!r}")

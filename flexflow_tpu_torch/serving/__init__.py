@@ -1,0 +1,14 @@
+"""The port's inference-serving subsystem: bucketed forwards plus a
+dynamic micro-batcher over a compiled FFModel."""
+
+from .batcher import (ADMISSION_POLICIES, MicroBatcher, Request, bucket_for,
+                      derive_buckets, split_sizes)
+from .engine import HEALTH_STATES, ServingEngine
+from .errors import (DeadlineExceeded, OverloadError, ServingError,
+                     SheddedError)
+from .metrics import ServingMetrics, quantiles
+
+__all__ = ["ServingEngine", "MicroBatcher", "Request", "ServingMetrics",
+           "ServingError", "OverloadError", "SheddedError",
+           "DeadlineExceeded", "ADMISSION_POLICIES", "HEALTH_STATES",
+           "bucket_for", "derive_buckets", "split_sizes", "quantiles"]
