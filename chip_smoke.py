@@ -9,11 +9,19 @@
    version (bit-equal) at AlexNet's pool shapes and at edge cases, and
    times the kernel, the plain version and ``F.max_pool2d`` (the library
    yardstick; the port never calls it) with CUDA events;
-4. slice phase: serves full-width AlexNet (229x229, 10 classes, bf16,
+4. backward kernel phase: the same for the max-pool backward kernel,
+   with ``aten.max_pool2d_with_indices_backward`` as the yardstick;
+5. serving phase: serves full-width AlexNet (229x229, 10 classes, bf16,
    random weights from seed 0) through ``ServingEngine`` from two
    threads, checks the outputs, that the pool kernel ran 3 times per
-   dispatch, and the model against its CPU twin in float32;
-5. prints one ``kernels`` JSON line and, last, the ok line.
+   dispatch (and the backward kernel never), and the model against its
+   CPU twin in float32;
+6. training phase: trains full-width AlexNet (bf16, batch 64) through
+   ``fit`` (2 epochs of 8 batches) and ``train_batch`` (10 steps on one
+   batch, the loss must fall), checks that both pool kernels ran 3
+   times per step, times a step and profiles it by kernel, and holds a
+   float32 training step on the card against its CPU twin;
+7. prints one ``kernels`` JSON line and, last, the ok line.
 
 Any failure raises and exits non-zero before the ok line.  Needs one
 CUDA device; exits 2 without one, or without the package beside it.
@@ -21,6 +29,8 @@ CUDA device; exits 2 without one, or without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -38,6 +48,11 @@ SCALAR_OPS_PER_S = 67e12
 # AlexNet's three max pools at 229x229: (C, H, W), all 3x3 / s2 / p0
 ALEXNET_POOLS = [(64, 56, 56), (192, 27, 27), (256, 13, 13)]
 POOL_GEOM = ((3, 3), (2, 2), (0, 0))
+TRAIN_BATCHES = 8
+TRAIN_EPOCHS = 2
+# float32 training step, card against CPU: largest difference allowed
+# in the loss and in any updated parameter
+F32_STEP_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -77,17 +92,18 @@ def rotation(x, min_bytes: int = 128 << 20):
     return [x.clone(memory_format=torch.channels_last) for _ in range(n)]
 
 
-def time_ms(fn, xs, iters: int) -> float:
+def time_ms(fn, xs, iters: int, spin_cycles: int = 200_000_000) -> float:
     """Device time per call: a GPU spin first lets the host enqueue
     every call before the GPU reaches them, so the events time GPU
-    work and not host launch overhead."""
+    work and not host launch overhead.  The spin must outlast the
+    host's enqueueing of all ``iters`` calls."""
     import torch
     for i in range(3):
         fn(xs[i % len(xs)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for i in range(iters):
         fn(xs[i % len(xs)])
@@ -96,7 +112,8 @@ def time_ms(fn, xs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_breakdown(fn, steps: int, card: str) -> None:
+def kernel_breakdown(fn, steps: int, card: str,
+                     what: str = "forward") -> None:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch
     profiler), and the device's busy share of the window's wall time."""
     import torch
@@ -121,8 +138,8 @@ def kernel_breakdown(fn, steps: int, card: str) -> None:
               "(not measured)")
         return
     rows.sort(key=lambda r: -r[1])
-    print(f"kernel breakdown over {steps} forwards: device busy "
-          f"{total / steps / 1e3:.3f} ms per forward, "
+    print(f"kernel breakdown over {steps} {what}s: device busy "
+          f"{total / steps / 1e3:.3f} ms per {what}, "
           f"{100 * total / wall_us:.1f}% of the wall time of the "
           f"{steps} back-to-back calls [{card}]")
     for name, t in rows[:10]:
@@ -130,25 +147,29 @@ def kernel_breakdown(fn, steps: int, card: str) -> None:
               f"{name[:90]}")
 
 
+def rand_input(shape, dtype, gen, kind="normal"):
+    """A channels-last input on the card: normal values, small integers
+    ("ties"), or normal values with 1% NaN and 1% -inf ("nan")."""
+    import torch
+
+    dev = torch.device("cuda")
+    if kind == "ties":
+        x = torch.randint(-2, 3, shape, generator=gen, device=dev)
+    else:
+        x = torch.randn(shape, generator=gen, device=dev)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    if kind == "nan":
+        m = torch.rand(shape, generator=gen, device=dev) < 0.01
+        x = x.masked_fill(m, float("nan"))
+        m = torch.rand(shape, generator=gen, device=dev) < 0.01
+        x = x.masked_fill(m, float("-inf"))
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
 def kernel_phase(cuda_pool, gen) -> dict:
     import torch
     import torch.nn.functional as F
-
-    dev = torch.device("cuda")
-
-    def rand(shape, dtype, kind="normal"):
-        if kind == "ties":
-            x = torch.randint(-2, 3, shape, generator=gen, device=dev)
-        else:
-            x = torch.randn(shape, generator=gen, device=dev)
-        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-        if kind == "nan":
-            m = torch.rand(shape, generator=gen, device=dev) < 0.01
-            x = x.masked_fill(m, float("nan"))
-            m = torch.rand(shape, generator=gen, device=dev) < 0.01
-            x = x.masked_fill(m, float("-inf"))
-            x = x.contiguous(memory_format=torch.channels_last)
-        return x
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -173,7 +194,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
     ]
     max_err = 0.0
     for name, shape, dtype, (k, s, p), kind in cases:
-        x = rand(shape, dtype, kind)
+        x = rand_input(shape, dtype, gen, kind)
         y = cuda_pool.max_pool_nhwc(x, k, s, p)
         torch.cuda.synchronize()
         ref = cuda_pool.max_pool_nhwc_reference(x, k, s, p)
@@ -185,7 +206,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
 
     shapes = []
     for c, h, w in ALEXNET_POOLS:
-        x = rand((BATCH, c, h, w), torch.bfloat16)
+        x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
         xs = rotation(x)
         k, s, p = POOL_GEOM
         y = cuda_pool.max_pool_nhwc(x, k, s, p)
@@ -209,6 +230,93 @@ def kernel_phase(cuda_pool, gen) -> dict:
         }
         shapes.append(row)
         print("pool timing: " + json.dumps(row))
+    torch.cuda.synchronize()
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def backward_kernel_phase(cuda_pool, gen) -> dict:
+    """The backward kernel against its plain version, bit-equal, then
+    timed at AlexNet's three pool shapes (bf16, batch 64)."""
+    import torch
+    import torch.nn.functional as F
+
+    def grad_for(x, k, s, p):
+        n, c, h, w = x.shape
+        oh, ow = cuda_pool.out_hw(h, w, k, s, p)
+        return rand_input((n, c, oh, ow), x.dtype, gen)
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, h, w in ALEXNET_POOLS:
+            cases.append((f"alexnet {c}x{h}x{w}", (BATCH, c, h, w), dtype,
+                          POOL_GEOM, "normal"))
+    cases += [
+        ("padded", (8, 32, 13, 13), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "normal"),
+        ("pad > kernel/2", (2, 8, 9, 9), torch.float32,
+         ((3, 3), (1, 1), (2, 2)), "normal"),
+        ("asymmetric k/s/p", (4, 16, 7, 9), torch.float16,
+         ((3, 2), (1, 2), (0, 1)), "normal"),
+        ("windows miss the tail", (2, 24, 10, 10), torch.bfloat16,
+         ((3, 3), (3, 3), (0, 0)), "normal"),
+        ("stride 1 (9 windows per element)", (4, 64, 17, 17),
+         torch.float16, ((3, 3), (1, 1), (1, 1)), "normal"),
+        ("tie-heavy", (16, 64, 28, 28), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "ties"),
+        ("NaN and -inf", (8, 64, 27, 27), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "nan"),
+        ("NaN f32", (4, 40, 15, 15), torch.float32,
+         ((2, 2), (2, 2), (0, 0)), "nan"),
+    ]
+    max_err = 0.0
+    for name, shape, dtype, (k, s, p), kind in cases:
+        x = rand_input(shape, dtype, gen, kind)
+        g = grad_for(x, k, s, p)
+        dx = cuda_pool.max_pool_nhwc_backward(x, g, k, s, p)
+        torch.cuda.synchronize()
+        ref = cuda_pool.max_pool_nhwc_backward_reference(x, g, k, s, p)
+        torch.cuda.synchronize()
+        err = assert_bit_equal(dx, ref, f"backward {name} {dtype}")
+        max_err = max(max_err, err)
+        print(f"backward kernel == plain (bit-equal): {name} "
+              f"{tuple(shape)} {str(dtype).replace('torch.', '')} "
+              f"k={k} s={s} p={p}")
+
+    shapes = []
+    k, s, p = POOL_GEOM
+    for c, h, w in ALEXNET_POOLS:
+        x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
+        g = grad_for(x, k, s, p)
+        _, idx = F.max_pool2d(x, k, s, p, return_indices=True)
+        x_b = x.numel() * x.element_size()
+        g_b = g.numel() * g.element_size()
+        # copies covering 128 MB, as rotation() does for the forward
+        pairs = [(x.clone(memory_format=torch.channels_last),
+                  g.clone(memory_format=torch.channels_last))
+                 for _ in range(max(1, -(-(128 << 20) // (x_b + g_b))))]
+        moved = 2 * x_b + g_b          # read x, read g, write dx
+        # per window: k*k - 1 compares to find its max, one add
+        ops = g.numel() * k[0] * k[1]
+        bytes_s = moved / HBM_BYTES_PER_S
+        ops_s = ops / SCALAR_OPS_PER_S
+        row = {
+            "shape": [BATCH, h, w, c], "dtype": "bf16",
+            "kernel_ms": time_ms(
+                lambda t: cuda_pool.max_pool_nhwc_backward(*t, k, s, p),
+                pairs, 200),
+            "plain_ms": time_ms(
+                lambda t: cuda_pool.max_pool_nhwc_backward_reference(
+                    *t, k, s, p), pairs, 20),
+            "library_ms": time_ms(
+                lambda t: torch.ops.aten.max_pool2d_with_indices_backward(
+                    t[1], t[0], list(k), list(s), list(p), [1, 1], False,
+                    idx), pairs, 200),
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": moved,
+        }
+        shapes.append(row)
+        print("pool backward timing: " + json.dumps(row))
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -245,6 +353,7 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
             results[t][i] = f.result(timeout=300)
 
     cuda_pool.max_pool_nhwc.launches = 0
+    cuda_pool.max_pool_nhwc_backward.launches = 0
     t0 = time.perf_counter()
     with engine:
         threads = [threading.Thread(target=producer, args=(t,))
@@ -257,6 +366,8 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
         wall = time.perf_counter() - t0
         stats = engine.stats()
     launches = cuda_pool.max_pool_nhwc.launches
+    assert cuda_pool.max_pool_nhwc_backward.launches == 0, \
+        "serving launched the backward kernel"
 
     n_req = sum(len(s) for s in sizes)
     rows = sum(sum(s) for s in sizes)
@@ -307,6 +418,124 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
     return launches
 
 
+class EpochLosses:
+    """fit() callback that keeps every epoch's per-step losses."""
+
+    def __init__(self):
+        self.epochs = []
+
+    def set_model(self, model):
+        self.model = model
+
+    def on_train_begin(self):
+        pass
+
+    def on_epoch_begin(self, epoch):
+        pass
+
+    def on_epoch_end(self, epoch, perf_metrics):
+        self.epochs.append(self.model.last_epoch_losses.copy())
+
+    def on_train_end(self):
+        pass
+
+
+def train_phase(ft, cuda_pool, card: str) -> dict:
+    """Train full-width AlexNet on the card; returns both pool kernels'
+    launches during the fit() run."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models import build_alexnet
+
+    metrics = ["accuracy", "sparse_categorical_crossentropy"]
+    cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
+    model, _, _ = build_alexnet(cfg)   # 229x229, 10 classes, on cuda
+    # the reference alexnet.cc trains with SGD at lr 0.001
+    model.compile(ft.SGDOptimizer(lr=0.001), metrics=metrics)
+    model.init_layers(seed=SEED)
+    t0 = time.perf_counter()
+    xs, y = ft.synthetic_dataset(TRAIN_BATCHES * BATCH, [(3, 229, 229)],
+                                 (1,), num_classes=10, seed=SEED)
+    print(f"train data: {TRAIN_BATCHES} batches of {BATCH} made in "
+          f"{time.perf_counter() - t0:.3f}s")
+
+    record = EpochLosses()
+    out = io.StringIO()
+    cuda_pool.max_pool_nhwc.launches = 0
+    cuda_pool.max_pool_nhwc_backward.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model.fit(xs, y, epochs=TRAIN_EPOCHS, callbacks=[record])
+    fit_s = time.perf_counter() - t0
+    launches = {"fwd": cuda_pool.max_pool_nhwc.launches,
+                "bwd": cuda_pool.max_pool_nhwc_backward.launches}
+    text = out.getvalue()
+    print(text, end="")
+    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    assert model._step == steps, model._step
+    assert launches == {"fwd": 3 * steps, "bwd": 3 * steps}, launches
+    for e in range(TRAIN_EPOCHS):
+        assert f"epoch {e}: accuracy: " in text, text
+    assert "ELAPSED TIME = " in text and "THROUGHPUT = " in text, text
+    fit_losses = np.concatenate(record.epochs)
+    assert fit_losses.shape == (steps,), fit_losses.shape
+    assert np.isfinite(fit_losses).all(), fit_losses
+    print(f"fit: {steps} steps, pool launches {launches['fwd']} forward + "
+          f"{launches['bwd']} backward (= 3 + 3 per step), losses "
+          f"{np.round(fit_losses, 4).tolist()}, {fit_s:.3f}s wall [{card}]")
+
+    # one batch, ten steps at a higher rate: the loss must fall
+    model.compile(ft.SGDOptimizer(lr=0.01, momentum=0.9), metrics=metrics)
+    model.init_layers(seed=SEED)
+    xb = torch.from_numpy(xs[0][:BATCH]).to("cuda")
+    yb = torch.from_numpy(y[:BATCH]).to("cuda")
+    losses = torch.stack([model.train_batch(xb, yb) for _ in range(10)])
+    losses = losses.cpu().numpy()
+    assert np.isfinite(losses).all(), losses
+    assert losses[0] > losses[-1], f"loss did not fall: {losses}"
+    print(f"train_batch x10 on one batch (SGD lr 0.01, momentum 0.9): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # one step with the batch already on the card: device time, wall
+    # time, then device time by kernel
+    # a step takes the host up to ~12 ms to enqueue: spin about 1.1 s
+    step_ms = time_ms(lambda b: model.train_batch(*b), [(xb, yb)], 10,
+                      spin_cycles=2_000_000_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        model.train_batch(xb, yb)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    print(f"training step at batch {BATCH} (bf16): {step_ms:.4f} ms device "
+          f"time, {wall_ms:.4f} ms wall per step over 10 steps [{card}]")
+    kernel_breakdown(lambda: model.train_batch(xb, yb), 3, card,
+                     what="training step")
+
+    # float32 full-width training step on the card against its CPU
+    # twin (same seed, so the same weights and batch)
+    cfg32 = ft.FFConfig(batch_size=2, compute_dtype="float32", seed=SEED)
+    results = []
+    for device in ("cuda", "cpu"):
+        m, _, _ = build_alexnet(cfg32, device=device)
+        m.compile(ft.SGDOptimizer(lr=0.01, momentum=0.9), metrics=metrics)
+        m.init_layers(seed=SEED)
+        loss = float(m.train_batch(xs[0][:2], y[:2]))
+        results.append((loss, {p.name: m.get_weights(p.name)
+                               for p in m.parameters}, m))
+    (loss_c, w_c, m_c), (loss_h, w_h, _) = results
+    assert m_c.resolved_conv_layout == "nhwc"
+    loss_err = abs(loss_c - loss_h)
+    param_err = max(float(np.abs(w_c[k] - w_h[k]).max()) for k in w_h)
+    assert loss_err <= F32_STEP_TOL and param_err <= F32_STEP_TOL, (
+        loss_err, param_err)
+    print(f"f32 AlexNet training step cuda (nhwc, kernels) vs cpu (nchw, "
+          f"plain): loss {loss_c:.6f} vs {loss_h:.6f} (abs err "
+          f"{loss_err:.3g}), max abs err over the updated parameters "
+          f"{param_err:.3g} (tolerance {F32_STEP_TOL})")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "flexflow_tpu_torch")):
         print("chip_smoke: flexflow_tpu_torch/ is not beside this script",
@@ -336,25 +565,38 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kp = kernel_phase(cuda_pool, gen)
-    launches = serve_phase(ft, cuda_pool, card)
+    bp = backward_kernel_phase(cuda_pool, gen)
+    serve_launches = serve_phase(ft, cuda_pool, card)
+    train_launches = train_phase(ft, cuda_pool, card)
 
-    shapes = kp["shapes"]
-    entry = {
-        "name": "max_pool_nhwc",
-        "route": "cuda",
-        "source": "flexflow_tpu_torch/csrc/max_pool_nhwc.cu",
-        "replaces": "flexflow_tpu/ops/pallas_pool.py:89",
-        "launches": launches,
-        "max_abs_err": kp["max_abs_err"],
-        # one forward's three pools at batch 64, bf16
-        "ms": sum(r["kernel_ms"] for r in shapes),
-        "plain_ms": sum(r["plain_ms"] for r in shapes),
-        "bound_ms": sum(r["bound_ms"] for r in shapes),
-        "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": sum(r["library_ms"] for r in shapes),
-        "shapes": shapes,
-    }
-    print(json.dumps({"kernels": [entry]}))
+    def entry(name, replaces, launches, by_path, phase):
+        shapes = phase["shapes"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/max_pool_nhwc.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "launches_by_path": by_path,
+            "max_abs_err": phase["max_abs_err"],
+            # the three pools of one forward or one backward at batch
+            # 64, bf16
+            "ms": sum(r["kernel_ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": max(shapes,
+                            key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in shapes),
+            "shapes": shapes,
+        }
+
+    fwd_paths = {"serve": serve_launches, "train": train_launches["fwd"]}
+    print(json.dumps({"kernels": [
+        entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
+              sum(fwd_paths.values()), fwd_paths, kp),
+        entry("max_pool_nhwc_bwd", "flexflow_tpu/ops/pallas_pool.py:97",
+              train_launches["bwd"], {"train": train_launches["bwd"]}, bp),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,12 +7,16 @@ imports neither jax nor flexflow_tpu.  Entry points run on CUDA unless
 the caller passes ``device="cpu"``.
 """
 
+from . import losses, metrics
 from .config import DeviceType, FFConfig, MemoryType, ParallelConfig
+from .data import synthetic_dataset
 from .initializers import (ConstantInitializer, GlorotUniform,
                            NormInitializer, UniformInitializer,
                            ZeroInitializer)
+from .metrics import PerfMetrics
 from .model import FFModel
 from .op import Op, OpContext, OpType
+from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .serving import (DeadlineExceeded, OverloadError, ServingEngine,
                       ServingError, SheddedError)
 from .tensor import Parameter, Tensor
@@ -22,4 +26,18 @@ __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "NormInitializer", "UniformInitializer", "ZeroInitializer",
            "FFModel", "Op", "OpContext", "OpType", "DeadlineExceeded",
            "OverloadError", "ServingEngine", "ServingError", "SheddedError",
-           "Parameter", "Tensor"]
+           "Parameter", "Tensor", "PerfMetrics", "AdamOptimizer",
+           "Optimizer", "SGDOptimizer", "synthetic_dataset", "losses",
+           "metrics", "LOSS_SPARSE_CATEGORICAL_CROSSENTROPY",
+           "LOSS_CATEGORICAL_CROSSENTROPY", "LOSS_MEAN_SQUARED_ERROR",
+           "METRICS_ACCURACY", "METRICS_SPARSE_CATEGORICAL_CROSSENTROPY",
+           "METRICS_CATEGORICAL_CROSSENTROPY", "METRICS_MEAN_SQUARED_ERROR"]
+
+LOSS_SPARSE_CATEGORICAL_CROSSENTROPY = losses.SPARSE_CATEGORICAL_CROSSENTROPY
+LOSS_CATEGORICAL_CROSSENTROPY = losses.CATEGORICAL_CROSSENTROPY
+LOSS_MEAN_SQUARED_ERROR = losses.MEAN_SQUARED_ERROR
+METRICS_ACCURACY = metrics.ACCURACY
+METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = \
+    metrics.SPARSE_CATEGORICAL_CROSSENTROPY
+METRICS_CATEGORICAL_CROSSENTROPY = metrics.CATEGORICAL_CROSSENTROPY
+METRICS_MEAN_SQUARED_ERROR = metrics.MEAN_SQUARED_ERROR

@@ -1,34 +1,43 @@
-"""FFModel — graph builder, single-device compile and inference verbs.
+"""FFModel — graph builder, single-device compile, training and
+inference verbs.
 
-Counterpart of ``flexflow_tpu/model.py`` for the serving path: the
-builder methods append Ops to a layer list with the JAX package's
-naming (so parameter names match one for one), ``compile()`` resolves
-the single-device plan, ``init_layers`` creates the parameters on the
-model's device, and ``forward_compiled``/``predict`` run the forward
-eagerly under ``torch.inference_mode()``.
+Counterpart of ``flexflow_tpu/model.py`` on one device: the builder
+methods append Ops to a layer list with the JAX package's naming (so
+parameter names match one for one), ``compile()`` resolves the
+single-device plan, ``init_layers`` creates the parameters and the
+optimizer state on the model's device, ``train_batch``/``fit``/
+``evaluate`` train and evaluate eagerly with autograd (the max pools'
+gradients come from the hand-written backward kernel), and
+``forward_compiled``/``predict`` run the forward under
+``torch.inference_mode()``.
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
-raises instead of falling back.  Strategy import and search, meshes and
-the training verbs come in later slices, and ``compile`` refuses what
-it cannot honour.
+raises instead of falling back.  Strategy import and search, meshes,
+gradient accumulation, fused multi-step dispatch, padded tail batches,
+rematerialisation and profiling come in later slices, and ``compile``
+refuses what it cannot honour.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import losses
+from . import metrics as metrics_mod
 from .config import FFConfig
+from .data.dataloader import PrefetchLoader, upload
 from .initializers import GlorotUniform
 from .op import Op, OpContext, OpType, resolve_conv_layout
 from .ops.common import resolve_op_dtype, torch_dtype
 from .ops.conv import Conv2D, Pool2D
 from .ops.linear import Linear
 from .ops.tensor_ops import Flat, Softmax
+from .optimizers import SGDOptimizer
 from .tensor import Parameter, Tensor
 
 
@@ -66,6 +75,12 @@ class FFModel:
         self._compiled = False
         self._params: Dict[str, torch.Tensor] = {}
         self._fwd_compiled: Dict[int, Callable] = {}
+        self._opt_state = None
+        self._step = 0
+        self._batch: Optional[tuple] = None
+        self._cached_grads: Optional[Dict[str, torch.Tensor]] = None
+        self.perf_metrics = metrics_mod.PerfMetrics()
+        self.last_epoch_losses = np.zeros((0,), np.float32)
 
     # ------------------------------------------------------------------
     # graph construction
@@ -135,11 +150,13 @@ class FFModel:
                 metrics: Optional[Sequence[str]] = None,
                 comp_mode: str = "training", mesh=None,
                 final_tensor: Optional[Tensor] = None) -> None:
-        """Resolve the single-device plan: loss tensor, label tensor and
-        conv layout.  ``optimizer`` and ``loss_type`` are stored for the
-        training verbs.  Raises NotImplementedError for what the port
-        cannot run yet — an imported or searched strategy, or more than
-        one device — rather than silently ignoring it."""
+        """Resolve the single-device plan: loss tensor, label tensor, conv
+        layout, optimizer (default: SGD from the config's learning rate
+        and weight decay) and metrics.  Raises NotImplementedError for
+        what the port cannot run yet — an imported or searched strategy,
+        more than one device, gradient accumulation, fused multi-step
+        dispatch, padded tail batches, rematerialisation, profiling or a
+        trace directory — rather than silently ignoring it."""
         cfg = self.config
         if cfg.import_strategy_file or cfg.search_budget > 0 \
                 or cfg.strategies:
@@ -153,14 +170,31 @@ class FFModel:
             raise NotImplementedError(
                 "distributed meshes are not ported yet; the port runs on "
                 "one device")
+        unported = [name for name, on in (
+            ("gradient_accumulation_steps > 1",
+             cfg.gradient_accumulation_steps > 1),
+            ("steps_per_dispatch > 1", cfg.steps_per_dispatch > 1),
+            ("pad_tail_batches", cfg.pad_tail_batches),
+            ("remat", cfg.remat),
+            ("profiling", cfg.profiling),
+            ("trace_dir", bool(cfg.trace_dir))) if on]
+        if unported:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(unported)}; the port trains "
+                f"one batch per step without them")
         if not self.layers:
             raise ValueError("compile() needs at least one layer")
-        self.optimizer = optimizer or self.optimizer
+        self.optimizer = optimizer or self.optimizer or SGDOptimizer(
+            lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
         if loss_type is not None:
             self.loss_type = loss_type
         if self.loss_type is None:
             self.loss_type = losses.SPARSE_CATEGORICAL_CROSSENTROPY
-        self.metrics = list(metrics or self.metrics or [])
+        self._loss_fn = losses.get_loss_fn(self.loss_type)
+        self._per_example_loss, self._loss_reduction = \
+            losses.get_per_example_loss_fn(self.loss_type)
+        self.metrics = metrics_mod.canonicalize_metrics(
+            list(metrics or self.metrics or []))
         self.comp_mode = comp_mode
         self._final_tensor = final_tensor or self.layers[-1].outputs[0]
         # sparse-CCE is the fused logit form: when the graph ends in an
@@ -192,7 +226,8 @@ class FFModel:
     # ------------------------------------------------------------------
     def init_layers(self, seed: Optional[int] = None) -> None:
         """Create every parameter on the model's device from ``seed``
-        (default ``config.seed``)."""
+        (default ``config.seed``), and the optimizer's state for the
+        trainable ones."""
         if not self._compiled:
             raise RuntimeError("call compile() first")
         seed = self.config.seed if seed is None else seed
@@ -204,6 +239,13 @@ class FFModel:
                                 if p.dtype == "float32" else p.dtype)
             params[p.name] = init(gen, p.shape, dtype).to(self.device)
         self._params = params
+        self._opt_state = self.optimizer.init_state(
+            {k: v for k, v in params.items()
+             if k in self._trainable_names()})
+        self._step = 0
+
+    def _trainable_names(self) -> set:
+        return {p.name for p in self.parameters if p.trainable}
 
     def _resolve(self, name: str) -> str:
         if name in self._params:
@@ -233,13 +275,16 @@ class FFModel:
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
-    def _forward(self, params: Dict[str, torch.Tensor],
-                 inputs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Run the layer list on ``inputs`` and return the final tensor.
-        Each op runs in its resolved compute dtype."""
+    def _forward_values(self, params: Dict[str, torch.Tensor],
+                        inputs: Sequence[torch.Tensor],
+                        training: bool = False,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Dict[int, torch.Tensor]:
+        """Run the layer list on ``inputs``; returns every tensor's value
+        by uid.  Each op runs in its resolved compute dtype."""
         base = self.config.compute_dtype
-        ctx = OpContext(device=self.device, training=False,
-                        compute_dtype=base,
+        ctx = OpContext(device=self.device, generator=generator,
+                        training=training, compute_dtype=base,
                         conv_layout=self.resolved_conv_layout)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         for op in self.layers:
@@ -248,7 +293,12 @@ class FFModel:
                               ctx)
             for t, v in zip(op.outputs, outs):
                 values[t.uid] = v
-        return values[self._final_tensor.uid]
+        return values
+
+    def _forward(self, params: Dict[str, torch.Tensor],
+                 inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The inference forward: the final tensor of the layer list."""
+        return self._forward_values(params, inputs)[self._final_tensor.uid]
 
     def forward_compiled(self, bucket_bs: int) -> Callable:
         """The inference forward for batches of exactly ``bucket_bs``
@@ -318,3 +368,227 @@ class FFModel:
                 arrs = self._pad_tail(arrs, bs)
             outs.append(fwd(self._params, self._to_device(arrs))[:hi - lo])
         return to_host(torch.cat(outs, dim=0))
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _device_batch(self, arrays) -> tuple:
+        """Batch arrays (numpy or tensors) as tensors on the device."""
+        return tuple(a.to(self.device) if isinstance(a, torch.Tensor)
+                     else upload((a,), self.device)[0] for a in arrays)
+
+    def _step_generator(self, step: int) -> torch.Generator:
+        """The random stream of training step ``step``, seeded from
+        ``config.seed`` and the step (the JAX step folds the step into
+        its key the same way); the ops draw dropout masks from it."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((int(self.config.seed) << 32) + step)
+                        & 0x7FFF_FFFF_FFFF_FFFF)
+        return gen
+
+    def _loss_and_grads(self, batch, step: int):
+        """Forward with autograd on, the loss on ``_loss_tensor``, its
+        gradients with respect to every trainable parameter, and the
+        batch's metric sums.  Returns (loss, sums, grads), all on the
+        device; the loss is a detached 0-d float32 tensor."""
+        names = self._trainable_names()
+        trainable = {k: v.detach().requires_grad_(True)
+                     for k, v in self._params.items() if k in names}
+        params = {**self._params, **trainable}
+        labels = batch[-1]
+        with torch.enable_grad():
+            values = self._forward_values(
+                params, batch[:-1], training=True,
+                generator=self._step_generator(step))
+            logits = values[self._loss_tensor.uid]
+            loss = self._loss_fn(logits, labels)
+            grads = torch.autograd.grad(loss, list(trainable.values()),
+                                        allow_unused=True)
+        with torch.no_grad():
+            sums = metrics_mod.compute_batch_metrics(
+                logits.detach(), labels, self.metrics, self.loss_type)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(trainable.items(), grads)}
+        return loss.detach(), sums, grads
+
+    def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
+        trainable = {k: self._params[k] for k in grads}
+        new, self._opt_state = self.optimizer.update(trainable, grads,
+                                                     self._opt_state)
+        self._params.update(new)
+        self._step += 1
+
+    def _train_step(self, batch):
+        if self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        loss, sums, grads = self._loss_and_grads(batch, self._step)
+        self._apply_update(grads)
+        return loss, sums
+
+    def train_batch(self, *arrays) -> torch.Tensor:
+        """One training step on one batch (the inputs, then the labels;
+        numpy arrays or tensors).  Returns the loss as a 0-d device
+        tensor, not fetched."""
+        loss, sums = self._train_step(self._device_batch(arrays))
+        self._last_metric_sums = sums
+        return loss
+
+    # the reference's imperative loop: set_batch, forward,
+    # zero_gradients, backward, update
+    def set_batch(self, *arrays) -> None:
+        self._batch = self._device_batch(arrays)
+
+    def forward(self) -> torch.Tensor:
+        """The inference forward on the batch of ``set_batch``."""
+        if self._batch is None:
+            raise RuntimeError("set_batch() first")
+        with torch.no_grad():
+            return self._forward(self._params, self._batch[:-1])
+
+    def zero_gradients(self) -> None:
+        self._cached_grads = None
+
+    def backward(self) -> torch.Tensor:
+        """Loss and gradients on the batch of ``set_batch``; folds the
+        batch's metrics into ``perf_metrics`` and returns the loss."""
+        if self._batch is None:
+            raise RuntimeError("set_batch() first")
+        loss, sums, self._cached_grads = self._loss_and_grads(
+            self._batch, self._step)
+        self.perf_metrics.update(sums)
+        return loss
+
+    def update(self) -> None:
+        if self._cached_grads is None:
+            raise RuntimeError("backward() first")
+        self._apply_update(self._cached_grads)
+        self._cached_grads = None
+
+    @staticmethod
+    def _fetch(losses_, sums) -> tuple:
+        """One device-to-host copy of a loop's per-step losses and
+        metric-sum dicts: (float32 losses, list of host dicts)."""
+        if not losses_:
+            return np.zeros((0,), np.float32), []
+        keys = list(sums[0])
+        packed = torch.stack([
+            torch.stack([loss.to(torch.float64)]
+                        + [s[k].to(torch.float64) for k in keys])
+            for loss, s in zip(losses_, sums)]).cpu().numpy()
+        host = [{k: row[1 + i] for i, k in enumerate(keys)}
+                for row in packed]
+        return packed[:, 0].astype(np.float32), host
+
+    def fit(self, x, y, epochs: Optional[int] = None,
+            batch_size: Optional[int] = None, callbacks=None,
+            verbose: bool = True, validation_data=None):
+        """The epoch loop, one step per full batch (the tail that does
+        not fill a batch is dropped).  Per-step losses and metric sums
+        stay on the device until one fetch per epoch; the last epoch's
+        losses are kept on ``last_epoch_losses`` and its metrics on
+        ``perf_metrics``.  Prints the ``epoch N:`` line and the
+        reference's ``ELAPSED TIME = ..., THROUGHPUT = ... samples/s``
+        line (training time only; validation is excluded).
+        ``validation_data=(x_val, y_val)`` runs ``evaluate`` after every
+        epoch.  The per-epoch JSON event, the metrics registry, span
+        tracing and fault hooks come with the tooling slice."""
+        cfg = self.config
+        epochs = epochs or cfg.epochs
+        bs = batch_size or cfg.batch_size
+        if validation_data is not None and (
+                not isinstance(validation_data, (tuple, list))
+                or len(validation_data) != 2):
+            raise ValueError("validation_data must be a (x_val, y_val) pair")
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        callbacks = callbacks or []
+        for cb in callbacks:
+            cb.set_model(self)
+            cb.on_train_begin()
+        loader = PrefetchLoader(self, xs, y, batch_size=bs)
+        t_start = time.time()
+        total_samples = 0
+        val_time = 0.0
+        for epoch in range(epochs):
+            for cb in callbacks:
+                cb.on_epoch_begin(epoch)
+            self.perf_metrics = metrics_mod.PerfMetrics()
+            epoch_losses, epoch_sums = [], []
+            for batch in loader:
+                loss, sums = self._train_step(batch)
+                epoch_losses.append(loss)
+                epoch_sums.append(sums)
+            total_samples += loader.num_samples_used
+            self.last_epoch_losses, host_sums = self._fetch(epoch_losses,
+                                                            epoch_sums)
+            for sums in host_sums:
+                self.perf_metrics.update(sums)
+            val_scalars: Dict[str, float] = {}
+            if validation_data is not None:
+                t_val = time.time()
+                val_loss, val_pm = self.evaluate(*validation_data,
+                                                 batch_size=bs)
+                val_time += time.time() - t_val
+                val_scalars = {"val_loss": float(val_loss)}
+                val_scalars.update({f"val_{k}": float(v)
+                                    for k, v in val_pm.scalars().items()
+                                    if k != "samples_seen"})
+                self.perf_metrics.val_scalars = val_scalars
+            for cb in callbacks:
+                cb.on_epoch_end(epoch, self.perf_metrics)
+            stopping = any(getattr(cb, "stop_training", False)
+                           for cb in callbacks)
+            if verbose and (epoch % cfg.print_frequency == 0
+                            or epoch == epochs - 1 or stopping):
+                line = (f"epoch {epoch}: " + self.perf_metrics.report(
+                    self.metrics or [self.loss_type]))
+                if val_scalars:
+                    line += " — " + ", ".join(
+                        f"{k}: {v:.6g}" for k, v in val_scalars.items())
+                print(line)
+            if stopping:
+                break
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.time() - t_start
+        train_elapsed = max(1e-9, elapsed - val_time)
+        if verbose and elapsed > 0:
+            print(f"ELAPSED TIME = {train_elapsed:.4f}s, "
+                  f"THROUGHPUT = {total_samples / train_elapsed:.2f} "
+                  f"samples/s")
+        for cb in callbacks:
+            cb.on_train_end()
+        return self.perf_metrics
+
+    def evaluate(self, x, y, batch_size: Optional[int] = None):
+        """Batched evaluation over every sample: the last batch is
+        zero-padded and masked, so only real rows count.  Per-batch
+        loss and metric sums stay on the device until one fetch at the
+        end.  Returns (loss, PerfMetrics)."""
+        if not self._compiled:
+            raise RuntimeError("call compile() first")
+        bs = batch_size or self.config.batch_size
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        n = xs[0].shape[0]
+        pm = metrics_mod.PerfMetrics()
+        loss_sums, all_sums = [], []
+        with torch.no_grad():
+            for it in range(-(-n // bs)):
+                lo, hi = it * bs, min(n, (it + 1) * bs)
+                batch = upload(self._pad_tail(
+                    tuple(a[lo:hi] for a in xs) + (y[lo:hi],), bs),
+                    self.device)
+                logits = self._forward_values(
+                    self._params, batch[:-1])[self._loss_tensor.uid]
+                labels = batch[-1]
+                mask = (torch.arange(bs, device=self.device)
+                        < hi - lo).to(torch.float32)
+                loss_sums.append(torch.sum(
+                    self._per_example_loss(logits, labels) * mask))
+                all_sums.append(metrics_mod.compute_batch_metrics(
+                    logits, labels, self.metrics, self.loss_type,
+                    nvalid=hi - lo))
+        host_losses, host_sums = self._fetch(loss_sums, all_sums)
+        for sums in host_sums:
+            pm.update(sums)
+        denom = max(1, n) if self._loss_reduction == "mean" else 1
+        return float(host_losses.astype(np.float64).sum()) / denom, pm

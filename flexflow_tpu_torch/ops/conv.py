@@ -2,12 +2,14 @@
 
 Conv2D keeps OIHW weights and runs ``F.conv2d`` (the JAX package leaves
 the convolution to XLA, so cuDNN stands in for it here).  Pool2D's max
-pool goes through the hand-written kernel (``ops/cuda_pool.py``) for
-every floating tensor on a CUDA device; its average pool is plain
-torch.  Tensor metadata stays NCHW: under ``conv_layout="nhwc"`` the
-ops keep activations in ``torch.channels_last`` memory, and the max
-pool converts to channels-last at its own boundary in either layout,
-as the JAX ops transpose at theirs.
+pool goes through the hand-written kernels (``ops/cuda_pool.py``) for
+every floating tensor on a CUDA device, the forward kernel and, under
+autograd, the backward kernel; its average pool is plain torch, and
+autograd differentiates it.  Tensor metadata stays NCHW: under
+``conv_layout="nhwc"`` the ops keep activations in
+``torch.channels_last`` memory, and the max pool converts to
+channels-last at its own boundary in either layout, as the JAX ops
+transpose at theirs.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import torch.nn.functional as F
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
 from .common import apply_activation, cast_compute
-from .cuda_pool import (max_pool_nhwc, max_pool_nhwc_reference, out_hw,
-                        window_slices)
+from .cuda_pool import (max_pool_nhwc_autograd, max_pool_nhwc_reference,
+                        out_hw, window_slices)
 
 
 class Conv2D(Op):
@@ -85,7 +87,8 @@ class Pool2D(Op):
         if self.pool_type == "max":
             x = x.contiguous(memory_format=torch.channels_last)
             if x.is_floating_point():
-                y = max_pool_nhwc(x, self.kernel, self.stride, self.padding)
+                y = max_pool_nhwc_autograd(x, self.kernel, self.stride,
+                                           self.padding)
             else:
                 y = max_pool_nhwc_reference(x, self.kernel, self.stride,
                                             self.padding)

@@ -112,6 +112,12 @@ def test_model_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"search_budget": 10}, "strateg"),
     ({"workers_per_node": 2}, "one device"),
     ({"mesh_shape": {"n": 2}}, "one device"),
+    ({"gradient_accumulation_steps": 2}, "gradient_accumulation_steps"),
+    ({"steps_per_dispatch": 4}, "steps_per_dispatch"),
+    ({"pad_tail_batches": True}, "pad_tail_batches"),
+    ({"remat": True}, "remat"),
+    ({"profiling": True}, "profiling"),
+    ({"trace_dir": "traces"}, "trace_dir"),
 ])
 def test_compile_refuses_what_it_cannot_run(kw, match):
     cfg = ft.FFConfig(batch_size=BS, compute_dtype="float32", **kw)
