@@ -20,6 +20,11 @@ import threading
 import time
 from typing import Dict, Tuple
 
+import torch
+
+# the dtype argument of every kernel's C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "flexflow_tpu_torch")

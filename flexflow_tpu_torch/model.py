@@ -6,8 +6,9 @@ methods append Ops to a layer list with the JAX package's naming (so
 parameter names match one for one), ``compile()`` resolves the
 single-device plan, ``init_layers`` creates the parameters and the
 optimizer state on the model's device, ``train_batch``/``fit``/
-``evaluate`` train and evaluate eagerly with autograd (the max pools'
-gradients come from the hand-written backward kernel), and
+``evaluate`` train and evaluate eagerly with autograd (on CUDA the max
+pools' and the flash attention's gradients come from their hand-written
+backward kernels), and
 ``forward_compiled``/``predict`` run the forward under
 ``torch.inference_mode()``.
 
@@ -34,9 +35,12 @@ from .data.dataloader import PrefetchLoader, upload
 from .initializers import GlorotUniform
 from .op import Op, OpContext, OpType, resolve_conv_layout
 from .ops.common import resolve_op_dtype, torch_dtype
+from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.conv import Conv2D, Pool2D
-from .ops.linear import Linear
-from .ops.tensor_ops import Flat, Softmax
+from .ops.elementwise import ElementBinary
+from .ops.linear import Embedding, Linear
+from .ops.norm import LayerNorm
+from .ops.tensor_ops import Dropout, Flat, Reshape, Softmax, Split
 from .optimizers import SGDOptimizer
 from .tensor import Parameter, Tensor
 
@@ -143,6 +147,69 @@ class FFModel:
             Softmax(self._uname("softmax", name), input_tensor,
                     axis)).outputs[0]
 
+    def embedding(self, input_tensor, num_entries, out_dim, aggr="sum",
+                  kernel_initializer=None, name=None) -> Tensor:
+        op = Embedding(self._uname("embedding", name), input_tensor,
+                       num_entries, out_dim, aggr, kernel_initializer)
+        return self._register(op).outputs[0]
+
+    def multihead_attention(self, query, key=None, value=None, embed_dim=None,
+                            num_heads=8, kdim=0, vdim=0, dropout=0.0,
+                            bias=True, causal=False, kernel_initializer=None,
+                            name=None) -> Tensor:
+        key = key if key is not None else query
+        value = value if value is not None else key
+        embed_dim = embed_dim or query.shape[-1]
+        op = MultiHeadAttention(self._uname("attention", name), query, key,
+                                value, embed_dim, num_heads, kdim, vdim,
+                                dropout, bias, causal, kernel_initializer)
+        return self._register(op).outputs[0]
+
+    def position_embedding(self, input_tensor, max_len=None,
+                           kernel_initializer=None, name=None) -> Tensor:
+        op = PositionEmbedding(self._uname("pos_embedding", name),
+                               input_tensor, max_len, kernel_initializer)
+        return self._register(op).outputs[0]
+
+    def split(self, input_tensor, sizes, axis, name=None) -> List[Tensor]:
+        if isinstance(sizes, int):
+            total = input_tensor.shape[axis]
+            sizes = [total // sizes] * sizes
+        return self._register(
+            Split(self._uname("split", name), input_tensor, sizes,
+                  axis)).outputs
+
+    def reshape(self, input_tensor, shape, name=None) -> Tensor:
+        return self._register(
+            Reshape(self._uname("reshape", name), input_tensor,
+                    shape)).outputs[0]
+
+    def dropout(self, input_tensor, rate, seed=0, name=None) -> Tensor:
+        return self._register(
+            Dropout(self._uname("dropout", name), input_tensor, rate,
+                    seed)).outputs[0]
+
+    def layer_norm(self, input_tensor, eps=1e-5, name=None) -> Tensor:
+        return self._register(
+            LayerNorm(self._uname("layernorm", name), input_tensor,
+                      eps)).outputs[0]
+
+    def _binary(self, fn, a, b, name=None) -> Tensor:
+        return self._register(
+            ElementBinary(self._uname(fn, name), a, b, fn)).outputs[0]
+
+    def add(self, a, b, name=None):
+        return self._binary("add", a, b, name)
+
+    def subtract(self, a, b, name=None):
+        return self._binary("sub", a, b, name)
+
+    def multiply(self, a, b, name=None):
+        return self._binary("mul", a, b, name)
+
+    def divide(self, a, b, name=None):
+        return self._binary("div", a, b, name)
+
     # ------------------------------------------------------------------
     # compile
     # ------------------------------------------------------------------
@@ -176,6 +243,9 @@ class FFModel:
             ("steps_per_dispatch > 1", cfg.steps_per_dispatch > 1),
             ("pad_tail_batches", cfg.pad_tail_batches),
             ("remat", cfg.remat),
+            # True only: the default (None) gathers the dense way, which
+            # the JAX package's sparse path rewrites exactly
+            ("sparse_embedding_updates", cfg.sparse_embedding_updates),
             ("profiling", cfg.profiling),
             ("trace_dir", bool(cfg.trace_dir))) if on]
         if unported:
@@ -278,14 +348,15 @@ class FFModel:
     def _forward_values(self, params: Dict[str, torch.Tensor],
                         inputs: Sequence[torch.Tensor],
                         training: bool = False,
-                        generator: Optional[torch.Generator] = None
+                        seed: Optional[int] = None
                         ) -> Dict[int, torch.Tensor]:
         """Run the layer list on ``inputs``; returns every tensor's value
         by uid.  Each op runs in its resolved compute dtype."""
         base = self.config.compute_dtype
-        ctx = OpContext(device=self.device, generator=generator,
+        ctx = OpContext(device=self.device, seed=seed,
                         training=training, compute_dtype=base,
-                        conv_layout=self.resolved_conv_layout)
+                        conv_layout=self.resolved_conv_layout,
+                        flash_attention=self.config.flash_attention)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         for op in self.layers:
             ctx.compute_dtype = resolve_op_dtype(op, base)
@@ -377,14 +448,12 @@ class FFModel:
         return tuple(a.to(self.device) if isinstance(a, torch.Tensor)
                      else upload((a,), self.device)[0] for a in arrays)
 
-    def _step_generator(self, step: int) -> torch.Generator:
-        """The random stream of training step ``step``, seeded from
+    def _step_seed(self, step: int) -> int:
+        """The random seed of training step ``step``, from
         ``config.seed`` and the step (the JAX step folds the step into
-        its key the same way); the ops draw dropout masks from it."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(((int(self.config.seed) << 32) + step)
-                        & 0x7FFF_FFFF_FFFF_FFFF)
-        return gen
+        its key the same way); each op derives its own generator from it
+        and its output uid (``OpContext.op_generator``)."""
+        return ((int(self.config.seed) << 32) + step) & 0x7FFF_FFFF_FFFF_FFFF
 
     def _loss_and_grads(self, batch, step: int):
         """Forward with autograd on, the loss on ``_loss_tensor``, its
@@ -399,7 +468,7 @@ class FFModel:
         with torch.enable_grad():
             values = self._forward_values(
                 params, batch[:-1], training=True,
-                generator=self._step_generator(step))
+                seed=self._step_seed(step))
             logits = values[self._loss_tensor.uid]
             loss = self._loss_fn(logits, labels)
             grads = torch.autograd.grad(loss, list(trainable.values()),

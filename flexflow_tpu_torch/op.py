@@ -64,12 +64,29 @@ class OpContext:
 
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
-    generator: Optional[torch.Generator] = None
+    # the training step's random seed (from config.seed and the step);
+    # None outside training, where no op draws random numbers
+    seed: Optional[int] = None
     training: bool = False
     compute_dtype: str = "bfloat16"
     # "nchw" or "nhwc" (torch.channels_last).  Tensor metadata stays
     # NCHW either way; ops convert memory format at their own boundary
     conv_layout: str = "nchw"
+    # FFConfig.flash_attention: False keeps attention off the flash
+    # kernels (ops/attention.py states the selection rule)
+    flash_attention: Optional[bool] = None
+
+    def op_generator(self, uid: int) -> Optional[torch.Generator]:
+        """The random stream of the op whose output has ``uid`` in this
+        step: a generator on the context's device seeded from the step's
+        seed and ``uid`` (the JAX ops fold the output uid into the
+        step's key the same way).  None when the step has no seed."""
+        if self.seed is None:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * 1_000_003 + int(uid))
+                        & 0x7FFF_FFFF_FFFF_FFFF)
+        return gen
 
 
 class Op:

@@ -23,7 +23,7 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+from .. import kernels
 
 
 def out_hw(h: int, w: int, kernel, stride, padding) -> Tuple[int, int]:
@@ -109,7 +109,7 @@ def _geometry(fn: str, x: torch.Tensor, kernel, stride, padding):
     if x.dim() != 4:
         raise ValueError(f"{fn}: want a 4-D tensor, got shape "
                          f"{tuple(x.shape)}")
-    code = _DTYPE_CODES.get(x.dtype)
+    code = kernels.DTYPE_CODES.get(x.dtype)
     if code is None:
         raise TypeError(f"{fn} kernel takes float32, bfloat16 or float16, "
                         f"got {x.dtype}")
@@ -240,8 +240,6 @@ def max_pool_nhwc_autograd(x: torch.Tensor, kernel, stride,
 
 
 def _library() -> ctypes.CDLL:
-    from .. import kernels
-
     lib = kernels.load("max_pool_nhwc")
     if lib.ff_max_pool_nhwc.argtypes is None:
         # the forward's argtypes are set last: once another thread sees

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions
-(the max-pool forward and backward kernels, and the autograd function
-that pairs them).
+(the max-pool forward and backward kernels and the autograd function
+that pairs them, the flash-attention forward and backward kernels, and
+the fused LayerNorm kernel).
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither jax nor the JAX package, so
@@ -12,7 +13,7 @@ it runs on a machine that has only PyTorch and the CUDA toolkit:
 import pytest
 import torch
 
-from flexflow_tpu_torch.ops import cuda_pool
+from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +135,172 @@ def test_autograd_on_cuda_equals_the_cpu_plain_path(gen):
                                                            before[1] + 1)
     assert torch.equal(xs["cuda"][0], xs["cpu"][0])
     assert torch.equal(xs["cuda"][1], xs["cpu"][1])
+
+
+# flash attention: f32 within 2e-5 (outputs) and 1e-4 (gradients) of the
+# plain version with TF32 off, bf16/f16 within 2e-2 of the largest
+# reference value; the kernel sums in another order, so it is not
+# bit-equal
+FLASH_CASES = [  # n, sq, sk, h, d
+    (16, 512, 512, 12, 64),   # BERT-base at batch 16
+    (2, 512, 512, 3, 64),
+    (2, 200, 200, 3, 64),
+    (1, 512, 512, 2, 128),
+    (2, 77, 130, 2, 16),
+    (1, 130, 77, 2, 100),
+]
+
+
+def _flash_tol(dtype, ref, f32_tol):
+    if dtype == torch.float32:
+        return f32_tol
+    return 2e-2 * float(ref.abs().max())
+
+
+@pytest.fixture
+def no_tf32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _qkv(shape, dtype, gen):
+    n, sq, sk, h, d = shape
+    return tuple(torch.randn(dims, generator=gen, device="cuda").to(dtype)
+                 for dims in ((n, sq, h, d), (n, sk, h, d), (n, sk, h, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_CASES)
+def test_flash_forward_matches_plain_version(no_tf32, shape, causal, dtype):
+    q, k, v = _qkv(shape, dtype, no_tf32)
+    scale = shape[-1] ** -0.5
+    before = cuda_attention.flash_attention_forward.launches
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention_forward.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    ref = cuda_attention.flash_attention_reference(q, k, v, causal, scale)
+    tol = _flash_tol(dtype, ref, 2e-5)
+    assert float((o.float() - ref).abs().max()) <= tol
+    ref_lse = cuda_attention.flash_attention_lse_reference(q, k, causal,
+                                                           scale)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_CASES)
+def test_flash_backward_matches_plain_version(no_tf32, shape, causal,
+                                              dtype):
+    q, k, v = _qkv(shape, dtype, no_tf32)
+    scale = shape[-1] ** -0.5
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, causal, scale)
+    do = torch.randn(o.shape, generator=no_tf32, device="cuda").to(dtype)
+    before = cuda_attention.flash_attention_backward.launches
+    got = cuda_attention.flash_attention_backward(q, k, v, o, lse, do,
+                                                  causal, scale)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention_backward.launches == before + 1
+    want = cuda_attention.flash_attention_backward_reference(
+        q, k, v, o, lse, do, causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= _flash_tol(dtype, w.float(), 1e-4), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_takes_unaligned_and_strided_storage(no_tf32, dtype):
+    """Inputs that start 2 bytes into their storage take the kernels'
+    element-wise loads; the results match those of aligned copies."""
+    n, s, h, d = 2, 96, 2, 64
+    buf = torch.randn(3 * n * s * h * d + 1, generator=no_tf32,
+                      device="cuda").to(dtype)
+    q, k, v = (buf[1 + i * n * s * h * d:1 + (i + 1) * n * s * h * d]
+               .view(n, s, h, d) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, True, 0.125)
+    o2, lse2 = cuda_attention.flash_attention_forward(
+        q.clone(), k.clone(), v.clone(), True, 0.125)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    do = torch.randn(o.shape, generator=no_tf32, device="cuda").to(dtype)
+    got = cuda_attention.flash_attention_backward(q, k, v, o, lse, do, True,
+                                                  0.125)
+    want = cuda_attention.flash_attention_backward(
+        q.clone(), k.clone(), v.clone(), o, lse, do, True, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_equals_autograd_of_the_dense_math(no_tf32):
+    q, k, v = _qkv((2, 96, 96, 2, 32), torch.float32, no_tf32)
+    g = torch.randn(q.shape, generator=no_tf32, device="cuda")
+    grads = []
+    for fn in (cuda_attention.flash_attention,
+               cuda_attention.flash_attention_reference):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves, True, 32 ** -0.5) * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_flash_refuses_what_it_does_not_take(no_tf32):
+    q, k, v = _qkv((1, 8, 8, 1, 160), torch.float32, no_tf32)
+    with pytest.raises(TypeError, match="head dim"):
+        cuda_attention.flash_attention_forward(q, k, v, False, 1.0)
+    q, k, v = _qkv((1, 8, 8, 1, 16), torch.float32, no_tf32)
+    with pytest.raises(TypeError, match="one dtype"):
+        cuda_attention.flash_attention_forward(q, k.double(), v, False, 1.0)
+
+
+# LayerNorm, in units in the last place of the output's largest value
+# (at least 1; cuda_norm.ulp_distance): the kernel within 4 of the float64
+# function and within 4 of the plain version, whose float32 statistics
+# reduce in another order
+LN_MAX_ULPS_EXACT = 4
+LN_MAX_ULPS_PLAIN = 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("shape", [(8192, 768), (3, 100, 77), (5, 1000)])
+def test_layernorm_matches_plain_version(gen, shape, with_res, dtype):
+    x = (3 * torch.randn(shape, generator=gen, device="cuda") + 1).to(dtype)
+    res = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+           if with_res else None)
+    d = shape[-1]
+    scale = torch.randn(d, generator=gen, device="cuda")
+    bias = torch.randn(d, generator=gen, device="cuda")
+    before = cuda_norm.fused_layernorm.launches
+    y = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert cuda_norm.fused_layernorm.launches == before + 1
+    ref = cuda_norm.fused_layernorm_reference(x, res, scale, bias, 1e-5)
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    exact = cuda_norm.layernorm_float64(x, res, scale, bias, 1e-5)
+    assert cuda_norm.ulp_distance(y, exact) <= LN_MAX_ULPS_EXACT
+    assert cuda_norm.ulp_distance(y, ref) <= LN_MAX_ULPS_PLAIN
+
+
+def test_layernorm_autograd_matches_plain_autograd(gen):
+    x = torch.randn((4, 33, 64), generator=gen, device="cuda")
+    scale = torch.randn(64, generator=gen, device="cuda")
+    bias = torch.randn(64, generator=gen, device="cuda")
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (cuda_norm.fused_layernorm_autograd,
+               cuda_norm.fused_layernorm_reference):
+        leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+        (fn(leaves[0], None, leaves[1], leaves[2], 1e-5) * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
