@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/flexflow_tpu_torch/`` at the repository root, and loaded
-with ``ctypes``.  The library's file name carries a digest of the source
-and the flags, so an edited source is rebuilt and a stale build is never
-loaded.  Nothing here runs at import: the CPU tests import every module
-of the package on a machine that has no ``nvcc``.
+with ``ctypes``.  The library's file name carries a digest of the source,
+of every header in ``csrc/`` and of the flags, so an edited source or
+header is rebuilt and a stale build is never loaded.  Nothing links
+against libcuda (``-lcuda``): a kernel that needs one of its functions,
+such as the TMA tensor-map encoder, looks it up through the CUDA runtime
+(``csrc/hopper.cuh``).  Nothing here runs at import: the CPU tests import
+every module of the package on a machine that has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -48,11 +51,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where the library of ``csrc/<name>.cu`` is built: its name carries
+    a digest of the source, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> Tuple[str, float, str]:

@@ -4,7 +4,10 @@ their plain versions and the autograd function that pairs them.
 Counterpart of ``flexflow_tpu/ops/attention.py::_flash_attention`` (the
 Pallas TPU flash-attention kernel and its dkv/dq backward kernels).  Both
 kernels are in ``csrc/flash_attention.cu``; its source note gives the
-designs and the bounds.
+designs and the bounds.  The bfloat16 and float16 kernels load their tiles
+by TMA, which needs a head dim that is a multiple of 8 and 16-byte aligned
+operands: :func:`kernel_operands` copies, once per call, the operands that
+are not so, and :func:`unpad` slices the results back.
 
 Every function takes the port's (n, s, h, d) layout.  The forward writes
 O in q's dtype and the row log-sum-exp (float32, (n, h, sq)) that the
@@ -87,6 +90,36 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A fresh contiguous copy of ``t`` with its last dim zero-padded to
+    ``d`` (a new allocation, so 16-byte aligned)."""
+    out = t.new_zeros(t.shape[:-1] + (d,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def kernel_operands(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands as the kernels read them: contiguous and, for bfloat16
+    and float16 (TMA), with a head dim that is a multiple of 8 and a
+    16-byte aligned start.  When one of them is not so, all are copied
+    with the head dim zero-padded to the next multiple of 8: zero columns
+    add nothing to the scores and give zero output columns, which
+    :func:`unpad` drops.  float32 operands are only made contiguous: the
+    scalar kernels take any head dim and alignment."""
+    ts = tuple(t.contiguous() for t in ts)
+    d = ts[0].shape[-1]
+    if ts[0].dtype == torch.float32 or (
+            d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)):
+        return ts
+    padded = -(-d // 8) * 8
+    return tuple(pad_head_dim(t, padded) for t in ts)
+
+
+def unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` with its last dim cut back to ``d`` (contiguous)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check(fn: str, q, k, v) -> int:
     """What the kernels take; returns the dtype code."""
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
@@ -123,20 +156,21 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         return (o.to(q.dtype),
                 flash_attention_lse_reference(q, k, causal, scale))
     code = _check("flash_attention_forward", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    n, sq, h, d = q.shape
+    d = q.shape[-1]
+    q, k, v = kernel_operands(q, k, v)
+    n, sq, h, dp = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((n, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().ff_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), code, n, h, sq, k.shape[1], d, float(scale),
+        lse.data_ptr(), code, n, h, sq, k.shape[1], dp, float(scale),
         int(bool(causal)), q.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_forward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_forward.launches += 1
-    return o, lse
+    return unpad(o, d), lse
 
 
 flash_attention_forward.launches = 0
@@ -161,8 +195,7 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
     if tuple(lse.shape) != (n, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_backward: lse must be float32 "
                          f"{(n, h, sq)}, got {tuple(lse.shape)} {lse.dtype}")
-    q, k, v, o = (t.contiguous() for t in (q, k, v, o))
-    do = do.to(q.dtype).contiguous()
+    q, k, v, o, do = kernel_operands(q, k, v, o, do.to(q.dtype))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dvec = torch.empty((n, h, sq), dtype=torch.float32, device=q.device)
@@ -170,13 +203,14 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
     err = _library().ff_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dvec.data_ptr(), code, n, h, sq, k.shape[1], d,
-        float(scale), int(bool(causal)), q.device.index or 0, stream)
+        dv.data_ptr(), dvec.data_ptr(), code, n, h, sq, k.shape[1],
+        q.shape[-1], float(scale), int(bool(causal)), q.device.index or 0,
+        stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_backward.launches += 1
-    return dq, dk, dv
+    return unpad(dq, d), unpad(dk, d), unpad(dv, d)
 
 
 flash_attention_backward.launches = 0

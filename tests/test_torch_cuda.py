@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions
 (the max-pool forward and backward kernels and the autograd function
 that pairs them, the flash-attention forward and backward kernels, and
-the fused LayerNorm kernel).
+the fused LayerNorm kernel).  The bf16/f16 flash kernels load by TMA, so
+the flash cases include head dims that are not a multiple of 8 and
+unaligned storage, which the wrapper pads and copies.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither jax nor the JAX package, so
@@ -148,6 +150,8 @@ FLASH_CASES = [  # n, sq, sk, h, d
     (1, 512, 512, 2, 128),
     (2, 77, 130, 2, 16),
     (1, 130, 77, 2, 100),
+    (2, 130, 77, 2, 128),     # two swizzled 64-column halves, ragged
+    (1, 96, 96, 2, 20),       # padded to 24 for TMA
 ]
 
 
@@ -218,8 +222,8 @@ def test_flash_backward_matches_plain_version(no_tf32, shape, causal,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_takes_unaligned_and_strided_storage(no_tf32, dtype):
-    """Inputs that start 2 bytes into their storage take the kernels'
-    element-wise loads; the results match those of aligned copies."""
+    """Inputs that start 2 bytes into their storage are copied to aligned
+    buffers for TMA; the results equal those of aligned copies."""
     n, s, h, d = 2, 96, 2, 64
     buf = torch.randn(3 * n * s * h * d + 1, generator=no_tf32,
                       device="cuda").to(dtype)
@@ -237,6 +241,55 @@ def test_flash_takes_unaligned_and_strided_storage(no_tf32, dtype):
         q.clone(), k.clone(), v.clone(), o, lse, do, True, 0.125)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_repeats_bit_equal(no_tf32, dtype, causal):
+    """No atomics: two backward calls on the same inputs give the same
+    bits (so do two forward calls)."""
+    q, k, v = _qkv((4, 512, 512, 12, 64), dtype, no_tf32)
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, causal, 0.125)
+    o2, lse2 = cuda_attention.flash_attention_forward(q, k, v, causal, 0.125)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    do = torch.randn(o.shape, generator=no_tf32, device="cuda").to(dtype)
+    a = cuda_attention.flash_attention_backward(q, k, v, o, lse, do, causal,
+                                                0.125)
+    b = cuda_attention.flash_attention_backward(q, k, v, o, lse, do, causal,
+                                                0.125)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [100, 20])
+def test_flash_pads_an_unaligned_odd_head_dim(no_tf32, d):
+    """Unaligned storage and a head dim that TMA cannot stride: one
+    launch per call, the results within tolerance of the plain version."""
+    n, s, h = 2, 77, 3
+    buf = torch.randn(3 * n * s * h * d + 1, generator=no_tf32,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n * s * h * d:1 + (i + 1) * n * s * h * d]
+               .view(n, s, h, d) for i in range(3))
+    before = (cuda_attention.flash_attention_forward.launches,
+              cuda_attention.flash_attention_backward.launches)
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, True, 0.1)
+    do = torch.randn(o.shape, generator=no_tf32, device="cuda").to(o.dtype)
+    got = cuda_attention.flash_attention_backward(q, k, v, o, lse, do, True,
+                                                  0.1)
+    torch.cuda.synchronize()
+    assert (cuda_attention.flash_attention_forward.launches,
+            cuda_attention.flash_attention_backward.launches) == (
+                before[0] + 1, before[1] + 1)
+    assert o.shape == q.shape and o.is_contiguous()
+    ref = cuda_attention.flash_attention_reference(q, k, v, True, 0.1)
+    assert float((o.float() - ref).abs().max()) <= _flash_tol(
+        torch.bfloat16, ref, 0)
+    want = cuda_attention.flash_attention_backward_reference(
+        q, k, v, o, lse, do, True, 0.1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= _flash_tol(
+            torch.bfloat16, w.float(), 0)
 
 
 def test_flash_autograd_equals_autograd_of_the_dense_math(no_tf32):
