@@ -7,9 +7,11 @@
 2. builds the CUDA kernels from ``flexflow_tpu_torch/csrc`` with nvcc,
    one nvcc per source, all started together;
 3. kernel phase: holds the max-pool kernel against its plain PyTorch
-   version (bit-equal) at AlexNet's pool shapes and at edge cases, and
-   times the kernel, the plain version and ``F.max_pool2d`` (the library
-   yardstick; the port never calls it) with CUDA events;
+   version (bit-equal) at AlexNet's pool shapes and at edge cases (C not
+   a multiple of the 16-byte vector, storage at an odd offset, a 12x12
+   window, ties of -0.0 and +0.0, 4096-wide rows), and times the kernel,
+   the plain version and ``F.max_pool2d``
+   (the library yardstick; the port never calls it) with CUDA events;
 4. backward kernel phase: the same for the max-pool backward kernel,
    with ``aten.max_pool2d_with_indices_backward`` as the yardstick;
 5. flash-attention phase: holds the forward and backward kernels
@@ -113,6 +115,14 @@ FLASH_EARLIER_MS_QUOTED = {"fwd": 0.1519, "bwd": 0.6989}
 # plain version, whose float32 statistics reduce in another order
 LN_MAX_ULPS_EXACT = 4
 LN_MAX_ULPS_PLAIN = 4
+# the max-pool kernels' design, and the per-pool times at AlexNet's three
+# pools (bf16, batch 64) of the scalar design they replaced: quoted from
+# PERF.md (kernel table rows 1-2; H100 80GB HBM3 at 700 W), not measured here
+POOL_DESIGN = {"fwd": "16-byte channel vectors, shared columns reused",
+               "bwd": "one fused tile pass (cp.async, shared-memory "
+                      "argmax, gather)"}
+POOL_EARLIER_MS_QUOTED = {"fwd": [0.0544, 0.0396, 0.0155],
+                          "bwd": [0.2186, 0.1563, 0.0524]}
 
 
 def card_line() -> str:
@@ -231,12 +241,17 @@ def kernel_breakdown(fn, steps: int, card: str,
 
 def rand_input(shape, dtype, gen, kind="normal"):
     """A channels-last input on the card: normal values, small integers
-    ("ties"), or normal values with 1% NaN and 1% -inf ("nan")."""
+    ("ties"), small integers with half the zeros -0.0 ("zeros"), normal
+    values with 1% NaN and 1% -inf ("nan"), or normal values in a
+    channels-last view at storage offset 1 ("unaligned")."""
     import torch
 
     dev = torch.device("cuda")
-    if kind == "ties":
-        x = torch.randint(-2, 3, shape, generator=gen, device=dev)
+    if kind in ("ties", "zeros"):
+        x = torch.randint(-2, 3, shape, generator=gen, device=dev).float()
+        if kind == "zeros":
+            half = torch.rand(shape, generator=gen, device=dev) < 0.5
+            x = torch.where((x == 0) & half, -0.0, x)
     else:
         x = torch.randn(shape, generator=gen, device=dev)
     x = x.to(dtype).contiguous(memory_format=torch.channels_last)
@@ -246,7 +261,47 @@ def rand_input(shape, dtype, gen, kind="normal"):
         m = torch.rand(shape, generator=gen, device=dev) < 0.01
         x = x.masked_fill(m, float("-inf"))
         x = x.contiguous(memory_format=torch.channels_last)
+    if kind == "unaligned":
+        n, c, h, w = shape
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        view = buf.as_strided(shape, (h * w * c, 1, w * c, c), 1)
+        view.copy_(x)
+        assert view.is_contiguous(memory_format=torch.channels_last)
+        assert view.data_ptr() % 16 != 0
+        x = view
     return x
+
+
+def pool_edge_cases():
+    """Cases of both pool phases that the 16-byte path does not fit (a
+    narrower instance of the same kernel takes them), a window of 144
+    positions (past the backward's int8 argmax), windows whose max is a
+    zero held with both signs (the forward keeps the first zero's bits),
+    and rows too wide for one backward tile (bands of columns)."""
+    import torch
+    zeros = [(f"signed-zero ties {str(dt).replace('torch.', '')}",
+              (8, 64, 27, 27), dt, ((3, 3), (2, 2), (1, 1)), "zeros")
+             for dt in (torch.bfloat16, torch.float16, torch.float32)]
+    wide = [(f"4096-wide rows {str(dt).replace('torch.', '')}",
+             (2, 64, 6, 4096), dt, POOL_GEOM, "nan")
+            for dt in (torch.bfloat16, torch.float32)]
+    return zeros + wide + [
+        ("C not a multiple of 8", (8, 36, 27, 27), torch.bfloat16,
+         ((3, 3), (2, 2), (1, 1)), "nan"),
+        ("storage at offset 1", (8, 64, 27, 27), torch.bfloat16,
+         POOL_GEOM, "unaligned"),
+        ("storage at offset 1 f32", (4, 40, 15, 15), torch.float32,
+         ((3, 3), (2, 2), (1, 1)), "unaligned"),
+        ("12x12 window (int16 argmax)", (4, 16, 30, 30), torch.float16,
+         ((12, 12), (4, 4), (2, 2)), "nan"),
+    ]
+
+
+def pool_quoted(which: str, i: int) -> str:
+    return (f" (earlier design, scalar loads"
+            f"{', two passes' if which == 'bwd' else ''}: "
+            f"{POOL_EARLIER_MS_QUOTED[which][i]} ms, quoted from PERF.md, "
+            f"not measured in this run)")
 
 
 def kernel_phase(cuda_pool, gen) -> dict:
@@ -273,7 +328,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
          ((3, 3), (2, 2), (1, 1)), "nan"),
         ("NaN f32", (4, 40, 15, 15), torch.float32,
          ((2, 2), (2, 2), (0, 0)), "nan"),
-    ]
+    ] + pool_edge_cases()
     max_err = 0.0
     for name, shape, dtype, (k, s, p), kind in cases:
         x = rand_input(shape, dtype, gen, kind)
@@ -287,7 +342,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
               f"{str(dtype).replace('torch.', '')} k={k} s={s} p={p}")
 
     shapes = []
-    for c, h, w in ALEXNET_POOLS:
+    for i, (c, h, w) in enumerate(ALEXNET_POOLS):
         x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
         xs = rotation(x)
         k, s, p = POOL_GEOM
@@ -297,10 +352,14 @@ def kernel_phase(cuda_pool, gen) -> dict:
         ops = y.numel() * (k[0] * k[1] - 1)
         bytes_s = (in_b + out_b) / HBM_BYTES_PER_S
         ops_s = ops / SCALAR_OPS_PER_S
+        kernel_ms = time_ms(lambda t: cuda_pool.max_pool_nhwc(t, k, s, p),
+                            xs, 200)
         row = {
             "shape": [BATCH, h, w, c], "dtype": "bf16",
-            "kernel_ms": time_ms(
-                lambda t: cuda_pool.max_pool_nhwc(t, k, s, p), xs, 200),
+            "design": POOL_DESIGN["fwd"],
+            # the channels per access of the last timed launch
+            "vec": cuda_pool.max_pool_nhwc.last_vec,
+            "kernel_ms": kernel_ms,
             "plain_ms": time_ms(
                 lambda t: cuda_pool.max_pool_nhwc_reference(t, k, s, p),
                 xs, 20),
@@ -311,7 +370,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
             "bytes": in_b + out_b,
         }
         shapes.append(row)
-        print("pool timing: " + json.dumps(row))
+        print("pool timing: " + json.dumps(row) + pool_quoted("fwd", i))
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -349,7 +408,7 @@ def backward_kernel_phase(cuda_pool, gen) -> dict:
          ((3, 3), (2, 2), (1, 1)), "nan"),
         ("NaN f32", (4, 40, 15, 15), torch.float32,
          ((2, 2), (2, 2), (0, 0)), "nan"),
-    ]
+    ] + pool_edge_cases()
     max_err = 0.0
     for name, shape, dtype, (k, s, p), kind in cases:
         x = rand_input(shape, dtype, gen, kind)
@@ -366,7 +425,7 @@ def backward_kernel_phase(cuda_pool, gen) -> dict:
 
     shapes = []
     k, s, p = POOL_GEOM
-    for c, h, w in ALEXNET_POOLS:
+    for i, (c, h, w) in enumerate(ALEXNET_POOLS):
         x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
         g = grad_for(x, k, s, p)
         _, idx = F.max_pool2d(x, k, s, p, return_indices=True)
@@ -381,11 +440,15 @@ def backward_kernel_phase(cuda_pool, gen) -> dict:
         ops = g.numel() * k[0] * k[1]
         bytes_s = moved / HBM_BYTES_PER_S
         ops_s = ops / SCALAR_OPS_PER_S
+        kernel_ms = time_ms(
+            lambda t: cuda_pool.max_pool_nhwc_backward(*t, k, s, p),
+            pairs, 200)
         row = {
             "shape": [BATCH, h, w, c], "dtype": "bf16",
-            "kernel_ms": time_ms(
-                lambda t: cuda_pool.max_pool_nhwc_backward(*t, k, s, p),
-                pairs, 200),
+            "design": POOL_DESIGN["bwd"],
+            # the tile (and channels per access) of the last timed launch
+            "tile": cuda_pool.max_pool_nhwc_backward.last_plan._asdict(),
+            "kernel_ms": kernel_ms,
             "plain_ms": time_ms(
                 lambda t: cuda_pool.max_pool_nhwc_backward_reference(
                     *t, k, s, p), pairs, 20),
@@ -398,7 +461,8 @@ def backward_kernel_phase(cuda_pool, gen) -> dict:
             "bytes": moved,
         }
         shapes.append(row)
-        print("pool backward timing: " + json.dumps(row))
+        print("pool backward timing: " + json.dumps(row)
+              + pool_quoted("bwd", i))
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "shapes": shapes}
 
@@ -1106,14 +1170,26 @@ def build_all(kernels) -> None:
     names = ("max_pool_nhwc", "flash_attention", "fused_layernorm")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kernels.build, names))
-    for path, secs, log in builds:
-        print(f"built {os.path.relpath(path, HERE)} in {secs:.2f}s")
+    spills = []
+    for name, (path, secs, log) in zip(names, builds):
+        # a library built before prints the ptxas output of its build
+        print(f"built {os.path.relpath(path, HERE)} in {secs:.2f}s"
+              if secs else f"{os.path.relpath(path, HERE)} built before")
+        entry = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                print(f"  ptxas: {line.split(chr(39))[1]}")
+                entry = line.split(chr(39))[1]
+                print(f"  ptxas: {entry}")
             elif ("registers" in line or "spill" in line
                   or "warning" in line.lower()):
                 print(f"  ptxas: {line.strip()}")
+                # the pool kernels are memory-bound: a spill would add
+                # local-memory traffic to every thread
+                if name == "max_pool_nhwc" and "spill" in line and \
+                        " 0 bytes spill stores, 0 bytes spill loads" \
+                        not in line:
+                    spills.append(f"{entry}: {line.strip()}")
+    assert not spills, "max-pool kernels spill:\n" + "\n".join(spills)
 
 
 def main() -> int:
@@ -1170,7 +1246,10 @@ def main() -> int:
             "bound_by": max(shapes,
                             key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(r["library_ms"] for r in shapes),
-            "shapes": shapes,
+            "design": shapes[0]["design"],
+            # the timing rows without the launch's vector and tile
+            "shapes": [{key: v for key, v in r.items()
+                        if key not in ("vec", "tile")} for r in shapes],
         }
 
     def call_entry(name, source, replaces, by_path, phase):

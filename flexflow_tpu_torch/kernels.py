@@ -64,12 +64,16 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> Tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Returns ``(path, seconds, compiler output)``; seconds is 0.0 and the
-    output empty when nothing had to be built.  Raises with nvcc's
-    output when the build fails."""
+    Returns ``(path, seconds, compiler output)``.  The output (ptxas's
+    registers and spills) is kept beside the library as ``<path>.log``,
+    so a library that did not have to be built returns the output of
+    its build, and seconds 0.0; one without that file is built again.
+    Raises with nvcc's output when the build fails."""
     out = library_path(name)
-    if os.path.exists(out):
-        return out, 0.0, ""
+    log_path = f"{out}.log"
+    if os.path.exists(out) and os.path.exists(log_path):
+        with open(log_path) as f:
+            return out, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -81,6 +85,10 @@ def build(name: str) -> Tuple[str, float, str]:
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {r.returncode}):\n{log}")
+    # the log first: a library on disk always has its log beside it
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", log_path)
     os.replace(tmp, out)
     return out, secs, log
 

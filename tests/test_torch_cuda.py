@@ -20,6 +20,9 @@ from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
 pytestmark = pytest.mark.cuda
 
 # (N, C, H, W), kernel, stride, padding: AlexNet's pools and edge cases
+# (C not a multiple of the 16-byte vector: 130, 4, 36; a 12x12 window,
+# whose 144 positions need the backward's int16 argmax); ties of -0.0
+# and +0.0 and 4096-wide rows have their own tests below
 CASES = [
     ((4, 64, 56, 56), (3, 3), (2, 2), (0, 0)),
     ((4, 192, 27, 27), (3, 3), (2, 2), (0, 0)),
@@ -29,6 +32,8 @@ CASES = [
     ((1, 4, 7, 7), (3, 2), (1, 2), (0, 1)),
     ((1, 8, 10, 10), (3, 3), (3, 3), (0, 0)),
     ((2, 8, 9, 9), (3, 3), (1, 1), (2, 2)),
+    ((2, 36, 11, 11), (3, 3), (2, 2), (1, 1)),
+    ((2, 16, 30, 30), (12, 12), (4, 4), (2, 2)),
 ]
 
 
@@ -39,12 +44,23 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _input(shape, dtype, gen, nan=False):
+def _input(shape, dtype, gen, nan=False, unaligned=False):
     x = torch.randn(shape, generator=gen, device="cuda")
     if nan:
         x = x.masked_fill(torch.rand(shape, generator=gen, device="cuda")
                           < 0.02, float("nan"))
-    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    if unaligned:
+        # the same values in a channels-last view at storage offset 1,
+        # which no vector wider than one element can load
+        n, c, h, w = shape
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        view = buf.as_strided(shape, (h * w * c, 1, w * c, c), 1)
+        view.copy_(x)
+        assert view.is_contiguous(memory_format=torch.channels_last)
+        assert view.data_ptr() % 16 != 0
+        x = view
+    return x
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -101,6 +117,108 @@ def test_backward_kernel_bit_equal_to_plain_version(gen, dtype, shape,
         assert dx.is_contiguous(memory_format=torch.channels_last)
         assert torch.equal(torch.isnan(dx), torch.isnan(ref))
         assert torch.equal(torch.nan_to_num(dx), torch.nan_to_num(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,kernel,stride,padding",
+                         [((2, 64, 13, 13), (3, 3), (2, 2), (0, 0)),
+                          ((2, 36, 11, 11), (3, 3), (2, 2), (1, 1))])
+def test_kernels_on_unaligned_storage(gen, dtype, shape, kernel, stride,
+                                      padding):
+    """A view at storage offset 1 takes the one-element instance of both
+    kernels: still bit-equal, still one launch each."""
+    for nan in (False, True):
+        x = _input(shape, dtype, gen, nan, unaligned=True)
+        g = _gradient(shape, kernel, stride, padding, dtype, gen)
+        before = (cuda_pool.max_pool_nhwc.launches,
+                  cuda_pool.max_pool_nhwc_backward.launches)
+        y = cuda_pool.max_pool_nhwc(x, kernel, stride, padding)
+        dx = cuda_pool.max_pool_nhwc_backward(x, g, kernel, stride, padding)
+        torch.cuda.synchronize()
+        assert (cuda_pool.max_pool_nhwc.launches,
+                cuda_pool.max_pool_nhwc_backward.launches) == (
+                    before[0] + 1, before[1] + 1)
+        for got, want in (
+                (y, cuda_pool.max_pool_nhwc_reference(x, kernel, stride,
+                                                      padding)),
+                (dx, cuda_pool.max_pool_nhwc_backward_reference(
+                    x, g, kernel, stride, padding))):
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _assert_bit_equal(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    zero = torch.zeros_like(_bits(want))
+    assert torch.equal(torch.where(nan, zero, _bits(got)),
+                       torch.where(nan, zero, _bits(want)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernels_keep_the_bits_of_signed_zero_ties(gen, dtype):
+    """Windows whose max is a zero held with both signs: the forward
+    keeps the first zero's bits, as the plain version does, and the
+    backward routes each window's gradient to its first zero."""
+    shape, k, s, p = (4, 64, 27, 27), (3, 3), (2, 2), (1, 1)
+    x = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+    half = torch.rand(shape, generator=gen, device="cuda") < 0.5
+    x = torch.where((x == 0) & half, -0.0, x).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    assert ((x == 0) & torch.signbit(x)).any()
+    y = cuda_pool.max_pool_nhwc(x, k, s, p)
+    ref = cuda_pool.max_pool_nhwc_reference(x, k, s, p)
+    assert ((ref == 0) & torch.signbit(ref)).any()
+    _assert_bit_equal(y, ref)
+    g = _gradient(shape, k, s, p, dtype, gen)
+    _assert_bit_equal(cuda_pool.max_pool_nhwc_backward(x, g, k, s, p),
+                      cuda_pool.max_pool_nhwc_backward_reference(x, g, k, s,
+                                                                 p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_4096_wide_rows(gen, dtype):
+    """A 4096-wide row does not fit one backward tile: the backward runs
+    in bands of columns, still one launch, bit-equal."""
+    shape, k, s, p = (2, 64, 6, 4096), (3, 3), (2, 2), (0, 0)
+    for nan in (False, True):
+        x = _input(shape, dtype, gen, nan)
+        g = _gradient(shape, k, s, p, dtype, gen)
+        before = cuda_pool.max_pool_nhwc_backward.launches
+        y = cuda_pool.max_pool_nhwc(x, k, s, p)
+        dx = cuda_pool.max_pool_nhwc_backward(x, g, k, s, p)
+        torch.cuda.synchronize()
+        assert cuda_pool.max_pool_nhwc_backward.launches == before + 1
+        assert cuda_pool.max_pool_nhwc_backward.last_plan.band_cols < 4096
+        _assert_bit_equal(y, cuda_pool.max_pool_nhwc_reference(x, k, s, p))
+        _assert_bit_equal(dx, cuda_pool.max_pool_nhwc_backward_reference(
+            x, g, k, s, p))
+
+
+def test_backward_kernel_refuses_a_tile_size_it_did_not_compute(gen):
+    """The wrapper passes the tile's shared memory, computed by
+    backward_smem_bytes; the launch holds it against the kernel's own
+    formula and refuses another size."""
+    shape, k, s, p = (2, 64, 13, 13), (3, 3), (2, 2), (0, 0)
+    x = _input(shape, torch.bfloat16, gen)
+    g = _gradient(shape, k, s, p, torch.bfloat16, gen)
+    dx = cuda_pool.max_pool_nhwc_backward(x, g, k, s, p)
+    plan = cuda_pool.max_pool_nhwc_backward.last_plan
+    args = [x.data_ptr(), g.data_ptr(), dx.data_ptr(), 1, plan.vec,
+            plan.band_rows, plan.band_cols, plan.chan_vecs, plan.smem_bytes,
+            2, 13, 13, 64, 6, 6, 3, 3, 2, 2, 0, 0, 0,
+            torch.cuda.current_stream().cuda_stream]
+    lib = cuda_pool._library()
+    assert lib.ff_max_pool_nhwc_bwd(*args) == 0
+    args[8] += 16
+    assert lib.ff_max_pool_nhwc_bwd(*args) != 0
+    torch.cuda.synchronize()
 
 
 def test_backward_kernel_takes_an_nchw_gradient(gen):

@@ -10,6 +10,8 @@ import os
 import re
 import tomllib
 
+import pytest
+
 from flexflow_tpu_torch import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,3 +69,41 @@ def test_package_data_ships_every_source_and_local_header():
         assert os.path.exists(os.path.join(kernels.CSRC, fname)), fname
         assert any(fnmatch.fnmatch(f"csrc/{fname}", g) for g in globs), (
             fname, globs)
+
+
+def test_a_cached_library_returns_the_log_of_its_build(tmp_path,
+                                                       monkeypatch):
+    """The smoke's spill check reads the ptxas output: a library built
+    before returns the output stored beside it, without nvcc."""
+    monkeypatch.setattr(kernels, "CSRC", _csrc(tmp_path, "// k\n", "// h\n"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    path = kernels.library_path("k")
+    os.makedirs(os.path.dirname(path))
+    open(path, "wb").close()
+    with open(f"{path}.log", "w") as f:
+        f.write("ptxas info    : Used 40 registers, 0 bytes spill stores")
+
+    def no_nvcc():
+        raise AssertionError("nvcc called for a cached library")
+
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    assert kernels.build("k") == (
+        path, 0.0, "ptxas info    : Used 40 registers, 0 bytes spill stores")
+
+
+def test_a_library_without_its_log_is_built_again(tmp_path, monkeypatch):
+    monkeypatch.setattr(kernels, "CSRC", _csrc(tmp_path, "// k\n", "// h\n"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    path = kernels.library_path("k")
+    os.makedirs(os.path.dirname(path))
+    open(path, "wb").close()
+    calls = []
+
+    def no_nvcc():
+        calls.append(1)
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build("k")
+    assert calls == [1]
