@@ -7,13 +7,16 @@
 2. builds the CUDA kernels from ``flexflow_tpu_torch/csrc`` with nvcc,
    one nvcc per source, all started together;
 3. kernel phase: holds the max-pool kernel against its plain PyTorch
-   version (bit-equal) at AlexNet's pool shapes and at edge cases (C not
-   a multiple of the 16-byte vector, storage at an odd offset, a 12x12
-   window, ties of -0.0 and +0.0, 4096-wide rows), and times the kernel,
-   the plain version and ``F.max_pool2d``
-   (the library yardstick; the port never calls it) with CUDA events;
-4. backward kernel phase: the same for the max-pool backward kernel,
-   with ``aten.max_pool2d_with_indices_backward`` as the yardstick;
+   version (bit-equal) at the pool shapes of AlexNet, ResNet-50 and
+   InceptionV3 and at edge cases (C not a multiple of the 16-byte
+   vector, storage at an odd offset, a 12x12 window, ties of -0.0 and
+   +0.0, 4096-wide rows, windows too large for the backward's tile), and
+   times the kernel, the plain version and ``F.max_pool2d`` (the library
+   yardstick; the port never calls it) with CUDA events;
+4. backward kernel phase: the same for the max-pool backward kernels,
+   with ``aten.max_pool2d_with_indices_backward`` as the yardstick; the
+   large windows must take the window path (its launch count moves, the
+   plain version never runs);
 5. flash-attention phase: holds the forward and backward kernels
    against their plain versions (causal and not, s 512 and a ragged
    200, head dim 64 and 128, f32 and bf16; bf16 at head dim 100 and
@@ -48,7 +51,18 @@
    and 24 LayerNorm launches per step; times and profiles a step, and
    holds a small float32 Transformer training step on the card against
    its CPU twin;
-11. prints one ``kernels`` JSON line and, last, the ok line.
+11. average-pool phase: times the slice-add loop the port ran before and
+   ``F.avg_pool2d`` (what the port runs now) at InceptionV3's 3x3/s1/p1
+   pools and the two global pools;
+12. ResNet-50 and InceptionV3 phases (224 and 299 px, 1000 classes, bf16,
+   random weights from seed 0): serving through ``ServingEngine`` (1 and
+   4 max-pool launches per dispatch), training at batch 64 with SGD
+   through ``fit`` and ``train_batch`` (1 + 1 and 4 + 4 pool launches a
+   step, the loss falls on a repeated batch), ResNet-50 with BatchNorm
+   (every running statistic moves and ``evaluate`` reads them), and small
+   float32 steps of each on the card against their CPU twins;
+13. prints each phase's seconds, one ``kernels`` JSON line and, last,
+   the ok line.
 
 Any failure raises and exits non-zero before the ok line.  Needs one
 CUDA device; exits 2 without one, or without the package beside it.
@@ -72,9 +86,56 @@ BATCH = 64
 # H100 SXM (NVIDIA data sheet), for the kernels' least possible time
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# AlexNet's three max pools at 229x229: (C, H, W), all 3x3 / s2 / p0
-ALEXNET_POOLS = [(64, 56, 56), (192, 27, 27), (256, 13, 13)]
 POOL_GEOM = ((3, 3), (2, 2), (0, 0))
+# the max pools of one forward of each CNN at its input size, batch
+# BATCH: (C, H, W) and (kernel, stride, padding)
+MODEL_POOLS = {
+    "alexnet": [((64, 56, 56), POOL_GEOM), ((192, 27, 27), POOL_GEOM),
+                ((256, 13, 13), POOL_GEOM)],
+    "resnet50": [((64, 112, 112), ((3, 3), (2, 2), (1, 1)))],
+    "inception_v3": [((64, 147, 147), POOL_GEOM), ((192, 73, 73), POOL_GEOM),
+                     ((288, 36, 36), POOL_GEOM), ((768, 17, 17), POOL_GEOM)],
+}
+# windows that the backward's tile cannot take, (N, C, H, W), geometry
+# and dtypes: no tile of one pixel fits 227 KB of shared memory (f32
+# past about 120 x 120, bf16/f16 past about 170 x 170 at stride 1), or
+# more than 32767 window positions.  On no model's path: held and timed
+LARGE_WINDOWS = [
+    ("no tile fits", (1, 8, 256, 256), ((128, 128), (1, 1), (0, 0)),
+     ("float32",)),
+    ("no tile fits", (1, 8, 352, 352), ((172, 172), (1, 1), (0, 0)),
+     ("bfloat16", "float16")),
+    ("past 32767 positions", (1, 8, 192, 192), ((184, 184), (1, 1), (0, 0)),
+     ("float32", "bfloat16", "float16")),
+]
+# the CNNs the smoke serves and trains: builder, input size, classes,
+# max pools per forward
+CNNS = {
+    "alexnet": ("build_alexnet", 229, 10, 3),
+    "resnet50": ("build_resnet50", 224, 1000, 1),
+    "inception_v3": ("build_inception_v3", 299, 1000, 4),
+}
+# InceptionV3's branch pools (3x3 / s1 / p1) and the two global pools,
+# (C, H, W, k, p) at batch BATCH, bf16: the average-pool timing shapes
+AVG_POOLS = [(192, 36, 36, 3, 1), (256, 36, 36, 3, 1), (288, 36, 36, 3, 1),
+             (768, 17, 17, 3, 1), (1280, 8, 8, 3, 1), (2048, 8, 8, 3, 1),
+             (2048, 7, 7, 7, 0), (2048, 8, 8, 8, 0)]
+# ResNet-50 and InceptionV3 training: batches of fit's one epoch, and
+# steps of the repeated-batch check
+CNN_FIT_BATCHES = 4
+CNN_REPEAT_STEPS = 10
+# ResNet-50 with BatchNorm, float32 card step against its CPU twin: the
+# loss within this relative error, the running statistics within this
+# share of their largest value, and the parameters' difference within
+# this share of the step's update, both as L2 norms over all trainable
+# parameters.  From random weights its stem's gradient is a
+# near-cancelling sum through 48 BatchNorm backward passes, so float32
+# runs of this step that sum in another order (the CPU's and the card's)
+# lie several percent of the update apart, about as far as either lies
+# from a float64 run (PERF.md, PR 6)
+BN_LOSS_RTOL = 1e-4
+BN_STATS_RTOL = 1e-3
+BN_CARD_L2_SHARE = 0.15
 TRAIN_BATCHES = 8
 TRAIN_EPOCHS = 2
 # float32 training step, card against CPU: largest difference allowed
@@ -120,7 +181,9 @@ LN_MAX_ULPS_PLAIN = 4
 # PERF.md (kernel table rows 1-2; H100 80GB HBM3 at 700 W), not measured here
 POOL_DESIGN = {"fwd": "16-byte channel vectors, shared columns reused",
                "bwd": "one fused tile pass (cp.async, shared-memory "
-                      "argmax, gather)"}
+                      "argmax, gather)",
+               "window": "window path (int32 argmax scratch, then "
+                         "gather)"}
 POOL_EARLIER_MS_QUOTED = {"fwd": [0.0544, 0.0396, 0.0155],
                           "bwd": [0.2186, 0.1563, 0.0524]}
 
@@ -170,13 +233,14 @@ def rotation(x, min_bytes: int = 128 << 20):
     return [x.clone(memory_format=fmt) for _ in range(n)]
 
 
-def time_ms(fn, xs, iters: int, spin_cycles: int = 200_000_000) -> float:
+def time_ms(fn, xs, iters: int, spin_cycles: int = 200_000_000,
+            warmup: int = 3) -> float:
     """Device time per call: a GPU spin first lets the host enqueue
     every call before the GPU reaches them, so the events time GPU
     work and not host launch overhead.  The spin must outlast the
     host's enqueueing of all ``iters`` calls."""
     import torch
-    for i in range(3):
+    for i in range(warmup):
         fn(xs[i % len(xs)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -304,16 +368,92 @@ def pool_quoted(which: str, i: int) -> str:
             f"not measured in this run)")
 
 
-def kernel_phase(cuda_pool, gen) -> dict:
+def dtype_of(name: str):
+    import torch
+    return getattr(torch, name)
+
+
+def model_pool_cases():
+    """Every model pool at batch BATCH, in bf16 and f32."""
+    import torch
+    return [(f"{model} {c}x{h}x{w}", (BATCH, c, h, w), dtype, geom, "normal")
+            for dtype in (torch.bfloat16, torch.float32)
+            for model, pools in MODEL_POOLS.items()
+            for (c, h, w), geom in pools]
+
+
+def large_window_cases():
+    return [(f"{what} {geom[0][0]}x{geom[0][1]} window", shape,
+             dtype_of(dt), geom, "nan")
+            for what, shape, geom, dts in LARGE_WINDOWS for dt in dts]
+
+
+@contextlib.contextmanager
+def plain_refused(cuda_pool):
+    """The plain backward raises while the block runs: a kernel wrapper
+    that gave way to it on the card would fail."""
+    plain = cuda_pool.max_pool_nhwc_backward_reference
+
+    def refuse(*args):
+        raise AssertionError("the plain max-pool backward ran on the card")
+
+    cuda_pool.max_pool_nhwc_backward_reference = refuse
+    try:
+        yield
+    finally:
+        cuda_pool.max_pool_nhwc_backward_reference = plain
+
+
+def pool_bounds(in_b: int, out_b: int, ops: int):
+    bytes_s = (in_b + out_b) / HBM_BYTES_PER_S
+    ops_s = ops / SCALAR_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def pool_timing_rows(cuda_pool, gen, shapes, iters, plain_iters):
+    """Forward timing rows, one per (label, (N, C, H, W), (k, s, p)),
+    bf16 unless the label says otherwise."""
     import torch
     import torch.nn.functional as F
 
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for c, h, w in ALEXNET_POOLS:
-            cases.append((f"alexnet {c}x{h}x{w}", (BATCH, c, h, w), dtype,
-                          POOL_GEOM, "normal"))
-    cases += [
+    rows = []
+    for label, shape, dtype, (k, s, p) in shapes:
+        n, c, h, w = shape
+        x = rand_input(shape, dtype, gen)
+        xs = rotation(x)
+        y = cuda_pool.max_pool_nhwc(x, k, s, p)
+        in_b = x.numel() * x.element_size()
+        out_b = y.numel() * y.element_size()
+        bound_ms, bound_by = pool_bounds(in_b, out_b,
+                                         y.numel() * (k[0] * k[1] - 1))
+        kernel_ms = time_ms(lambda t: cuda_pool.max_pool_nhwc(t, k, s, p),
+                            xs, iters)
+        rows.append({
+            "model": label, "shape": [n, h, w, c],
+            "dtype": str(dtype).replace("torch.", ""), "window": list(k),
+            "stride": list(s), "padding": list(p),
+            "design": POOL_DESIGN["fwd"],
+            # the channels per access of the last timed launch
+            "vec": cuda_pool.max_pool_nhwc.last_vec,
+            "kernel_ms": kernel_ms,
+            "plain_ms": time_ms(
+                lambda t: cuda_pool.max_pool_nhwc_reference(t, k, s, p),
+                xs, plain_iters, warmup=min(3, plain_iters)),
+            "library_ms": time_ms(
+                lambda t: F.max_pool2d(t, k, s, p), xs, iters),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": in_b + out_b,
+        })
+        del xs
+    torch.cuda.synchronize()
+    return rows
+
+
+def kernel_phase(cuda_pool, gen) -> dict:
+    import torch
+
+    cases = model_pool_cases() + [
         ("padded", (8, 32, 13, 13), torch.bfloat16,
          ((3, 3), (2, 2), (1, 1)), "normal"),
         ("pad > kernel/2", (2, 8, 9, 9), torch.float32,
@@ -328,7 +468,7 @@ def kernel_phase(cuda_pool, gen) -> dict:
          ((3, 3), (2, 2), (1, 1)), "nan"),
         ("NaN f32", (4, 40, 15, 15), torch.float32,
          ((2, 2), (2, 2), (0, 0)), "nan"),
-    ] + pool_edge_cases()
+    ] + pool_edge_cases() + large_window_cases()
     max_err = 0.0
     for name, shape, dtype, (k, s, p), kind in cases:
         x = rand_input(shape, dtype, gen, kind)
@@ -341,57 +481,85 @@ def kernel_phase(cuda_pool, gen) -> dict:
         print(f"kernel == plain (bit-equal): {name} {tuple(shape)} "
               f"{str(dtype).replace('torch.', '')} k={k} s={s} p={p}")
 
-    shapes = []
-    for i, (c, h, w) in enumerate(ALEXNET_POOLS):
-        x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
-        xs = rotation(x)
-        k, s, p = POOL_GEOM
-        y = cuda_pool.max_pool_nhwc(x, k, s, p)
-        in_b = x.numel() * x.element_size()
-        out_b = y.numel() * y.element_size()
-        ops = y.numel() * (k[0] * k[1] - 1)
-        bytes_s = (in_b + out_b) / HBM_BYTES_PER_S
-        ops_s = ops / SCALAR_OPS_PER_S
-        kernel_ms = time_ms(lambda t: cuda_pool.max_pool_nhwc(t, k, s, p),
-                            xs, 200)
-        row = {
-            "shape": [BATCH, h, w, c], "dtype": "bf16",
-            "design": POOL_DESIGN["fwd"],
-            # the channels per access of the last timed launch
-            "vec": cuda_pool.max_pool_nhwc.last_vec,
+    shapes = pool_timing_rows(
+        cuda_pool, gen, [(model, (BATCH,) + chw, torch.bfloat16, geom)
+                         for model, pools in MODEL_POOLS.items()
+                         for chw, geom in pools], 200, 20)
+    for i, row in enumerate(shapes):
+        print("pool timing: " + json.dumps(row)
+              + (pool_quoted("fwd", i) if i < 3 else ""))
+    large = pool_timing_rows(
+        cuda_pool, gen, [(what, shape, dtype_of(dts[0]), geom)
+                         for what, shape, geom, dts in LARGE_WINDOWS], 5, 1)
+    for row in large:
+        print("pool timing (large window): " + json.dumps(row))
+    return {"max_abs_err": max_err, "shapes": shapes, "large": large}
+
+
+def pool_backward_timing_rows(cuda_pool, gen, shapes, iters, plain_iters):
+    """Backward timing rows, as pool_timing_rows."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for label, shape, dtype, (k, s, p) in shapes:
+        n, c, h, w = shape
+        x = rand_input(shape, dtype, gen)
+        oh, ow = cuda_pool.out_hw(h, w, k, s, p)
+        g = rand_input((n, c, oh, ow), dtype, gen)
+        _, idx = F.max_pool2d(x, k, s, p, return_indices=True)
+        x_b = x.numel() * x.element_size()
+        g_b = g.numel() * g.element_size()
+        # copies covering 128 MB, as rotation() does for the forward
+        pairs = [(x.clone(memory_format=torch.channels_last),
+                  g.clone(memory_format=torch.channels_last))
+                 for _ in range(max(1, -(-(128 << 20) // (x_b + g_b))))]
+        # read x, read g, write dx; per window: k*k - 1 compares to find
+        # its max, one add
+        bound_ms, bound_by = pool_bounds(x_b + g_b, x_b,
+                                         g.numel() * k[0] * k[1])
+        kernel_ms = time_ms(
+            lambda t: cuda_pool.max_pool_nhwc_backward(*t, k, s, p),
+            pairs, iters)
+        plan = cuda_pool.max_pool_nhwc_backward.last_plan
+        rows.append({
+            "model": label, "shape": [n, h, w, c],
+            "dtype": str(dtype).replace("torch.", ""), "window": list(k),
+            "stride": list(s), "padding": list(p),
+            "design": (POOL_DESIGN["bwd"] if isinstance(
+                plan, cuda_pool.BackwardPlan) else POOL_DESIGN["window"]),
+            # the route (tile and channels per access) of the last timed
+            # launch
+            "tile": dict(plan._asdict(), route=type(plan).__name__),
             "kernel_ms": kernel_ms,
             "plain_ms": time_ms(
-                lambda t: cuda_pool.max_pool_nhwc_reference(t, k, s, p),
-                xs, 20),
+                lambda t: cuda_pool.max_pool_nhwc_backward_reference(
+                    *t, k, s, p), pairs, plain_iters,
+                warmup=min(3, plain_iters)),
             "library_ms": time_ms(
-                lambda t: F.max_pool2d(t, k, s, p), xs, 200),
-            "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes": in_b + out_b,
-        }
-        shapes.append(row)
-        print("pool timing: " + json.dumps(row) + pool_quoted("fwd", i))
+                lambda t: torch.ops.aten.max_pool2d_with_indices_backward(
+                    t[1], t[0], list(k), list(s), list(p), [1, 1], False,
+                    idx), pairs, iters),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": 2 * x_b + g_b,
+        })
+        del pairs
     torch.cuda.synchronize()
-    return {"max_abs_err": max_err, "shapes": shapes}
+    return rows
 
 
 def backward_kernel_phase(cuda_pool, gen) -> dict:
-    """The backward kernel against its plain version, bit-equal, then
-    timed at AlexNet's three pool shapes (bf16, batch 64)."""
+    """The backward kernels against their plain version, bit-equal (the
+    large windows through the window path), then timed at every model
+    pool (bf16, batch 64) and at the large windows."""
     import torch
-    import torch.nn.functional as F
 
     def grad_for(x, k, s, p):
         n, c, h, w = x.shape
         oh, ow = cuda_pool.out_hw(h, w, k, s, p)
         return rand_input((n, c, oh, ow), x.dtype, gen)
 
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for c, h, w in ALEXNET_POOLS:
-            cases.append((f"alexnet {c}x{h}x{w}", (BATCH, c, h, w), dtype,
-                          POOL_GEOM, "normal"))
-    cases += [
+    cases = model_pool_cases() + [
         ("padded", (8, 32, 13, 13), torch.bfloat16,
          ((3, 3), (2, 2), (1, 1)), "normal"),
         ("pad > kernel/2", (2, 8, 9, 9), torch.float32,
@@ -410,75 +578,116 @@ def backward_kernel_phase(cuda_pool, gen) -> dict:
          ((2, 2), (2, 2), (0, 0)), "nan"),
     ] + pool_edge_cases()
     max_err = 0.0
-    for name, shape, dtype, (k, s, p), kind in cases:
+    bwd = cuda_pool.max_pool_nhwc_backward
+    for large, (name, shape, dtype, (k, s, p), kind) in (
+            [(False, c) for c in cases]
+            + [(True, c) for c in large_window_cases()]):
         x = rand_input(shape, dtype, gen, kind)
         g = grad_for(x, k, s, p)
-        dx = cuda_pool.max_pool_nhwc_backward(x, g, k, s, p)
-        torch.cuda.synchronize()
+        before = bwd.window_launches
+        with plain_refused(cuda_pool):
+            dx = bwd(x, g, k, s, p)
+            torch.cuda.synchronize()
+        window = bwd.window_launches - before
+        assert window == int(large), (name, window)
         ref = cuda_pool.max_pool_nhwc_backward_reference(x, g, k, s, p)
         torch.cuda.synchronize()
         err = assert_bit_equal(dx, ref, f"backward {name} {dtype}")
         max_err = max(max_err, err)
         print(f"backward kernel == plain (bit-equal): {name} "
               f"{tuple(shape)} {str(dtype).replace('torch.', '')} "
-              f"k={k} s={s} p={p}")
+              f"k={k} s={s} p={p}"
+              + (" (window path: argmax + gather launches)" if window
+                 else ""))
 
-    shapes = []
-    k, s, p = POOL_GEOM
-    for i, (c, h, w) in enumerate(ALEXNET_POOLS):
-        x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
-        g = grad_for(x, k, s, p)
-        _, idx = F.max_pool2d(x, k, s, p, return_indices=True)
-        x_b = x.numel() * x.element_size()
-        g_b = g.numel() * g.element_size()
-        # copies covering 128 MB, as rotation() does for the forward
-        pairs = [(x.clone(memory_format=torch.channels_last),
-                  g.clone(memory_format=torch.channels_last))
-                 for _ in range(max(1, -(-(128 << 20) // (x_b + g_b))))]
-        moved = 2 * x_b + g_b          # read x, read g, write dx
-        # per window: k*k - 1 compares to find its max, one add
-        ops = g.numel() * k[0] * k[1]
-        bytes_s = moved / HBM_BYTES_PER_S
-        ops_s = ops / SCALAR_OPS_PER_S
-        kernel_ms = time_ms(
-            lambda t: cuda_pool.max_pool_nhwc_backward(*t, k, s, p),
-            pairs, 200)
-        row = {
-            "shape": [BATCH, h, w, c], "dtype": "bf16",
-            "design": POOL_DESIGN["bwd"],
-            # the tile (and channels per access) of the last timed launch
-            "tile": cuda_pool.max_pool_nhwc_backward.last_plan._asdict(),
-            "kernel_ms": kernel_ms,
-            "plain_ms": time_ms(
-                lambda t: cuda_pool.max_pool_nhwc_backward_reference(
-                    *t, k, s, p), pairs, 20),
-            "library_ms": time_ms(
-                lambda t: torch.ops.aten.max_pool2d_with_indices_backward(
-                    t[1], t[0], list(k), list(s), list(p), [1, 1], False,
-                    idx), pairs, 200),
-            "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes": moved,
-        }
-        shapes.append(row)
+    shapes = pool_backward_timing_rows(
+        cuda_pool, gen, [(model, (BATCH,) + chw, torch.bfloat16, geom)
+                         for model, pools in MODEL_POOLS.items()
+                         for chw, geom in pools], 200, 20)
+    for i, row in enumerate(shapes):
         print("pool backward timing: " + json.dumps(row)
-              + pool_quoted("bwd", i))
-    torch.cuda.synchronize()
-    return {"max_abs_err": max_err, "shapes": shapes}
+              + (pool_quoted("bwd", i) if i < 3 else ""))
+    large = pool_backward_timing_rows(
+        cuda_pool, gen, [(what, shape, dtype_of(dts[0]), geom)
+                         for what, shape, geom, dts in LARGE_WINDOWS], 5, 1)
+    for row in large:
+        print("pool backward timing (large window): " + json.dumps(row))
+    return {"max_abs_err": max_err, "shapes": shapes, "large": large}
 
 
-def serve_phase(ft, cuda_pool, card: str) -> int:
-    """Serve full-width AlexNet; returns the pool kernel's launches
-    during the serving run."""
+def avg_pool_slice_loop(x, kernel, stride, padding):
+    """The average pool as the port ran it before this slice: the sum of
+    the kh*kw strided window views of the zero-padded input, in float32,
+    over kh*kw.  Kept here only to time it against F.avg_pool2d."""
+    import torch.nn.functional as F
+    from flexflow_tpu_torch.ops import cuda_pool
+
+    n, c, h, w = x.shape
+    (ph, pw) = padding
+    oh, ow = cuda_pool.out_hw(h, w, kernel, stride, padding)
+    xp = F.pad(x.float(), (pw, pw, ph, ph))
+    acc = None
+    for win in cuda_pool.window_slices(xp, kernel, stride, (oh, ow)):
+        acc = win if acc is None else acc + win
+    return (acc / (kernel[0] * kernel[1])).to(x.dtype)
+
+
+def avg_pool_phase(gen, card: str) -> list:
+    """The slice-add loop the port ran before and F.avg_pool2d at
+    InceptionV3's 3x3/s1/p1 pools and the global pools (bf16, batch 64,
+    channels-last): times, and the two forms' largest difference."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for c, h, w, k, p in AVG_POOLS:
+        x = rand_input((BATCH, c, h, w), torch.bfloat16, gen)
+        xs = rotation(x)
+        geom = ((k, k), (1, 1), (p, p))
+        new = F.avg_pool2d(x, k, 1, p, count_include_pad=True)
+        old = avg_pool_slice_loop(x, *geom)
+        in_b = x.numel() * x.element_size()
+        out_b = new.numel() * new.element_size()
+        row = {
+            "shape": [BATCH, h, w, c], "dtype": "bf16", "window": k,
+            "padding": p,
+            "avg_pool2d_ms": time_ms(
+                lambda t: F.avg_pool2d(t, k, 1, p, count_include_pad=True),
+                xs, 100),
+            "slice_loop_ms": time_ms(
+                lambda t: avg_pool_slice_loop(t, *geom), xs, 20),
+            "bound_ms": (in_b + out_b) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "max_abs_diff": float((new.float() - old.float()).abs().max()),
+            "avg_pool2d_channels_last": new.is_contiguous(
+                memory_format=torch.channels_last),
+        }
+        rows.append(row)
+        print("avg pool timing: " + json.dumps(row) + f" [{card}]")
+        del xs
+    return rows
+
+
+def build_cnn(ft, name: str, cfg, device=None, **kwargs):
+    from flexflow_tpu_torch import models
+
+    builder, image, classes, _ = CNNS[name]
+    return getattr(models, builder)(cfg, classes, image, device=device,
+                                    **kwargs)
+
+
+def serve_phase(ft, cuda_pool, card: str, name: str = "alexnet") -> int:
+    """Serve a full-width CNN; returns the pool kernel's launches during
+    the serving run."""
     import numpy as np
-    from flexflow_tpu_torch.models import build_alexnet
 
+    _, image, classes, pools = CNNS[name]
     cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
-    model, _, _ = build_alexnet(cfg)   # 229x229, 10 classes, on cuda
+    model, _, _ = build_cnn(ft, name, cfg)   # on cuda
     model.compile()
     t0 = time.perf_counter()
     model.init_layers(seed=SEED)
-    print(f"AlexNet: {model.num_parameters} parameters, layout "
+    print(f"{name}: {model.num_parameters} parameters, layout "
           f"{model.resolved_conv_layout}, init "
           f"{time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
@@ -487,9 +696,10 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
           f"{time.perf_counter() - t0:.3f}s")
 
     rng = np.random.default_rng(SEED)
-    sizes = [[1, 17, 64, 3, 40, 100, 8, 2, 64, 33],
-             [3, 64, 5, 130, 16, 1, 64, 48, 7, 64]]
-    reqs = [[rng.standard_normal((n, 3, 229, 229)).astype(np.float32)
+    sizes = ([[1, 17, 64, 3, 40, 100, 8, 2, 64, 33],
+              [3, 64, 5, 130, 16, 1, 64, 48, 7, 64]] if name == "alexnet"
+             else [[1, 17, 64, 3, 40, 8], [3, 64, 5, 33, 7, 2]])
+    reqs = [[rng.standard_normal((n, 3, image, image)).astype(np.float32)
              for n in ss] for ss in sizes]
     results = [[None] * len(ss) for ss in sizes]
 
@@ -521,10 +731,10 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
     assert stats["submitted"] == (
         stats["requests"] + stats["rejected"] + stats["shed"]
         + stats["expired"] + stats["errors"] + stats["cancelled"]), stats
-    assert launches == 3 * stats["dispatches"] > 0, (launches, stats)
+    assert launches == pools * stats["dispatches"] > 0, (launches, stats)
     xs = np.concatenate([x for r in reqs for x in r])
     ys = np.concatenate([y for r in results for y in r])
-    assert ys.shape == (rows, 10), ys.shape
+    assert ys.shape == (rows, classes), ys.shape
     assert np.isfinite(ys).all(), "non-finite outputs"
     np.testing.assert_allclose(ys.sum(axis=1), 1.0, atol=1e-2)
     # the same rows through predict: other batch compositions, so bf16
@@ -532,9 +742,9 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
     ref = model.predict(xs, batch_size=BATCH)
     err = float(np.abs(ys - ref).max())
     assert err <= 1e-2, f"engine vs predict max abs err {err}"
-    print(f"serve: {n_req} requests ({rows} rows) from {len(sizes)} "
+    print(f"{name} serve: {n_req} requests ({rows} rows) from {len(sizes)} "
           f"threads, {stats['dispatches']} dispatches, pool launches "
-          f"{launches} (= 3 x dispatches), {rows / wall:.1f} rows/s, "
+          f"{launches} (= {pools} x dispatches), {rows / wall:.1f} rows/s, "
           f"p50 {stats['p50_ms']} ms, p99 {stats['p99_ms']} ms, "
           f"engine vs predict max abs err {err:.3g} [{card}]")
 
@@ -542,18 +752,21 @@ def serve_phase(ft, cuda_pool, card: str) -> int:
     # time, then device time by kernel
     x64 = model._to_device((xs[:BATCH],))
     fwd = model.forward_compiled(BATCH)
-    fwd_ms = time_ms(lambda t: fwd(model._params, t), [x64], 20)
-    print(f"forward at batch {BATCH} (bf16): {fwd_ms:.4f} ms device time; "
-          f"engine dispatch (pack + forward + fetch) mean "
+    fwd_ms = time_ms(lambda t: fwd(model._params, t), [x64], 20,
+                     spin_cycles=1_000_000_000)
+    print(f"{name} forward at batch {BATCH} (bf16): {fwd_ms:.4f} ms device "
+          f"time; engine dispatch (pack + forward + fetch) mean "
           f"{stats['dispatch_ms']} ms wall [{card}]")
     kernel_breakdown(lambda: fwd(model._params, x64), 5, card)
+    if name != "alexnet":
+        return launches
 
     # float32 full-width AlexNet on the card against its CPU twin (same
     # seed, so the same weights): kernel path vs plain path end to end
     cfg32 = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=SEED)
     outs = []
     for device in ("cuda", "cpu"):
-        m, _, _ = build_alexnet(cfg32, device=device)
+        m, _, _ = build_cnn(ft, name, cfg32, device=device)
         m.compile()
         m.init_layers(seed=SEED)
         outs.append(m.predict(xs[:4]))
@@ -586,84 +799,107 @@ class EpochLosses:
         pass
 
 
-def train_phase(ft, cuda_pool, card: str) -> dict:
-    """Train full-width AlexNet on the card; returns both pool kernels'
+def train_phase(ft, cuda_pool, card: str, name: str = "alexnet") -> dict:
+    """Train a full-width CNN on the card; returns both pool kernels'
     launches during the fit() run."""
     import numpy as np
     import torch
-    from flexflow_tpu_torch.models import build_alexnet
 
+    _, image, classes, pools = CNNS[name]
+    alexnet = name == "alexnet"
+    batches, epochs = ((TRAIN_BATCHES, TRAIN_EPOCHS) if alexnet
+                       else (CNN_FIT_BATCHES, 1))
     metrics = ["accuracy", "sparse_categorical_crossentropy"]
     cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
-    model, _, _ = build_alexnet(cfg)   # 229x229, 10 classes, on cuda
+    model, _, _ = build_cnn(ft, name, cfg)   # on cuda
     # the reference alexnet.cc trains with SGD at lr 0.001
     model.compile(ft.SGDOptimizer(lr=0.001), metrics=metrics)
     model.init_layers(seed=SEED)
     t0 = time.perf_counter()
-    xs, y = ft.synthetic_dataset(TRAIN_BATCHES * BATCH, [(3, 229, 229)],
-                                 (1,), num_classes=10, seed=SEED)
-    print(f"train data: {TRAIN_BATCHES} batches of {BATCH} made in "
+    xs, y = ft.synthetic_dataset(batches * BATCH, [(3, image, image)],
+                                 (1,), num_classes=classes, seed=SEED)
+    print(f"{name} train data: {batches} batches of {BATCH} made in "
           f"{time.perf_counter() - t0:.3f}s")
 
     record = EpochLosses()
     out = io.StringIO()
     cuda_pool.max_pool_nhwc.launches = 0
     cuda_pool.max_pool_nhwc_backward.launches = 0
+    cuda_pool.max_pool_nhwc_backward.window_launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        model.fit(xs, y, epochs=TRAIN_EPOCHS, callbacks=[record])
+        model.fit(xs, y, epochs=epochs, callbacks=[record])
     fit_s = time.perf_counter() - t0
     launches = {"fwd": cuda_pool.max_pool_nhwc.launches,
                 "bwd": cuda_pool.max_pool_nhwc_backward.launches}
     text = out.getvalue()
     print(text, end="")
-    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    steps = batches * epochs
     assert model._step == steps, model._step
-    assert launches == {"fwd": 3 * steps, "bwd": 3 * steps}, launches
-    for e in range(TRAIN_EPOCHS):
+    assert launches == {"fwd": pools * steps, "bwd": pools * steps}, launches
+    assert cuda_pool.max_pool_nhwc_backward.window_launches == 0
+    for e in range(epochs):
         assert f"epoch {e}: accuracy: " in text, text
     assert "ELAPSED TIME = " in text and "THROUGHPUT = " in text, text
     fit_losses = np.concatenate(record.epochs)
     assert fit_losses.shape == (steps,), fit_losses.shape
     assert np.isfinite(fit_losses).all(), fit_losses
-    print(f"fit: {steps} steps, pool launches {launches['fwd']} forward + "
-          f"{launches['bwd']} backward (= 3 + 3 per step), losses "
-          f"{np.round(fit_losses, 4).tolist()}, {fit_s:.3f}s wall [{card}]")
+    print(f"{name} fit: {steps} steps, pool launches {launches['fwd']} "
+          f"forward + {launches['bwd']} backward (= {pools} + {pools} per "
+          f"step), losses {np.round(fit_losses, 4).tolist()}, {fit_s:.3f}s "
+          f"wall [{card}]")
 
-    # one batch, ten steps at a higher rate: the loss must fall
-    model.compile(ft.SGDOptimizer(lr=0.01, momentum=0.9), metrics=metrics)
+    # one batch, repeated steps with momentum: the loss must fall.  The
+    # deeper nets without BatchNorm diverge from random weights at
+    # AlexNet's rate, so they take a tenth of it
+    repeat, lr = (10, 0.01) if alexnet else (CNN_REPEAT_STEPS, 0.001)
+    model.compile(ft.SGDOptimizer(lr=lr, momentum=0.9), metrics=metrics)
     model.init_layers(seed=SEED)
-    xb = torch.from_numpy(xs[0][:BATCH]).to("cuda")
-    yb = torch.from_numpy(y[:BATCH]).to("cuda")
-    losses = torch.stack([model.train_batch(xb, yb) for _ in range(10)])
+    xb = torch.from_numpy(xs[0][:BATCH]).to(model.device)
+    yb = torch.from_numpy(y[:BATCH]).to(model.device)
+    losses = torch.stack([model.train_batch(xb, yb) for _ in range(repeat)])
     losses = losses.cpu().numpy()
     assert np.isfinite(losses).all(), losses
     assert losses[0] > losses[-1], f"loss did not fall: {losses}"
-    print(f"train_batch x10 on one batch (SGD lr 0.01, momentum 0.9): "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"{name} train_batch x{repeat} on one batch (SGD lr {lr}, "
+          f"momentum 0.9): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({np.round(losses, 4).tolist()})")
 
     # one step with the batch already on the card: device time, wall
-    # time, then device time by kernel
-    # a step takes the host up to ~12 ms to enqueue: spin about 1.1 s
-    step_ms = time_ms(lambda b: model.train_batch(*b), [(xb, yb)], 10,
-                      spin_cycles=2_000_000_000)
+    # time, then device time by kernel.  The spin (about 1.1 s, or 1.6 s
+    # for the deeper nets) must outlast the host's enqueueing of the
+    # timed steps
+    timed = 10 if alexnet else 5
+    step_ms = time_ms(lambda b: model.train_batch(*b), [(xb, yb)], timed,
+                      spin_cycles=2_000_000_000 if alexnet
+                      else 3_000_000_000)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(timed):
         model.train_batch(xb, yb)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
-    print(f"training step at batch {BATCH} (bf16): {step_ms:.4f} ms device "
-          f"time, {wall_ms:.4f} ms wall per step over 10 steps [{card}]")
-    kernel_breakdown(lambda: model.train_batch(xb, yb), 3, card,
-                     what="training step")
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    print(f"{name} training step at batch {BATCH} (bf16): {step_ms:.4f} ms "
+          f"device time, {wall_ms:.4f} ms wall per step over {timed} steps "
+          f"[{card}]")
+    kernel_breakdown(lambda: model.train_batch(xb, yb), 3 if alexnet else 2,
+                     card, what="training step")
+    del model
+    torch.cuda.empty_cache()
+    if alexnet:
+        alexnet_f32_step_check(ft, xs, y, metrics)
+    return launches
 
-    # float32 full-width training step on the card against its CPU
-    # twin (same seed, so the same weights and batch)
+
+def alexnet_f32_step_check(ft, xs, y, metrics) -> None:
+    """A float32 full-width AlexNet training step on the card against its
+    CPU twin (same seed, so the same weights and batch)."""
+    import numpy as np
+
     cfg32 = ft.FFConfig(batch_size=2, compute_dtype="float32", seed=SEED)
     results = []
     for device in ("cuda", "cpu"):
-        m, _, _ = build_alexnet(cfg32, device=device)
+        m, _, _ = build_cnn(ft, "alexnet", cfg32, device=device)
         m.compile(ft.SGDOptimizer(lr=0.01, momentum=0.9), metrics=metrics)
         m.init_layers(seed=SEED)
         loss = float(m.train_batch(xs[0][:2], y[:2]))
@@ -679,7 +915,162 @@ def train_phase(ft, cuda_pool, card: str) -> dict:
           f"plain): loss {loss_c:.6f} vs {loss_h:.6f} (abs err "
           f"{loss_err:.3g}), max abs err over the updated parameters "
           f"{param_err:.3g} (tolerance {F32_STEP_TOL})")
-    return launches
+
+
+def batchnorm_phase(ft, cuda_pool, card: str) -> None:
+    """Full-width ResNet-50 with BatchNorm (bf16, batch 64): a few
+    train_batch steps move every running statistic, and evaluate reads
+    them (putting them back to their initial values changes its loss)."""
+    import numpy as np
+    import torch
+
+    _, image, classes, pools = CNNS["resnet50"]
+    cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
+    model, _, _ = build_cnn(ft, "resnet50", cfg, batch_norm=True)
+    # from random weights its gradients reach the thousands: a small rate
+    # keeps the few steps finite
+    model.compile(ft.SGDOptimizer(lr=1e-4), metrics=["accuracy"])
+    model.init_layers(seed=SEED)
+    stats = [p.name for p in model.parameters if not p.trainable]
+    assert len(stats) == 2 * 48, len(stats)
+    start = {k: model._params[k].clone() for k in stats}
+    xs, y = ft.synthetic_dataset(BATCH, [(3, image, image)], (1,),
+                                 num_classes=classes, seed=SEED)
+    cuda_pool.max_pool_nhwc.launches = 0
+    cuda_pool.max_pool_nhwc_backward.launches = 0
+    steps = 3
+    losses = torch.stack([model.train_batch(xs[0], y)
+                          for _ in range(steps)]).cpu().numpy()
+    assert np.isfinite(losses).all(), losses
+    assert (cuda_pool.max_pool_nhwc.launches,
+            cuda_pool.max_pool_nhwc_backward.launches) == (
+                pools * steps, pools * steps)
+    unmoved = [k for k in stats if torch.equal(model._params[k], start[k])]
+    assert not unmoved, f"running statistics did not move: {unmoved}"
+    assert all(model._params[k].dtype == torch.float32 for k in stats)
+    loss, _ = model.evaluate(xs[0], y, batch_size=BATCH)
+    trained = {k: model._params[k] for k in stats}
+    model._params.update(start)
+    loss_init, _ = model.evaluate(xs[0], y, batch_size=BATCH)
+    model._params.update(trained)
+    assert np.isfinite(loss) and loss != loss_init, (loss, loss_init)
+    print(f"resnet50 batch_norm=True: {steps} train_batch steps (losses "
+          f"{np.round(losses, 4).tolist()}), all {len(stats)} running "
+          f"statistics moved; evaluate loss {loss:.4f} with them, "
+          f"{loss_init:.4f} with the initial ones [{card}]")
+
+
+def trimmed_inception(ft, cfg, device):
+    """InceptionV3's stem cut to one conv, then one module of each kind
+    (A at 8 pool features, C at 8 channels) at 75 px: two max pools (in
+    B and D), the branch avg pools, the concats and the head."""
+    from flexflow_tpu_torch.models import inception
+
+    m = ft.FFModel(cfg, device=device)
+    inp = m.create_tensor((cfg.batch_size, 3, 75, 75), name="input")
+    t = m.conv2d(inp, 8, 3, 3, 2, 2, 0, 0, activation="relu")
+    t = inception._inception_a(m, t, 8)
+    t = inception._inception_b(m, t)
+    t = inception._inception_c(m, t, 8)
+    t = inception._inception_d(m, t)
+    t = inception._inception_e(m, t)
+    hw = t.shape[2]
+    t = m.pool2d(t, hw, hw, 1, 1, 0, 0, pool_type="avg")
+    t = m.flat(t)
+    logits = m.dense(t, 10)
+    m.softmax(logits)
+    return m, inp, logits
+
+
+def cnn_f32_step_checks(ft, cuda_pool) -> None:
+    """Small float32 training steps on the card (kernels) against their
+    CPU twins (plain versions): ResNet-50 with BatchNorm at 64 px (to the
+    BatchNorm bounds above) and the trimmed InceptionV3 (within
+    F32_STEP_TOL).  The held card step runs PyTorch's own convolutions
+    (cuDNN off): cuDNN's float32 algorithms put 9.86e-5 into the trimmed
+    InceptionV3's stem gradient where PyTorch's agree within 1.5e-8
+    (PERF.md, PR 6), so the cuDNN step is printed beside it, not held.
+    Every check runs before any failure is raised."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models import build_resnet50
+
+    rng = np.random.default_rng(SEED)
+    checks = [
+        ("ResNet-50 batch_norm=True, 64 px",
+         lambda cfg, dev: build_resnet50(cfg, 1000, 64, True,
+                                         device=dev)[0],
+         dict(image=64, classes=1000, pools=1, lr=0.01, momentum=0.0)),
+        ("trimmed InceptionV3, 75 px",
+         lambda cfg, dev: trimmed_inception(ft, cfg, dev)[0],
+         dict(image=75, classes=10, pools=2, lr=0.01, momentum=0.9)),
+    ]
+    failed = []
+    for label, build, o in checks:
+        x = rng.standard_normal((2, 3, o["image"], o["image"])).astype(
+            np.float32)
+        y = rng.integers(0, o["classes"], (2, 1)).astype(np.int32)
+        runs = {}
+        for device, cudnn in (("cpu", True), ("cuda", False),
+                              ("cuda", True)):
+            cfg = ft.FFConfig(batch_size=2, compute_dtype="float32",
+                              seed=SEED)
+            with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                m = build(cfg, device)
+                m.compile(ft.SGDOptimizer(lr=o["lr"],
+                                          momentum=o["momentum"]))
+                m.init_layers(seed=SEED)
+                w0 = {p.name: m.get_weights(p.name).astype(np.float64)
+                      for p in m.parameters}
+                reset_counts(cuda_pool.max_pool_nhwc,
+                             cuda_pool.max_pool_nhwc_backward)
+                loss = float(m.train_batch(x, y))
+            if device == "cuda":
+                assert m.resolved_conv_layout == "nhwc"
+                assert (cuda_pool.max_pool_nhwc.launches,
+                        cuda_pool.max_pool_nhwc_backward.launches) == (
+                            o["pools"], o["pools"])
+            runs[(device, cudnn)] = (loss, {
+                p.name: m.get_weights(p.name).astype(np.float64)
+                for p in m.parameters})
+        loss_h, w_h = runs[("cpu", True)]
+        stats = [p.name for p in m.parameters if not p.trainable]
+        trainable = [k for k in w_h if k not in stats]
+        update = np.sqrt(sum(((w_h[k] - w0[k]) ** 2).sum()
+                             for k in trainable))
+        for cudnn in (False, True):
+            loss_c, w_c = runs[("cuda", cudnn)]
+            loss_err = abs(loss_c - loss_h)
+            param_err = max(float(np.abs(w_c[k] - w_h[k]).max())
+                            for k in trainable)
+            if stats:
+                l2 = float(np.sqrt(sum(((w_c[k] - w_h[k]) ** 2).sum()
+                                       for k in trainable)) / update)
+                stats_err = max(float(np.abs(w_c[k] - w_h[k]).max()
+                                      / np.abs(w_h[k]).max()) for k in stats)
+                ok = (loss_err <= BN_LOSS_RTOL * abs(loss_h)
+                      and l2 <= BN_CARD_L2_SHARE
+                      and stats_err <= BN_STATS_RTOL)
+                result = (f"parameters' difference {l2:.3g} of the "
+                          f"update (L2), running statistics {stats_err:.3g} "
+                          f"of their largest (tolerances: loss "
+                          f"{BN_LOSS_RTOL} relative, parameters "
+                          f"{BN_CARD_L2_SHARE}, running statistics "
+                          f"{BN_STATS_RTOL})")
+            else:
+                ok = loss_err <= F32_STEP_TOL and param_err <= F32_STEP_TOL
+                result = f"(tolerance {F32_STEP_TOL})"
+            held = "held" if not cudnn else "printed, not held"
+            print(f"f32 {label} training step cuda (nhwc, kernels, cuDNN "
+                  f"{'on' if cudnn else 'off'}: {held}) vs cpu (nchw, "
+                  f"plain): loss {loss_c:.6f} vs {loss_h:.6f} (abs err "
+                  f"{loss_err:.3g}), max abs err over the updated "
+                  f"parameters {param_err:.3g}, {result}")
+            if not ok and not cudnn:
+                failed.append((label, loss_err, param_err))
+    assert not failed, failed
 
 
 def flash_bounds(n, sq, sk, h, d, itemsize, causal, backward):
@@ -1215,41 +1606,69 @@ def main() -> int:
     build_all(kernels)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kp = kernel_phase(cuda_pool, gen)
-    bp = backward_kernel_phase(cuda_pool, gen)
-    fp = flash_phase(cuda_attention, gen, card)
-    lp = layernorm_phase(cuda_norm, gen)
-    serve_launches = serve_phase(ft, cuda_pool, card)
-    train_launches = train_phase(ft, cuda_pool, card)
+    seconds = {}
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = round(time.perf_counter() - t0, 3)
+        print(f"phase {label}: {seconds[label]}s")
+        return out
+
+    kp = phase("pool forward kernel", kernel_phase, cuda_pool, gen)
+    bp = phase("pool backward kernel", backward_kernel_phase, cuda_pool, gen)
+    fp = phase("flash kernels", flash_phase, cuda_attention, gen, card)
+    lp = phase("layernorm kernel", layernorm_phase, cuda_norm, gen)
+    phase("avg pool forms", avg_pool_phase, gen, card)
+    serve, train = {}, {}
+    for name in CNNS:
+        serve[name] = phase(f"{name} serve", serve_phase, ft, cuda_pool,
+                            card, name)
+        train[name] = phase(f"{name} train", train_phase, ft, cuda_pool,
+                            card, name)
+    phase("resnet50 batch_norm", batchnorm_phase, ft, cuda_pool, card)
+    phase("cnn f32 steps", cnn_f32_step_checks, ft, cuda_pool)
     counters = (cuda_attention.flash_attention_forward,
                 cuda_attention.flash_attention_backward,
                 cuda_norm.fused_layernorm)
-    tserve = transformer_serve_phase(ft, counters, card)
-    ttrain = transformer_train_phase(ft, counters, card)
-    transformer_f32_step_check(ft, counters)
+    tserve = phase("transformer serve", transformer_serve_phase, ft,
+                   counters, card)
+    ttrain = phase("transformer train", transformer_train_phase, ft,
+                   counters, card)
+    phase("transformer f32 step", transformer_f32_step_check, ft, counters)
+    print("phase seconds: " + json.dumps(seconds))
 
-    def entry(name, replaces, launches, by_path, phase):
+    def sums(rows):
+        return {"ms": sum(r["kernel_ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "library_ms": sum(r["library_ms"] for r in rows)}
+
+    def entry(name, replaces, by_path, phase):
         shapes = phase["shapes"]
         return {
             "name": name,
             "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/max_pool_nhwc.cu",
             "replaces": replaces,
-            "launches": launches,
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": phase["max_abs_err"],
-            # the three pools of one forward or one backward at batch
-            # 64, bf16
-            "ms": sum(r["kernel_ms"] for r in shapes),
-            "plain_ms": sum(r["plain_ms"] for r in shapes),
-            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            # the max pools of one forward (or one backward) of each of
+            # AlexNet, ResNet-50 and InceptionV3 at batch 64, bf16; each
+            # model's own sums beside them
+            **sums(shapes),
             "bound_by": max(shapes,
                             key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in shapes),
+            "by_model": {m: sums([r for r in shapes if r["model"] == m])
+                         for m in MODEL_POOLS},
             "design": shapes[0]["design"],
-            # the timing rows without the launch's vector and tile
+            # the timing rows without the launch's vector and tile, then
+            # the large windows (on no model's path)
             "shapes": [{key: v for key, v in r.items()
                         if key not in ("vec", "tile")} for r in shapes],
+            "large_windows": [{key: v for key, v in r.items()
+                               if key != "vec"} for r in phase["large"]],
         }
 
     def call_entry(name, source, replaces, by_path, phase):
@@ -1269,12 +1688,16 @@ def main() -> int:
         }
 
     flash_src = "flexflow_tpu_torch/csrc/flash_attention.cu"
-    fwd_paths = {"serve": serve_launches, "train": train_launches["fwd"]}
+    fwd_paths = {}
+    for name in CNNS:
+        fwd_paths[f"{name}_serve"] = serve[name]
+        fwd_paths[f"{name}_train"] = train[name]["fwd"]
+    bwd_paths = {f"{name}_train": train[name]["bwd"] for name in CNNS}
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
-              sum(fwd_paths.values()), fwd_paths, kp),
+              fwd_paths, kp),
         entry("max_pool_nhwc_bwd", "flexflow_tpu/ops/pallas_pool.py:97",
-              train_launches["bwd"], {"train": train_launches["bwd"]}, bp),
+              bwd_paths, bp),
         call_entry("flash_attention_fwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_serve": tserve["fwd"],

@@ -81,7 +81,8 @@
 // sizes the tile (cuda_pool.backward_plan: 48 KB of shared memory, four
 // blocks an SM; a band spans whole rows unless they do not fit or make
 // too few blocks to fill the card; a window too large for 48 KB takes up
-// to the card's 227 KB, and a narrower VEC past that) and passes
+// to the card's 227 KB, a narrower VEC past that, and the window path
+// below past that) and passes
 // its shared-memory size, which the launch checks against
 // tile_smem_bytes.  Each block is chan_vecs * (224 / chan_vecs) threads,
 // a thread keeping one channel vector across the passes, and each pass
@@ -90,6 +91,32 @@
 // pools) is compiled in (K = 3): its loops unroll and their
 // shared-memory loads go out together.  No atomics: every dx element has
 // one owner.
+//
+// Backward for large windows (the window path).  A tile stages every
+// input pixel that the windows covering it read: about (2k - 1)^2 pixels
+// for a k x k window at stride 1, so past about 120 x 120 in f32 (170 x
+// 170 in bf16/f16) not even a tile of one pixel and one channel fits the
+// card's 227 KB, and past 32767 window positions the int16 offsets
+// overflow.  The JAX package trains such windows through XLA's
+// reduce_window.  Here they take two launches with no shared memory,
+// chosen by shape on the host (cuda_pool.backward_route):
+//  1. argmax: one thread per (image, output pixel, channel vector) scans
+//     its window row-major from device memory with the rule above and
+//     writes each lane's offset i * kw + j (-1 for a NaN max) as int32 to
+//     a scratch tensor shaped like g, which the wrapper allocates.  A run
+//     of padding holds one value, so only its first position can take the
+//     max: a window row outside the image costs one compare, not kw.
+//  2. gather: one thread per (image, input pixel, channel vector) walks
+//     the windows that cover its pixel in ascending (i, j) and adds g
+//     where the window's offset is its own, rounding in the storage type
+//     after every add (GradSum, as the tiled pass does): bit-equal to the
+//     plain version in f32, bf16 and f16.
+// Bound: memory, as the tiled pass (read x and g, write dx), plus the
+// scratch (4 bytes per element of g, written and read once); no model of
+// the zoo has such a window, so this path was made right and simple, not
+// fast.  Chunking a window through shared memory would keep the scratch
+// out of device memory but needs a running max carried across chunks and
+// a second walk for the gather; two plain launches were taken instead.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -728,8 +755,148 @@ __global__ void __launch_bounds__(kBwdThreads, 4)
   }
 }
 
+// One lane of the window path's argmax: take v at offset k by the rule
+// of takes().
+__device__ __forceinline__ void take_at(float& best, int& arg, float v,
+                                        int k) {
+  if (takes(best, v)) {
+    best = v;
+    arg = k;
+  }
+}
+
+// The window path's argmax: thread -> (image of the chunk blockIdx.y,
+// output pixel, channel vector).  arg is shaped like g.  Both window
+// kernels name one block an SM as their floor: under a bare
+// __launch_bounds__(kThreads) ptxas capped several instances at 40 to 64
+// registers and spilled.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    max_pool_nhwc_window_argmax_kernel(const T* __restrict__ x,
+                                       int32_t* __restrict__ arg, Geom g,
+                                       int chunk) {
+  using V = Vec<T, VEC>;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cvn = g.c / VEC;
+  const int per_image = g.oh * g.ow * cvn;
+  const int n0 = blockIdx.y * chunk;
+  if (idx >= min(chunk, g.n - n0) * per_image) return;
+  const int img = idx / per_image;
+  const int rest = idx - img * per_image;
+  const int pix = rest / cvn;
+  const int cv = rest - pix * cvn;
+  const int ohi = pix / g.ow, owi = pix - ohi * g.ow;
+  const int ni = n0 + img;
+  const int h0 = ohi * g.sh - g.ph, w0 = owi * g.sw - g.pw;
+  // the window's columns inside the image: j in [jlo, jhi)
+  const int jlo = max(0, -w0), jhi = min(g.kw, g.w - w0);
+  const T* xn = x + (int64_t)ni * g.h * g.w * g.c + cv * VEC;
+  const float pad = to_float(lowest<T>());
+  float best[VEC];
+  int a[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) {
+    best[l] = -INFINITY;
+    a[l] = 0;
+  }
+  for (int i = 0; i < g.kh; ++i) {
+    const int hi = h0 + i, k0 = i * g.kw;
+    if (hi < 0 || hi >= g.h || jlo >= jhi) {  // a row of padding
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) take_at(best[l], a[l], pad, k0);
+      continue;
+    }
+    if (jlo > 0) {  // padding before the image's columns
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) take_at(best[l], a[l], pad, k0);
+    }
+    const T* xr = xn + ((int64_t)hi * g.w + w0) * g.c;
+    int j = jlo;
+    // four columns loaded together, so their loads are in flight at once
+    for (; j + 4 <= jhi; j += 4) {
+      V v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = *reinterpret_cast<const V*>(xr + (int64_t)(j + u) * g.c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int l = 0; l < VEC; ++l)
+          take_at(best[l], a[l], to_float(v[u].v[l]), k0 + j + u);
+    }
+    for (; j < jhi; ++j) {
+      const V v = *reinterpret_cast<const V*>(xr + (int64_t)j * g.c);
+#pragma unroll
+      for (int l = 0; l < VEC; ++l)
+        take_at(best[l], a[l], to_float(v.v[l]), k0 + j);
+    }
+    if (jhi < g.kw) {  // padding after them
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) take_at(best[l], a[l], pad, k0 + jhi);
+    }
+  }
+  Vec<int32_t, VEC> o;
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) o.v[l] = isnan(best[l]) ? -1 : a[l];
+  *reinterpret_cast<Vec<int32_t, VEC>*>(
+      arg + (((int64_t)ni * g.oh + ohi) * g.ow + owi) * g.c + cv * VEC) = o;
+}
+
+// The window path's gather: thread -> (image of the chunk blockIdx.y,
+// input pixel, channel vector).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    max_pool_nhwc_window_gather_kernel(const int32_t* __restrict__ arg,
+                                       const T* __restrict__ gr,
+                                       T* __restrict__ dx, Geom g,
+                                       int chunk) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cvn = g.c / VEC;
+  const int per_image = g.h * g.w * cvn;
+  const int n0 = blockIdx.y * chunk;
+  if (idx >= min(chunk, g.n - n0) * per_image) return;
+  const int img = idx / per_image;
+  const int rest = idx - img * per_image;
+  const int pix = rest / cvn;
+  const int cv = rest - pix * cvn;
+  const int hx = pix / g.w, wx = pix - hx * g.w;
+  const int ni = n0 + img;
+  // the windows that cover the pixel: rows oh0 .. oh1, columns ow0 .. ow1;
+  // a higher window row or column puts it at a lower offset i or j, so
+  // both walk down for ascending (i, j), the Pallas order
+  const int hp = hx + g.ph, wp = wx + g.pw;
+  const int oh1 = min(hp / g.sh, g.oh - 1);
+  const int oh0 = max(0, floor_div(hp - g.kh + g.sh, g.sh));
+  const int ow1 = min(wp / g.sw, g.ow - 1);
+  const int ow0 = max(0, floor_div(wp - g.kw + g.sw, g.sw));
+  const int64_t gn = (int64_t)ni * g.oh * g.ow * g.c + cv * VEC;
+  GradSum<T, VEC, int32_t> acc;
+  for (int ohi = oh1; ohi >= oh0; --ohi) {
+    const int ki = (hp - ohi * g.sh) * g.kw;  // i * kw
+    const int64_t row = gn + (int64_t)ohi * g.ow * g.c;
+    for (int owi = ow1; owi >= ow0; --owi) {
+      const int64_t o = row + (int64_t)owi * g.c;
+      acc.add(arg + o, gr + o, ki + (wp - owi * g.sw));
+    }
+  }
+  acc.store(dx + ((int64_t)ni * g.h * g.w + pix) * g.c + cv * VEC);
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// A grid of kThreads-thread blocks over n images of per_image threads
+// each: the grid's y dimension walks chunks of images that an int counts.
+cudaError_t image_grid(int64_t per_image, int n, dim3* grid, int* chunk) {
+  if (per_image > 2147483647) return cudaErrorInvalidValue;
+  *chunk = (int)std::min<int64_t>(n, 2147483647 / per_image);
+  const int chunks = (n + *chunk - 1) / *chunk;
+  if (chunks > 65535) return cudaErrorInvalidConfiguration;
+  *grid = dim3(
+      (unsigned)(((int64_t)*chunk * per_image + kThreads - 1) / kThreads),
+      (unsigned)chunks);
+  return cudaSuccess;
 }
 
 template <typename T, int VEC>
@@ -739,16 +906,39 @@ cudaError_t launch_fwd(const void* x, void* y, const Geom& g,
       !aligned(y, VEC * sizeof(T)))
     return cudaErrorInvalidValue;
   const int runs = (g.ow + kFwdRun - 1) / kFwdRun;
-  // threads of one image; a chunk of images is what an int counts
-  const int64_t per_image = (int64_t)g.oh * runs * (g.c / VEC);
-  if (per_image > 2147483647) return cudaErrorInvalidValue;
-  const int chunk = (int)std::min<int64_t>(g.n, 2147483647 / per_image);
-  const int chunks = (g.n + chunk - 1) / chunk;
-  if (chunks > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)((chunk * per_image + kThreads - 1) / kThreads),
-                  (unsigned)chunks);
+  dim3 grid;
+  int chunk;
+  const cudaError_t err =
+      image_grid((int64_t)g.oh * runs * (g.c / VEC), g.n, &grid, &chunk);
+  if (err != cudaSuccess) return err;
   max_pool_nhwc_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), g, runs, chunk);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_window(const void* x, const void* gr, void* dx,
+                          void* arg, const Geom& g, cudaStream_t stream) {
+  const size_t vb = VEC * sizeof(T);
+  // window offsets must fit the int32 scratch
+  if (g.c % VEC || !aligned(x, vb) || !aligned(gr, vb) || !aligned(dx, vb) ||
+      !aligned(arg, VEC * sizeof(int32_t)) ||
+      (int64_t)g.kh * g.kw > 2147483647)
+    return cudaErrorInvalidValue;
+  dim3 grid;
+  int chunk;
+  cudaError_t err =
+      image_grid((int64_t)g.oh * g.ow * (g.c / VEC), g.n, &grid, &chunk);
+  if (err != cudaSuccess) return err;
+  max_pool_nhwc_window_argmax_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<int32_t*>(arg), g, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = image_grid((int64_t)g.h * g.w * (g.c / VEC), g.n, &grid, &chunk);
+  if (err != cudaSuccess) return err;
+  max_pool_nhwc_window_gather_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(arg), static_cast<const T*>(gr),
+      static_cast<T*>(dx), g, chunk);
   return cudaGetLastError();
 }
 
@@ -836,6 +1026,21 @@ cudaError_t bwd_vec(int vec, const void* x, const void* gr, void* dx,
   }
 }
 
+template <typename T>
+cudaError_t window_vec(int vec, const void* x, const void* gr, void* dx,
+                       void* arg, const Geom& g, cudaStream_t s) {
+  switch (vec) {
+    case 1: return launch_window<T, 1>(x, gr, dx, arg, g, s);
+    case 2: return launch_window<T, 2>(x, gr, dx, arg, g, s);
+    case 4: return launch_window<T, 4>(x, gr, dx, arg, g, s);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_window<T, 8>(x, gr, dx, arg, g, s);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; vec: channels per
@@ -882,6 +1087,30 @@ extern "C" int ff_max_pool_nhwc_bwd(const void* x, const void* g, void* dx,
     case 0: return (int)bwd_vec<float>(vec, x, g, dx, geo, tile, s);
     case 1: return (int)bwd_vec<__nv_bfloat16>(vec, x, g, dx, geo, tile, s);
     case 2: return (int)bwd_vec<__half>(vec, x, g, dx, geo, tile, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward for windows no tile holds, in two launches (the window
+// path): arg is an int32 scratch shaped like g (NHWC), written by the
+// first launch and read by the second.  Same conventions as
+// ff_max_pool_nhwc.
+extern "C" int ff_max_pool_nhwc_bwd_window(const void* x, const void* g,
+                                           void* dx, void* arg, int dtype,
+                                           int vec, int n, int h, int w,
+                                           int c, int oh, int ow, int kh,
+                                           int kw, int sh, int sw, int ph,
+                                           int pw, int device,
+                                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geom geo{n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw};
+  switch (dtype) {
+    case 0: return (int)window_vec<float>(vec, x, g, dx, arg, geo, s);
+    case 1:
+      return (int)window_vec<__nv_bfloat16>(vec, x, g, dx, arg, geo, s);
+    case 2: return (int)window_vec<__half>(vec, x, g, dx, arg, geo, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -39,8 +39,8 @@ from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.conv import Conv2D, Pool2D
 from .ops.elementwise import ElementBinary
 from .ops.linear import Embedding, Linear
-from .ops.norm import LayerNorm
-from .ops.tensor_ops import Dropout, Flat, Reshape, Softmax, Split
+from .ops.norm import BatchNorm, LayerNorm
+from .ops.tensor_ops import Concat, Dropout, Flat, Reshape, Softmax, Split
 from .optimizers import SGDOptimizer
 from .tensor import Parameter, Tensor
 
@@ -171,6 +171,10 @@ class FFModel:
                                input_tensor, max_len, kernel_initializer)
         return self._register(op).outputs[0]
 
+    def concat(self, tensors, axis, name=None) -> Tensor:
+        return self._register(
+            Concat(self._uname("concat", name), tensors, axis)).outputs[0]
+
     def split(self, input_tensor, sizes, axis, name=None) -> List[Tensor]:
         if isinstance(sizes, int):
             total = input_tensor.shape[axis]
@@ -188,6 +192,12 @@ class FFModel:
         return self._register(
             Dropout(self._uname("dropout", name), input_tensor, rate,
                     seed)).outputs[0]
+
+    def batch_norm(self, input_tensor, relu=True, momentum=0.9, eps=1e-5,
+                   name=None) -> Tensor:
+        return self._register(
+            BatchNorm(self._uname("batchnorm", name), input_tensor, relu,
+                      momentum, eps)).outputs[0]
 
     def layer_norm(self, input_tensor, eps=1e-5, name=None) -> Tensor:
         return self._register(
@@ -348,15 +358,18 @@ class FFModel:
     def _forward_values(self, params: Dict[str, torch.Tensor],
                         inputs: Sequence[torch.Tensor],
                         training: bool = False,
-                        seed: Optional[int] = None
+                        seed: Optional[int] = None,
+                        updates: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Dict[int, torch.Tensor]:
         """Run the layer list on ``inputs``; returns every tensor's value
-        by uid.  Each op runs in its resolved compute dtype."""
+        by uid.  Each op runs in its resolved compute dtype.  In training
+        the ops' non-trainable state updates land in ``updates``."""
         base = self.config.compute_dtype
         ctx = OpContext(device=self.device, seed=seed,
                         training=training, compute_dtype=base,
                         conv_layout=self.resolved_conv_layout,
-                        flash_attention=self.config.flash_attention)
+                        flash_attention=self.config.flash_attention,
+                        updates={} if updates is None else updates)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         for op in self.layers:
             ctx.compute_dtype = resolve_op_dtype(op, base)
@@ -457,18 +470,21 @@ class FFModel:
 
     def _loss_and_grads(self, batch, step: int):
         """Forward with autograd on, the loss on ``_loss_tensor``, its
-        gradients with respect to every trainable parameter, and the
-        batch's metric sums.  Returns (loss, sums, grads), all on the
-        device; the loss is a detached 0-d float32 tensor."""
+        gradients with respect to every trainable parameter, the batch's
+        metric sums and the ops' non-trainable state updates (BatchNorm's
+        running statistics).  Returns (loss, sums, grads, updates), all on
+        the device; the loss is a detached 0-d float32 tensor and the
+        updates are detached."""
         names = self._trainable_names()
         trainable = {k: v.detach().requires_grad_(True)
                      for k, v in self._params.items() if k in names}
         params = {**self._params, **trainable}
         labels = batch[-1]
+        updates: Dict[str, torch.Tensor] = {}
         with torch.enable_grad():
             values = self._forward_values(
                 params, batch[:-1], training=True,
-                seed=self._step_seed(step))
+                seed=self._step_seed(step), updates=updates)
             logits = values[self._loss_tensor.uid]
             loss = self._loss_fn(logits, labels)
             grads = torch.autograd.grad(loss, list(trainable.values()),
@@ -478,7 +494,8 @@ class FFModel:
                 logits.detach(), labels, self.metrics, self.loss_type)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(trainable.items(), grads)}
-        return loss.detach(), sums, grads
+        return (loss.detach(), sums, grads,
+                {k: v.detach() for k, v in updates.items()})
 
     def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
         trainable = {k: self._params[k] for k in grads}
@@ -490,8 +507,11 @@ class FFModel:
     def _train_step(self, batch):
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
-        loss, sums, grads = self._loss_and_grads(batch, self._step)
+        loss, sums, grads, updates = self._loss_and_grads(batch, self._step)
         self._apply_update(grads)
+        # after the optimizer's step, as the JAX step returns
+        # {**frozen, **updates, **new_trainable}
+        self._params.update(updates)
         return loss, sums
 
     def train_batch(self, *arrays) -> torch.Tensor:
@@ -518,12 +538,15 @@ class FFModel:
         self._cached_grads = None
 
     def backward(self) -> torch.Tensor:
-        """Loss and gradients on the batch of ``set_batch``; folds the
+        """Loss and gradients on the batch of ``set_batch``; applies the
+        ops' non-trainable state updates at once (as the JAX package's
+        ``backward`` does; ``update`` leaves them alone), folds the
         batch's metrics into ``perf_metrics`` and returns the loss."""
         if self._batch is None:
             raise RuntimeError("set_batch() first")
-        loss, sums, self._cached_grads = self._loss_and_grads(
+        loss, sums, self._cached_grads, updates = self._loss_and_grads(
             self._batch, self._step)
+        self._params.update(updates)
         self.perf_metrics.update(sums)
         return loss
 

@@ -75,6 +75,11 @@ class OpContext:
     # FFConfig.flash_attention: False keeps attention off the flash
     # kernels (ops/attention.py states the selection rule)
     flash_attention: Optional[bool] = None
+    # non-trainable state an op hands back in training: {parameter name:
+    # new value} (BatchNorm's running statistics); the train step applies
+    # them after the optimizer's update.  Empty outside training
+    updates: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     def op_generator(self, uid: int) -> Optional[torch.Generator]:
         """The random stream of the op whose output has ``uid`` in this

@@ -4,8 +4,9 @@ Conv2D keeps OIHW weights and runs ``F.conv2d`` (the JAX package leaves
 the convolution to XLA, so cuDNN stands in for it here).  Pool2D's max
 pool goes through the hand-written kernels (``ops/cuda_pool.py``) for
 every floating tensor on a CUDA device, the forward kernel and, under
-autograd, the backward kernel; its average pool is plain torch, and
-autograd differentiates it.  Tensor metadata stays NCHW: under
+autograd, the backward kernel; its average pool is ``F.avg_pool2d``
+(the JAX op is XLA's reduce_window sum over kh*kw, padding counted),
+and autograd differentiates it.  Tensor metadata stays NCHW: under
 ``conv_layout="nhwc"`` the ops keep activations in
 ``torch.channels_last`` memory, and the max pool converts to
 channels-last at its own boundary in either layout, as the JAX ops
@@ -21,7 +22,7 @@ from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
 from .common import apply_activation, cast_compute
 from .cuda_pool import (max_pool_nhwc_autograd, max_pool_nhwc_reference,
-                        out_hw, window_slices)
+                        out_hw)
 
 
 class Conv2D(Op):
@@ -100,14 +101,14 @@ class Pool2D(Op):
         return [y]
 
     def _avg_pool(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the zero-padded windows / (kh*kw): padding counts in
-        the divisor, as the JAX op's reduce_window sum does."""
-        n, c, h, w = x.shape
-        ph, pw = self.padding
-        oh, ow = out_hw(h, w, self.kernel, self.stride, self.padding)
-        acc = x.float() if x.is_floating_point() else x
-        xp = F.pad(acc, (pw, pw, ph, ph))
-        s = None
-        for win in window_slices(xp, self.kernel, self.stride, (oh, ow)):
-            s = win if s is None else s + win
-        return (s / (self.kernel[0] * self.kernel[1])).to(x.dtype)
+        """The mean over each zero-padded window, padding counted in the
+        divisor kh*kw, as the JAX op's reduce_window sum divides.
+        ``F.avg_pool2d`` takes a padding of at most half the window, so a
+        larger one is applied as explicit zeros first.  It sums a bf16 or
+        f16 input in float32, where the JAX op sums in the input's dtype."""
+        (kh, kw), (ph, pw) = self.kernel, self.padding
+        if 2 * ph > kh or 2 * pw > kw:
+            x = F.pad(x, (pw, pw, ph, ph))
+            ph = pw = 0
+        return F.avg_pool2d(x, self.kernel, self.stride, (ph, pw),
+                            count_include_pad=True)

@@ -7,10 +7,13 @@ its source note gives the designs and the memory bounds.  The forward
 reads 16-byte channel vectors and walks each thread's run of windows
 column by column; the backward is one launch of one fused tile pass
 (stage x and g in shared memory, find each window's argmax there, gather
-dx), with no scratch in device memory.  The choices made on the host are
-plain functions here: :func:`vector_width` (channels per access, from C,
-the dtype and the pointers' alignment) and :func:`backward_plan` (the
-backward's tile: a band of rows and columns and a channel slice).
+dx), with no scratch in device memory, or, for a window that no tile
+holds, the window path: an argmax launch into an int32 scratch and a
+gather launch.  The choices made on the host are plain functions here:
+:func:`vector_width` (channels per access, from C, the dtype and the
+pointers' alignment), :func:`backward_plan` (the backward's tile: a band
+of rows and columns and a channel slice) and :func:`backward_route`
+(the tile or the window path).
 
 Every function takes and returns logical NCHW tensors.  The kernels read
 NHWC, which torch spells as ``torch.channels_last`` memory format under
@@ -49,6 +52,8 @@ BWD_MAX_CHAN_VECS = 32
 BWD_MIN_PIXEL_BYTES = 64
 BWD_MAX_BAND_ROWS = 16
 BWD_MIN_BLOCKS = 264
+# the most window positions the tiled backward's int16 offsets hold
+BWD_TILE_MAX_WINDOW = 32767
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -219,7 +224,8 @@ def backward_plan(n: int, c: int, h: int, w: int, kernel, stride,
     whole rows; the fewest x and g positions staged per position of the
     tensors (the halo of the edge windows); then the widest slice, the
     tallest band and the widest band of columns.  Raises ValueError when
-    a window is so large that no tile fits the card.  Cached: a training
+    a window is so large that no tile fits the card (such a window takes
+    the window path, :func:`backward_route`).  Cached: a training
     step asks for the same few shapes every time."""
     oh, ow = out_hw(h, w, kernel, stride, padding)
     (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
@@ -256,6 +262,30 @@ def backward_plan(n: int, c: int, h: int, w: int, kernel, stride,
     raise ValueError(
         f"max_pool_nhwc_backward: no tile of {kernel} windows at stride "
         f"{stride} fits the kernel's {BWD_SMEM_MAX} bytes of shared memory")
+
+
+class WindowPlan(NamedTuple):
+    """The backward's window path, for a window that no tile holds: an
+    argmax launch writes each window's offset to an int32 scratch shaped
+    like g, then a gather launch builds dx from it."""
+    vec: int   # channels per access
+
+
+@functools.lru_cache(maxsize=256)
+def backward_route(n: int, c: int, h: int, w: int, kernel, stride,
+                   padding, itemsize: int, vec: int):
+    """The backward's route for a CUDA tensor: :func:`backward_plan`'s
+    tile, or a :class:`WindowPlan` when the window has more positions
+    than the tile's int16 offsets hold (``BWD_TILE_MAX_WINDOW``) or no
+    tile of it fits the card's shared memory.  Chosen by shape alone,
+    so it runs (and is tested) without a card."""
+    if kernel[0] * kernel[1] > BWD_TILE_MAX_WINDOW:
+        return WindowPlan(vec)
+    try:
+        return backward_plan(n, c, h, w, kernel, stride, padding, itemsize,
+                             vec)
+    except ValueError:   # no tile fits
+        return WindowPlan(vec)
 
 
 def _geometry(fn: str, x: torch.Tensor, kernel, stride, padding):
@@ -325,13 +355,16 @@ def max_pool_nhwc_backward(x: torch.Tensor, g: torch.Tensor, kernel,
     """Gradient of :func:`max_pool_nhwc` with respect to ``x``, given the
     gradient ``g`` of its output.
 
-    CUDA tensors launch the backward kernel (one launch; its tile is
-    :func:`backward_plan`'s) or raise; CPU tensors take
+    CUDA tensors launch the backward kernels on the route of
+    :func:`backward_route` (the tiled kernel, one launch; or the window
+    path, two) or raise; CPU tensors take
     :func:`max_pool_nhwc_backward_reference`.  ``g`` may come in any
     memory format (the gradient that flows back through a
     reshape is NCHW-contiguous): it is made channels-last here.  The
     result is channels-last.  ``max_pool_nhwc_backward.launches`` counts
-    the kernel launches."""
+    the calls that launched, ``tile_launches`` and ``window_launches``
+    those of each route, and ``last_plan`` holds the last call's route
+    (a BackwardPlan or a WindowPlan)."""
     if x.device.type == "cpu" and g.device.type == "cpu":
         return max_pool_nhwc_backward_reference(x, g, kernel, stride,
                                                 padding)
@@ -346,33 +379,49 @@ def max_pool_nhwc_backward(x: torch.Tensor, g: torch.Tensor, kernel,
                          f"match the pool output {(n, c, oh, ow)} "
                          f"{x.dtype}")
     (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
-    if kh * kw > 32767:
-        raise ValueError(f"max_pool_nhwc_backward kernel keeps window "
-                         f"offsets in int16; a {kh}x{kw} window is too big")
+    if kh * kw > _INT32_MAX:
+        raise ValueError(f"max_pool_nhwc_backward kernels keep window "
+                         f"offsets in int32; a {kh}x{kw} window is too big")
     g = g.contiguous(memory_format=torch.channels_last)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     if dx.numel() == 0:
         return dx
-    plan = backward_plan(n, c, h, w, tuple(kernel), tuple(stride),
-                         tuple(padding), x.element_size(),
-                         vector_width(c, x.element_size(), x.data_ptr(),
-                                      g.data_ptr(), dx.data_ptr()))
+    plan = backward_route(n, c, h, w, tuple(kernel), tuple(stride),
+                          tuple(padding), x.element_size(),
+                          vector_width(c, x.element_size(), x.data_ptr(),
+                                       g.data_ptr(), dx.data_ptr()))
+    dev = x.device.index or 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().ff_max_pool_nhwc_bwd(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), code, plan.vec,
-        plan.band_rows, plan.band_cols, plan.chan_vecs, plan.smem_bytes, n,
-        h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, x.device.index or 0,
-        stream)
+    if isinstance(plan, WindowPlan):
+        # freed on return: the allocator reuses it only for work queued
+        # on this stream after the two launches
+        arg = torch.empty((n, oh, ow, c), dtype=torch.int32,
+                          device=x.device)
+        err = _library().ff_max_pool_nhwc_bwd_window(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), arg.data_ptr(), code,
+            plan.vec, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, dev,
+            stream)
+    else:
+        err = _library().ff_max_pool_nhwc_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), code, plan.vec,
+            plan.band_rows, plan.band_cols, plan.chan_vecs, plan.smem_bytes,
+            n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, dev, stream)
     if err != 0:
         raise RuntimeError(f"max_pool_nhwc_backward kernel launch failed: "
                            f"CUDA error {err}")
     max_pool_nhwc_backward.launches += 1
+    if isinstance(plan, WindowPlan):
+        max_pool_nhwc_backward.window_launches += 1
+    else:
+        max_pool_nhwc_backward.tile_launches += 1
     max_pool_nhwc_backward.last_plan = plan
     return dx
 
 
 max_pool_nhwc_backward.launches = 0
-max_pool_nhwc_backward.last_plan = None   # the tile of the last launch
+max_pool_nhwc_backward.tile_launches = 0
+max_pool_nhwc_backward.window_launches = 0
+max_pool_nhwc_backward.last_plan = None   # the route of the last launch
 
 
 class MaxPoolNHWC(torch.autograd.Function):
@@ -407,8 +456,9 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("max_pool_nhwc")
     if lib.ff_max_pool_nhwc.argtypes is None:
         # the forward's argtypes are set last: once another thread sees
-        # them, both functions are declared
-        for fn, n_ptr, n_int in ((lib.ff_max_pool_nhwc_bwd, 3, 19),
+        # them, every function is declared
+        for fn, n_ptr, n_int in ((lib.ff_max_pool_nhwc_bwd_window, 4, 15),
+                                 (lib.ff_max_pool_nhwc_bwd, 3, 19),
                                  (lib.ff_max_pool_nhwc, 2, 15)):
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * n_ptr

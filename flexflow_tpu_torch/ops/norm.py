@@ -1,5 +1,12 @@
-"""LayerNorm, the counterpart of ``flexflow_tpu/ops/norm.py::LayerNorm``
-(BatchNorm and RMSNorm come with the models that use them).
+"""BatchNorm and LayerNorm, the counterparts of the ops of the same name
+in ``flexflow_tpu/ops/norm.py`` (RMSNorm comes with the models that use
+it).
+
+BatchNorm is plain torch, as the JAX op is XLA: statistics in float32
+over (n, h, w), the population variance, and in training the running
+statistics come back through ``OpContext.updates`` as
+``m * running + (1 - m) * batch`` (``nn.BatchNorm2d`` weighs the other
+way and keeps an unbiased running variance, so its update is not used).
 
 With scale and bias, a CUDA tensor always goes through the fused
 LayerNorm kernel (``ops/cuda_norm.py``): the JAX package gates its Pallas
@@ -18,6 +25,46 @@ from ..initializers import ConstantInitializer, ZeroInitializer
 from ..op import Op, OpContext, OpType
 from .common import cast_compute
 from .cuda_norm import fused_layernorm_autograd
+
+
+class BatchNorm(Op):
+    """Batch normalization over the channels of an (n, c, h, w) tensor,
+    with a fused ReLU by default (reference batch_norm.cu)."""
+
+    op_type = OpType.BATCHNORM
+
+    def __init__(self, name, input_tensor, relu=True, momentum=0.9,
+                 eps=1e-5):
+        super().__init__(name, [input_tensor])
+        self.relu, self.momentum, self.eps = relu, momentum, eps
+        c = input_tensor.shape[1]
+        self._add_output(input_tensor.shape, input_tensor.dtype)
+        self.w_scale = self._add_weight((c,), ConstantInitializer(1.0),
+                                        "scale")
+        self.w_bias = self._add_weight((c,), ZeroInitializer(), "bias")
+        self.s_mean = self._add_weight((c,), ZeroInitializer(),
+                                       "running_mean", trainable=False)
+        self.s_var = self._add_weight((c,), ConstantInitializer(1.0),
+                                      "running_var", trainable=False)
+
+    def forward(self, params, inputs, ctx: OpContext):
+        xf = inputs[0].to(torch.float32)   # keeps channels_last memory
+        if ctx.training:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            ctx.updates[self.s_mean.name] = (
+                m * params[self.s_mean.name] + (1 - m) * mean)
+            ctx.updates[self.s_var.name] = (
+                m * params[self.s_var.name] + (1 - m) * var)
+        else:
+            mean = params[self.s_mean.name]
+            var = params[self.s_var.name]
+        inv = torch.rsqrt(var + self.eps) * params[self.w_scale.name]
+        y = ((xf - mean.reshape(1, -1, 1, 1)) * inv.reshape(1, -1, 1, 1)
+             + params[self.w_bias.name].reshape(1, -1, 1, 1))
+        if self.relu:
+            y = torch.relu(y)
+        return [cast_compute(y, ctx)]
 
 
 class LayerNorm(Op):

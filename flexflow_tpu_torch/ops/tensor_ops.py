@@ -1,8 +1,10 @@
-"""Flat, Softmax, Split, Reshape and Dropout, the counterparts of the ops
-of the same name in ``flexflow_tpu/ops/tensor_ops.py`` (Concat and
-Transpose come with the models that use them)."""
+"""Flat, Softmax, Concat, Split, Reshape and Dropout, the counterparts of
+the ops of the same name in ``flexflow_tpu/ops/tensor_ops.py`` (Transpose
+comes with the frontends that expose it)."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,6 +41,27 @@ class Softmax(Op):
     def forward(self, params, inputs, ctx):
         y = torch.softmax(inputs[0].to(torch.float32), dim=self.axis)
         return [cast_compute(y, ctx)]
+
+
+class Concat(Op):
+    """Concatenate along ``axis`` after promoting the inputs to their
+    common dtype (``jnp.result_type`` in the JAX op).  ``torch.cat``
+    keeps a memory format that all inputs share, so channels-last
+    branches concatenate on the channel axis into a channels-last
+    tensor."""
+
+    op_type = OpType.CONCAT
+
+    def __init__(self, name, input_tensors, axis):
+        super().__init__(name, list(input_tensors))
+        self.axis = axis
+        shape = list(input_tensors[0].shape)
+        shape[axis] = sum(t.shape[axis] for t in input_tensors)
+        self._add_output(tuple(shape), input_tensors[0].dtype)
+
+    def forward(self, params, inputs, ctx):
+        dt = functools.reduce(torch.promote_types, [x.dtype for x in inputs])
+        return [torch.cat([x.to(dt) for x in inputs], dim=self.axis)]
 
 
 class Split(Op):

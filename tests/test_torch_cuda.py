@@ -475,3 +475,105 @@ def test_layernorm_autograd_matches_plain_autograd(gen):
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+# The pools of ResNet-50 and InceptionV3 ((C, H, W), kernel, stride,
+# padding; the card tests run them at batch 8, the smoke at 64):
+# ResNet's padded stem pool and Inception's four stride-2 pools
+MODEL_POOLS = [
+    ((64, 112, 112), (3, 3), (2, 2), (1, 1)),
+    ((64, 147, 147), (3, 3), (2, 2), (0, 0)),
+    ((192, 73, 73), (3, 3), (2, 2), (0, 0)),
+    ((288, 36, 36), (3, 3), (2, 2), (0, 0)),
+    ((768, 17, 17), (3, 3), (2, 2), (0, 0)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw,kernel,stride,padding", MODEL_POOLS)
+def test_kernels_bit_equal_at_the_resnet_and_inception_pools(
+        gen, dtype, chw, kernel, stride, padding):
+    shape = (8,) + chw
+    for nan in (False, True):
+        x = _input(shape, dtype, gen, nan)
+        g = _gradient(shape, kernel, stride, padding, dtype, gen)
+        before = (cuda_pool.max_pool_nhwc.launches,
+                  cuda_pool.max_pool_nhwc_backward.tile_launches)
+        y = cuda_pool.max_pool_nhwc(x, kernel, stride, padding)
+        dx = cuda_pool.max_pool_nhwc_backward(x, g, kernel, stride, padding)
+        torch.cuda.synchronize()
+        assert (cuda_pool.max_pool_nhwc.launches,
+                cuda_pool.max_pool_nhwc_backward.tile_launches) == (
+                    before[0] + 1, before[1] + 1)
+        _assert_bit_equal(y, cuda_pool.max_pool_nhwc_reference(
+            x, kernel, stride, padding))
+        _assert_bit_equal(dx, cuda_pool.max_pool_nhwc_backward_reference(
+            x, g, kernel, stride, padding))
+
+
+# Windows the backward's tile cannot take, (N, C, H, W), kernel, stride,
+# padding, dtypes: no tile of one pixel fits the card's shared memory
+# (f32 past about 120 x 120, bf16/f16 past about 170 x 170 at stride 1;
+# padded and strided), or more than 32767 window positions
+LARGE_WINDOWS = [
+    ((1, 8, 256, 256), (128, 128), (1, 1), (0, 0), [torch.float32]),
+    ((1, 8, 352, 352), (172, 172), (1, 1), (0, 0),
+     [torch.bfloat16, torch.float16]),
+    ((2, 8, 200, 200), (130, 130), (2, 2), (40, 40), [torch.float32]),
+    ((1, 8, 192, 192), (184, 184), (1, 1), (0, 0),
+     [torch.float32, torch.bfloat16, torch.float16]),
+]
+
+
+@pytest.mark.parametrize("shape,kernel,stride,padding,dtype", [
+    (s, k, st, p, dt) for s, k, st, p, dts in LARGE_WINDOWS for dt in dts])
+def test_large_window_backward_takes_the_window_path(
+        gen, monkeypatch, shape, kernel, stride, padding, dtype):
+    """Bit-equal to the plain version, through the window path's two
+    launches, with no call to the plain version on the card; the
+    forward at the same window is bit-equal too."""
+    x = _input(shape, dtype, gen, nan=True)
+    g = _gradient(shape, kernel, stride, padding, dtype, gen)
+    plain = cuda_pool.max_pool_nhwc_backward_reference
+
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(cuda_pool, "max_pool_nhwc_backward_reference",
+                        refuse)
+    before = (cuda_pool.max_pool_nhwc_backward.launches,
+              cuda_pool.max_pool_nhwc_backward.window_launches,
+              cuda_pool.max_pool_nhwc_backward.tile_launches)
+    dx = cuda_pool.max_pool_nhwc_backward(x, g, kernel, stride, padding)
+    y = cuda_pool.max_pool_nhwc(x, kernel, stride, padding)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert (cuda_pool.max_pool_nhwc_backward.launches,
+            cuda_pool.max_pool_nhwc_backward.window_launches,
+            cuda_pool.max_pool_nhwc_backward.tile_launches) == (
+                before[0] + 1, before[1] + 1, before[2])
+    assert isinstance(cuda_pool.max_pool_nhwc_backward.last_plan,
+                      cuda_pool.WindowPlan)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    _assert_bit_equal(dx, plain(x, g, kernel, stride, padding))
+    _assert_bit_equal(y, cuda_pool.max_pool_nhwc_reference(x, kernel, stride,
+                                                           padding))
+
+
+def test_concat_of_channels_last_branches_stays_channels_last(gen):
+    """An Inception module's branches (a conv output and a max-pool
+    output, both channels-last) concatenate on the channel axis into a
+    channels-last tensor on the card."""
+    from flexflow_tpu_torch.op import OpContext
+    from flexflow_tpu_torch.ops.tensor_ops import Concat
+    from flexflow_tpu_torch.tensor import Tensor
+
+    a = _input((4, 96, 17, 17), torch.bfloat16, gen)
+    b = cuda_pool.max_pool_nhwc(_input((4, 288, 35, 35), torch.bfloat16, gen),
+                                (3, 3), (2, 2), (0, 0))
+    op = Concat("concat", [Tensor(tuple(a.shape)), Tensor(tuple(b.shape))],
+                1)
+    (y,) = op.forward({}, [a, b], OpContext(device=torch.device("cuda"),
+                                            conv_layout="nhwc"))
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, torch.cat([a.contiguous(), b.contiguous()], 1))

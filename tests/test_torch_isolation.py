@@ -78,3 +78,14 @@ def test_the_transformer_slice_modules_are_checked(module):
     assert module in _modules()
     path = os.path.join(REPO, *module.split(".")) + ".py"
     assert path in _port_sources()
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.models.resnet", "flexflow_tpu_torch.models.inception",
+    "flexflow_tpu_torch.ops.conv", "flexflow_tpu_torch.ops.cuda_pool"])
+def test_the_cnn_slice_modules_are_checked(module):
+    """The ResNet-50 and InceptionV3 slice's modules are among those the
+    import and parse tests above check."""
+    assert module in _modules()
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    assert path in _port_sources()

@@ -328,3 +328,42 @@ def test_plain_forward_keeps_the_sign_of_the_first_zero(dtype, first):
     assert float(y[0, 0, 0, 0]) == 0.0
     assert torch.signbit(y[0, 0, 0, 0]) == (str(first) == "-0.0")
     assert torch.isnan(y[0, 0, 0, 1])
+
+
+# (N, C, H, W), kernel, stride, padding, itemsize, vec, route: the
+# pools of ResNet-50 and InceptionV3 at batch 64, and windows past what
+# a tile holds (no tile of one pixel fits 227 KB of shared memory, or
+# more than 32767 window positions for the tile's int16 offsets)
+ROUTES = [
+    ((64, 64, 112, 112), (3, 3), (2, 2), (1, 1), 2, 8, "tile"),
+    ((64, 64, 147, 147), (3, 3), (2, 2), (0, 0), 2, 8, "tile"),
+    ((64, 288, 36, 36), (3, 3), (2, 2), (0, 0), 4, 4, "tile"),
+    ((1, 8, 160, 160), (128, 128), (1, 1), (0, 0), 4, 4, "tile"),
+    ((1, 8, 256, 256), (128, 128), (1, 1), (0, 0), 4, 4, "window"),
+    ((1, 8, 256, 256), (128, 128), (1, 1), (0, 0), 2, 8, "tile"),
+    ((1, 8, 352, 352), (172, 172), (1, 1), (0, 0), 2, 8, "window"),
+    ((1, 8, 192, 192), (184, 184), (1, 1), (0, 0), 2, 8, "window"),
+    ((2, 8, 192, 192), (184, 184), (1, 1), (0, 0), 4, 4, "window"),
+    ((1, 3, 300, 300), (200, 180), (1, 1), (0, 0), 4, 1, "window"),
+]
+
+
+@pytest.mark.parametrize("shape,kernel,stride,padding,itemsize,vec,route",
+                         ROUTES)
+def test_backward_route_picks_the_path_by_shape(shape, kernel, stride,
+                                                padding, itemsize, vec,
+                                                route):
+    """The tiled kernel where a tile fits and the offsets fit int16,
+    else the window path."""
+    n, c, h, w = shape
+    plan = cuda_pool.backward_route(n, c, h, w, kernel, stride, padding,
+                                    itemsize, vec)
+    if route == "tile":
+        assert plan == cuda_pool.backward_plan(n, c, h, w, kernel, stride,
+                                               padding, itemsize, vec)
+        return
+    assert plan == cuda_pool.WindowPlan(vec)
+    if kernel[0] * kernel[1] <= cuda_pool.BWD_TILE_MAX_WINDOW:
+        with pytest.raises(ValueError, match="no tile"):
+            cuda_pool.backward_plan(n, c, h, w, kernel, stride, padding,
+                                    itemsize, vec)
