@@ -61,7 +61,22 @@
    step, the loss falls on a repeated batch), ResNet-50 with BatchNorm
    (every running statistic moves and ``evaluate`` reads them), and small
    float32 steps of each on the card against their CPU twins;
-13. prints each phase's seconds, one ``kernels`` JSON line and, last,
+13. zoo phases (DLRM with four 1,000,000-row tables, batch 2048;
+   CANDLE-Uno at its builder's defaults, batch 256; NMT, vocab 20000,
+   2048 wide, 2 + 2 LSTM layers, 24 tokens, batch 256; bf16, random
+   weights from seed 0, plain SGD): serving through ``ServingEngine``
+   (buckets up to 2048, 256 and 32; 8 closed-loop clients, 2 rounds of
+   400 requests, each round's rows/s and latency p50/p99), ``fit`` and
+   10 ``train_batch`` steps on one batch (the mean of the last 3 losses
+   under the first), a timed and profiled step
+   (NMT's share of GEMM kernels); DLRM's tables on the sparse update
+   path, 3 sparse steps held against 3 dense ones from the same weights
+   (untouched rows bit-unchanged), both steps timed, and a batch with
+   ids -1 and rows + 3 (no device assert, NaN only where the reference
+   puts it); small float32 versions of the three, 3 steps on the card
+   against their CPU twins.  No TPU kernel is on these paths: the five
+   launch counts stay 0;
+14. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
 Any failure raises and exits non-zero before the ok line.  Needs one
@@ -151,6 +166,49 @@ BERT = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
 BERT_BATCH = 16
 # steps of the repeated-batch check (see transformer_train_phase)
 REPEAT_STEPS = 24
+# the sequence and recommendation zoo at bench.py's configurations:
+# DLRM with four 1,000,000-row tables of 64, bag 1, batch 2048, SGD 0.01
+# (mlp_top[0] is the interaction's width, 64 + 4 x 64: the builders'
+# default of 576 does not build); CANDLE-Uno at its builder's defaults,
+# batch 256, SGD 0.001; NMT (BASELINE.md config 4), batch 256, SGD 0.01,
+# served at batch buckets up to 32
+DLRM = dict(embedding_size=(1_000_000,) * 4, sparse_feature_size=64,
+            embedding_bag_size=1, mlp_bot=(256, 512, 64),
+            mlp_top=(320, 512, 256, 1))
+NMT = dict(vocab_size=20000, embed_dim=2048, hidden_dim=2048, num_layers=2,
+           src_len=24, tgt_len=24)
+ZOO = {  # builder, its arguments, training batch, serving batch, SGD lr
+    "dlrm": ("build_dlrm", DLRM, 2048, 2048, 0.01),
+    "candle_uno": ("build_candle_uno", {}, 256, 256, 0.001),
+    "nmt": ("build_nmt", NMT, 256, 32, 0.01),
+}
+# serving: ZOO_CLIENTS client threads, each sending one request at a
+# time and the next when it returns, ZOO_REQUESTS requests a round over
+# ZOO_ROUNDS rounds; sizes log-uniform from 1 row to the serving batch,
+# drawn once, so the rounds repeat one load.
+# The rows of the first ZOO_CHECKED requests are held against predict()
+ZOO_CLIENTS = 8
+ZOO_REQUESTS = 400
+ZOO_ROUNDS = 2
+ZOO_CHECKED = 32
+ZOO_FIT_BATCHES = 4
+ZOO_REPEAT_STEPS = 10
+# DLRM's sparse steps against its dense steps on the card: every
+# parameter within this.  The paths add the same terms; index_add_ sums
+# a duplicate id's rows with atomics, the dense gradient in its own order
+SPARSE_DENSE_TOL = 1e-6
+# small float32 versions of the zoo for the card-against-CPU steps
+ZOO_SMALL = {
+    "dlrm": dict(embedding_size=(1000, 2000, 3000, 4000),
+                 sparse_feature_size=16, mlp_bot=(32, 64, 16),
+                 mlp_top=(80, 64, 32, 1)),
+    "candle_uno": dict(dense_layers=(64, 32), dense_feature_layers=(64, 64),
+                       feature_shapes={"dose": 1, "cell.rnaseq": 64,
+                                       "drug.descriptors": 128,
+                                       "drug.fingerprints": 96}),
+    "nmt": dict(vocab_size=500, embed_dim=64, hidden_dim=64, num_layers=2,
+                src_len=12, tgt_len=12),
+}
 # flash attention against its plain version (TF32 off): f32 outputs
 # and gradients within these; bf16 within FLASH_LOW_TOL of the largest
 # reference value.  The kernel sums in another order: not bit-equal
@@ -269,9 +327,10 @@ def host_us(fn, xs, iters: int, spin_cycles: int = 200_000_000) -> float:
 
 
 def kernel_breakdown(fn, steps: int, card: str,
-                     what: str = "forward") -> None:
+                     what: str = "forward") -> list:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch
-    profiler), and the device's busy share of the window's wall time."""
+    profiler), and the device's busy share of the window's wall time;
+    returns the (kernel name, device µs over all calls) rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -292,7 +351,7 @@ def kernel_breakdown(fn, steps: int, card: str,
     if not total:
         print("kernel breakdown: the profiler saw no device time "
               "(not measured)")
-        return
+        return []
     rows.sort(key=lambda r: -r[1])
     print(f"kernel breakdown over {steps} {what}s: device busy "
           f"{total / steps / 1e3:.3f} ms per {what}, "
@@ -301,6 +360,7 @@ def kernel_breakdown(fn, steps: int, card: str,
     for name, t in rows[:10]:
         print(f"  {100 * t / total:5.1f}%  {t / steps / 1e3:8.4f} ms  "
               f"{name[:90]}")
+    return rows
 
 
 def rand_input(shape, dtype, gen, kind="normal"):
@@ -1554,6 +1614,375 @@ def transformer_f32_step_check(ft, counters) -> None:
           f"{F32_STEP_TOL})")
 
 
+def build_zoo(ft, name: str, batch: int, device=None, **overrides):
+    """A zoo model compiled with plain SGD (its embedding tables on the
+    sparse update path unless ``sparse_embedding_updates`` is False)."""
+    from flexflow_tpu_torch import models
+
+    builder, kw, _, _, lr = ZOO[name]
+    sparse = overrides.pop("sparse_embedding_updates", None)
+    cfg = ft.FFConfig(batch_size=batch, compute_dtype=overrides.pop(
+        "compute_dtype", "bfloat16"), seed=SEED,
+        sparse_embedding_updates=sparse)
+    model, _, _ = getattr(models, builder)(cfg, device=device,
+                                           **{**kw, **overrides})
+    last = model.layers[-1]
+    if last.op_type == ft.OpType.MSELOSS:   # sets the loss and metric
+        model.compile(ft.SGDOptimizer(lr=lr), metrics=[],
+                      final_tensor=last.outputs[0])
+    else:                                   # NMT: per-token sparse CE
+        model.compile(ft.SGDOptimizer(lr=lr),
+                      "sparse_categorical_crossentropy",
+                      ["accuracy", "sparse_categorical_crossentropy"])
+    model.init_layers(seed=SEED)
+    return model
+
+
+def zoo_batch(model, n: int, rng):
+    """``n`` rows of inputs for ``model`` and their labels: ids drawn
+    over the rows of the table each id input feeds, float features from
+    a normal, next-token labels for a sequence model (its last input
+    shifted) and targets in [0, 1) for a regression head."""
+    import numpy as np
+    from flexflow_tpu_torch.ops.linear import Embedding
+
+    xs = []
+    for t in model.input_tensors:
+        shape = (n,) + tuple(t.shape[1:])
+        if t.dtype == "int32":
+            rows = next(op.num_entries for op in model.layers
+                        if isinstance(op, Embedding)
+                        and op.inputs[0].uid == t.uid)
+            xs.append(rng.integers(0, rows, shape).astype(np.int32))
+        else:
+            xs.append(rng.standard_normal(shape).astype(np.float32))
+    if model.label_tensor.dtype == "int32":
+        return xs, np.roll(xs[-1], -1, axis=1)
+    return xs, rng.random((n, 1)).astype(np.float32)
+
+
+def zoo_serve(ft, name: str, model, card: str) -> None:
+    """Serve ``model`` through ServingEngine: ZOO_CLIENTS closed-loop
+    clients over ZOO_ROUNDS rounds of ZOO_REQUESTS requests, each
+    round's rows/s and client-side latency p50/p99.  Every output's
+    shape is checked; the first ZOO_CHECKED requests' rows are held
+    against predict() (finite, and for NMT probabilities summing to 1)."""
+    import numpy as np
+
+    max_batch = ZOO[name][3]
+    t0 = time.perf_counter()
+    engine = ft.ServingEngine(model, max_batch=max_batch)
+    print(f"{name} engine warmup (buckets {engine.buckets}): "
+          f"{time.perf_counter() - t0:.3f}s")
+    rng = np.random.default_rng(SEED)
+    out_shape = tuple(model._final_tensor.shape[1:])
+    checked = []    # (inputs, outputs) of the first ZOO_CHECKED requests
+    latencies, rates = [], []
+
+    def client(reqs, lat, keep) -> None:
+        for i, x in reqs:
+            t = time.perf_counter()
+            y = engine.submit(*x).result(timeout=300)
+            lat.append(time.perf_counter() - t)
+            assert y.shape == (x[0].shape[0],) + out_shape, y.shape
+            if keep and i < ZOO_CHECKED:
+                checked.append((i, x, y))
+
+    # each round sends requests of the same sizes, in the same order
+    sizes = np.minimum(np.exp(rng.uniform(
+        0, np.log(max_batch + 1), ZOO_REQUESTS)).astype(int), max_batch)
+    with engine:
+        for r in range(ZOO_ROUNDS):
+            xall, _ = zoo_batch(model, int(sizes.sum()), rng)
+            if r == 0:
+                x0 = xall
+            cuts = np.cumsum(sizes)[:-1]
+            reqs = list(enumerate(zip(*[np.split(a, cuts) for a in xall])))
+            lats = [[] for _ in range(ZOO_CLIENTS)]
+            before = engine.stats()["dispatches"]
+            t0 = time.perf_counter()
+            threads = [threading.Thread(
+                target=client, args=(reqs[c::ZOO_CLIENTS], lats[c], r == 0))
+                for c in range(ZOO_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                assert not th.is_alive(), "client thread did not finish"
+            wall = time.perf_counter() - t0
+            stats = engine.stats()
+            lat = np.array([v for c in lats for v in c]) * 1e3
+            assert lat.size == ZOO_REQUESTS, lat.size
+            latencies.append(lat)
+            rates.append(sizes.sum() / wall)
+            p50, p99 = np.percentile(lat, [50, 99])
+            print(f"{name} serve round {r}: {ZOO_REQUESTS} requests "
+                  f"({sizes.sum()} rows, 1-{sizes.max()} a request) from "
+                  f"{ZOO_CLIENTS} closed-loop clients, "
+                  f"{stats['dispatches'] - before} dispatches, "
+                  f"{rates[-1]:.1f} rows/s, latency p50 {p50:.3f} ms, "
+                  f"p99 {p99:.3f} ms [{card}]")
+    assert stats["requests"] == ZOO_ROUNDS * ZOO_REQUESTS and \
+        stats["errors"] == 0, stats
+    checked.sort(key=lambda c: c[0])
+    xs = [np.concatenate(c) for c in zip(*[x for _, x, _ in checked])]
+    ys = np.concatenate([y for _, _, y in checked])
+    assert np.isfinite(ys).all(), "non-finite outputs"
+    if name == "nmt":   # per-token probabilities over the vocabulary
+        np.testing.assert_allclose(ys.sum(axis=-1), 1.0, atol=1e-2)
+    ref = model.predict(xs, batch_size=max_batch)
+    err = float(np.abs(ys - ref).max())
+    assert err <= 1e-2, f"engine vs predict max abs err {err}"
+    lat = np.concatenate(latencies)
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"{name} serve: {lat.size} requests over {ZOO_ROUNDS} rounds, "
+          f"output rows {out_shape} ({ys[0].nbytes} bytes each), rows/s "
+          f"by round {[round(float(v), 1) for v in rates]}, latency p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms; mean dispatch "
+          f"{stats['dispatch_ms']} ms wall; engine vs predict max abs err "
+          f"{err:.3g} over the first {len(checked)} requests "
+          f"({ys.shape[0]} rows) [{card}]")
+    xb = model._to_device(tuple(a[:max_batch] for a in x0))
+    fwd = model.forward_compiled(max_batch)
+    fwd_ms = time_ms(lambda t: fwd(model._params, t), [xb], 10,
+                     spin_cycles=1_000_000_000)
+    print(f"{name} forward at batch {max_batch} (bf16): {fwd_ms:.4f} ms "
+          f"device time; engine dispatch (pack + forward + fetch) mean "
+          f"{stats['dispatch_ms']} ms wall [{card}]")
+    kernel_breakdown(lambda: fwd(model._params, xb), 3, card)
+
+
+def time_step(model, batch, card: str, label: str) -> list:
+    """A training step's device time (events behind a GPU spin) and wall
+    time, then its device time by kernel; returns the kernel rows."""
+    import torch
+
+    step_ms = time_ms(lambda b: model.train_batch(*b), [batch], 5,
+                      spin_cycles=3_000_000_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.train_batch(*batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"{label} training step at batch {batch[0].shape[0]}: "
+          f"{step_ms:.4f} ms device time, {wall_ms:.4f} ms wall per step "
+          f"over 5 steps [{card}]")
+    return kernel_breakdown(lambda: model.train_batch(*batch), 2, card,
+                            what="training step")
+
+
+def zoo_train(ft, name: str, model, card: str) -> None:
+    """fit() over a few batches, then ZOO_REPEAT_STEPS train_batch steps
+    on one batch (the loss must fall), then a timed, profiled step."""
+    import numpy as np
+    import torch
+
+    batch = ZOO[name][2]
+    rng = np.random.default_rng(SEED + 1)
+    xs, y = zoo_batch(model, ZOO_FIT_BATCHES * batch, rng)
+    record = EpochLosses()
+    out = io.StringIO()
+    step0 = model._step
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model.fit(xs, y, epochs=1, callbacks=[record])
+    fit_s = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text, end="")
+    assert model._step == step0 + ZOO_FIT_BATCHES, model._step
+    assert "epoch 0: " in text and "THROUGHPUT = " in text, text
+    fit_losses = record.epochs[0]
+    assert np.isfinite(fit_losses).all(), fit_losses
+    print(f"{name} fit: {ZOO_FIT_BATCHES} steps at batch {batch}, losses "
+          f"{[round(float(v), 6) for v in fit_losses]}, {fit_s:.3f}s wall "
+          f"[{card}]")
+
+    xb = model._to_device(tuple(a[:batch] for a in xs) + (y[:batch],))
+    losses = torch.stack([model.train_batch(*xb)
+                          for _ in range(ZOO_REPEAT_STEPS)]).cpu().numpy()
+    assert np.isfinite(losses).all(), losses
+    # the mean of the last three steps, not one value: NMT's loss at lr
+    # 0.01 falls about 2.5e-6 a step, a few float32 ulps of its 9.9
+    tail = float(losses[-3:].astype(np.float64).mean())
+    assert tail < losses[0], f"loss did not fall: {losses}"
+    print(f"{name} train_batch x{ZOO_REPEAT_STEPS} on one batch (SGD lr "
+          f"{ZOO[name][4]}): loss {losses[0]:.7f} -> mean of the last 3 "
+          f"{tail:.7f} ({losses.tolist()})")
+    rows = time_step(model, xb, card, f"{name} (bf16)")
+    if rows:
+        total = sum(t for _, t in rows)
+        gemm = sum(t for k, t in rows if "gemm" in k.lower())
+        print(f"{name} step: kernels named gemm (the float32 products of "
+              f"the cast operands) {100 * gemm / total:.1f}% of device "
+              f"busy time [{card}]")
+    return xb
+
+
+def dlrm_sparse_checks(ft, model, xb, card: str) -> None:
+    """DLRM's sparse path on the card: the tables leave the optimizer's
+    dict; 3 sparse steps against 3 dense steps from the same weights;
+    the time of each step; a batch with ids -1 and rows + 3."""
+    import numpy as np
+    import torch
+
+    batch = ZOO["dlrm"][2]
+    tables = [tname for _, tname, _ in model._sparse_specs]
+    assert len(tables) == 4, model._sparse_specs
+    _, _, grads, _, row_grads = model._loss_and_grads(xb, model._step,
+                                                      sparse=True)
+    assert not set(tables) & set(grads) and len(row_grads) == 4
+    del grads, row_grads
+    print(f"dlrm sparse path: {len(tables)} tables, absent from the "
+          f"optimizer's dict; their row gradients "
+          f"({batch}, {DLRM['embedding_bag_size']}, "
+          f"{DLRM['sparse_feature_size']}) each")
+
+    rng = np.random.default_rng(SEED + 2)
+    models = {}
+    for sparse in (None, False):
+        m = build_zoo(ft, "dlrm", batch, sparse_embedding_updates=sparse)
+        models[sparse] = m
+    ms, md = models[None], models[False]
+    assert len(ms._sparse_specs) == 4 and not md._sparse_specs
+    w0 = {k: v.clone() for k, v in ms._params.items() if k in tables}
+    batches = []
+    for _ in range(3):
+        xs, y = zoo_batch(ms, batch, rng)
+        batches.append(ms._to_device(xs + [y]))
+    ls = torch.stack([ms.train_batch(*b) for b in batches]).cpu().numpy()
+    ld = torch.stack([md.train_batch(*b) for b in batches]).cpu().numpy()
+    loss_err = float(np.abs(ls - ld).max() / np.abs(ld).max())
+    assert loss_err <= 1e-5, (ls, ld)
+    param_err = max(float((ms._params[k] - md._params[k]).abs().max())
+                    for k in md._params)
+    assert param_err <= SPARSE_DENSE_TOL, param_err
+    moved = kept = 0
+    for i, t in enumerate(tables):
+        ids = torch.unique(torch.cat([b[i].reshape(-1) for b in batches]))
+        touched = torch.zeros(DLRM["embedding_size"][i], dtype=torch.bool,
+                              device=ms.device)
+        touched[ids.long()] = True
+        assert torch.equal(bits(ms._params[t][~touched]),
+                           bits(w0[t][~touched])), t
+        assert torch.equal(bits(md._params[t][~touched]),
+                           bits(w0[t][~touched])), t
+        moved += int((ms._params[t][touched] != w0[t][touched]).any(1).sum())
+        kept += int((~touched).sum())
+    print(f"dlrm 3 sparse steps vs 3 dense steps (bf16, same weights): "
+          f"losses {ls.tolist()} vs {ld.tolist()} (relative err "
+          f"{loss_err:.3g}), max abs err over every parameter "
+          f"{param_err:.3g} (tolerance {SPARSE_DENSE_TOL}); {moved} "
+          f"touched rows moved, {kept} untouched rows bit-unchanged on "
+          f"both paths [{card}]")
+    del w0
+    for sparse, label in ((None, "sparse"), (False, "dense")):
+        time_step(models[sparse], batches[0], card, f"dlrm {label} (bf16)")
+
+    # ids -1 (wraps to the last row) and rows + 3 (a NaN row, its
+    # gradient dropped) in table 0, on both paths
+    rows0 = DLRM["embedding_size"][0]
+    bad = [b.clone() for b in batches[0]]
+    bad[0][0, 0], bad[0][1, 0] = -1, rows0 + 3
+    wrapped = [b.clone() for b in bad]
+    wrapped[0][0, 0] = rows0 - 1
+    fwd = ms.forward_compiled(batch)
+    p_bad = fwd(ms._params, bad[:-1]).float()
+    p_wrap = fwd(ms._params, wrapped[:-1]).float()
+    assert torch.isnan(p_bad[1]).all() and torch.isfinite(p_bad[0]).all()
+    assert torch.isnan(p_bad).sum() == p_bad.shape[1]
+    assert torch.equal(p_bad[0], p_wrap[0])
+    last0 = {s: m._params[tables[0]][rows0 - 1].clone()
+             for s, m in models.items()}
+    out = {}
+    for sparse, m in models.items():
+        loss = float(m.train_batch(*bad))
+        torch.cuda.synchronize()
+        assert np.isnan(loss), loss
+        assert all(torch.isfinite(m._params[t]).all() for t in tables)
+        assert not torch.equal(m._params[tables[0]][rows0 - 1],
+                               last0[sparse])
+        out[sparse] = {k: v for k, v in m._params.items()}
+    nan_params = sorted(k for k, v in out[None].items()
+                        if torch.isnan(v).any())
+    for k in out[False]:
+        a, b = out[None][k], out[False][k]
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+        d = (a - b).abs()[~torch.isnan(a)]
+        assert d.numel() == 0 or float(d.max()) <= SPARSE_DENSE_TOL, k
+    print(f"dlrm batch with ids -1 and {rows0 + 3} in {tables[0]}: the row "
+          f"of id {rows0 + 3} predicts NaN, the row of -1 predicts as id "
+          f"{rows0 - 1} (bit-equal); one step on each path: loss NaN, no "
+          f"device assert, every table finite, row {rows0 - 1} moved, the "
+          f"same NaN parameters on both paths ({nan_params}) [{card}]")
+
+
+def zoo_phase(ft, name: str, card: str, counters) -> None:
+    """Serve and train one zoo model at full width in bf16 (random
+    weights from SEED).  None of the repo's TPU kernels is on its path:
+    their counts stay 0."""
+    import torch
+
+    reset_counts(*counters)
+    batch = ZOO[name][2]
+    t0 = time.perf_counter()
+    model = build_zoo(ft, name, batch)   # on cuda
+    print(f"{name}: {model.num_parameters} parameters, {len(model.layers)} "
+          f"ops, sparse embedding tables {len(model._sparse_specs)}, built "
+          f"and initialised in {time.perf_counter() - t0:.3f}s")
+    zoo_serve(ft, name, model, card)
+    xb = zoo_train(ft, name, model, card)
+    if name == "dlrm":
+        dlrm_sparse_checks(ft, model, xb, card)
+    launches = [fn.launches for fn in counters]
+    assert launches == [0] * len(counters), launches
+    del model, xb
+    torch.cuda.empty_cache()
+
+
+def zoo_f32_step_checks(ft) -> None:
+    """Small float32 versions of the zoo: 3 SGD steps on the card against
+    their CPU twins (same seed, same weights and batches); DLRM also with
+    ids -1 and rows + 3, whose NaN parameters must match."""
+    import numpy as np
+
+    for name, kw in ZOO_SMALL.items():
+        runs = []
+        for device in ("cuda", "cpu"):
+            m = build_zoo(ft, name, 16, device=device,
+                          compute_dtype="float32", **kw)
+            rng = np.random.default_rng(SEED)
+            batches = [zoo_batch(m, 16, rng) for _ in range(3)]
+            if name == "dlrm":
+                bad = [a.copy() for a in batches[2][0]]
+                bad[0][0, 0] = -1
+                bad[0][1, 0] = kw["embedding_size"][0] + 3
+                batches.append((bad, batches[2][1]))
+            losses = [float(m.train_batch(*x, y)) for x, y in batches]
+            runs.append((np.array(losses), {p.name: m.get_weights(p.name)
+                                            for p in m.parameters}))
+        (l_c, w_c), (l_h, w_h) = runs
+        assert np.array_equal(np.isnan(l_c), np.isnan(l_h)), (l_c, l_h)
+        ok = ~np.isnan(l_h)
+        loss_err = float(np.abs(l_c[ok] - l_h[ok]).max())
+        param_err = 0.0
+        for k in w_h:
+            nan = np.isnan(w_h[k])
+            assert np.array_equal(np.isnan(w_c[k]), nan), k
+            if (~nan).any():
+                param_err = max(param_err, float(
+                    np.abs(w_c[k][~nan] - w_h[k][~nan]).max()))
+        assert loss_err <= F32_STEP_TOL and param_err <= F32_STEP_TOL, (
+            name, loss_err, param_err)
+        extra = (", then a step with ids -1 and rows + 3: NaN in the same "
+                 f"{sum(np.isnan(v).any() for v in w_h.values())} "
+                 f"parameters" if name == "dlrm" else "")
+        print(f"f32 {name} 3 SGD steps cuda vs cpu: losses "
+              f"{np.round(l_c, 6).tolist()}, max abs err {loss_err:.3g}, "
+              f"max abs err over the parameters {param_err:.3g} (tolerance "
+              f"{F32_STEP_TOL}){extra}")
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1603,9 +2032,6 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     card = card_line()
     print(card)
-    build_all(kernels)
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     seconds = {}
 
     def phase(label, fn, *args):
@@ -1615,6 +2041,14 @@ def main() -> int:
         print(f"phase {label}: {seconds[label]}s")
         return out
 
+    counters = (cuda_attention.flash_attention_forward,
+                cuda_attention.flash_attention_backward,
+                cuda_norm.fused_layernorm)
+    kernel_counters = counters + (cuda_pool.max_pool_nhwc,
+                                  cuda_pool.max_pool_nhwc_backward)
+
+    build_all(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     kp = phase("pool forward kernel", kernel_phase, cuda_pool, gen)
     bp = phase("pool backward kernel", backward_kernel_phase, cuda_pool, gen)
     fp = phase("flash kernels", flash_phase, cuda_attention, gen, card)
@@ -1628,14 +2062,14 @@ def main() -> int:
                             card, name)
     phase("resnet50 batch_norm", batchnorm_phase, ft, cuda_pool, card)
     phase("cnn f32 steps", cnn_f32_step_checks, ft, cuda_pool)
-    counters = (cuda_attention.flash_attention_forward,
-                cuda_attention.flash_attention_backward,
-                cuda_norm.fused_layernorm)
     tserve = phase("transformer serve", transformer_serve_phase, ft,
                    counters, card)
     ttrain = phase("transformer train", transformer_train_phase, ft,
                    counters, card)
     phase("transformer f32 step", transformer_f32_step_check, ft, counters)
+    for name in ZOO:
+        phase(name, zoo_phase, ft, name, card, kernel_counters)
+    phase("zoo f32 steps", zoo_f32_step_checks, ft)
     print("phase seconds: " + json.dumps(seconds))
 
     def sums(rows):

@@ -15,13 +15,17 @@ from .initializers import (ConstantInitializer, GlorotUniform,
                            ZeroInitializer)
 from .metrics import PerfMetrics
 from .model import FFModel
-from .models import (build_alexnet, build_inception_v3, build_resnet50,
-                     build_transformer, build_transformer_lm)
+from .models import (build_alexnet, build_candle_uno, build_dlrm,
+                     build_inception_v3, build_lstm_lm, build_nmt,
+                     build_resnet50, build_transformer,
+                     build_transformer_lm)
 from .op import Op, OpContext, OpType
 from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.elementwise import ElementBinary
 from .ops.linear import Embedding, Linear
+from .ops.loss_ops import MSELoss
 from .ops.norm import BatchNorm, LayerNorm
+from .ops.rnn import LSTM
 from .ops.tensor_ops import Concat, Dropout, Reshape, Split
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .serving import (DeadlineExceeded, OverloadError, ServingEngine,
@@ -32,10 +36,12 @@ __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "ParallelConfig", "ConstantInitializer", "GlorotUniform",
            "NormInitializer", "UniformInitializer", "ZeroInitializer",
            "FFModel", "Op", "OpContext", "OpType", "DeadlineExceeded",
-           "build_alexnet", "build_inception_v3", "build_resnet50",
-           "build_transformer", "build_transformer_lm",
+           "build_alexnet", "build_candle_uno", "build_dlrm",
+           "build_inception_v3", "build_lstm_lm", "build_nmt",
+           "build_resnet50", "build_transformer", "build_transformer_lm",
            "MultiHeadAttention", "PositionEmbedding", "ElementBinary",
-           "Embedding", "Linear", "BatchNorm", "LayerNorm", "Concat",
+           "Embedding", "Linear", "LSTM", "MSELoss", "BatchNorm",
+           "LayerNorm", "Concat",
            "Dropout", "Reshape", "Split",
            "OverloadError", "ServingEngine", "ServingError", "SheddedError",
            "Parameter", "Tensor", "PerfMetrics", "AdamOptimizer",

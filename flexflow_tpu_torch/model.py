@@ -8,7 +8,8 @@ single-device plan, ``init_layers`` creates the parameters and the
 optimizer state on the model's device, ``train_batch``/``fit``/
 ``evaluate`` train and evaluate eagerly with autograd (on CUDA the max
 pools' and the flash attention's gradients come from their hand-written
-backward kernels), and
+backward kernels; plain SGD updates eligible embedding tables row by
+row, ``_sparse_embedding_specs``), and
 ``forward_compiled``/``predict`` run the forward under
 ``torch.inference_mode()``.
 
@@ -38,8 +39,10 @@ from .ops.common import resolve_op_dtype, torch_dtype
 from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.conv import Conv2D, Pool2D
 from .ops.elementwise import ElementBinary
-from .ops.linear import Embedding, Linear
+from .ops.linear import Embedding, Linear, map_ids, take_rows
+from .ops.loss_ops import MSELoss
 from .ops.norm import BatchNorm, LayerNorm
+from .ops.rnn import LSTM
 from .ops.tensor_ops import Concat, Dropout, Flat, Reshape, Softmax, Split
 from .optimizers import SGDOptimizer
 from .tensor import Parameter, Tensor
@@ -79,6 +82,7 @@ class FFModel:
         self._compiled = False
         self._params: Dict[str, torch.Tensor] = {}
         self._fwd_compiled: Dict[int, Callable] = {}
+        self._sparse_specs: List[tuple] = []
         self._opt_state = None
         self._step = 0
         self._batch: Optional[tuple] = None
@@ -153,6 +157,15 @@ class FFModel:
                        num_entries, out_dim, aggr, kernel_initializer)
         return self._register(op).outputs[0]
 
+    def lstm(self, input_tensor, hidden_size, initial_state=None,
+             forget_bias=1.0, kernel_initializer=None, name=None):
+        """Single-layer LSTM.  Returns ``(seq, h_n, c_n)``; pass
+        ``initial_state=(h, c)`` to chain encoder and decoder."""
+        op = LSTM(self._uname("lstm", name), input_tensor, hidden_size,
+                  initial_state, forget_bias, kernel_initializer)
+        self._register(op)
+        return op.outputs[0], op.outputs[1], op.outputs[2]
+
     def multihead_attention(self, query, key=None, value=None, embed_dim=None,
                             num_heads=8, kdim=0, vdim=0, dropout=0.0,
                             bias=True, causal=False, kernel_initializer=None,
@@ -220,6 +233,20 @@ class FFModel:
     def divide(self, a, b, name=None):
         return self._binary("div", a, b, name)
 
+    def mse_loss(self, logits: Tensor, labels_shape=None,
+                 reduction="average", name=None) -> Tensor:
+        """The op-form MSE loss (DLRM, CANDLE-Uno): an identity op that
+        sets the model's loss type and adds the mse metric, which
+        ``compile(metrics=[])`` then falls back to."""
+        op = MSELoss(self._uname("mse_loss", name), logits, reduction)
+        self._register(op)
+        self.loss_type = (losses.MEAN_SQUARED_ERROR_AVG_REDUCE
+                          if reduction == "average"
+                          else losses.MEAN_SQUARED_ERROR_SUM_REDUCE)
+        if losses.MEAN_SQUARED_ERROR not in self.metrics:
+            self.metrics.append(losses.MEAN_SQUARED_ERROR)
+        return op.outputs[0]
+
     # ------------------------------------------------------------------
     # compile
     # ------------------------------------------------------------------
@@ -229,11 +256,12 @@ class FFModel:
                 final_tensor: Optional[Tensor] = None) -> None:
         """Resolve the single-device plan: loss tensor, label tensor, conv
         layout, optimizer (default: SGD from the config's learning rate
-        and weight decay) and metrics.  Raises NotImplementedError for
-        what the port cannot run yet — an imported or searched strategy,
-        more than one device, gradient accumulation, fused multi-step
-        dispatch, padded tail batches, rematerialisation, profiling or a
-        trace directory — rather than silently ignoring it."""
+        and weight decay), metrics and the sparse embedding tables.
+        Raises NotImplementedError for what the port cannot run yet — an
+        imported or searched strategy, more than one device, gradient
+        accumulation, fused multi-step dispatch, padded tail batches,
+        rematerialisation, profiling or a trace directory — rather than
+        silently ignoring it."""
         cfg = self.config
         if cfg.import_strategy_file or cfg.search_budget > 0 \
                 or cfg.strategies:
@@ -253,9 +281,6 @@ class FFModel:
             ("steps_per_dispatch > 1", cfg.steps_per_dispatch > 1),
             ("pad_tail_batches", cfg.pad_tail_batches),
             ("remat", cfg.remat),
-            # True only: the default (None) gathers the dense way, which
-            # the JAX package's sparse path rewrites exactly
-            ("sparse_embedding_updates", cfg.sparse_embedding_updates),
             ("profiling", cfg.profiling),
             ("trace_dir", bool(cfg.trace_dir))) if on]
         if unported:
@@ -298,8 +323,43 @@ class FFModel:
                                            "float32", "label")
         self.resolved_conv_layout = resolve_conv_layout(cfg.conv_layout,
                                                         self.device)
+        self._sparse_specs = self._sparse_embedding_specs()
         self._fwd_compiled = {}
         self._compiled = True
+
+    def _sparse_embedding_specs(self) -> List[tuple]:
+        """The embedding tables that train on the sparse update path
+        (``FFConfig.sparse_embedding_updates``: None is auto, False
+        turns it off): the step differentiates with respect to the
+        gathered rows and adds ``-lr * grad`` to those rows alone, an
+        exact rewrite of plain SGD that never writes the rest of the
+        table.  Eligible, as in the JAX package: plain SGD (momentum 0,
+        weight decay 0, which would touch every row), no gradient
+        accumulation, and a trainable, device-placed table used by one
+        op whose ids are a graph input.  Returns [(op name, table name,
+        input position)]."""
+        cfg = self.config
+        opt = self.optimizer
+        if (cfg.sparse_embedding_updates is False
+                or cfg.gradient_accumulation_steps > 1
+                or not isinstance(opt, SGDOptimizer)
+                or opt.momentum != 0.0 or opt.weight_decay != 0.0):
+            return []
+        input_uids = [t.uid for t in self.input_tensors]
+        owners: Dict[str, int] = {}
+        for op in self.layers:
+            for w in op.weights:
+                owners[w.name] = owners.get(w.name, 0) + 1
+        specs = []
+        for op in self.layers:
+            if not isinstance(op, Embedding) or op.host_placed():
+                continue
+            tname = op.w_table.name
+            if (op.inputs[0].uid in input_uids and owners[tname] == 1
+                    and op.w_table.trainable):
+                specs.append((op.name, tname,
+                              input_uids.index(op.inputs[0].uid)))
+        return specs
 
     # ------------------------------------------------------------------
     # parameters
@@ -359,17 +419,22 @@ class FFModel:
                         inputs: Sequence[torch.Tensor],
                         training: bool = False,
                         seed: Optional[int] = None,
-                        updates: Optional[Dict[str, torch.Tensor]] = None
+                        updates: Optional[Dict[str, torch.Tensor]] = None,
+                        embedding_rows: Optional[
+                            Dict[str, torch.Tensor]] = None
                         ) -> Dict[int, torch.Tensor]:
         """Run the layer list on ``inputs``; returns every tensor's value
         by uid.  Each op runs in its resolved compute dtype.  In training
-        the ops' non-trainable state updates land in ``updates``."""
+        the ops' non-trainable state updates land in ``updates``, and
+        the Embeddings named in ``embedding_rows`` read their rows from
+        it."""
         base = self.config.compute_dtype
         ctx = OpContext(device=self.device, seed=seed,
                         training=training, compute_dtype=base,
                         conv_layout=self.resolved_conv_layout,
                         flash_attention=self.config.flash_attention,
-                        updates={} if updates is None else updates)
+                        updates={} if updates is None else updates,
+                        embedding_rows=embedding_rows)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         for op in self.layers:
             ctx.compute_dtype = resolve_op_dtype(op, base)
@@ -468,34 +533,50 @@ class FFModel:
         and its output uid (``OpContext.op_generator``)."""
         return ((int(self.config.seed) << 32) + step) & 0x7FFF_FFFF_FFFF_FFFF
 
-    def _loss_and_grads(self, batch, step: int):
+    def _loss_and_grads(self, batch, step: int, sparse: bool = False):
         """Forward with autograd on, the loss on ``_loss_tensor``, its
-        gradients with respect to every trainable parameter, the batch's
-        metric sums and the ops' non-trainable state updates (BatchNorm's
-        running statistics).  Returns (loss, sums, grads, updates), all on
-        the device; the loss is a detached 0-d float32 tensor and the
-        updates are detached."""
-        names = self._trainable_names()
+        gradients, the batch's metric sums and the ops' non-trainable
+        state updates (BatchNorm's running statistics).  Returns (loss,
+        sums, grads, updates, row_grads), all on the device; the loss is
+        a detached 0-d float32 tensor and the updates are detached.
+
+        ``grads`` holds every trainable parameter's gradient.  With
+        ``sparse``, the tables of ``_sparse_specs`` are left out of it:
+        their rows are gathered outside autograd (by the Embedding's id
+        rules) and handed to the ops as leaves, and ``row_grads`` holds
+        the gradient of each op's rows, (n, [bag or s,] d)."""
+        specs = self._sparse_specs if sparse else []
+        tables = {tname for _, tname, _ in specs}
+        names = self._trainable_names() - tables
         trainable = {k: v.detach().requires_grad_(True)
                      for k, v in self._params.items() if k in names}
         params = {**self._params, **trainable}
+        with torch.no_grad():
+            rows = {op_name: take_rows(
+                self._params[tname].to(torch.float32), batch[pos])
+                for op_name, tname, pos in specs}
+        for r in rows.values():
+            r.requires_grad_(True)
         labels = batch[-1]
         updates: Dict[str, torch.Tensor] = {}
         with torch.enable_grad():
             values = self._forward_values(
                 params, batch[:-1], training=True,
-                seed=self._step_seed(step), updates=updates)
+                seed=self._step_seed(step), updates=updates,
+                embedding_rows=rows or None)
             logits = values[self._loss_tensor.uid]
             loss = self._loss_fn(logits, labels)
-            grads = torch.autograd.grad(loss, list(trainable.values()),
-                                        allow_unused=True)
+            leaves = list(trainable.values()) + list(rows.values())
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             sums = metrics_mod.compute_batch_metrics(
                 logits.detach(), labels, self.metrics, self.loss_type)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(trainable.items(), grads)}
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        row_grads = dict(zip(rows, grads[len(trainable):]))
+        grads = dict(zip(trainable, grads[:len(trainable)]))
         return (loss.detach(), sums, grads,
-                {k: v.detach() for k, v in updates.items()})
+                {k: v.detach() for k, v in updates.items()}, row_grads)
 
     def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
         trainable = {k: self._params[k] for k in grads}
@@ -504,10 +585,29 @@ class FFModel:
         self._params.update(new)
         self._step += 1
 
+    @torch.no_grad()
+    def _apply_sparse_update(self, batch,
+                             row_grads: Dict[str, torch.Tensor]) -> None:
+        """Plain SGD on the looked-up rows alone: ``table[id] -= lr *
+        grad`` for every id of the batch, duplicates summed, in place
+        (the rest of the table is neither read nor written).  Ids map by
+        ``map_ids``, as the dense path's gradient does: negatives wrap,
+        ids outside the table are dropped.  A dropped lane adds -0.0, which leaves every
+        value's bits as they were."""
+        for op_name, tname, pos in self._sparse_specs:
+            lr = self.optimizer.lr
+            table = self._params[tname]
+            idx, valid = map_ids(batch[pos].reshape(-1), table.shape[0])
+            g = row_grads[op_name].reshape(idx.shape[0], -1)
+            g = torch.where(valid[:, None], g, 0.0)
+            table.index_add_(0, idx, (-lr * g).to(table.dtype))
+
     def _train_step(self, batch):
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
-        loss, sums, grads, updates = self._loss_and_grads(batch, self._step)
+        loss, sums, grads, updates, row_grads = self._loss_and_grads(
+            batch, self._step, sparse=True)
+        self._apply_sparse_update(batch, row_grads)
         self._apply_update(grads)
         # after the optimizer's step, as the JAX step returns
         # {**frozen, **updates, **new_trainable}
@@ -544,7 +644,8 @@ class FFModel:
         batch's metrics into ``perf_metrics`` and returns the loss."""
         if self._batch is None:
             raise RuntimeError("set_batch() first")
-        loss, sums, self._cached_grads, updates = self._loss_and_grads(
+        # dense, as the JAX package's imperative loop is
+        loss, sums, self._cached_grads, updates, _ = self._loss_and_grads(
             self._batch, self._step)
         self._params.update(updates)
         self.perf_metrics.update(sums)

@@ -80,6 +80,10 @@ class OpContext:
     # them after the optimizer's update.  Empty outside training
     updates: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # the sparse embedding update's rows: {Embedding op name: rows
+    # gathered by the train step}, leaves that autograd differentiates
+    # with respect to in place of the table (FFModel._sparse_specs)
+    embedding_rows: Optional[Dict[str, torch.Tensor]] = None
 
     def op_generator(self, uid: int) -> Optional[torch.Generator]:
         """The random stream of the op whose output has ``uid`` in this

@@ -46,13 +46,36 @@ def cast_compute(x: torch.Tensor, ctx) -> torch.Tensor:
     return x
 
 
+class _Relu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.relu(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        # y > 0 exactly where x > 0: a NaN input gives a NaN y
+        return torch.where(y > 0, g, 0.0)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu``: the value of ``torch.relu`` (NaN stays NaN) with
+    the gradient ``where(x > 0, g, 0)``.  ``torch.relu``'s own gradient
+    passes g on at a NaN input, where JAX's gives 0; a NaN row (an
+    embedding id out of range) would then spread NaN into rows that JAX
+    keeps finite."""
+    return _Relu.apply(x)
+
+
 def apply_activation(x: torch.Tensor, activation):
     """Activation epilogue, with the JAX package's definitions (its
     gelu is the tanh approximation)."""
     if activation is None or activation == "none":
         return x
     if activation == "relu":
-        return torch.relu(x)
+        return relu(x)
     if activation == "sigmoid":
         return torch.sigmoid(x)
     if activation == "tanh":

@@ -1,6 +1,6 @@
 """Linear and Embedding, the counterparts of the ops of those names in
-``flexflow_tpu/ops/linear.py`` (the int8 serving path, the sparse-row
-embedding update and host-placed tables come in later slices)."""
+``flexflow_tpu/ops/linear.py`` (the int8 serving path and host-placed
+tables come in later slices)."""
 
 from __future__ import annotations
 
@@ -48,10 +48,36 @@ class Linear(Op):
         return [cast_compute(y, ctx)]
 
 
+def map_ids(idx: torch.Tensor, rows: int):
+    """The id rules of ``jnp.take(table, idx, axis=0)``, which the JAX
+    Embedding gathers with, for a table of ``rows`` rows: an id in
+    ``[-rows, 0)`` wraps to ``id + rows``; an id outside ``[-rows,
+    rows)`` is invalid.  Returns the int64 ids with invalid ones set to
+    0, and the mask of the valid ones."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + rows, idx)
+    valid = (idx >= 0) & (idx < rows)
+    return torch.where(valid, idx, 0), valid
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` by :func:`map_ids`'s rules: an invalid id reads a
+    row of NaN, and no gradient reaches the table from it.  The gather
+    reads mapped ids only, so nothing indexes out of range on the card
+    (no device-side assert)."""
+    idx, valid = map_ids(idx, table.shape[0])
+    y = F.embedding(idx, table)
+    # where()'s gradient is zero on the lanes it does not select, so the
+    # invalid lanes' row 0 takes nothing from them
+    return torch.where(valid[..., None], y, float("nan"))
+
+
 class Embedding(Op):
     """Table lookup: (n, s) ids -> (n, s, d) with ``aggr="none"``, or a
     bag of ids per sample reduced by ``sum``/``avg`` -> (n, d).  The
-    table gathers in float32; the result is cast to the compute dtype."""
+    table gathers in float32 by :func:`map_ids`'s id rules; the result
+    is cast to the compute dtype.  In a training step on the sparse
+    update path the rows come pre-gathered in ``ctx.embedding_rows``."""
 
     op_type = OpType.EMBEDDING
 
@@ -71,16 +97,23 @@ class Embedding(Op):
             (num_entries, out_dim), kernel_initializer or GlorotUniform(),
             "table")
 
-    def forward(self, params, inputs, ctx: OpContext):
+    def host_placed(self) -> bool:
         pc = self.parallel_config
-        if pc is not None and (pc.device_type == DeviceType.HOST
-                               or MemoryType.ZCM in tuple(pc.memory_types)):
+        return pc is not None and (pc.device_type == DeviceType.HOST or
+                                   MemoryType.ZCM in tuple(pc.memory_types))
+
+    def forward(self, params, inputs, ctx: OpContext):
+        if self.host_placed():
             raise NotImplementedError(
                 f"{self.name}: host-placed embedding tables are not ported "
                 f"yet")
-        idx = inputs[0].to(torch.int32)
-        table = params[self.w_table.name].to(torch.float32)
-        y = F.embedding(idx, table)   # (n, [s,] d)
+        if ctx.embedding_rows and self.name in ctx.embedding_rows:
+            # the train step gathered the rows and differentiates with
+            # respect to them; the table is not in the autograd graph
+            y = ctx.embedding_rows[self.name]
+        else:
+            y = take_rows(params[self.w_table.name].to(torch.float32),
+                          inputs[0])   # (n, [s,] d)
         if y.dim() == 3 and self.aggr != "none":
             y = y.sum(dim=1) if self.aggr == "sum" else y.mean(dim=1)
         return [cast_compute(y, ctx)]

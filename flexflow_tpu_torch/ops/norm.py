@@ -23,7 +23,7 @@ import torch
 
 from ..initializers import ConstantInitializer, ZeroInitializer
 from ..op import Op, OpContext, OpType
-from .common import cast_compute
+from .common import cast_compute, relu
 from .cuda_norm import fused_layernorm_autograd
 
 
@@ -63,7 +63,7 @@ class BatchNorm(Op):
         y = ((xf - mean.reshape(1, -1, 1, 1)) * inv.reshape(1, -1, 1, 1)
              + params[self.w_bias.name].reshape(1, -1, 1, 1))
         if self.relu:
-            y = torch.relu(y)
+            y = relu(y)
         return [cast_compute(y, ctx)]
 
 

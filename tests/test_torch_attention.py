@@ -220,7 +220,8 @@ def test_embedding_refuses_an_unknown_aggregation():
 
 def test_embedding_refuses_unported_placements():
     """Host-placed tables raise at the op; sparse row updates asked for
-    explicitly raise at compile (the default gathers densely)."""
+    explicitly are ported, so compile takes them and puts the table on
+    that path."""
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.config import DeviceType, ParallelConfig
 
@@ -232,5 +233,5 @@ def test_embedding_refuses_unported_placements():
     m = ft.FFModel(ft.FFConfig(batch_size=2,
                                sparse_embedding_updates=True), device="cpu")
     m.embedding(m.create_tensor((2, 3), "int32"), 10, 4)
-    with pytest.raises(NotImplementedError, match="sparse_embedding"):
-        m.compile()
+    m.compile(ft.SGDOptimizer(lr=0.01))
+    assert m._sparse_specs == [("embedding", "embedding/table", 0)]

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions
 (the max-pool forward and backward kernels and the autograd function
 that pairs them, the flash-attention forward and backward kernels, and
-the fused LayerNorm kernel).  The bf16/f16 flash kernels load by TMA, so
+the fused LayerNorm kernel); and the zoo's ops on the card against the
+CPU: the Embedding's id rules, the sparse embedding update against the
+dense one, and the LSTM.  The bf16/f16 flash kernels load by TMA, so
 the flash cases include head dims that are not a multiple of 8 and
 unaligned storage, which the wrapper pads and copies.
 
@@ -577,3 +579,121 @@ def test_concat_of_channels_last_branches_stays_channels_last(gen):
                                             conv_layout="nhwc"))
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(y, torch.cat([a.contiguous(), b.contiguous()], 1))
+
+
+def _bad_ids():
+    # wrapped (-1, -rows), NaN rows (-rows-1, rows, rows+7) beside
+    # in-range ids
+    return torch.tensor([[0, -1, 3], [-7, 6, 2], [-8, 1, 1], [7, 4, 5],
+                         [14, 0, -2]], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("aggr", ["none", "sum", "avg"])
+def test_embedding_reads_ids_on_the_card_as_on_the_cpu(no_tf32, aggr):
+    """Ids out of range raise no device-side assert: the card reads NaN
+    rows where the CPU does (and JAX, tests/test_torch_zoo_ops.py), and
+    the table's gradient matches."""
+    from flexflow_tpu_torch.op import OpContext
+    from flexflow_tpu_torch.ops.linear import Embedding
+    from flexflow_tpu_torch.tensor import Tensor
+
+    ids = _bad_ids()
+    op = Embedding("emb", Tensor(tuple(ids.shape), "int32"), 7, 4, aggr)
+    table = torch.randn(7, 4, generator=torch.Generator().manual_seed(0))
+    cot = torch.randn(op.outputs[0].shape,
+                      generator=torch.Generator().manual_seed(1))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t = table.to(dev).requires_grad_(True)
+        (y,) = op.forward({op.w_table.name: t}, [ids.to(dev)],
+                          OpContext(device=torch.device(dev),
+                                    compute_dtype="float32"))
+        (dt,) = torch.autograd.grad(y, t, cot.to(dev))
+        got[dev] = (y.detach().cpu(), dt.cpu())
+    torch.cuda.synchronize()
+    (y_c, dt_c), (y_h, dt_h) = got["cuda"], got["cpu"]
+    assert torch.isnan(y_h).any()
+    assert torch.equal(torch.isnan(y_c), torch.isnan(y_h))
+    torch.testing.assert_close(y_c, y_h, rtol=0, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(dt_c, dt_h, rtol=0, atol=1e-6)
+
+
+def _sparse_model(device, sparse):
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=64, compute_dtype="float32", seed=0,
+                      sparse_embedding_updates=sparse)
+    m = ft.FFModel(cfg, device=device)
+    ids0 = m.create_tensor((64, 3), dtype="int32", name="ids0")
+    ids1 = m.create_tensor((64, 1), dtype="int32", name="ids1")
+    t = m.concat([m.embedding(ids0, 5000, 16, name="emb0"),
+                  m.embedding(ids1, 300, 16, name="emb1")], axis=1)
+    t = m.dense(m.dense(t, 32, activation="relu"), 1)
+    p = m.mse_loss(t)
+    m.compile(ft.SGDOptimizer(lr=0.1), final_tensor=p)
+    m.init_layers(seed=0)
+    return m
+
+
+def test_sparse_update_equals_dense_on_the_card(no_tf32):
+    """Three plain-SGD steps on the sparse path against the dense path
+    on the card, duplicate ids included: losses within 1e-6 relative,
+    parameters within 1e-6 (index_add_ sums duplicates with atomics, in
+    another order than the dense gradient), rows no id touched keep
+    their bits."""
+    g = torch.Generator().manual_seed(2)
+    batches = [(torch.randint(0, 5000, (64, 3), generator=g,
+                              dtype=torch.int32),
+                torch.randint(0, 300, (64, 1), generator=g,
+                              dtype=torch.int32),
+                torch.rand(64, 1, generator=g)) for _ in range(3)]
+    batches[0][0][:8] = 17                # duplicates in and across bags
+    runs = {}
+    for sparse in (None, False):
+        m = _sparse_model("cuda", sparse)
+        w0 = {k: v.clone() for k, v in m._params.items()}
+        losses = [float(m.train_batch(*b)) for b in batches]
+        runs[sparse] = (m, losses)
+    (ms, ls), (md, ld) = runs[None], runs[False]
+    assert len(ms._sparse_specs) == 2 and not md._sparse_specs
+    torch.testing.assert_close(torch.tensor(ls), torch.tensor(ld),
+                               rtol=1e-6, atol=0)
+    for k in md._params:
+        torch.testing.assert_close(ms._params[k], md._params[k], rtol=0,
+                                   atol=1e-6, msg=k)
+    touched = torch.unique(torch.cat([b[0].reshape(-1) for b in batches]))
+    keep = torch.ones(5000, dtype=torch.bool)
+    keep[touched.long()] = False
+    assert torch.equal(_bits(ms._params["emb0/table"][keep.cuda()]),
+                       _bits(w0["emb0/table"][keep.cuda()]))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_lstm_on_the_card_equals_the_cpu(no_tf32, with_state):
+    """A float32 LSTM forward and backward on the card against the CPU,
+    within 1e-5: the cell is plain torch on both (no cuDNN RNN)."""
+    from flexflow_tpu_torch.op import OpContext
+    from flexflow_tpu_torch.ops.rnn import LSTM
+    from flexflow_tpu_torch.tensor import Tensor
+
+    n, s, d, h = 4, 9, 24, 32
+    state = ((Tensor((n, h)), Tensor((n, h))) if with_state else None)
+    op = LSTM("lstm", Tensor((n, s, d)), h, initial_state=state)
+    g = torch.Generator().manual_seed(3)
+    params = {w.name: 0.3 * torch.randn(w.shape, generator=g)
+              for w in op.weights}
+    xs = [torch.randn(n, s, d, generator=g)]
+    if with_state:
+        xs += [0.5 * torch.randn(n, h, generator=g) for _ in range(2)]
+    cots = [torch.randn(t.shape, generator=g) for t in op.outputs]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        x = [v.to(dev).requires_grad_(True) for v in xs]
+        outs = op.forward(p, x, OpContext(device=torch.device(dev),
+                                          compute_dtype="float32"))
+        grads = torch.autograd.grad(outs, list(p.values()) + x,
+                                    [c.to(dev) for c in cots])
+        got[dev] = [t.detach().cpu() for t in list(outs) + list(grads)]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
