@@ -76,7 +76,25 @@
    puts it); small float32 versions of the three, 3 steps on the card
    against their CPU twins.  No TPU kernel is on these paths: the five
    launch counts stay 0;
-14. prints each phase's seconds, one ``kernels`` JSON line and, last,
+14. training-loop knob phases: BERT-base (bf16, batch 16) one step from
+   one state without and with segmented remat (loss and parameters
+   compared, predicted bit-equal; the step's peak memory must fall; the
+   flash and LayerNorm launches against the segments' reckoning, forward
+   launches in a checkpointed segment counting twice; a step's device
+   time each way); BERT-base in float32 with gradient accumulation 2,
+   without and with remat, against the full-batch step; ResNet-50 with
+   BatchNorm (batch 64) through ``fit`` over 4 x 64 + 17 samples with
+   accumulation 2, windows of 4 and the padded tail (finite losses, all
+   96 running statistics move, 2 + 2 max-pool launches a step), then a
+   ``train_window`` of 4 against 4 ``train_batch`` calls, bit for bit;
+15. checkpoint phase: ResNet-50 with BatchNorm on the card, saved at step
+   3 (synchronously, then with an async write overlapping training),
+   loaded and trained on: bit-equal to the uninterrupted run;
+   ``verify_checkpoint`` and a flipped byte; save and load times;
+16. MoE phase: one MoE layer at BERT-base's width (8 experts, d_ff 3072,
+   k 2, capacity 1.25, 4 x 512 tokens): forward, aux loss and gradients
+   on the card against the CPU in float32, and its device times;
+17. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
 Any failure raises and exits non-zero before the ok line.  Needs one
@@ -88,6 +106,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -244,6 +263,38 @@ POOL_DESIGN = {"fwd": "16-byte channel vectors, shared columns reused",
                          "gather)"}
 POOL_EARLIER_MS_QUOTED = {"fwd": [0.0544, 0.0396, 0.0155],
                           "bwd": [0.2186, 0.1563, 0.0524]}
+
+
+# the training-loop knobs (PERF.md, PR 8).  BERT-base under remat: one
+# step from one state with remat off and on, SGD at this rate; the loss
+# and every parameter must be bit-equal (the recomputed kernels see the
+# same inputs, and the flash backward has no atomics)
+REMAT_LR = 1e-3
+# BERT-base in float32, gradient accumulation 2 (with and without remat)
+# against the full-batch step: loss and every parameter within this.  The
+# microbatch gradients add in another order than one batch's sum, about
+# 1e-6 of a gradient, times the rate
+ACCUM_LR = 0.01
+ACCUM_TOL = 1e-5
+# ResNet-50 (batch_norm=True) under the knobs: fit over KNOBS_SAMPLES
+# samples (4 full batches and a tail of 17) with accumulation 2, windows of
+# 4 and the padded tail; then a window of 4 against 4 train_batch calls
+KNOBS_SAMPLES = 4 * BATCH + 17
+# SGD (momentum 0.9) for the knobs' and the checkpoint's ResNet-50: from
+# random weights its gradients reach the thousands, so a small rate keeps
+# the steps finite (batchnorm_phase)
+KNOBS_LR = 1e-5
+KNOBS_ACCUM = 2
+KNOBS_WINDOW = 4
+# one MoE layer at BERT-base's width on 4 x 512 tokens: C = 640, the
+# (T, E, C) one-hot 42 MB in float32.  Card against the CPU in float32:
+# outputs, aux loss, loss and gradients, and one train_batch's loss and
+# parameter updates, within MOE_TOL of the largest reference value
+# (float32 einsums over at most 3072 terms summed in another order; the
+# routing must pick the same experts)
+MOE = dict(num_experts=8, d_ff=3072, k=2, capacity_factor=1.25)
+MOE_SHAPE = (4, 512, 768)
+MOE_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -1983,6 +2034,461 @@ def zoo_f32_step_checks(ft) -> None:
               f"{F32_STEP_TOL}){extra}")
 
 
+def host_state(model) -> dict:
+    """Owned host copies of the parameters and the optimizer state's
+    leaves (``opt:<i>``, the checkpoint's names), for bit comparisons."""
+    from flexflow_tpu_torch.model import (_flatten_state, _leaf_to_host,
+                                          to_host)
+    out = {k: to_host(v).copy() for k, v in model._params.items()}
+    for i, leaf in enumerate(_flatten_state(model._opt_state)):
+        out[f"opt:{i}"] = _leaf_to_host(leaf)
+    return out
+
+
+def max_diff(a: dict, b: dict, keys=None) -> float:
+    """Largest absolute difference over the arrays of two ``host_state``
+    dicts (those named in ``keys``, default all): 0.0 when every one has
+    the same bits."""
+    import numpy as np
+    worst = 0.0
+    for k in (a if keys is None else keys):
+        v = a[k]
+        if not np.array_equal(v.view(np.uint8), b[k].view(np.uint8)):
+            worst = max(worst, float(np.abs(v.astype(np.float64)
+                                            - b[k]).max()) or 1e-300)
+    return worst
+
+
+def remat_reckoning(model, op_type) -> int:
+    """Forward launches of ``op_type``'s kernel in one remat step: two
+    for an op in a checkpointed segment (the forward, then the
+    recomputation in the backward), one in the last segment."""
+    segs = model.remat_segments()
+    return sum((1 if i == len(segs) - 1 else 2)
+               * sum(op.op_type == op_type for op in seg)
+               for i, seg in enumerate(segs))
+
+
+def restore(model, start) -> None:
+    """Put back (params, optimizer state, step) taken before a step; the
+    optimizers are functional, so the saved references are unchanged."""
+    model._params, model._opt_state, model._step = (dict(start[0]),
+                                                    start[1], start[2])
+
+
+def bert_batch(model, rows: int = BERT_BATCH):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.integers(0, BERT["vocab_size"], (rows, BERT["seq_len"]))
+    y = rng.integers(0, BERT["num_classes"], (rows, 1))
+    return (torch.from_numpy(x.astype(np.int32)).to(model.device),
+            torch.from_numpy(y.astype(np.int32)).to(model.device))
+
+
+def bert_remat_phase(ft, counters, card: str) -> dict:
+    """BERT-base (bf16, batch 16) under segmented remat: one step from
+    one state with remat off and on (loss and parameters compared, the
+    step's peak memory must fall), the kernels' launches against the
+    segment reckoning, and a step's device time each way.  Returns the
+    remat step's launches."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.model import to_host
+    from flexflow_tpu_torch.models import build_transformer
+
+    fwd_k, bwd_k, ln_k = counters
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="bfloat16",
+                      seed=SEED)
+    model, _, logits = build_transformer(cfg, **BERT)
+    model.compile(ft.SGDOptimizer(lr=REMAT_LR, momentum=0.9),
+                  final_tensor=logits)
+    model.init_layers(seed=SEED)
+    xb, yb = bert_batch(model)
+    start = (dict(model._params), model._opt_state, model._step)
+    runs = {}
+    for remat in (False, True):
+        restore(model, start)
+        model.config.remat = remat
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*counters)
+        loss = model.train_batch(xb, yb)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                    "ln": ln_k.launches}
+        runs[remat] = (float(loss), host_state(model), peak, held, launches)
+    (l0, s0, pk0, h0, n0), (l1, s1, pk1, h1, n1) = runs[False], runs[True]
+    layers = BERT["num_layers"]
+    segs = model.remat_segments()
+    want = {"fwd": remat_reckoning(model, ft.OpType.ATTENTION),
+            "bwd": layers, "ln": remat_reckoning(model, ft.OpType.LAYERNORM)}
+    assert n0 == {"fwd": layers, "bwd": layers, "ln": 2 * layers}, n0
+    assert n1 == want and want["fwd"] > layers, (n1, want)
+    # the parameters: SGD's momentum after one step is the gradient, not
+    # the update the tolerance is scaled by
+    diff = max_diff(s1, s0, start[0])
+    update = max(float(np.abs(s0[k] - to_host(v)).max())
+                 for k, v in start[0].items())
+    loss_rel = abs(l1 - l0) / max(abs(l0), 1e-30)
+    print(f"bert remat: {len(model.layers)} layers in {len(segs)} segments "
+          f"({[len(sg) for sg in segs]}), loss {l0:.6f} without remat, "
+          f"{l1:.6f} with (rel diff {loss_rel:.3g}), largest parameter "
+          f"difference {diff:.3g} ({'bit-equal' if diff == 0 else 'not bit-equal'}"
+          f"; the step's largest update {update:.3g}) [{card}]")
+    assert l1 == l0 and diff == 0, (loss_rel, diff, update)
+    assert pk1 < pk0, (pk0, pk1)
+    print(f"bert remat memory: peak over a step {pk0 / 2**30:.3f} GiB "
+          f"without remat, {pk1 / 2**30:.3f} GiB with ({(pk0 - h0) / 2**30:.3f}"
+          f" and {(pk1 - h1) / 2**30:.3f} GiB above the {h0 / 2**30:.3f} GiB "
+          f"held before it) [{card}]")
+    print(f"bert remat launches a step: flash forward {n1['fwd']} (= the "
+          f"segments' reckoning {want['fwd']}: {layers} without remat), "
+          f"flash backward {n1['bwd']}, layernorm {n1['ln']} (= "
+          f"{want['ln']}: {2 * layers} without remat)")
+    for remat in (False, True):
+        model.config.remat = remat
+        ms = time_ms(lambda b: model.train_batch(*b), [(xb, yb)], 5,
+                     spin_cycles=3_000_000_000)
+        print(f"bert {'remat' if remat else 'plain'} training step at batch "
+              f"{BERT_BATCH} (bf16): {ms:.4f} ms device time [{card}]")
+    model.config.remat = False
+    return n1
+
+
+def bert_accumulate_phase(ft, counters, card: str) -> dict:
+    """BERT-base in float32 (batch 16, SGD with momentum): the step with
+    gradient accumulation 2, without and with remat, against the
+    full-batch step from the same state; peak memory of each.  Returns
+    the kernels' launches of the two accumulated steps."""
+    import torch
+    from flexflow_tpu_torch.models import build_transformer
+
+    fwd_k, bwd_k, ln_k = counters
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="float32",
+                      seed=SEED)
+    model, _, logits = build_transformer(cfg, **BERT)
+    model.compile(ft.SGDOptimizer(lr=ACCUM_LR, momentum=0.9),
+                  final_tensor=logits)
+    model.init_layers(seed=SEED)
+    xb, yb = bert_batch(model)
+    start = (dict(model._params), model._opt_state, model._step)
+    layers = BERT["num_layers"]
+    runs, total = {}, {"fwd": 0, "bwd": 0, "ln": 0}
+    for accum, remat in ((1, False), (KNOBS_ACCUM, False),
+                         (KNOBS_ACCUM, True)):
+        restore(model, start)
+        model.config.gradient_accumulation_steps = accum
+        model.config.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*counters)
+        loss = float(model.train_batch(xb, yb))
+        peak = torch.cuda.max_memory_allocated()
+        got = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+               "ln": ln_k.launches}
+        if remat:
+            want = {"fwd": accum * remat_reckoning(model,
+                                                   ft.OpType.ATTENTION),
+                    "bwd": accum * layers,
+                    "ln": accum * remat_reckoning(model,
+                                                  ft.OpType.LAYERNORM)}
+        else:
+            want = {"fwd": accum * layers, "bwd": accum * layers,
+                    "ln": 2 * accum * layers}
+        assert got == want, (accum, remat, got, want)
+        if accum > 1:
+            total = {k: total[k] + got[k] for k in total}
+        runs[(accum, remat)] = (loss, host_state(model), peak)
+    model.config.gradient_accumulation_steps = 1
+    model.config.remat = False
+    l1, s1, p1 = runs[(1, False)]
+    for remat in (False, True):
+        lk, sk, pk = runs[(KNOBS_ACCUM, remat)]
+        loss_err, param_err = abs(lk - l1), max_diff(sk, s1, start[0])
+        print(f"bert f32 accumulation {KNOBS_ACCUM}"
+              f"{' + remat' if remat else ''} vs the full batch: loss "
+              f"{lk:.6f} vs {l1:.6f} (abs err {loss_err:.3g}), largest "
+              f"parameter difference {param_err:.3g} (tolerance "
+              f"{ACCUM_TOL}); peak memory {pk / 2**30:.3f} GiB against "
+              f"{p1 / 2**30:.3f} GiB [{card}]")
+        assert loss_err <= ACCUM_TOL and param_err <= ACCUM_TOL, (
+            remat, loss_err, param_err)
+    return total
+
+
+def resnet_knobs_model(ft, **knobs):
+    cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED,
+                      **knobs)
+    model, _, _ = build_cnn(ft, "resnet50", cfg, batch_norm=True)
+    model.compile(ft.SGDOptimizer(lr=KNOBS_LR, momentum=0.9),
+                  metrics=["accuracy"])
+    model.init_layers(seed=SEED)
+    return model
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (no atomics in the convolutions'
+    weight gradients), for the bit comparisons of whole steps."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def resnet50_knobs_phase(ft, cuda_pool, card: str) -> dict:
+    """ResNet-50 with BatchNorm (bf16, batch 64) under gradient
+    accumulation 2, windows of 4 and the padded tail: fit over 4 x 64 +
+    17 samples (5 steps of 2 microbatches), the max-pool launches a step,
+    every running statistic moved; then a train_window of 4 against 4
+    train_batch calls from one state, bit for bit.  Returns fit's
+    max-pool launches."""
+    import numpy as np
+    import torch
+
+    _, image, classes, pools = CNNS["resnet50"]
+    model = resnet_knobs_model(ft, gradient_accumulation_steps=KNOBS_ACCUM,
+                               steps_per_dispatch=KNOBS_WINDOW,
+                               pad_tail_batches=True)
+    stats = [p.name for p in model.parameters if not p.trainable]
+    assert len(stats) == 2 * 48, len(stats)
+    init = {k: model._params[k].clone() for k in stats}
+    xs, y = ft.synthetic_dataset(KNOBS_SAMPLES, [(3, image, image)], (1,),
+                                 num_classes=classes, seed=SEED)
+    steps = -(-KNOBS_SAMPLES // BATCH)
+    record = EpochLosses()
+    reset_counts(cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model.fit(xs, y, epochs=1, callbacks=[record])
+    fit_s = time.perf_counter() - t0
+    launches = {"fwd": cuda_pool.max_pool_nhwc.launches,
+                "bwd": cuda_pool.max_pool_nhwc_backward.launches}
+    print(out.getvalue(), end="")
+    losses = record.epochs[0]
+    assert model._step == steps and losses.shape == (steps,), losses
+    assert np.isfinite(losses).all(), losses
+    per_step = pools * KNOBS_ACCUM
+    assert launches == {"fwd": per_step * steps,
+                        "bwd": per_step * steps}, launches
+    assert model.perf_metrics.train_all == KNOBS_SAMPLES
+    unmoved = [k for k in stats if torch.equal(model._params[k], init[k])]
+    assert not unmoved, f"running statistics did not move: {unmoved}"
+    print(f"resnet50 knobs fit: {KNOBS_SAMPLES} samples in {steps} steps "
+          f"(windows of {KNOBS_WINDOW}, accumulation {KNOBS_ACCUM}, the "
+          f"last step the padded tail of {KNOBS_SAMPLES % BATCH}), losses "
+          f"{np.round(losses, 4).tolist()}, max-pool launches "
+          f"{launches['fwd']} forward + {launches['bwd']} backward (= "
+          f"{per_step} + {per_step} a step), all {len(stats)} running "
+          f"statistics moved, {fit_s:.3f}s wall [{card}]")
+
+    n = KNOBS_WINDOW * BATCH
+    window = tuple(torch.from_numpy(a[:n].reshape((KNOBS_WINDOW, BATCH)
+                                                  + a.shape[1:])).to(
+        model.device) for a in (xs[0], y))
+    start = (dict(model._params), model._opt_state, model._step)
+    with deterministic_cudnn():
+        wl, _ = model.train_window(window)
+        got = host_state(model)
+        restore(model, start)
+        bl = torch.stack([model.train_batch(window[0][i], window[1][i])
+                          for i in range(KNOBS_WINDOW)])
+        want = host_state(model)
+    diff = max_diff(got, want)
+    assert torch.equal(wl, bl) and diff == 0.0, (wl, bl, diff)
+    print(f"resnet50 train_window of {KNOBS_WINDOW} == {KNOBS_WINDOW} "
+          f"train_batch calls from one state: losses, parameters, running "
+          f"statistics and momentum bit-equal (cuDNN deterministic) "
+          f"[{card}]")
+    return launches
+
+
+def checkpoint_phase(ft, cuda_pool, card: str) -> dict:
+    """ResNet-50 with BatchNorm (bf16, batch 64, SGD with momentum) on
+    the card: save at step 3, train 2 steps, load, train the same 2:
+    parameters, running statistics and momentum bit-equal; the same with
+    an async write overlapping the 2 steps; the file verifies and a copy
+    with one flipped byte raises CorruptCheckpointError.  Save and load
+    times and sizes.  Returns the max-pool launches."""
+    import shutil
+
+    from flexflow_tpu_torch.resilience import (CorruptCheckpointError,
+                                               verify_checkpoint)
+
+    _, image, classes, pools = CNNS["resnet50"]
+    model = resnet_knobs_model(ft)
+    xs, y = ft.synthetic_dataset(5 * BATCH, [(3, image, image)], (1,),
+                                 num_classes=classes, seed=SEED + 1)
+    batches = [model._device_batch((xs[0][i * BATCH:(i + 1) * BATCH],
+                                    y[i * BATCH:(i + 1) * BATCH]))
+               for i in range(5)]
+    ckdir = os.path.join(HERE, "build", "checkpoint_smoke")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    reset_counts(cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward)
+    steps = 0
+    try:
+        with deterministic_cudnn():
+            for b in batches[:3]:
+                model.train_batch(*b)
+            steps += 3
+            path = os.path.join(ckdir, "resnet50_step3.npz")
+            t0 = time.perf_counter()
+            model.save_checkpoint(path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            for b in batches[3:]:
+                model.train_batch(*b)
+            want = host_state(model)
+            t0 = time.perf_counter()
+            model.load_checkpoint(path)
+            load_s = time.perf_counter() - t0
+            assert model._step == 3, model._step
+            for b in batches[3:]:
+                model.train_batch(*b)
+            steps += 4
+            diff = max_diff(host_state(model), want)
+            assert diff == 0.0, f"resumed run differs by {diff}"
+
+            model.load_checkpoint(path)
+            apath = os.path.join(ckdir, "resnet50_async_step3.npz")
+            t0 = time.perf_counter()
+            model.save_checkpoint(apath, async_write=True)
+            call_s = time.perf_counter() - t0
+            for b in batches[3:]:
+                model.train_batch(*b)
+            model.wait_for_checkpoint()
+            async_s = time.perf_counter() - t0
+            adiff_run = max_diff(host_state(model), want)
+            model.load_checkpoint(apath)
+            for b in batches[3:]:
+                model.train_batch(*b)
+            steps += 4
+            adiff = max_diff(host_state(model), want)
+            assert adiff == 0.0 and adiff_run == 0.0, (adiff, adiff_run)
+        assert verify_checkpoint(path) and verify_checkpoint(apath)
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0x01
+        bad = os.path.join(ckdir, "flipped.npz")
+        with open(bad, "wb") as f:
+            f.write(raw)
+        assert not verify_checkpoint(bad)
+        try:
+            model.load_checkpoint(bad)
+        except CorruptCheckpointError as e:
+            assert "flipped.npz" in str(e), e
+        else:
+            raise AssertionError("a flipped byte loaded without an error")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    launches = {"fwd": cuda_pool.max_pool_nhwc.launches,
+                "bwd": cuda_pool.max_pool_nhwc_backward.launches}
+    assert launches == {"fwd": pools * steps, "bwd": pools * steps}, launches
+    trainable = sum(p.volume for p in model.parameters if p.trainable)
+    mb = size / 1e6
+    print(f"checkpoint: resnet50 {trainable} trainable parameters + "
+          f"{model.num_parameters - trainable} running statistics + "
+          f"momentum, {mb:.1f} MB; save {save_s * 1e3:.1f} ms "
+          f"({mb / save_s:.0f} MB/s), load {load_s * 1e3:.1f} ms "
+          f"({mb / load_s:.0f} MB/s); async save returned in "
+          f"{call_s * 1e3:.1f} ms, written with 2 steps in "
+          f"{async_s * 1e3:.1f} ms; resume after 2 steps bit-equal (sync "
+          f"and async), verify_checkpoint True, a flipped byte raises "
+          f"CorruptCheckpointError [{card}]")
+    return launches
+
+
+def moe_phase(ft, card: str) -> None:
+    """One MoE layer at BERT-base's width (d 768, 8 experts, d_ff 3072,
+    k 2, capacity factor 1.25) on 4 x 512 tokens: the forward, aux loss,
+    loss and gradients, then one ``train_batch`` (the aux loss through
+    the step and the optimizer), on the card against the port's own CPU
+    run from the same weights (float32); then the forward and backward
+    device times in float32 and bf16."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 9)
+    x = rng.standard_normal(MOE_SHAPE).astype(np.float32)
+    y = (0.1 * rng.standard_normal(MOE_SHAPE)).astype(np.float32)
+
+    def build(device, dtype):
+        cfg = ft.FFConfig(batch_size=MOE_SHAPE[0], compute_dtype=dtype,
+                          seed=SEED)
+        m = ft.FFModel(cfg, device=device)
+        t = m.create_tensor(MOE_SHAPE, name="x")
+        t = m.moe(t, name="moe0", **MOE)
+        m.compile(ft.SGDOptimizer(lr=0.01), "mean_squared_error", [],
+                  final_tensor=t)
+        m.init_layers(seed=SEED)
+        return m
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        m = build(device, "float32")
+        tokens = MOE_SHAPE[0] * MOE_SHAPE[1]
+        assert m.layers[0].capacity == math.ceil(
+            MOE["k"] * tokens / MOE["num_experts"]
+            * MOE["capacity_factor"]), m.layers[0].capacity
+        batch = m._device_batch((x, y))
+        out = m.predict(x, batch_size=MOE_SHAPE[0])
+        aux = {}
+        m._forward_values(m._params, batch[:1], training=True,
+                          seed=m._step_seed(0), aux_losses=aux)
+        loss, _, grads, _, _ = m._loss_and_grads(batch, m._step_seed(0))
+        before = {k: v.detach().cpu().clone() for k, v in m._params.items()}
+        step_loss = m.train_batch(x, y)
+        # train_batch's objective is the one above, aux loss included
+        assert abs(float(step_loss) - float(loss)) <= MOE_TOL * abs(
+            float(loss)), (device, float(step_loss), float(loss))
+        got[device] = ({"out": torch.from_numpy(out),
+                        "aux": aux["moe0"].detach().cpu().reshape(1),
+                        "loss": loss.cpu().reshape(1)},
+                       {k: g.cpu() for k, g in grads.items()},
+                       {"step loss": step_loss.cpu().reshape(1)},
+                       {k: m._params[k].detach().cpu() - v
+                        for k, v in before.items()})
+    errs = {}
+    for part in (0, 1, 2):
+        for k, want in got["cpu"][part].items():
+            have = got["cuda"][part][k]
+            scale = max(float(want.abs().max()), 1e-30)
+            errs[k] = float((have - want).abs().max()) / scale
+    # each parameter's update against that parameter's own largest update
+    upd_cpu, upd_card = got["cpu"][3], got["cuda"][3]
+    assert set(upd_cpu) == set(upd_card) == set(got["cpu"][1]), upd_cpu
+    for k, u in upd_cpu.items():
+        scale = float(u.abs().max())
+        assert scale > 0, (k, scale)
+        errs[f"update {k}"] = float((upd_card[k] - u).abs().max()) / scale
+    upd_err = max(v for k, v in errs.items() if k.startswith("update "))
+    worst = max(errs, key=errs.get)
+    print(f"moe card vs cpu (float32, {MOE_SHAPE[0] * MOE_SHAPE[1]} tokens, "
+          f"C {m.layers[0].capacity}): largest error over the largest reference value "
+          f"{errs[worst]:.3g} ({worst}); out {errs['out']:.3g}, aux "
+          f"{errs['aux']:.3g}, loss {errs['loss']:.3g}, gradients "
+          f"{max(v for k, v in errs.items() if k in got['cpu'][1]):.3g}; train_batch "
+          f"loss {errs['step loss']:.3g}, parameter updates {upd_err:.3g} "
+          f"(tolerance {MOE_TOL}) [{card}]")
+    assert errs[worst] <= MOE_TOL, errs
+    for dtype in ("float32", "bfloat16"):
+        m = build("cuda", dtype)
+        batch = m._device_batch((x, y))
+        fwd = m.forward_compiled(MOE_SHAPE[0])
+        fwd_ms = time_ms(lambda b: fwd(m._params, b[:1]), [batch], 10)
+        step_ms = time_ms(lambda b: m._loss_and_grads(b, 0), [batch], 10)
+        print(f"moe timing ({dtype}): forward {fwd_ms:.4f} ms, forward + "
+              f"backward {step_ms:.4f} ms (backward {step_ms - fwd_ms:.4f} "
+              f"ms) device time [{card}]")
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2067,6 +2573,13 @@ def main() -> int:
     ttrain = phase("transformer train", transformer_train_phase, ft,
                    counters, card)
     phase("transformer f32 step", transformer_f32_step_check, ft, counters)
+    bremat = phase("bert remat", bert_remat_phase, ft, counters, card)
+    baccum = phase("bert accumulate", bert_accumulate_phase, ft, counters,
+                   card)
+    rknobs = phase("resnet50 knobs", resnet50_knobs_phase, ft, cuda_pool,
+                   card)
+    ckpt = phase("checkpoint", checkpoint_phase, ft, cuda_pool, card)
+    phase("moe", moe_phase, ft, card)
     for name in ZOO:
         phase(name, zoo_phase, ft, name, card, kernel_counters)
     phase("zoo f32 steps", zoo_f32_step_checks, ft)
@@ -2127,6 +2640,9 @@ def main() -> int:
         fwd_paths[f"{name}_serve"] = serve[name]
         fwd_paths[f"{name}_train"] = train[name]["fwd"]
     bwd_paths = {f"{name}_train": train[name]["bwd"] for name in CNNS}
+    for path, counts in (("resnet50_knobs", rknobs), ("checkpoint", ckpt)):
+        fwd_paths[path] = counts["fwd"]
+        bwd_paths[path] = counts["bwd"]
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
               fwd_paths, kp),
@@ -2135,15 +2651,21 @@ def main() -> int:
         call_entry("flash_attention_fwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_serve": tserve["fwd"],
-                    "transformer_train": ttrain["fwd"]}, fp["fwd"]),
+                    "transformer_train": ttrain["fwd"],
+                    "bert_remat": bremat["fwd"],
+                    "bert_accumulate": baccum["fwd"]}, fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
-                   {"transformer_train": ttrain["bwd"]}, fp["bwd"]),
+                   {"transformer_train": ttrain["bwd"],
+                    "bert_remat": bremat["bwd"],
+                    "bert_accumulate": baccum["bwd"]}, fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
                    "flexflow_tpu/ops/pallas_norm.py:143",
                    {"transformer_serve": tserve["ln"],
-                    "transformer_train": ttrain["ln"]}, lp),
+                    "transformer_train": ttrain["ln"],
+                    "bert_remat": bremat["ln"],
+                    "bert_accumulate": baccum["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

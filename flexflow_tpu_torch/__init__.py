@@ -7,7 +7,7 @@ imports neither jax nor flexflow_tpu.  Entry points run on CUDA unless
 the caller passes ``device="cpu"``.
 """
 
-from . import losses, metrics
+from . import losses, metrics, resilience
 from .config import DeviceType, FFConfig, MemoryType, ParallelConfig
 from .data import synthetic_dataset
 from .initializers import (ConstantInitializer, GlorotUniform,
@@ -21,12 +21,13 @@ from .models import (build_alexnet, build_candle_uno, build_dlrm,
                      build_transformer_lm)
 from .op import Op, OpContext, OpType
 from .ops.attention import MultiHeadAttention, PositionEmbedding
-from .ops.elementwise import ElementBinary
+from .ops.elementwise import ElementBinary, ElementUnary
 from .ops.linear import Embedding, Linear
 from .ops.loss_ops import MSELoss
-from .ops.norm import BatchNorm, LayerNorm
+from .ops.moe import MoE
+from .ops.norm import BatchNorm, LayerNorm, RMSNorm
 from .ops.rnn import LSTM
-from .ops.tensor_ops import Concat, Dropout, Reshape, Split
+from .ops.tensor_ops import Concat, Dropout, Reshape, Split, Transpose
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .serving import (DeadlineExceeded, OverloadError, ServingEngine,
                       ServingError, SheddedError)
@@ -40,9 +41,9 @@ __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "build_inception_v3", "build_lstm_lm", "build_nmt",
            "build_resnet50", "build_transformer", "build_transformer_lm",
            "MultiHeadAttention", "PositionEmbedding", "ElementBinary",
-           "Embedding", "Linear", "LSTM", "MSELoss", "BatchNorm",
-           "LayerNorm", "Concat",
-           "Dropout", "Reshape", "Split",
+           "ElementUnary", "Embedding", "Linear", "LSTM", "MSELoss", "MoE",
+           "BatchNorm", "LayerNorm", "RMSNorm", "Concat",
+           "Dropout", "Reshape", "Split", "Transpose", "resilience",
            "OverloadError", "ServingEngine", "ServingError", "SheddedError",
            "Parameter", "Tensor", "PerfMetrics", "AdamOptimizer",
            "Optimizer", "SGDOptimizer", "synthetic_dataset", "losses",

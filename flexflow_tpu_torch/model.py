@@ -1,50 +1,70 @@
 """FFModel — graph builder, single-device compile, training and
-inference verbs.
+inference verbs, and checkpoints.
 
 Counterpart of ``flexflow_tpu/model.py`` on one device: the builder
 methods append Ops to a layer list with the JAX package's naming (so
 parameter names match one for one), ``compile()`` resolves the
 single-device plan, ``init_layers`` creates the parameters and the
-optimizer state on the model's device, ``train_batch``/``fit``/
-``evaluate`` train and evaluate eagerly with autograd (on CUDA the max
-pools' and the flash attention's gradients come from their hand-written
-backward kernels; plain SGD updates eligible embedding tables row by
-row, ``_sparse_embedding_specs``), and
+optimizer state on the model's device, ``train_batch``/``train_window``/
+``fit``/``evaluate`` train and evaluate eagerly with autograd (on CUDA
+the max pools' and the flash attention's gradients come from their
+hand-written backward kernels; plain SGD updates eligible embedding
+tables row by row, ``_sparse_embedding_specs``), and
 ``forward_compiled``/``predict`` run the forward under
 ``torch.inference_mode()``.
+
+The training loop takes the JAX package's knobs: gradient accumulation
+(k equal microbatches, one optimizer update), multi-step windows
+(``steps_per_dispatch``: K steps staged and run back to back, in eager
+torch the steps of K=1),
+padded tail batches (the masked step over the valid rows) and segmented
+rematerialisation (``torch.utils.checkpoint`` over ~sqrt(N) segments of
+the layer list).  ``save_checkpoint``/``load_checkpoint`` read and write
+the JAX package's ``.npz`` format, so either package resumes from the
+other's file.
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
 raises instead of falling back.  Strategy import and search, meshes,
-gradient accumulation, fused multi-step dispatch, padded tail batches,
-rematerialisation and profiling come in later slices, and ``compile``
+profiling and trace directories come in later slices, and ``compile``
 refuses what it cannot honour.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import math
+import threading
 import time
+import traceback
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import losses
 from . import metrics as metrics_mod
 from .config import FFConfig
 from .data.dataloader import PrefetchLoader, upload
 from .initializers import GlorotUniform
-from .op import Op, OpContext, OpType, resolve_conv_layout
+from .op import Op, OpContext, OpType, fold_seed, resolve_conv_layout
 from .ops.common import resolve_op_dtype, torch_dtype
 from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.conv import Conv2D, Pool2D
-from .ops.elementwise import ElementBinary
+from .ops.elementwise import ElementBinary, ElementUnary
 from .ops.linear import Embedding, Linear, map_ids, take_rows
 from .ops.loss_ops import MSELoss
-from .ops.norm import BatchNorm, LayerNorm
+from .ops.moe import MoE
+from .ops.norm import BatchNorm, LayerNorm, RMSNorm
 from .ops.rnn import LSTM
-from .ops.tensor_ops import Concat, Dropout, Flat, Reshape, Softmax, Split
+from .ops.tensor_ops import (Concat, Dropout, Flat, Reshape, Softmax, Split,
+                             Transpose)
 from .optimizers import SGDOptimizer
+from .resilience import (MANIFEST_KEY, _atomic_savez, _cleanup_stale_tmps,
+                         _prune_step_family, build_manifest,
+                         read_npz_verified)
 from .tensor import Parameter, Tensor
 
 
@@ -63,6 +83,37 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.detach().cpu().numpy()
+
+
+def _flatten_state(state) -> list:
+    """The optimizer state's leaves in ``jax.tree_util`` flatten order
+    (dict keys sorted at every level), the order of a checkpoint's
+    ``opt:<i>`` arrays: Adam is ``m/<names>, t, v/<names>``."""
+    if isinstance(state, dict):
+        return [leaf for k in sorted(state) for leaf in
+                _flatten_state(state[k])]
+    return [state]
+
+
+def _unflatten_state(template, leaves):
+    """``template``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if isinstance(template, dict):
+        return {k: _unflatten_state(template[k], leaves)
+                for k in sorted(template)}
+    return next(leaves)
+
+
+def _leaf_shape(leaf) -> tuple:
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+
+
+def _leaf_to_host(leaf) -> np.ndarray:
+    """An optimizer-state leaf as an owned numpy array (Adam's step
+    count, a Python int, as the JAX package's int32 scalar)."""
+    if isinstance(leaf, torch.Tensor):
+        return np.array(to_host(leaf))
+    return np.asarray(leaf, np.int32)
 
 
 class FFModel:
@@ -87,6 +138,8 @@ class FFModel:
         self._step = 0
         self._batch: Optional[tuple] = None
         self._cached_grads: Optional[Dict[str, torch.Tensor]] = None
+        self._ckpt_writer: Optional[threading.Thread] = None
+        self._ckpt_exc: Optional[BaseException] = None
         self.perf_metrics = metrics_mod.PerfMetrics()
         self.last_epoch_losses = np.zeros((0,), np.float32)
 
@@ -201,6 +254,11 @@ class FFModel:
             Reshape(self._uname("reshape", name), input_tensor,
                     shape)).outputs[0]
 
+    def transpose(self, input_tensor, perm, name=None) -> Tensor:
+        return self._register(
+            Transpose(self._uname("transpose", name), input_tensor,
+                      perm)).outputs[0]
+
     def dropout(self, input_tensor, rate, seed=0, name=None) -> Tensor:
         return self._register(
             Dropout(self._uname("dropout", name), input_tensor, rate,
@@ -216,6 +274,51 @@ class FFModel:
         return self._register(
             LayerNorm(self._uname("layernorm", name), input_tensor,
                       eps)).outputs[0]
+
+    def rms_norm(self, input_tensor, eps=1e-6, name=None) -> Tensor:
+        return self._register(
+            RMSNorm(self._uname("rmsnorm", name), input_tensor,
+                    eps)).outputs[0]
+
+    def moe(self, input_tensor, num_experts, d_ff, k=2, capacity_factor=1.25,
+            activation="gelu", aux_loss_weight=1e-2, kernel_initializer=None,
+            name=None) -> Tensor:
+        """Mixture-of-Experts FFN with top-k routing and capacity-factor
+        dispatch, on one device (``ops/moe.py``); its load-balance loss
+        joins the training objective."""
+        op = MoE(self._uname("moe", name), input_tensor, num_experts, d_ff,
+                 k, capacity_factor, activation, aux_loss_weight,
+                 kernel_initializer)
+        return self._register(op).outputs[0]
+
+    # element unary builders (reference model.h: exp/relu/... adders)
+    def _unary(self, fn, x, name=None, scalar=None) -> Tensor:
+        return self._register(
+            ElementUnary(self._uname(fn, name), x, fn, scalar)).outputs[0]
+
+    def exp(self, x, name=None):
+        return self._unary("exp", x, name)
+
+    def relu(self, x, name=None):
+        return self._unary("relu", x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary("sigmoid", x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary("tanh", x, name)
+
+    def elu(self, x, name=None):
+        return self._unary("elu", x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary("gelu", x, name)
+
+    def identity(self, x, name=None):
+        return self._unary("identity", x, name)
+
+    def scalar_multiply(self, x, scalar, name=None):
+        return self._unary("scalar_mul", x, name, scalar)
 
     def _binary(self, fn, a, b, name=None) -> Tensor:
         return self._register(
@@ -257,10 +360,11 @@ class FFModel:
         """Resolve the single-device plan: loss tensor, label tensor, conv
         layout, optimizer (default: SGD from the config's learning rate
         and weight decay), metrics and the sparse embedding tables.
-        Raises NotImplementedError for what the port cannot run yet — an
-        imported or searched strategy, more than one device, gradient
-        accumulation, fused multi-step dispatch, padded tail batches,
-        rematerialisation, profiling or a trace directory — rather than
+        Raises ValueError for ``gradient_accumulation_steps`` or
+        ``steps_per_dispatch`` below 1 and for a batch size that does not
+        divide into the microbatches, and NotImplementedError for what
+        the port cannot run yet — an imported or searched strategy, more
+        than one device, profiling or a trace directory — rather than
         silently ignoring it."""
         cfg = self.config
         if cfg.import_strategy_file or cfg.search_budget > 0 \
@@ -276,17 +380,20 @@ class FFModel:
                 "distributed meshes are not ported yet; the port runs on "
                 "one device")
         unported = [name for name, on in (
-            ("gradient_accumulation_steps > 1",
-             cfg.gradient_accumulation_steps > 1),
-            ("steps_per_dispatch > 1", cfg.steps_per_dispatch > 1),
-            ("pad_tail_batches", cfg.pad_tail_batches),
-            ("remat", cfg.remat),
             ("profiling", cfg.profiling),
             ("trace_dir", bool(cfg.trace_dir))) if on]
         if unported:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)}; the port trains "
-                f"one batch per step without them")
+                f"not ported yet: {', '.join(unported)}")
+        if cfg.gradient_accumulation_steps < 1:
+            raise ValueError(
+                f"gradient_accumulation_steps must be >= 1, got "
+                f"{cfg.gradient_accumulation_steps}")
+        if cfg.steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got "
+                f"{cfg.steps_per_dispatch}")
+        self._check_accum_divisible(cfg.batch_size, "batch_size")
         if not self.layers:
             raise ValueError("compile() needs at least one layer")
         self.optimizer = optimizer or self.optimizer or SGDOptimizer(
@@ -413,6 +520,169 @@ class FFModel:
         return sum(p.volume for p in self.parameters)
 
     # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _ckpt_path(path: str) -> str:
+        # np.savez silently appends '.npz' to suffix-less paths; normalize
+        # here so save/load agree on the on-disk name
+        return path if path.endswith(".npz") else path + ".npz"
+
+    def _strategy_digest(self) -> str:
+        """The JAX package's ``strategy_digest`` of the default plan the
+        port runs (no op has a parallel config), recorded in the
+        manifest: the sha256 of the empty encoded strategy, a NUL and
+        the sorted op names, to 16 hex digits."""
+        absent = ",".join(sorted(op.name for op in self.layers))
+        return hashlib.sha256(b"\x00" + absent.encode("utf-8")
+                              ).hexdigest()[:16]
+
+    def save_checkpoint(self, path: str, async_write: bool = False,
+                        keep_last: Optional[int] = None) -> None:
+        """Write the parameters (``param:<name>``, BatchNorm's running
+        statistics included), the optimizer state (``opt:<i>``, its
+        leaves in ``jax.tree_util`` flatten order), the step
+        (``meta:step``) and the integrity manifest (``meta:manifest``:
+        per-array CRC32s, the step, and the one-device topology with the
+        default plan's strategy digest) to one ``.npz``: the JAX
+        package's format, so its ``load_checkpoint`` and
+        ``resilience.verify_checkpoint`` take the file.
+
+        The device-to-host copy is synchronous; with ``async_write`` the
+        CRC pass, ``np.savez`` and the atomic rename run in a non-daemon
+        background thread, whose failure is re-raised at the next save,
+        load or :meth:`wait_for_checkpoint`.  ``keep_last=K`` prunes the
+        file's ``<name>_step<N>.npz`` family to its newest K, and stale
+        ``*.tmp.npz`` orphans of the family are swept on every save."""
+        if self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        flat: Dict[str, np.ndarray] = {}
+        for k, v in self._params.items():
+            # an owned copy: the sparse update writes tables in place
+            flat[f"param:{k}"] = np.array(to_host(v))
+        for i, leaf in enumerate(_flatten_state(self._opt_state)):
+            flat[f"opt:{i}"] = _leaf_to_host(leaf)
+        flat["meta:step"] = np.asarray(self._step, np.int64)
+        self.wait_for_checkpoint()  # one writer at a time, in order
+        final = self._ckpt_path(path)
+        _cleanup_stale_tmps(final)
+        step = self._step
+        digest = self._strategy_digest()
+
+        def write():
+            flat[MANIFEST_KEY] = np.asarray(
+                build_manifest(flat, step, mesh_shape={}, num_devices=1,
+                               process_count=1, strategy_digest=digest))
+            _atomic_savez(final, flat)
+            if keep_last is not None:
+                _prune_step_family(final, keep_last)
+
+        if not async_write:
+            write()
+            return
+
+        def guarded():
+            try:
+                write()
+            except BaseException as e:
+                # loud even if nothing ever joins, and kept for the next
+                # save, load or wait to re-raise
+                traceback.print_exc()
+                self._ckpt_exc = e
+
+        # non-daemon: the interpreter joins it at exit, so a script whose
+        # last act is an async save still publishes
+        self._ckpt_writer = threading.Thread(target=guarded,
+                                             name="ff-ckpt-writer")
+        self._ckpt_writer.start()
+
+    def _raise_ckpt_exc(self) -> None:
+        exc = self._ckpt_exc
+        if exc is not None:
+            self._ckpt_exc = None
+            raise RuntimeError("checkpoint write failed") from exc
+
+    def wait_for_checkpoint(self) -> None:
+        """Join a pending async checkpoint writer; re-raises its
+        failure."""
+        w = self._ckpt_writer
+        if w is not None:
+            w.join()
+            self._ckpt_writer = None
+        self._raise_ckpt_exc()
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint written by either package's
+        ``save_checkpoint``.  The whole file is read and its manifest's
+        CRCs checked first (a truncated or corrupt file raises
+        ``resilience.CorruptCheckpointError`` naming the path), then its
+        parameter and optimizer-state sets and shapes are checked
+        against this model, all before any state changes.  The port
+        runs one device, so the manifest's topology is not compared:
+        the arrays are whole either way."""
+        if self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        self.wait_for_checkpoint()  # never read under a pending writer
+        path = self._ckpt_path(path)
+        data = read_npz_verified(path, what="checkpoint")
+        self._validate_restore(data)
+        self._restore_from_host(data)
+
+    def _validate_restore(self, data: Dict[str, np.ndarray]) -> None:
+        """Raise ``ValueError`` unless ``data`` matches this model's
+        parameter names and shapes and its optimizer's slot count and
+        shapes."""
+        keys = set(data) - {MANIFEST_KEY}
+        ckpt_params = {k[len("param:"):] for k in keys
+                       if k.startswith("param:")}
+        cur_params = set(self._params)
+        if ckpt_params != cur_params:
+            missing = sorted(cur_params - ckpt_params)
+            extra = sorted(ckpt_params - cur_params)
+            raise ValueError(
+                f"checkpoint does not match this model: "
+                f"missing params {missing[:5]}, unexpected {extra[:5]}")
+        bad_shapes = [
+            (n, data[f"param:{n}"].shape, tuple(self._params[n].shape))
+            for n in sorted(ckpt_params)
+            if data[f"param:{n}"].shape != tuple(self._params[n].shape)]
+        if bad_shapes:
+            raise ValueError(
+                f"checkpoint does not match this model: shape "
+                f"mismatches {bad_shapes[:5]}")
+        leaves = _flatten_state(self._opt_state)
+        n_opt = sum(1 for k in keys if k.startswith("opt:"))
+        if n_opt != len(leaves):
+            raise ValueError(
+                f"optimizer state mismatch: checkpoint has {n_opt} "
+                f"slots, this optimizer has {len(leaves)} (was it saved "
+                f"with a different optimizer?)")
+        for i, leaf in enumerate(leaves):
+            if data[f"opt:{i}"].shape != _leaf_shape(leaf):
+                raise ValueError(
+                    f"optimizer state mismatch: slot {i} shape "
+                    f"{data[f'opt:{i}'].shape} != {_leaf_shape(leaf)}")
+
+    def _restore_from_host(self, data: Dict[str, np.ndarray]) -> None:
+        """Apply already-read, verified and validated checkpoint arrays:
+        each value takes the current parameter's (or slot's) dtype and
+        device; Adam's step count comes back as an int."""
+        def put(arr, like: torch.Tensor) -> torch.Tensor:
+            arr = np.asarray(arr)
+            if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16
+                arr = arr.astype(np.float32)
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=like.device, dtype=like.dtype)
+
+        for name, cur in list(self._params.items()):
+            self._params[name] = put(data[f"param:{name}"], cur)
+        leaves = _flatten_state(self._opt_state)
+        new = [put(data[f"opt:{i}"], leaf) if isinstance(leaf, torch.Tensor)
+               else int(data[f"opt:{i}"]) for i, leaf in enumerate(leaves)]
+        self._opt_state = _unflatten_state(self._opt_state, iter(new))
+        self._step = int(data["meta:step"])
+
+    # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
     def _forward_values(self, params: Dict[str, torch.Tensor],
@@ -421,27 +691,104 @@ class FFModel:
                         seed: Optional[int] = None,
                         updates: Optional[Dict[str, torch.Tensor]] = None,
                         embedding_rows: Optional[
-                            Dict[str, torch.Tensor]] = None
+                            Dict[str, torch.Tensor]] = None,
+                        aux_losses: Optional[Dict[str, torch.Tensor]] = None,
+                        keep_uids: Optional[Sequence[int]] = None
                         ) -> Dict[int, torch.Tensor]:
-        """Run the layer list on ``inputs``; returns every tensor's value
+        """Run the layer list on ``inputs``; returns the tensors' values
         by uid.  Each op runs in its resolved compute dtype.  In training
-        the ops' non-trainable state updates land in ``updates``, and
-        the Embeddings named in ``embedding_rows`` read their rows from
-        it."""
+        the ops' non-trainable state updates land in ``updates`` and
+        their auxiliary losses in ``aux_losses``, and the Embeddings named
+        in ``embedding_rows`` read their rows from it.
+
+        With ``config.remat`` and ``keep_uids`` (the training step passes
+        the loss and final tensors) the layer list runs in segments
+        (``_execute_remat``) and only the segment boundaries and
+        ``keep_uids`` come back; otherwise every tensor does."""
         base = self.config.compute_dtype
         ctx = OpContext(device=self.device, seed=seed,
                         training=training, compute_dtype=base,
                         conv_layout=self.resolved_conv_layout,
                         flash_attention=self.config.flash_attention,
                         updates={} if updates is None else updates,
-                        embedding_rows=embedding_rows)
+                        embedding_rows=embedding_rows,
+                        aux_losses={} if aux_losses is None else aux_losses)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
-        for op in self.layers:
+        if (self.config.remat and keep_uids is not None
+                and len(self.layers) > 3):
+            return self._execute_remat(params, values, ctx, keep_uids)
+        self._run_ops(self.layers, params, values, ctx)
+        return values
+
+    @staticmethod
+    def _run_ops(ops, params, values: Dict[int, torch.Tensor],
+                 ctx: OpContext) -> None:
+        base = ctx.compute_dtype
+        for op in ops:
             ctx.compute_dtype = resolve_op_dtype(op, base)
             outs = op.forward(params, [values[t.uid] for t in op.inputs],
                               ctx)
             for t, v in zip(op.outputs, outs):
                 values[t.uid] = v
+        ctx.compute_dtype = base
+
+    def remat_segments(self) -> List[List[Op]]:
+        """The layer list cut into ``max(2, isqrt(N))`` segments at the
+        JAX package's bounds (``_execute_remat``); under ``remat`` every
+        segment but the last runs checkpointed."""
+        n = len(self.layers)
+        nseg = max(2, math.isqrt(n))
+        bounds = [round(i * n / nseg) for i in range(nseg + 1)]
+        return [self.layers[a:b] for a, b in zip(bounds, bounds[1:])
+                if b > a]
+
+    def _execute_remat(self, params, values: Dict[int, torch.Tensor],
+                       ctx: OpContext, keep_uids) -> Dict[int, torch.Tensor]:
+        """sqrt(N)-segmented rematerialisation, the counterpart of the
+        JAX package's ``_execute_remat``: each segment but the last runs
+        under ``torch.utils.checkpoint`` (non-reentrant), so only the
+        tensors that cross a segment boundary, and ``keep_uids``, live
+        from the forward to the backward, and a segment's interior is
+        recomputed when its backward runs.  The last segment runs plain:
+        its activations feed the first backward step at once.  Each
+        segment runs on a context of its own, and its ``updates`` and
+        ``aux_losses`` come out with its outputs (a recomputation's are
+        dropped).  No op draws from torch's global random state — each
+        draws from its op generator, seeded afresh from the step seed at
+        every call — so a recomputed segment redraws the same dropout
+        masks, and checkpoint need not save and restore that state."""
+        segments = self.remat_segments()
+        keep = set(keep_uids)
+        seg_in, seg_out = [], []
+        for seg in segments:
+            produced = {t.uid for op in seg for t in op.outputs}
+            seg_in.append({t.uid for op in seg for t in op.inputs}
+                          - produced)
+            seg_out.append(produced)
+        for i, seg in enumerate(segments):
+            needed_later = set(keep)
+            for j in range(i + 1, len(segments)):
+                needed_later |= seg_in[j]
+            in_uids = sorted(u for u in seg_in[i] if u in values)
+            out_uids = sorted(seg_out[i] & needed_later)
+
+            def seg_fn(*carry, seg=seg, in_uids=in_uids, out_uids=out_uids):
+                ictx = dataclasses.replace(ctx, updates={}, aux_losses={})
+                vals = dict(zip(in_uids, carry))
+                self._run_ops(seg, params, vals, ictx)
+                return ([vals[u] for u in out_uids], ictx.updates,
+                        ictx.aux_losses)
+
+            carry = tuple(values[u] for u in in_uids)
+            if i == len(segments) - 1:
+                outs, upd, aux = seg_fn(*carry)
+            else:
+                outs, upd, aux = torch.utils.checkpoint.checkpoint(
+                    seg_fn, *carry, use_reentrant=False,
+                    preserve_rng_state=False)
+            ctx.updates.update(upd)
+            ctx.aux_losses.update(aux)
+            values.update(zip(out_uids, outs))
         return values
 
     def _forward(self, params: Dict[str, torch.Tensor],
@@ -530,15 +877,34 @@ class FFModel:
         """The random seed of training step ``step``, from
         ``config.seed`` and the step (the JAX step folds the step into
         its key the same way); each op derives its own generator from it
-        and its output uid (``OpContext.op_generator``)."""
+        and its output uid (``OpContext.op_generator``), and microbatch
+        ``i`` of an accumulated step folds ``i`` in (``fold_seed``)."""
         return ((int(self.config.seed) << 32) + step) & 0x7FFF_FFFF_FFFF_FFFF
 
-    def _loss_and_grads(self, batch, step: int, sparse: bool = False):
-        """Forward with autograd on, the loss on ``_loss_tensor``, its
-        gradients, the batch's metric sums and the ops' non-trainable
-        state updates (BatchNorm's running statistics).  Returns (loss,
-        sums, grads, updates, row_grads), all on the device; the loss is
-        a detached 0-d float32 tensor and the updates are detached.
+    def _check_accum_divisible(self, n: int, what: str) -> None:
+        """Every entry point that feeds the train step checks its batch
+        divides into ``gradient_accumulation_steps`` equal microbatches."""
+        accum = self.config.gradient_accumulation_steps
+        if accum > 1 and n % accum:
+            raise ValueError(
+                f"{what} {n} does not divide into "
+                f"gradient_accumulation_steps={accum} equal microbatches")
+
+    def _loss_and_grads(self, batch, seed: int, sparse: bool = False,
+                        nvalid: Optional[int] = None, base: int = 0,
+                        aux_scale: float = 1.0):
+        """Forward with autograd on, the loss on ``_loss_tensor`` plus
+        ``aux_scale`` times the ops' auxiliary losses, its gradients, the
+        batch's metric sums and the ops' non-trainable state updates
+        (BatchNorm's running statistics).  Returns (loss, sums, grads,
+        updates, row_grads), all on the device; the loss is a detached
+        0-d float32 tensor and the updates are detached.
+
+        ``nvalid`` selects the masked padded-tail objective: only rows
+        whose global index (``base`` plus the row) is below ``nvalid``
+        count, and the loss is their sum over ``max(nvalid, 1)`` for a
+        mean-reduced loss (their sum for a sum-reduced one), so the
+        losses of an accumulated step's microbatches add.
 
         ``grads`` holds every trainable parameter's gradient.  With
         ``sparse``, the tables of ``_sparse_specs`` are left out of it:
@@ -559,24 +925,74 @@ class FFModel:
             r.requires_grad_(True)
         labels = batch[-1]
         updates: Dict[str, torch.Tensor] = {}
+        aux_losses: Dict[str, torch.Tensor] = {}
         with torch.enable_grad():
             values = self._forward_values(
-                params, batch[:-1], training=True,
-                seed=self._step_seed(step), updates=updates,
-                embedding_rows=rows or None)
+                params, batch[:-1], training=True, seed=seed,
+                updates=updates, embedding_rows=rows or None,
+                aux_losses=aux_losses,
+                keep_uids=(self._loss_tensor.uid, self._final_tensor.uid))
             logits = values[self._loss_tensor.uid]
-            loss = self._loss_fn(logits, labels)
+            mb = logits.shape[0]
+            if nvalid is None:
+                loss = self._loss_fn(logits, labels)
+            else:
+                mask = ((torch.arange(mb, device=logits.device) + base)
+                        < nvalid).to(torch.float32)
+                total = torch.sum(self._per_example_loss(logits, labels)
+                                  * mask)
+                denom = (float(max(nvalid, 1))
+                         if self._loss_reduction == "mean" else 1.0)
+                loss = total / denom
+            if aux_losses:
+                loss = loss + sum(aux_losses.values()) * aux_scale
             leaves = list(trainable.values()) + list(rows.values())
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             sums = metrics_mod.compute_batch_metrics(
-                logits.detach(), labels, self.metrics, self.loss_type)
+                logits.detach(), labels, self.metrics, self.loss_type,
+                nvalid=(None if nvalid is None
+                        else min(max(nvalid - base, 0), mb)))
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         row_grads = dict(zip(rows, grads[len(trainable):]))
         grads = dict(zip(trainable, grads[:len(trainable)]))
         return (loss.detach(), sums, grads,
                 {k: v.detach() for k, v in updates.items()}, row_grads)
+
+    def _accumulate(self, batch, seed: int, nvalid: Optional[int]):
+        """Gradient accumulation over k equal microbatches, the JAX
+        ``_step_core``'s scan: microbatch i runs with seed
+        ``fold_seed(seed, i)``, the gradients add at parameter size, the
+        metric sums add and BatchNorm keeps the last microbatch's
+        running statistics.  A mean-reduced loss is the mean of the
+        microbatch losses and the gradients are divided by k; a
+        sum-reduced or masked loss adds, its gradients undivided, and
+        the (batch-size-free) auxiliary losses are scaled by 1/k so they
+        count once.  Returns (loss, sums, grads, updates)."""
+        accum = int(self.config.gradient_accumulation_steps)
+        mb = batch[0].shape[0] // accum
+        summed = nvalid is not None or self._loss_reduction == "sum"
+        aux_scale = 1.0 / accum if summed else 1.0
+        acc: Optional[Dict[str, torch.Tensor]] = None
+        losses_, sums_ = [], []
+        updates: Dict[str, torch.Tensor] = {}
+        for i in range(accum):
+            micro = tuple(a[i * mb:(i + 1) * mb] for a in batch)
+            loss, sums, grads, updates, _ = self._loss_and_grads(
+                micro, fold_seed(seed, i), nvalid=nvalid, base=i * mb,
+                aux_scale=aux_scale)
+            acc = grads if acc is None else {k: acc[k] + g
+                                             for k, g in grads.items()}
+            losses_.append(loss)
+            sums_.append(sums)
+        sums = {k: torch.stack([s[k] for s in sums_]).sum(
+            dim=0, dtype=sums_[0][k].dtype) for k in sums_[0]}
+        ls = torch.stack(losses_)
+        if summed:
+            return ls.sum(), sums, acc, updates
+        return ls.mean(), sums, {k: g / accum for k, g in acc.items()}, \
+            updates
 
     def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
         trainable = {k: self._params[k] for k in grads}
@@ -602,12 +1018,20 @@ class FFModel:
             g = torch.where(valid[:, None], g, 0.0)
             table.index_add_(0, idx, (-lr * g).to(table.dtype))
 
-    def _train_step(self, batch):
+    def _train_step(self, batch, nvalid: Optional[int] = None):
+        """One optimizer step on ``batch`` (device tensors, labels
+        last); ``nvalid`` selects the masked padded-tail step.  Returns
+        (loss, metric sums) on the device."""
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
-        loss, sums, grads, updates, row_grads = self._loss_and_grads(
-            batch, self._step, sparse=True)
-        self._apply_sparse_update(batch, row_grads)
+        seed = self._step_seed(self._step)
+        if self.config.gradient_accumulation_steps > 1:
+            loss, sums, grads, updates = self._accumulate(batch, seed,
+                                                          nvalid)
+        else:
+            loss, sums, grads, updates, row_grads = self._loss_and_grads(
+                batch, seed, sparse=True, nvalid=nvalid)
+            self._apply_sparse_update(batch, row_grads)
         self._apply_update(grads)
         # after the optimizer's step, as the JAX step returns
         # {**frozen, **updates, **new_trainable}
@@ -618,9 +1042,41 @@ class FFModel:
         """One training step on one batch (the inputs, then the labels;
         numpy arrays or tensors).  Returns the loss as a 0-d device
         tensor, not fetched."""
+        if arrays:
+            self._check_accum_divisible(len(arrays[0]), "batch of")
         loss, sums = self._train_step(self._device_batch(arrays))
         self._last_metric_sums = sums
         return loss
+
+    def _run_window(self, window, nvalid=None) -> tuple:
+        """The steps of a window of device tensors, back to back: lists
+        of the per-step losses and metric-sum dicts, on the device."""
+        losses_, sums_ = [], []
+        for i in range(int(window[0].shape[0])):
+            nv = None if nvalid is None else int(nvalid[i])
+            loss, sums = self._train_step(tuple(a[i] for a in window), nv)
+            losses_.append(loss)
+            sums_.append(sums)
+        return losses_, sums_
+
+    def train_window(self, window, nvalid=None):
+        """K training steps back to back (``FFConfig.steps_per_dispatch``),
+        the counterpart of the JAX package's fused window: ``window`` is
+        a tuple of stacked ``(K, batch...)`` arrays (host or device), the
+        inputs then the labels; ``nvalid`` (K ints) selects the masked
+        padded-tail step.  Nothing is fetched to the host, and the
+        results are those of K ``train_batch`` calls on the K batches.
+        Returns the device-resident ``(losses, metric_sums)``, stacked
+        per step."""
+        if self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        self._check_accum_divisible(int(window[0].shape[1]),
+                                    "window batch of")
+        losses_, sums_ = self._run_window(self._device_batch(window),
+                                          nvalid)
+        sums = {k: torch.stack([s[k] for s in sums_]) for k in sums_[0]}
+        self._last_metric_sums = sums
+        return torch.stack(losses_), sums
 
     # the reference's imperative loop: set_batch, forward,
     # zero_gradients, backward, update
@@ -644,9 +1100,9 @@ class FFModel:
         batch's metrics into ``perf_metrics`` and returns the loss."""
         if self._batch is None:
             raise RuntimeError("set_batch() first")
-        # dense, as the JAX package's imperative loop is
+        # dense and unaccumulated, as the JAX package's imperative loop is
         loss, sums, self._cached_grads, updates, _ = self._loss_and_grads(
-            self._batch, self._step)
+            self._batch, self._step_seed(self._step))
         self._params.update(updates)
         self.perf_metrics.update(sums)
         return loss
@@ -674,20 +1130,32 @@ class FFModel:
 
     def fit(self, x, y, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, callbacks=None,
-            verbose: bool = True, validation_data=None):
-        """The epoch loop, one step per full batch (the tail that does
-        not fill a batch is dropped).  Per-step losses and metric sums
-        stay on the device until one fetch per epoch; the last epoch's
-        losses are kept on ``last_epoch_losses`` and its metrics on
+            verbose: bool = True, validation_data=None, pad_tail=None):
+        """The epoch loop.  Per-step losses and metric sums stay on the
+        device until one fetch per epoch; the last epoch's losses are
+        kept on ``last_epoch_losses`` and its metrics on
         ``perf_metrics``.  Prints the ``epoch N:`` line and the
         reference's ``ELAPSED TIME = ..., THROUGHPUT = ... samples/s``
-        line (training time only; validation is excluded).
+        line (training time only; validation is excluded; the samples
+        actually trained, a padded tail's valid rows included).
+
+        The epoch runs as windows of ``config.steps_per_dispatch=K``
+        steps (one step a window by default), each window's upload
+        issued before the previous window is handed out; in eager torch
+        a window is its K steps back to back, so K changes which batches
+        are resident on the device (two windows), not the steps.
+        ``pad_tail`` (default: ``config.pad_tail_batches``) trains the
+        tail samples that do not fill a batch through the masked padded
+        step instead of dropping them.
         ``validation_data=(x_val, y_val)`` runs ``evaluate`` after every
         epoch.  The per-epoch JSON event, the metrics registry, span
         tracing and fault hooks come with the tooling slice."""
         cfg = self.config
         epochs = epochs or cfg.epochs
         bs = batch_size or cfg.batch_size
+        self._check_accum_divisible(bs, "fit batch_size")
+        k = max(1, int(cfg.steps_per_dispatch))
+        pad = cfg.pad_tail_batches if pad_tail is None else bool(pad_tail)
         if validation_data is not None and (
                 not isinstance(validation_data, (tuple, list))
                 or len(validation_data) != 2):
@@ -697,7 +1165,8 @@ class FFModel:
         for cb in callbacks:
             cb.set_model(self)
             cb.on_train_begin()
-        loader = PrefetchLoader(self, xs, y, batch_size=bs)
+        loader = PrefetchLoader(self, xs, y, batch_size=bs,
+                                steps_per_dispatch=k, pad_tail=pad)
         t_start = time.time()
         total_samples = 0
         val_time = 0.0
@@ -706,10 +1175,10 @@ class FFModel:
                 cb.on_epoch_begin(epoch)
             self.perf_metrics = metrics_mod.PerfMetrics()
             epoch_losses, epoch_sums = [], []
-            for batch in loader:
-                loss, sums = self._train_step(batch)
-                epoch_losses.append(loss)
-                epoch_sums.append(sums)
+            for window, nvalid in loader.iter_windows():
+                losses_, sums_ = self._run_window(window, nvalid)
+                epoch_losses.extend(losses_)
+                epoch_sums.extend(sums_)
             total_samples += loader.num_samples_used
             self.last_epoch_losses, host_sums = self._fetch(epoch_losses,
                                                             epoch_sums)

@@ -84,6 +84,11 @@ class OpContext:
     # gathered by the train step}, leaves that autograd differentiates
     # with respect to in place of the table (FFModel._sparse_specs)
     embedding_rows: Optional[Dict[str, torch.Tensor]] = None
+    # auxiliary objectives an op adds in training: {op name: 0-d loss}
+    # (MoE's load-balance loss); the train step adds their sum to the
+    # loss, as the JAX step does
+    aux_losses: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     def op_generator(self, uid: int) -> Optional[torch.Generator]:
         """The random stream of the op whose output has ``uid`` in this
@@ -96,6 +101,14 @@ class OpContext:
         gen.manual_seed((self.seed * 1_000_003 + int(uid))
                         & 0x7FFF_FFFF_FFFF_FFFF)
         return gen
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """The seed of part ``i`` of a step whose seed is ``seed`` (the
+    microbatches of an accumulated step), as the JAX step folds ``i``
+    into its key with ``jax.random.fold_in``: a fixed function of both,
+    so a part redraws the same random numbers whenever it reruns."""
+    return (seed * 0x5851F42D4C957F2D + int(i) + 1) & 0x7FFF_FFFF_FFFF_FFFF
 
 
 class Op:

@@ -1,6 +1,5 @@
-"""BatchNorm and LayerNorm, the counterparts of the ops of the same name
-in ``flexflow_tpu/ops/norm.py`` (RMSNorm comes with the models that use
-it).
+"""BatchNorm, LayerNorm and RMSNorm, the counterparts of the ops of the
+same name in ``flexflow_tpu/ops/norm.py``.
 
 BatchNorm is plain torch, as the JAX op is XLA: statistics in float32
 over (n, h, w), the population variance, and in training the running
@@ -15,6 +14,9 @@ carry over, and in the port the kernel is the CUDA path.  A CPU tensor
 takes the kernel's plain version.  Without scale or bias the op runs the
 stock math.  Statistics are float32 either way, and the output is cast
 to the compute dtype.
+
+RMSNorm is plain torch, as the JAX op is XLA: the float32 mean of
+squares, ``rsqrt``, the scale, then a cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -95,4 +97,22 @@ class LayerNorm(Op):
             y = y * params[self.w_scale.name]
         if self.w_bias is not None:
             y = y + params[self.w_bias.name]
+        return [cast_compute(y, ctx)]
+
+
+class RMSNorm(Op):
+    op_type = OpType.RMSNORM
+
+    def __init__(self, name, input_tensor, eps=1e-6):
+        super().__init__(name, [input_tensor])
+        self.eps = eps
+        d = input_tensor.shape[-1]
+        self._add_output(input_tensor.shape, input_tensor.dtype)
+        self.w_scale = self._add_weight((d,), ConstantInitializer(1.0),
+                                        "scale")
+
+    def forward(self, params, inputs, ctx: OpContext):
+        xf = inputs[0].to(torch.float32)
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + self.eps) * params[self.w_scale.name]
         return [cast_compute(y, ctx)]

@@ -1,6 +1,6 @@
-"""Flat, Softmax, Concat, Split, Reshape and Dropout, the counterparts of
-the ops of the same name in ``flexflow_tpu/ops/tensor_ops.py`` (Transpose
-comes with the frontends that expose it)."""
+"""Flat, Softmax, Concat, Split, Reshape, Transpose and Dropout, the
+counterparts of the ops of the same name in
+``flexflow_tpu/ops/tensor_ops.py``."""
 
 from __future__ import annotations
 
@@ -102,6 +102,21 @@ class Reshape(Op):
         if self._batch_relative:
             shape = (inputs[0].shape[0],) + shape[1:]
         return [inputs[0].reshape(shape)]
+
+
+class Transpose(Op):
+    """Permute the dims by ``perm`` (a view; ``jnp.transpose``)."""
+
+    op_type = OpType.TRANSPOSE
+
+    def __init__(self, name, input_tensor, perm):
+        super().__init__(name, [input_tensor])
+        self.perm = tuple(perm)
+        out_shape = tuple(input_tensor.shape[p] for p in self.perm)
+        self._add_output(out_shape, input_tensor.dtype)
+
+    def forward(self, params, inputs, ctx):
+        return [inputs[0].permute(self.perm)]
 
 
 class Dropout(Op):

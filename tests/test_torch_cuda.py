@@ -697,3 +697,154 @@ def test_lstm_on_the_card_equals_the_cpu(no_tf32, with_state):
         got[dev] = [t.detach().cpu() for t in list(outs) + list(grads)]
     for a, b in zip(got["cuda"], got["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _remat_counts():
+    return (cuda_attention.flash_attention_forward.launches,
+            cuda_attention.flash_attention_backward.launches,
+            cuda_norm.fused_layernorm.launches,
+            cuda_pool.max_pool_nhwc.launches,
+            cuda_pool.max_pool_nhwc_backward.launches)
+
+
+def _reckon(model, op_type) -> int:
+    """Forward launches of ``op_type``'s kernel in one remat step: two in
+    a checkpointed segment (the forward, then the recomputation), one in
+    the last segment."""
+    segs = model.remat_segments()
+    return sum((1 if i == len(segs) - 1 else 2)
+               * sum(op.op_type == op_type for op in seg)
+               for i, seg in enumerate(segs))
+
+
+def _step_from(model, start, batch, remat):
+    """One train_batch from the state ``start`` (params, optimizer
+    state, step) with remat on or off; the launches and the result."""
+    model._params, model._opt_state, model._step = (dict(start[0]),
+                                                    start[1], start[2])
+    model.config.remat = remat
+    before = _remat_counts()
+    loss = model.train_batch(*batch)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_remat_counts(), before)]
+    return float(loss), dict(model._params), launched
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_runs_the_flash_and_layernorm_kernels(no_tf32, dtype):
+    """A transformer step under remat recomputes the flash forward and
+    the LayerNorm kernel inside torch.utils.checkpoint: bit-equal to the
+    plain step (the kernels are deterministic; the flash backward has no
+    atomics), with the launches the segments reckon."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=2, compute_dtype=dtype)
+    m, _, logits = ft.build_transformer(
+        cfg, num_layers=3, d_model=64, num_heads=2, d_ff=128, seq_len=64,
+        vocab_size=100, num_classes=2, device="cuda")
+    m.compile(ft.AdamOptimizer(alpha=1e-3), final_tensor=logits)
+    m.init_layers(seed=0)
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randint(0, 100, (2, 64), generator=g, dtype=torch.int32),
+             torch.randint(0, 2, (2, 1), generator=g, dtype=torch.int32))
+    start = (dict(m._params), m._opt_state, m._step)
+    l0, p0, n0 = _step_from(m, start, batch, False)
+    l1, p1, n1 = _step_from(m, start, batch, True)
+    assert l0 == l1
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+    assert n0[:3] == [3, 3, 6]
+    assert n1[:3] == [_reckon(m, ft.OpType.ATTENTION), 3,
+                      _reckon(m, ft.OpType.LAYERNORM)]
+    assert n1[0] > 3 and n1[2] > 6
+
+
+def test_remat_runs_the_max_pool_kernels(no_tf32):
+    """A CNN step under remat recomputes the max-pool forward kernel in
+    its checkpointed segment and runs the backward kernel once, bit-equal
+    to the plain step (deterministic cuDNN)."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=4, compute_dtype="bfloat16")
+    m = ft.FFModel(cfg, device="cuda")
+    x = m.create_tensor((4, 3, 32, 32), name="x")
+    t = m.conv2d(x, 16, 3, 3, 1, 1, 1, 1, activation="relu")
+    t = m.pool2d(t, 3, 3, 2, 2, 1, 1)
+    for _ in range(6):
+        t = m.conv2d(t, 16, 3, 3, 1, 1, 1, 1, activation="relu")
+    t = m.batch_norm(t)
+    t = m.flat(t)
+    t = m.dense(t, 10)
+    m.compile(ft.SGDOptimizer(lr=0.01, momentum=0.9), final_tensor=t)
+    m.init_layers(seed=0)
+    g = torch.Generator().manual_seed(2)
+    batch = (torch.randn(4, 3, 32, 32, generator=g),
+             torch.randint(0, 10, (4, 1), generator=g, dtype=torch.int32))
+    start = (dict(m._params), m._opt_state, m._step)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        l0, p0, n0 = _step_from(m, start, batch, False)
+        l1, p1, n1 = _step_from(m, start, batch, True)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    assert l0 == l1
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+    assert n0[3:] == [1, 1]
+    assert n1[3:] == [_reckon(m, ft.OpType.POOL2D), 1] == [2, 1]
+
+
+def test_checkpoint_round_trip_on_the_card(no_tf32, tmp_path):
+    """Save on the card, train on, load and train the same steps again:
+    parameters, running statistics and momentum bit-equal; the file
+    verifies, and a flipped byte raises CorruptCheckpointError."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.resilience import (CorruptCheckpointError,
+                                               verify_checkpoint)
+
+    cfg = ft.FFConfig(batch_size=4, compute_dtype="float32")
+    m = ft.FFModel(cfg, device="cuda")
+    x = m.create_tensor((4, 3, 16, 16), name="x")
+    t = m.conv2d(x, 8, 3, 3, 1, 1, 1, 1)
+    t = m.batch_norm(t)
+    t = m.pool2d(t, 2, 2, 2, 2, 0, 0)
+    t = m.flat(t)
+    t = m.dense(t, 5)
+    m.compile(ft.SGDOptimizer(lr=0.05, momentum=0.9), final_tensor=t)
+    m.init_layers(seed=0)
+    g = torch.Generator().manual_seed(4)
+    batches = [(torch.randn(4, 3, 16, 16, generator=g),
+                torch.randint(0, 5, (4, 1), generator=g, dtype=torch.int32))
+               for _ in range(5)]
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for b in batches[:3]:
+            m.train_batch(*b)
+        path = str(tmp_path / "card.npz")
+        for async_write in (False, True):
+            m.save_checkpoint(path, async_write=async_write)
+            step0 = m._step
+            for b in batches[3:]:
+                m.train_batch(*b)
+            want = (dict(m._params), m._opt_state["v"])
+            m.load_checkpoint(path)
+            assert m._step == step0
+            for b in batches[3:]:
+                m.train_batch(*b)
+            for k, v in want[0].items():
+                assert torch.equal(m._params[k], v), k
+            for k, v in want[1].items():
+                assert torch.equal(m._opt_state["v"][k], v), k
+            m.load_checkpoint(path)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    assert verify_checkpoint(path)
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 2] ^= 0x10
+    bad = str(tmp_path / "flipped.npz")
+    with open(bad, "wb") as f:
+        f.write(raw)
+    with pytest.raises(CorruptCheckpointError, match="flipped.npz"):
+        m.load_checkpoint(bad)

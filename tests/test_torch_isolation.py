@@ -89,3 +89,15 @@ def test_the_cnn_slice_modules_are_checked(module):
     assert module in _modules()
     path = os.path.join(REPO, *module.split(".")) + ".py"
     assert path in _port_sources()
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.resilience", "flexflow_tpu_torch.ops.moe",
+    "flexflow_tpu_torch.data.dataloader", "flexflow_tpu_torch.model"])
+def test_the_training_loop_slice_modules_are_checked(module):
+    """The training-loop and checkpoint slice's modules (the port's own
+    copy of the checkpoint manifest code among them) are among those the
+    import and parse tests above check."""
+    assert module in _modules()
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    assert path in _port_sources()
