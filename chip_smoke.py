@@ -296,6 +296,40 @@ MOE = dict(num_experts=8, d_ff=3072, k=2, capacity_factor=1.25)
 MOE_SHAPE = (4, 512, 768)
 MOE_TOL = 1e-4
 
+# strategies on one card (PERF.md, PR 9).  Strategy files are written
+# under the build directory and imported through
+# FFConfig.import_strategy_file
+STRATEGY_DIR = os.path.join(HERE, "build", "strategies")
+# DLRM's dense (every-row) host update under SGD with momentum: steps
+# timed
+HETERO_DENSE_STEPS = 2
+# BERT-base in a float32 session with its 12 attention ops pinned to bf16,
+# against the unpinned float32 run from the same weights: the two class
+# probabilities within PIN_VS_F32_TOL.  A bf16 attention rounds q, k, v
+# and its output to 8 significant bits (2^-9 relative each); LayerNorm
+# renormalises every layer, so 12 layers move a logit by about 12 x 2^-9
+# x 4 (q, k, v, out) ~ 9% of its size at worst, and a probability by at
+# most a quarter of the logits' difference's change
+PIN_VS_F32_TOL = 5e-2
+# the same strategy at small width: the card (flash kernels, bf16)
+# against the CPU (the dense path in bf16), FLASH_LOW_TOL of the largest
+# value as the kernels' own bf16 comparison, on the logits of a float32
+# session whose attention alone is bf16
+PIN_SMALL = dict(num_layers=2, d_model=128, num_heads=2, d_ff=256,
+                 seq_len=128, vocab_size=1000, num_classes=2)
+# the committed searched strategies and their models (the builders'
+# widths, the file's batch and device count), verified device-free
+SEARCHED = [
+    ("searched_inception_v3_b128_8dev.pb", "build_inception_v3", 128, 8),
+    ("searched_inception_v3_b128_32dev.pb", "build_inception_v3", 128, 32),
+    ("searched_nmt_b256_8dev.pb", "build_nmt", 256, 8),
+    ("searched_transformer_b8_8dev.pb", "build_transformer", 8, 8),
+    ("searched_transformer_b32_8dev.pb", "build_transformer", 32, 8),
+]
+# every full-width training step's peak device memory beside the
+# verifier's analytic high-water for it (memory_estimate)
+MEMORY = []
+
 
 def card_line() -> str:
     r = subprocess.run(
@@ -995,6 +1029,8 @@ def train_phase(ft, cuda_pool, card: str, name: str = "alexnet") -> dict:
           f"[{card}]")
     kernel_breakdown(lambda: model.train_batch(xb, yb), 3 if alexnet else 2,
                      card, what="training step")
+    step_memory(model, (xb, yb), f"{name} step (bf16, batch {BATCH}, SGD "
+                f"momentum)", card)
     del model
     torch.cuda.empty_cache()
     if alexnet:
@@ -1462,6 +1498,8 @@ def layernorm_phase(cuda_norm, gen) -> dict:
 def reset_counts(*fns) -> None:
     for fn in fns:
         fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = {}
 
 
 def transformer_serve_phase(ft, counters, card: str) -> dict:
@@ -1624,6 +1662,8 @@ def transformer_train_phase(ft, counters, card: str) -> dict:
           f"over 5 steps [{card}]")
     kernel_breakdown(lambda: model.train_batch(xb, yb), 2, card,
                      what="training step")
+    step_memory(model, (xb, yb), f"bert step (bf16, batch {BERT_BATCH}, "
+                f"Adam)", card)
     return launches
 
 
@@ -1667,19 +1707,22 @@ def transformer_f32_step_check(ft, counters) -> None:
 
 def build_zoo(ft, name: str, batch: int, device=None, **overrides):
     """A zoo model compiled with plain SGD (its embedding tables on the
-    sparse update path unless ``sparse_embedding_updates`` is False)."""
+    sparse update path unless ``sparse_embedding_updates`` is False);
+    ``momentum`` and ``import_strategy_file`` may be overridden."""
     from flexflow_tpu_torch import models
 
     builder, kw, _, _, lr = ZOO[name]
     sparse = overrides.pop("sparse_embedding_updates", None)
+    momentum = overrides.pop("momentum", 0.0)
     cfg = ft.FFConfig(batch_size=batch, compute_dtype=overrides.pop(
         "compute_dtype", "bfloat16"), seed=SEED,
-        sparse_embedding_updates=sparse)
+        sparse_embedding_updates=sparse,
+        import_strategy_file=overrides.pop("import_strategy_file", ""))
     model, _, _ = getattr(models, builder)(cfg, device=device,
                                            **{**kw, **overrides})
     last = model.layers[-1]
     if last.op_type == ft.OpType.MSELOSS:   # sets the loss and metric
-        model.compile(ft.SGDOptimizer(lr=lr), metrics=[],
+        model.compile(ft.SGDOptimizer(lr=lr, momentum=momentum), metrics=[],
                       final_tensor=last.outputs[0])
     else:                                   # NMT: per-token sparse CE
         model.compile(ft.SGDOptimizer(lr=lr),
@@ -1712,15 +1755,17 @@ def zoo_batch(model, n: int, rng):
     return xs, rng.random((n, 1)).astype(np.float32)
 
 
-def zoo_serve(ft, name: str, model, card: str) -> None:
+def zoo_serve(ft, name: str, model, card: str, label: str = "") -> None:
     """Serve ``model`` through ServingEngine: ZOO_CLIENTS closed-loop
     clients over ZOO_ROUNDS rounds of ZOO_REQUESTS requests, each
     round's rows/s and client-side latency p50/p99.  Every output's
     shape is checked; the first ZOO_CHECKED requests' rows are held
-    against predict() (finite, and for NMT probabilities summing to 1)."""
+    against predict() (finite, and for NMT probabilities summing to 1).
+    ``label`` names the model in the lines (default ``name``)."""
     import numpy as np
 
     max_batch = ZOO[name][3]
+    name, kind = label or name, name
     t0 = time.perf_counter()
     engine = ft.ServingEngine(model, max_batch=max_batch)
     print(f"{name} engine warmup (buckets {engine.buckets}): "
@@ -1779,7 +1824,7 @@ def zoo_serve(ft, name: str, model, card: str) -> None:
     xs = [np.concatenate(c) for c in zip(*[x for _, x, _ in checked])]
     ys = np.concatenate([y for _, _, y in checked])
     assert np.isfinite(ys).all(), "non-finite outputs"
-    if name == "nmt":   # per-token probabilities over the vocabulary
+    if kind == "nmt":   # per-token probabilities over the vocabulary
         np.testing.assert_allclose(ys.sum(axis=-1), 1.0, atol=1e-2)
     ref = model.predict(xs, batch_size=max_batch)
     err = float(np.abs(ys - ref).max())
@@ -1823,13 +1868,16 @@ def time_step(model, batch, card: str, label: str) -> list:
                             what="training step")
 
 
-def zoo_train(ft, name: str, model, card: str) -> None:
+def zoo_train(ft, name: str, model, card: str, label: str = ""):
     """fit() over a few batches, then ZOO_REPEAT_STEPS train_batch steps
-    on one batch (the loss must fall), then a timed, profiled step."""
+    on one batch (the loss must fall), then a timed, profiled step and
+    the step's peak memory.  Returns the device batch."""
     import numpy as np
     import torch
 
     batch = ZOO[name][2]
+    lr = ZOO[name][4]
+    name = label or name
     rng = np.random.default_rng(SEED + 1)
     xs, y = zoo_batch(model, ZOO_FIT_BATCHES * batch, rng)
     record = EpochLosses()
@@ -1858,7 +1906,7 @@ def zoo_train(ft, name: str, model, card: str) -> None:
     tail = float(losses[-3:].astype(np.float64).mean())
     assert tail < losses[0], f"loss did not fall: {losses}"
     print(f"{name} train_batch x{ZOO_REPEAT_STEPS} on one batch (SGD lr "
-          f"{ZOO[name][4]}): loss {losses[0]:.7f} -> mean of the last 3 "
+          f"{lr}): loss {losses[0]:.7f} -> mean of the last 3 "
           f"{tail:.7f} ({losses.tolist()})")
     rows = time_step(model, xb, card, f"{name} (bf16)")
     if rows:
@@ -1867,6 +1915,7 @@ def zoo_train(ft, name: str, model, card: str) -> None:
         print(f"{name} step: kernels named gemm (the float32 products of "
               f"the cast operands) {100 * gemm / total:.1f}% of device "
               f"busy time [{card}]")
+    step_memory(model, xb, f"{name} step (bf16, batch {batch})", card)
     return xb
 
 
@@ -2098,6 +2147,7 @@ def bert_remat_phase(ft, counters, card: str) -> dict:
     from flexflow_tpu_torch.models import build_transformer
 
     fwd_k, bwd_k, ln_k = counters
+    free_garbage()
     cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="bfloat16",
                       seed=SEED)
     model, _, logits = build_transformer(cfg, **BERT)
@@ -2140,6 +2190,10 @@ def bert_remat_phase(ft, counters, card: str) -> dict:
           f"; the step's largest update {update:.3g}) [{card}]")
     assert l1 == l0 and diff == 0, (loss_rel, diff, update)
     assert pk1 < pk0, (pk0, pk1)
+    record_memory(model, pk0, f"bert step (bf16, batch {BERT_BATCH}, SGD "
+                  f"momentum)", card)
+    record_memory(model, pk1, f"bert remat step (bf16, batch {BERT_BATCH})",
+                  card)
     print(f"bert remat memory: peak over a step {pk0 / 2**30:.3f} GiB "
           f"without remat, {pk1 / 2**30:.3f} GiB with ({(pk0 - h0) / 2**30:.3f}"
           f" and {(pk1 - h1) / 2**30:.3f} GiB above the {h0 / 2**30:.3f} GiB "
@@ -2167,6 +2221,7 @@ def bert_accumulate_phase(ft, counters, card: str) -> dict:
     from flexflow_tpu_torch.models import build_transformer
 
     fwd_k, bwd_k, ln_k = counters
+    free_garbage()
     cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="float32",
                       seed=SEED)
     model, _, logits = build_transformer(cfg, **BERT)
@@ -2202,6 +2257,8 @@ def bert_accumulate_phase(ft, counters, card: str) -> dict:
         if accum > 1:
             total = {k: total[k] + got[k] for k in total}
         runs[(accum, remat)] = (loss, host_state(model), peak)
+        record_memory(model, peak, f"bert f32 step, accumulation {accum}"
+                      f"{' + remat' if remat else ''}", card)
     model.config.gradient_accumulation_steps = 1
     model.config.remat = False
     l1, s1, p1 = runs[(1, False)]
@@ -2489,6 +2546,351 @@ def moe_phase(ft, card: str) -> None:
               f"ms) device time [{card}]")
 
 
+def memory_estimate(model) -> float:
+    """The verifier's analytic high-water of one training step of
+    ``model`` (its FF108 scalar before the compiler-temp factor): the
+    simulator ``analysis.verify_compile`` runs, over the resolved
+    strategy and mesh."""
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    sim = Simulator(num_devices=1,
+                    opt_slot_bytes=model.optimizer.slot_bytes_per_param,
+                    sparse_tables=frozenset(
+                        t for _, t, _ in model._sparse_specs))
+    strategies = {op.name: op.parallel_config for op in model.layers
+                  if op.parallel_config is not None}
+    return sim.peak_memory_bytes(model.layers, strategies,
+                                 dict(model.mesh.sizes), assume_remat=False)
+
+
+def record_memory(model, peak: int, label: str, card: str) -> None:
+    import torch
+
+    est = memory_estimate(model)
+    MEMORY.append({"step": label, "peak_bytes": int(peak),
+                   "estimate_bytes": est, "ratio": peak / est})
+    print(f"memory {label}: peak {peak / 2**30:.3f} GiB allocated over the "
+          f"step ({torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
+          f"after it), analytic high-water {est / 2**30:.3f} GiB, ratio "
+          f"{peak / est:.4f} [{card}]")
+
+
+def free_garbage() -> None:
+    """Collect what earlier phases left in reference cycles, so a peak
+    counts the live model and no dead one."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def step_memory(model, batch, label: str, card: str) -> int:
+    """One train_batch's peak allocation (``max_memory_allocated`` after
+    a reset), recorded beside the analytic high-water."""
+    import torch
+
+    free_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    model.train_batch(*batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    record_memory(model, peak, label, card)
+    return peak
+
+
+def write_strategy(name: str, strategies) -> str:
+    from flexflow_tpu_torch.strategy import save_strategy_file
+
+    os.makedirs(STRATEGY_DIR, exist_ok=True)
+    path = os.path.join(STRATEGY_DIR, name)
+    save_strategy_file(path, strategies)
+    return path
+
+
+def pinned_tables(model, when: str) -> list:
+    """The host-placed tables, each asserted a pinned host tensor."""
+    names = sorted(model._host_params)
+    for n in names:
+        t = model._params[n]
+        assert t.device.type == "cpu" and t.is_pinned(), (when, n, t.device)
+    return [model._params[n] for n in names]
+
+
+def dlrm_hetero_phase(ft, card: str, counters) -> None:
+    """DLRM at full width under the reference's hetero strategy for one
+    GPU (its four 1,000,000 x 64 tables on the host), imported from a
+    ``.pb``: the forward bit-equal to the device-placed model from the
+    same weights, each step's peak memory beside the device-placed one,
+    serving and training through the usual entry points with the tables
+    pinned on the host throughout, the host's gather and row-update
+    times, a dense host update (momentum) timed, and a small float32
+    version's 3 steps on the card against the CPU."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ops.linear import host_gather
+    from flexflow_tpu_torch.strategy.dlrm_gen import \
+        generate_dlrm_hetero_strategy
+
+    reset_counts(*counters)
+    path = write_strategy("dlrm_strategy_4nEmb_1cpu_1gpu.pb",
+                          generate_dlrm_hetero_strategy(
+                              gpus=1, cpus=1, num_embeddings=4))
+    batch = ZOO["dlrm"][2]
+    t0 = time.perf_counter()
+    model = build_zoo(ft, "dlrm", batch, import_strategy_file=path)
+    tables = pinned_tables(model, "after init")
+    report = model.verify_report
+    print(f"dlrm hetero: {os.path.relpath(path, HERE)} imported, "
+          f"{len(tables)} tables pinned on the host "
+          f"({sum(t.nbytes for t in tables) / 2**30:.3f} GiB), row update "
+          f"on the host for {len(model._host_rows)}, built and initialised "
+          f"in {time.perf_counter() - t0:.3f}s; verifier {report.counts()} "
+          f"({sorted(set(report.codes()))}) [{card}]")
+    assert len(tables) == 4 and len(model._host_rows) == 4, \
+        model._host_params
+    assert not model._sparse_specs and not report.errors
+    rng = np.random.default_rng(SEED + 2)
+    xs, y = zoo_batch(model, batch, rng)
+    out_h = model.predict(xs, batch_size=batch)
+    xb = model._to_device(tuple(xs) + (y,))
+    peak_h = step_memory(model, xb, "dlrm hetero step (bf16, batch "
+                         f"{batch})", card)
+    pinned_tables(model, "after a step")
+
+    device = build_zoo(ft, "dlrm", batch)   # the same seed: same weights
+    out_d = device.predict(xs, batch_size=batch)
+    assert np.array_equal(out_h, out_d), float(np.abs(out_h - out_d).max())
+    peak_d = step_memory(device, xb, f"dlrm device-placed step (bf16, "
+                         f"batch {batch}, sparse update)", card)
+    table_b = sum(t.nbytes for t in tables)
+    print(f"dlrm hetero forward == device-placed forward from the same "
+          f"weights (bit-equal, {out_h.shape[0]} rows); peak over a step "
+          f"{peak_h / 2**30:.3f} GiB against {peak_d / 2**30:.3f} GiB "
+          f"device-placed: {(peak_d - peak_h) / 2**30:.3f} GiB left the "
+          f"card (the tables are {table_b / 2**30:.3f} GiB) [{card}]")
+    assert peak_d - peak_h > 0.9 * table_b, (peak_h, peak_d, table_b)
+    del device
+    torch.cuda.empty_cache()
+
+    zoo_serve(ft, "dlrm", model, card, label="dlrm hetero")
+    xb = zoo_train(ft, "dlrm", model, card, label="dlrm hetero")
+    pinned_tables(model, "after fit and train_batch")
+    for i in range(3):
+        model.train_batch(*xb)
+        assert [model._params[n] for n in sorted(model._host_params)] == \
+            tables
+        pinned_tables(model, f"after step {i}")
+
+    # the host's share of a step: the four gathers (ids to the host, the
+    # gather, the rows to the card) and the four row updates
+    ids = [xb[pos] for _, _, pos in model._host_rows]
+    grads = {op: torch.zeros((batch, 1, 64), device=model.device)
+             for op, _, _ in model._host_rows}
+
+    def host_ms(fn, reps=10) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    gather_ms = host_ms(lambda: [host_gather(t, i, model.device)
+                                 for t, i in zip(tables, ids)])
+    update_ms = host_ms(lambda: model._apply_sparse_update(xb, grads))
+    wall = host_ms(lambda: model.train_batch(*xb))
+    print(f"dlrm hetero host work a step: gathers {gather_ms:.4f} ms, row "
+          f"updates {update_ms:.4f} ms (4 tables, {batch} ids each), of a "
+          f"{wall:.4f} ms step wall [{card}]")
+    launches = [fn.launches for fn in counters]
+    assert launches == [0] * len(counters), launches
+    del model
+    torch.cuda.empty_cache()
+
+    # SGD with momentum moves every row the velocity holds: the dense
+    # path, the whole tables' gradient and update on the host
+    dense = build_zoo(ft, "dlrm", batch, import_strategy_file=path,
+                      momentum=0.9)
+    assert not dense._host_rows
+    dense.train_batch(*xb)
+    t0 = time.perf_counter()
+    for _ in range(HETERO_DENSE_STEPS):
+        dense.train_batch(*xb)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3 / HETERO_DENSE_STEPS
+    pinned_tables(dense, "after dense steps")
+    print(f"dlrm hetero dense update (SGD momentum 0.9: each table's whole "
+          f"gradient built and applied on the host): {dense_ms:.1f} ms "
+          f"wall a step over {HETERO_DENSE_STEPS} steps [{card}]")
+    del dense
+
+    kw = ZOO_SMALL["dlrm"]
+    small = write_strategy("dlrm_strategy_small_hetero.pb",
+                           generate_dlrm_hetero_strategy(
+                               gpus=1, cpus=1, num_embeddings=4))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = build_zoo(ft, "dlrm", 16, device=dev, compute_dtype="float32",
+                      import_strategy_file=small, **kw)
+        assert len(m._host_rows) == 4
+        rng = np.random.default_rng(SEED)
+        batches = [zoo_batch(m, 16, rng) for _ in range(3)]
+        losses = [float(m.train_batch(*x, yy)) for x, yy in batches]
+        runs.append((np.array(losses), {p.name: m.get_weights(p.name)
+                                        for p in m.parameters}))
+    (l_c, w_c), (l_h, w_h) = runs
+    loss_err = float(np.abs(l_c - l_h).max())
+    param_err = max(float(np.abs(w_c[k] - w_h[k]).max()) for k in w_h)
+    assert loss_err <= F32_STEP_TOL and param_err <= F32_STEP_TOL, (
+        loss_err, param_err)
+    print(f"f32 dlrm hetero 3 SGD steps cuda vs cpu: losses "
+          f"{np.round(l_c, 6).tolist()}, max abs err {loss_err:.3g}, max "
+          f"abs err over the parameters {param_err:.3g} (tolerance "
+          f"{F32_STEP_TOL})")
+
+
+def pinned_bert(ft, compute_dtype: str, path: str = "", device=None,
+                arch=None, batch: int = BERT_BATCH):
+    """BERT-base (or ``arch``) with SGD, importing the strategy at
+    ``path`` when given; weights from SEED."""
+    from flexflow_tpu_torch.models import build_transformer
+
+    cfg = ft.FFConfig(batch_size=batch, compute_dtype=compute_dtype,
+                      seed=SEED, import_strategy_file=path)
+    model, _, logits = build_transformer(cfg, device=device,
+                                         **(arch or BERT))
+    model.compile(ft.SGDOptimizer(lr=REMAT_LR), final_tensor=logits)
+    model.init_layers(seed=SEED)
+    return model
+
+
+def bert_precision_phase(ft, counters, card: str) -> dict:
+    """BERT-base (batch 16) in a float32 session with a strategy pinning
+    its 12 attention ops to bf16: the verifier's FF141 row, the flash
+    kernels' launches and dtype a forward and a step, the output against
+    the unpinned float32 run and, at small width, against the CPU; the
+    forward's and the step's device time beside the all-f32 and all-bf16
+    runs.  Returns the kernels' launches of the pinned run."""
+    import numpy as np
+    import torch
+
+    fwd_k, bwd_k, ln_k = counters
+    layers = BERT["num_layers"]
+    pins = {f"attention_{i}": ft.ParallelConfig(
+        dims=(1, 1, 1), device_ids=(0,), precision="bf16")
+        for i in range(layers)}
+    path = write_strategy("bert_attention_bf16.pb", pins)
+    model = pinned_bert(ft, "float32", path)
+    report = model.verify_report
+    ff141 = [d for d in report if d.code == "FF141"]
+    assert len(ff141) == 1 and not report.errors, report.render_text()
+    print(f"bert pinned: {os.path.relpath(path, HERE)} imported; verifier "
+          f"{report.counts()}: {ff141[0].render()} [{card}]")
+    xb, yb = bert_batch(model)
+    fwd = model.forward_compiled(BERT_BATCH)
+    reset_counts(*counters)
+    with torch.inference_mode():
+        out_p = fwd(model._params, (xb,)).float().cpu().numpy()
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    by_dtype = dict(fwd_k.launches_by_dtype)
+    assert launches == {"fwd": layers, "bwd": 0, "ln": 2 * layers} and \
+        by_dtype == {"torch.bfloat16": layers}, (launches, by_dtype)
+    reset_counts(*counters)
+    model.train_batch(xb, yb)
+    step = {"fwd": fwd_k.launches, "bwd": bwd_k.launches, "ln": ln_k.launches}
+    assert step == {"fwd": layers, "bwd": layers, "ln": 2 * layers} and \
+        fwd_k.launches_by_dtype == {"torch.bfloat16": layers} and \
+        bwd_k.launches_by_dtype == {"torch.bfloat16": layers}, (
+            step, fwd_k.launches_by_dtype, bwd_k.launches_by_dtype)
+    print(f"bert pinned launches: a forward {launches['fwd']} flash "
+          f"forward, all bf16 ({by_dtype}); a step {step['fwd']} + "
+          f"{step['bwd']} flash (bf16), layernorm {step['ln']} (float32 "
+          f"session) [{card}]")
+    total = {k: launches[k] + step[k] for k in launches}
+
+    times = {}
+    plain = None
+    for label, dtype, p in (("f32", "float32", ""), ("pinned", "float32",
+                                                      path),
+                            ("bf16", "bfloat16", "")):
+        m = model if label == "pinned" else pinned_bert(ft, dtype, p)
+        f = m.forward_compiled(BERT_BATCH)
+        if label == "f32":
+            with torch.inference_mode():
+                plain = f(m._params, (xb,)).float().cpu().numpy()
+        fwd_ms = time_ms(lambda t: f(m._params, t), [(xb,)], 5,
+                         spin_cycles=1_000_000_000)
+        step_ms = time_ms(lambda b: m.train_batch(*b), [(xb, yb)], 3,
+                          spin_cycles=3_000_000_000)
+        times[label] = (fwd_ms, step_ms)
+        if label != "pinned":
+            del m, f
+            torch.cuda.empty_cache()
+    err = float(np.abs(out_p - plain).max())
+    print(f"bert pinned vs unpinned float32 (same weights): class "
+          f"probabilities max abs diff {err:.4g} (tolerance "
+          f"{PIN_VS_F32_TOL}) [{card}]")
+    assert err <= PIN_VS_F32_TOL and np.isfinite(out_p).all(), err
+    for label, (f_ms, s_ms) in times.items():
+        print(f"bert {label} (batch {BERT_BATCH}): forward {f_ms:.4f} ms, "
+              f"step {s_ms:.4f} ms device time [{card}]")
+    del model, fwd
+    torch.cuda.empty_cache()
+
+    # the strategy at small width: card against CPU, float32 session,
+    # attention in bf16 (flash kernels on the card, the dense path on
+    # the CPU), logits compared
+    small_pins = {f"attention_{i}": pins[f"attention_{i}"]
+                  for i in range(PIN_SMALL["num_layers"])}
+    small = write_strategy("small_attention_bf16.pb", small_pins)
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(0, PIN_SMALL["vocab_size"],
+                     (2, PIN_SMALL["seq_len"])).astype(np.int32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = pinned_bert(ft, "float32", small, device=dev, arch=PIN_SMALL,
+                        batch=2)
+        logits = m._loss_tensor
+        vals = m._forward_values(m._params, m._to_device((x,)))
+        outs.append(vals[logits.uid].float().cpu().numpy())
+    scale = float(np.abs(outs[1]).max())
+    small_err = float(np.abs(outs[0] - outs[1]).max())
+    assert small_err <= FLASH_LOW_TOL * max(scale, 1.0), (small_err, scale)
+    print(f"bert pinned small (2 x 128, s 128) cuda (flash bf16) vs cpu "
+          f"(dense bf16): logits max abs err {small_err:.4g} of "
+          f"{scale:.4g} (tolerance {FLASH_LOW_TOL} of the largest) [{card}]")
+    return total
+
+
+def verifier_phase(ft, card: str) -> None:
+    """verify() device-free over the committed searched strategies, each
+    with its model at the file's batch and device count: the error,
+    warning and info counts per file."""
+    from flexflow_tpu_torch import models
+    from flexflow_tpu_torch.analysis import verify
+    from flexflow_tpu_torch.strategy import load_strategy_file
+
+    for fname, builder, batch, ndev in SEARCHED:
+        t0 = time.perf_counter()
+        model = getattr(models, builder)(ft.FFConfig(batch_size=batch))[0]
+        strategies = load_strategy_file(os.path.join(HERE, "artifacts",
+                                                     fname))
+        report = verify(model.layers, strategies, num_devices=ndev,
+                        input_tensors=model.input_tensors,
+                        final_tensors=model.layers[-1].outputs,
+                        parameters=model.parameters)
+        c = report.counts()
+        print(f"verify {fname} ({builder}, batch {batch}, {ndev} devices, "
+              f"{len(strategies)} entries): {c.get('ERROR', 0)} error, "
+              f"{c.get('WARN', 0)} warning, {c.get('INFO', 0)} info "
+              f"({sorted(set(report.codes()))}), "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+        assert not report.errors, report.render_text()
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2583,6 +2985,13 @@ def main() -> int:
     for name in ZOO:
         phase(name, zoo_phase, ft, name, card, kernel_counters)
     phase("zoo f32 steps", zoo_f32_step_checks, ft)
+    phase("dlrm hetero", dlrm_hetero_phase, ft, card, kernel_counters)
+    bpin = phase("bert pinned", bert_precision_phase, ft, counters, card)
+    phase("verifier", verifier_phase, ft, card)
+    worst = max(MEMORY, key=lambda r: r["ratio"])
+    print(f"memory factor: largest ratio {worst['ratio']:.4f} "
+          f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
+    print("memory ratios: " + json.dumps(MEMORY))
     print("phase seconds: " + json.dumps(seconds))
 
     def sums(rows):
@@ -2653,19 +3062,22 @@ def main() -> int:
                    {"transformer_serve": tserve["fwd"],
                     "transformer_train": ttrain["fwd"],
                     "bert_remat": bremat["fwd"],
-                    "bert_accumulate": baccum["fwd"]}, fp["fwd"]),
+                    "bert_accumulate": baccum["fwd"],
+                    "bert_pinned": bpin["fwd"]}, fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_train": ttrain["bwd"],
                     "bert_remat": bremat["bwd"],
-                    "bert_accumulate": baccum["bwd"]}, fp["bwd"]),
+                    "bert_accumulate": baccum["bwd"],
+                    "bert_pinned": bpin["bwd"]}, fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
                    "flexflow_tpu/ops/pallas_norm.py:143",
                    {"transformer_serve": tserve["ln"],
                     "transformer_train": ttrain["ln"],
                     "bert_remat": bremat["ln"],
-                    "bert_accumulate": baccum["ln"]}, lp),
+                    "bert_accumulate": baccum["ln"],
+                    "bert_pinned": bpin["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

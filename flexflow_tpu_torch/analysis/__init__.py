@@ -1,0 +1,29 @@
+"""Static strategy and graph verification with structured diagnostics,
+the JAX package's ``analysis`` package.
+
+One legality story: the search's candidate degrees, the sharding specs'
+replicate fallbacks and this verifier all judge a ``ParallelConfig``
+through :mod:`analysis.legality`.  Entry points:
+
+* :func:`verify` — static, device-free graph + strategy verification;
+* :func:`verify_compile` — the ``FFModel.compile(verify=...)`` hook.
+"""
+
+from .diagnostics import (CODES, Diagnostic, DiagnosticReport, Severity,
+                          VerificationError, make, validate_report_json)
+from .legality import config_diagnostics, degree_executable, per_dim_degrees
+from .sharding_passes import (comm_plan_digest, comm_plan_digest_for_model,
+                              communication_plan, predict_fallbacks,
+                              propagate_specs)
+from .verifier import (drain_fallback_sites, drain_replicate_fallbacks,
+                       record_replicate_fallback, verify, verify_compile)
+
+__all__ = [
+    "CODES", "Diagnostic", "DiagnosticReport", "Severity",
+    "VerificationError", "make", "config_diagnostics", "degree_executable",
+    "per_dim_degrees", "verify", "verify_compile",
+    "record_replicate_fallback", "drain_replicate_fallbacks",
+    "drain_fallback_sites", "predict_fallbacks", "propagate_specs",
+    "communication_plan", "comm_plan_digest", "comm_plan_digest_for_model",
+    "validate_report_json",
+]

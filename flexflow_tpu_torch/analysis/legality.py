@@ -1,0 +1,216 @@
+"""THE strategy-legality predicate, the JAX package's
+``analysis/legality.py``: the search's candidate degrees
+(:func:`per_dim_degrees`), the sharding specs' replicate fallbacks
+(:func:`degree_executable`, through ``parallel/sharding.dim_entry``) and
+the verifier's per-op strategy pass (:func:`config_diagnostics`) all
+judge a ``ParallelConfig`` here, so none of them can accept a split
+another replicates.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from ..config import PRECISIONS, ParallelConfig
+from ..op import Op, OpType
+from ..parallel.mesh import (degree_expressible, dim_axis_names,
+                             expressible_degrees)
+
+MeshShape = Dict[str, int]
+
+# Ops whose numerics are pinned to fp32 regardless of the precision
+# axis: loss heads and normalization statistics.  Their
+# forward already promotes to f32 internally (ops/norm.py,
+# tensor_ops.Softmax, loss_ops) — a bf16 override would either be a
+# no-op the simulator mis-costs or a numerics change the training
+# contract forbids.  THE one pinned set, shared by the search's
+# precision proposals (mcmc.search) and the FF140 verifier pass, so
+# the walk can never propose a precision the verifier rejects.
+F32_PINNED_OPS = frozenset({
+    OpType.MSELOSS, OpType.SOFTMAX, OpType.BATCHNORM,
+    OpType.LAYERNORM, OpType.RMSNORM,
+})
+
+
+def allowed_precisions(op: Op) -> Tuple[str, ...]:
+    """The precision tokens a strategy may legally assign to ``op``:
+    every op accepts "" (follow FFConfig.compute_dtype) and "f32";
+    "bf16" is excluded for the :data:`F32_PINNED_OPS` classes."""
+    if op.op_type in F32_PINNED_OPS:
+        return ("", "f32")
+    return PRECISIONS
+
+
+def precision_diagnostics(op: Op, pc: Optional[ParallelConfig]) -> List:
+    """FF140 — a strategy pins a precision the op's numerics contract
+    forbids (bf16 on a loss/norm-statistics op).  Returns [] exactly
+    when the op's precision token is in :func:`allowed_precisions`
+    (unknown tokens are rejected at ParallelConfig construction and at
+    the proto layer, so only the pinned-class check remains here)."""
+    from .diagnostics import make
+
+    if pc is None:
+        return []
+    prec = getattr(pc, "precision", "")
+    if not prec or prec in allowed_precisions(op):
+        return []
+    return [make(
+        "FF140", op.name,
+        f"precision {prec!r} on a {op.op_type.value} op — loss and "
+        f"norm-statistics ops are pinned fp32 (their forward promotes "
+        f"to f32 internally; a bf16 pin would change training numerics "
+        f"or be mis-costed as a speedup)",
+        hint="drop the precision override or use 'f32'")]
+
+
+def degree_executable(extent: int, degree: int, axis_size: int,
+                      axis: Optional[str],
+                      expressible: Optional[bool] = None) -> Optional[str]:
+    """None when a partition degree will actually execute as a split;
+    otherwise the reason the executor replicates instead:
+
+    * ``"indivisible"`` — ``degree`` does not divide the dim extent
+      (sharding.output_spec's silent ``shape[i] % deg`` fallback);
+    * ``"no-axis"`` — the logical dim maps to no mesh axis;
+    * ``"inexpressible"`` — no sub-axis subset of the mesh axis realizes
+      the degree (``MachineMesh.axis_spec`` returns None at trace time).
+
+    ``expressible`` lets a caller that already holds the trace-time
+    answer (``mesh.axis_spec(...) is not None``) skip the redundant
+    subset search — the sharding hot path passes it so the mesh's own
+    decision IS the predicate's, with one search per dim."""
+    if degree <= 1:
+        return None
+    if axis is None:
+        return "no-axis"
+    if extent % degree != 0:
+        return "indivisible"
+    if expressible is None:
+        expressible = degree_expressible(axis_size, degree)
+    if not expressible:
+        return "inexpressible"
+    return None
+
+
+def per_dim_degrees(op: Op, mesh_shape: MeshShape) -> List[Tuple[int, ...]]:
+    """Per-output-dim legal degrees for one op under a mesh factorization:
+    divisors of the dim's canonical axis size (every divisor maps onto
+    prime sub-axes) that divide the dim extent and are allowed by the op
+    (reference Op::get_random_parallel_config, model.cc:276-305).  The
+    search's whole candidate space is the cartesian product of these."""
+    out_t = op.outputs[0]
+    nd = out_t.num_dims
+    allowed = op.parallel_dims()
+    axes = dim_axis_names(nd)
+    per_dim: List[Tuple[int, ...]] = []
+    for i in range(nd):
+        ax = axes[i] if i < len(axes) else None
+        if (ax is None or i >= len(allowed) or not allowed[i]
+                or mesh_shape.get(ax, 1) <= 1):
+            per_dim.append((1,))
+            continue
+        size = mesh_shape[ax]
+        degs = tuple(
+            d for d in expressible_degrees(size)
+            if degree_executable(out_t.shape[i], d, size, ax) is None)
+        per_dim.append(degs or (1,))
+    return per_dim
+
+
+def config_diagnostics(op: Op, pc: Optional[ParallelConfig],
+                       mesh_shape: MeshShape,
+                       num_devices: int) -> List:
+    """Structured legality findings for one (op, config) pair — the
+    verifier's per-op strategy pass.  Returns [] exactly when the config
+    executes as written (no silent replication, realizable placement)."""
+    from .diagnostics import Severity, make
+
+    diags: List = []
+    if pc is None:
+        return diags
+    out_t = op.outputs[0]
+    rank = out_t.num_dims
+    dims = tuple(pc.dims)
+
+    # FF102 — rank mismatch.  Shorter dims pad with 1s (the documented
+    # strategy shorthand — INFO); a LONGER tuple is truncated at trace
+    # time, and if the dropped tail held a real degree the executor runs
+    # a different parallelism than the simulator costed — ERROR.
+    if len(dims) != rank:
+        dropped = [d for d in dims[rank:] if d > 1]
+        if dropped:
+            diags.append(make(
+                "FF102", op.name,
+                f"strategy has {len(dims)} degrees for a rank-{rank} "
+                f"output {out_t.shape}; truncation drops real degrees "
+                f"{dropped}",
+                hint=f"give exactly {rank} degrees (one per output dim)"))
+        elif len(dims) < rank:
+            diags.append(make(
+                "FF102", op.name,
+                f"strategy has {len(dims)} degrees for a rank-{rank} "
+                f"output; missing dims pad to degree 1",
+                hint=f"give exactly {rank} degrees to silence this",
+                severity=Severity.INFO))
+        dims = tuple(dims[:rank]) + (1,) * max(0, rank - len(dims))
+
+    # FF101 / FF105 — degrees the executor would silently replicate.
+    axes = dim_axis_names(rank)
+    for i, (deg, ax) in enumerate(zip(dims, axes)):
+        reason = degree_executable(out_t.shape[i], deg,
+                                   mesh_shape.get(ax, 1) if ax else 1, ax)
+        if reason is None:
+            continue
+        if reason == "indivisible":
+            diags.append(make(
+                "FF101", op.name,
+                f"degree {deg} on dim {i} does not divide extent "
+                f"{out_t.shape[i]} (output {out_t.shape}); the executor "
+                f"replicates this dim while the simulator costs a split",
+                hint=f"use a divisor of {out_t.shape[i]}"))
+        else:  # no-axis / inexpressible
+            size = mesh_shape.get(ax, 1) if ax else 1
+            where = (f"mesh axis {ax!r} (size {size})" if ax
+                     else "no mesh axis for this dim")
+            diags.append(make(
+                "FF105", op.name,
+                f"degree {deg} on dim {i} is not expressible on {where}; "
+                f"GSPMD replicates it at trace time",
+                hint=(f"use a divisor of the {ax!r} axis size, or raise "
+                      f"that axis in mesh_shape" if ax
+                      else "only dims with a canonical mesh axis can split")))
+
+    # FF103 — device count vs partition count (reference strategies carry
+    # explicit per-part processor ids; a mismatched list wraps modulo at
+    # simulation time and under-subscribes the machine silently).
+    nparts = 1
+    for d in dims:
+        nparts *= d
+    if len(pc.device_ids) != nparts:
+        diags.append(make(
+            "FF103", op.name,
+            f"{len(pc.device_ids)} device_ids for {nparts} partitions "
+            f"(dims {tuple(pc.dims)})",
+            hint=f"list exactly {nparts} device ids, one per part"))
+
+    # FF104 — ids must address the machine.
+    bad_ids = [d for d in pc.device_ids
+               if d < 0 or d >= max(1, num_devices)]
+    if bad_ids:
+        diags.append(make(
+            "FF104", op.name,
+            f"device ids {sorted(set(bad_ids))[:8]} outside the machine "
+            f"(0..{max(1, num_devices) - 1}); they wrap modulo at run "
+            f"time and double-book chips",
+            hint=f"use ids < {num_devices}"))
+
+    # FF111 — non-canonical but in-range ids: honored as mesh-linearized
+    # placement only (the mesh owns physical placement).
+    elif tuple(pc.device_ids) != tuple(range(nparts)) \
+            and len(pc.device_ids) == nparts:
+        diags.append(make(
+            "FF111", op.name,
+            f"explicit device_ids {tuple(pc.device_ids)[:8]} are honored "
+            f"as mesh-linearized placement only",
+            hint="use mesh_shape to steer the topology"))
+    return diags

@@ -4,9 +4,10 @@ The port's own copy of ``flexflow_tpu/config.py``: the same fields, the
 same defaults and the same validation, so a configuration written for
 the JAX package means the same thing here.  The worker unit is a CUDA
 device (``workers_per_node``).  Fields that
-drive machinery the port has not grown yet (strategy search, meshes,
-generation serving, tracing) are kept so configurations stay portable;
-``FFModel.compile`` refuses the ones it cannot honour.  The command-line
+drive machinery the port has not grown yet (strategy search,
+multi-device meshes, generation serving, tracing) are kept so
+configurations stay portable; ``FFModel.compile`` refuses the ones it
+cannot honour.  The command-line
 parser comes with the tooling slice.
 """
 
@@ -67,6 +68,13 @@ class ParallelConfig:
             raise ValueError(
                 f"ParallelConfig.precision must be one of "
                 f"{PRECISIONS}, got {self.precision!r}")
+
+    @staticmethod
+    def data_parallel(num_parts: int, ndims: int = 2) -> "ParallelConfig":
+        """Partition only the sample (outermost) dim."""
+        return ParallelConfig(device_type=DeviceType.DEVICE,
+                              dims=(num_parts,) + (1,) * (ndims - 1),
+                              device_ids=tuple(range(num_parts)))
 
 
 @dataclasses.dataclass

@@ -23,17 +23,23 @@ the layer list).  ``save_checkpoint``/``load_checkpoint`` read and write
 the JAX package's ``.npz`` format, so either package resumes from the
 other's file.
 
+``compile`` resolves a parallelization strategy (``FFConfig.strategies``
+and ``import_strategy_file``; ``export_strategy_file`` writes it) and runs
+the static verifier over it (``verify=``).  On one device two kinds of
+strategy change the run: a per-op ``precision`` sets that op's compute
+dtype, and a host-placed Embedding keeps its table in pinned host
+memory, gathers there and updates there.  A strategy that needs more
+than one device is refused, as are strategy search, meshes, profiling
+and trace directories, each until the slice that brings it.
+
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
-raises instead of falling back.  Strategy import and search, meshes,
-profiling and trace directories come in later slices, and ``compile``
-refuses what it cannot honour.
+raises instead of falling back.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import math
 import threading
 import time
@@ -54,7 +60,8 @@ from .ops.common import resolve_op_dtype, torch_dtype
 from .ops.attention import MultiHeadAttention, PositionEmbedding
 from .ops.conv import Conv2D, Pool2D
 from .ops.elementwise import ElementBinary, ElementUnary
-from .ops.linear import Embedding, Linear, map_ids, take_rows
+from .ops.linear import (Embedding, Linear, host_gather, host_placed,
+                         map_ids, take_rows)
 from .ops.loss_ops import MSELoss
 from .ops.moe import MoE
 from .ops.norm import BatchNorm, LayerNorm, RMSNorm
@@ -62,6 +69,7 @@ from .ops.rnn import LSTM
 from .ops.tensor_ops import (Concat, Dropout, Flat, Reshape, Softmax, Split,
                              Transpose)
 from .optimizers import SGDOptimizer
+from .parallel.mesh import AbstractMesh, dim_axis_names
 from .resilience import (MANIFEST_KEY, _atomic_savez, _cleanup_stale_tmps,
                          _prune_step_family, build_manifest,
                          read_npz_verified)
@@ -134,6 +142,12 @@ class FFModel:
         self._params: Dict[str, torch.Tensor] = {}
         self._fwd_compiled: Dict[int, Callable] = {}
         self._sparse_specs: List[tuple] = []
+        # host-placed tables: their parameter names, and those that take
+        # the row update on the host (_host_row_specs)
+        self._host_params: set = set()
+        self._host_rows: List[tuple] = []
+        self.mesh: Optional[AbstractMesh] = None
+        self.verify_report = None
         self._opt_state = None
         self._step = 0
         self._batch: Optional[tuple] = None
@@ -356,35 +370,47 @@ class FFModel:
     def compile(self, optimizer=None, loss_type: Optional[str] = None,
                 metrics: Optional[Sequence[str]] = None,
                 comp_mode: str = "training", mesh=None,
-                final_tensor: Optional[Tensor] = None) -> None:
+                final_tensor: Optional[Tensor] = None,
+                verify: str = "warn") -> None:
         """Resolve the single-device plan: loss tensor, label tensor, conv
         layout, optimizer (default: SGD from the config's learning rate
-        and weight decay), metrics and the sparse embedding tables.
-        Raises ValueError for ``gradient_accumulation_steps`` or
-        ``steps_per_dispatch`` below 1 and for a batch size that does not
-        divide into the microbatches, and NotImplementedError for what
-        the port cannot run yet — an imported or searched strategy, more
-        than one device, profiling or a trace directory — rather than
-        silently ignoring it."""
+        and weight decay), metrics, the strategy and the embedding
+        tables' update paths.
+
+        The strategy is ``config.strategies`` updated from
+        ``import_strategy_file``; each op takes the entry of its name as
+        its ``parallel_config``, and ``export_strategy_file`` gets the
+        resolved entries.  ``verify`` runs the static verifier
+        (``analysis.verify_compile``) before anything runs: ``"warn"``
+        (default) warns once with the ERROR and WARN diagnostics,
+        ``"error"`` raises ``analysis.VerificationError`` on an ERROR,
+        ``"off"`` skips it; the report is kept on ``verify_report``.
+
+        Raises ValueError for a strategy that needs more than one device,
+        for ``gradient_accumulation_steps`` or ``steps_per_dispatch``
+        below 1 and for a batch size that does not divide into the
+        microbatches, and NotImplementedError for what the port cannot
+        run yet (strategy search, a mesh of more than one device,
+        profiling, a trace directory, host placement of an op other than
+        an Embedding), each naming the roadmap item that lifts it."""
         cfg = self.config
-        if cfg.import_strategy_file or cfg.search_budget > 0 \
-                or cfg.strategies:
+        if cfg.search_budget > 0:
             raise NotImplementedError(
-                "imported or searched parallelization strategies are not "
-                "ported yet; the port runs the default single-device plan")
+                "strategy search (search_budget > 0) is not ported yet "
+                "(ROADMAP A.9); import a strategy file instead")
         n_dev = 1
         for v in (cfg.mesh_shape or {}).values():
             n_dev *= int(v)
         if mesh is not None or cfg.num_devices > 1 or n_dev > 1:
             raise NotImplementedError(
-                "distributed meshes are not ported yet; the port runs on "
-                "one device")
+                "multi-device meshes are not ported yet (ROADMAP A.8); "
+                "the port runs on one device")
         unported = [name for name, on in (
             ("profiling", cfg.profiling),
             ("trace_dir", bool(cfg.trace_dir))) if on]
         if unported:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)}")
+                f"not ported yet (ROADMAP A.11): {', '.join(unported)}")
         if cfg.gradient_accumulation_steps < 1:
             raise ValueError(
                 f"gradient_accumulation_steps must be >= 1, got "
@@ -394,6 +420,9 @@ class FFModel:
                 f"steps_per_dispatch must be >= 1, got "
                 f"{cfg.steps_per_dispatch}")
         self._check_accum_divisible(cfg.batch_size, "batch_size")
+        if verify not in ("warn", "error", "off"):
+            raise ValueError(
+                f"verify must be 'warn', 'error' or 'off', got {verify!r}")
         if not self.layers:
             raise ValueError("compile() needs at least one layer")
         self.optimizer = optimizer or self.optimizer or SGDOptimizer(
@@ -417,6 +446,22 @@ class FFModel:
         if (losses.uses_logits(self.loss_type) and owner is not None
                 and owner.op_type == OpType.SOFTMAX):
             self._loss_tensor = owner.inputs[0]
+
+        if cfg.import_strategy_file:
+            from .strategy.proto import load_strategy_file
+            cfg.strategies.update(
+                load_strategy_file(cfg.import_strategy_file))
+        for op in self.layers:
+            op.parallel_config = cfg.strategies.get(op.name)
+        shape = (cfg.mesh_shape if cfg.mesh_shape is not None
+                 else self._infer_mesh_shape())
+        self.mesh = AbstractMesh(shape, num_devices=1)
+        if cfg.export_strategy_file:
+            from .strategy.proto import save_strategy_file
+            save_strategy_file(cfg.export_strategy_file,
+                               {op.name: op.parallel_config
+                                for op in self.layers if op.parallel_config})
+
         if self.label_tensor is None:
             n = self._final_tensor.shape[0]
             if self.loss_type == losses.SPARSE_CATEGORICAL_CROSSENTROPY:
@@ -430,9 +475,81 @@ class FFModel:
                                            "float32", "label")
         self.resolved_conv_layout = resolve_conv_layout(cfg.conv_layout,
                                                         self.device)
+        self._host_params = self._resolve_host_placements()
         self._sparse_specs = self._sparse_embedding_specs()
+        self._host_rows = self._host_row_specs()
+        self._run_verifier(verify)
         self._fwd_compiled = {}
         self._compiled = True
+
+    def _infer_mesh_shape(self) -> Dict[str, int]:
+        """The mesh the resolved strategies need, as the JAX package
+        infers it: each canonical axis sized to the LCM of the degrees
+        ops assign to it, or to the largest degree when the LCM
+        overshoots the devices.  The port has one device, so a strategy
+        with any degree above 1 raises."""
+        ndev = 1
+        lcm = {"n": 1, "c": 1, "h": 1, "w": 1, "s": 1}
+        mx = dict(lcm)
+        any_cfg = False
+        for op in self.layers:
+            pc = op.parallel_config
+            if pc is None:
+                continue
+            any_cfg = True
+            for deg, ax in zip(pc.dims, dim_axis_names(len(pc.dims))):
+                if ax and deg > 1:
+                    lcm[ax] = math.lcm(lcm[ax], deg)
+                    mx[ax] = max(mx[ax], deg)
+        if not any_cfg:
+            return {"n": ndev}
+        if math.prod(lcm.values()) <= ndev:
+            return lcm
+        used = math.prod(mx.values())
+        if used > ndev:
+            raise ValueError(
+                f"strategy needs {used} devices, have {ndev} "
+                f"(multi-device strategies: ROADMAP A.8)")
+        return mx
+
+    def _resolve_host_placements(self) -> set:
+        """The parameters of host-placed ops (device type CPU or ZCM
+        memory): they live in pinned host memory.  The port places
+        Embedding tables so; a host-placed op of another kind with
+        parameters raises rather than run on the device."""
+        names = set()
+        for op in self.layers:
+            if not host_placed(op.parallel_config) or not op.weights:
+                continue
+            if not isinstance(op, Embedding):
+                raise NotImplementedError(
+                    f"{op.name}: host placement of a {op.op_type.value} "
+                    f"op is not ported yet (ROADMAP A.8); the port places "
+                    f"Embedding tables on the host")
+            names.update(w.name for w in op.weights)
+        return names
+
+    def _run_verifier(self, verify: str) -> None:
+        """The static verification pass over the resolved graph and
+        strategy, as the JAX package's ``_run_verifier``."""
+        if verify == "off":
+            return
+        from .analysis import VerificationError, verify_compile
+        report = verify_compile(self)
+        self.verify_report = report
+        if verify == "error" and report.errors:
+            raise VerificationError(report)
+        bad = report.errors + report.warnings
+        if bad:
+            import warnings
+            warnings.warn(
+                f"strategy/graph verification found {len(report.errors)} "
+                f"error(s), {len(report.warnings)} warning(s):\n"
+                + "\n".join(d.render() for d in bad[:20])
+                + ("\n..." if len(bad) > 20 else "")
+                + "\n(verify='error' makes these fatal; verify='off' "
+                  "silences them)",
+                stacklevel=3)
 
     def _sparse_embedding_specs(self) -> List[tuple]:
         """The embedding tables that train on the sparse update path
@@ -445,6 +562,21 @@ class FFModel:
         accumulation, and a trainable, device-placed table used by one
         op whose ids are a graph input.  Returns [(op name, table name,
         input position)]."""
+        return self._row_update_specs(host=False)
+
+    def _host_row_specs(self) -> List[tuple]:
+        """The host-placed tables that take the row update, under the
+        conditions of :meth:`_sparse_embedding_specs`: ``table[id] -= lr
+        * grad`` in place on the host, the values of the dense update
+        (the JAX package updates such a table on its dense path).  Any
+        other host table trains on the dense path: autograd builds its
+        whole gradient on the host and the optimizer updates it there."""
+        return self._row_update_specs(host=True)
+
+    def _row_update_specs(self, host: bool) -> List[tuple]:
+        """The row-update tables among the device-placed (``host``
+        False) or host-placed ones: [(op name, table name, input
+        position)]."""
         cfg = self.config
         opt = self.optimizer
         if (cfg.sparse_embedding_updates is False
@@ -459,7 +591,8 @@ class FFModel:
                 owners[w.name] = owners.get(w.name, 0) + 1
         specs = []
         for op in self.layers:
-            if not isinstance(op, Embedding) or op.host_placed():
+            if (not isinstance(op, Embedding)
+                    or host_placed(op.parallel_config) != host):
                 continue
             tname = op.w_table.name
             if (op.inputs[0].uid in input_uids and owners[tname] == 1
@@ -484,12 +617,31 @@ class FFModel:
             init = p.initializer or GlorotUniform()
             dtype = torch_dtype(self.config.param_dtype
                                 if p.dtype == "float32" else p.dtype)
-            params[p.name] = init(gen, p.shape, dtype).to(self.device)
+            value = init(gen, p.shape, dtype)
+            params[p.name] = (self._pin(value) if p.name in self._host_params
+                              else value.to(self.device))
         self._params = params
         self._opt_state = self.optimizer.init_state(
             {k: v for k, v in params.items()
              if k in self._trainable_names()})
         self._step = 0
+
+    def _pin(self, value: torch.Tensor) -> torch.Tensor:
+        """A host-placed parameter's home: pinned host memory when the
+        model runs on CUDA (pinning needs it), plain host memory on the
+        CPU."""
+        value = value.to("cpu")
+        return value.pin_memory() if self.device.type == "cuda" else value
+
+    def _store(self, values: Dict[str, torch.Tensor]) -> None:
+        """Install new parameter values; a host-placed parameter's value
+        is copied into its pinned buffer, so the table never leaves
+        pinned host memory."""
+        for k, v in values.items():
+            if k in self._host_params:
+                self._params[k].copy_(v)
+            else:
+                self._params[k] = v
 
     def _trainable_names(self) -> set:
         return {p.name for p in self.parameters if p.trainable}
@@ -512,8 +664,8 @@ class FFModel:
         if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16
             arr = arr.astype(np.float32)
         val = torch.tensor(arr)  # a copy: the caller keeps its array
-        self._params[key] = val.to(device=cur.device,
-                                   dtype=cur.dtype).reshape(cur.shape)
+        self._store({key: val.to(device=cur.device,
+                                 dtype=cur.dtype).reshape(cur.shape)})
 
     @property
     def num_parameters(self) -> int:
@@ -529,13 +681,12 @@ class FFModel:
         return path if path.endswith(".npz") else path + ".npz"
 
     def _strategy_digest(self) -> str:
-        """The JAX package's ``strategy_digest`` of the default plan the
-        port runs (no op has a parallel config), recorded in the
-        manifest: the sha256 of the empty encoded strategy, a NUL and
-        the sorted op names, to 16 hex digits."""
-        absent = ",".join(sorted(op.name for op in self.layers))
-        return hashlib.sha256(b"\x00" + absent.encode("utf-8")
-                              ).hexdigest()[:16]
+        """The JAX package's ``strategy_digest`` of the resolved per-op
+        configs, recorded in the manifest, so a checkpoint written under
+        a strategy carries the same digest in either package."""
+        from .strategy.proto import strategy_digest
+        return strategy_digest(
+            {op.name: op.parallel_config for op in self.layers})
 
     def save_checkpoint(self, path: str, async_write: bool = False,
                         keep_last: Optional[int] = None) -> None:
@@ -674,8 +825,8 @@ class FFModel:
             return torch.from_numpy(np.ascontiguousarray(arr)).to(
                 device=like.device, dtype=like.dtype)
 
-        for name, cur in list(self._params.items()):
-            self._params[name] = put(data[f"param:{name}"], cur)
+        self._store({name: put(data[f"param:{name}"], cur)
+                     for name, cur in self._params.items()})
         leaves = _flatten_state(self._opt_state)
         new = [put(data[f"opt:{i}"], leaf) if isinstance(leaf, torch.Tensor)
                else int(data[f"opt:{i}"]) for i, leaf in enumerate(leaves)]
@@ -906,20 +1057,25 @@ class FFModel:
         mean-reduced loss (their sum for a sum-reduced one), so the
         losses of an accumulated step's microbatches add.
 
-        ``grads`` holds every trainable parameter's gradient.  With
-        ``sparse``, the tables of ``_sparse_specs`` are left out of it:
-        their rows are gathered outside autograd (by the Embedding's id
-        rules) and handed to the ops as leaves, and ``row_grads`` holds
-        the gradient of each op's rows, (n, [bag or s,] d)."""
-        specs = self._sparse_specs if sparse else []
+        ``grads`` holds every trainable parameter's gradient (a
+        host-placed table's on the host).  With ``sparse``, the tables of
+        ``_sparse_specs`` and ``_host_rows`` are left out of it: their
+        rows are gathered outside autograd (by the Embedding's id rules;
+        a host table's on the host, then moved to the device) and handed
+        to the ops as leaves, and ``row_grads`` holds the gradient of
+        each op's rows, (n, [bag or s,] d), on the device."""
+        specs = self._sparse_specs + self._host_rows if sparse else []
         tables = {tname for _, tname, _ in specs}
         names = self._trainable_names() - tables
         trainable = {k: v.detach().requires_grad_(True)
                      for k, v in self._params.items() if k in names}
         params = {**self._params, **trainable}
         with torch.no_grad():
-            rows = {op_name: take_rows(
-                self._params[tname].to(torch.float32), batch[pos])
+            rows = {op_name: (
+                host_gather(self._params[tname], batch[pos], self.device)
+                if tname in self._host_params
+                else take_rows(self._params[tname].to(torch.float32),
+                               batch[pos]))
                 for op_name, tname, pos in specs}
         for r in rows.values():
             r.requires_grad_(True)
@@ -998,7 +1154,7 @@ class FFModel:
         trainable = {k: self._params[k] for k in grads}
         new, self._opt_state = self.optimizer.update(trainable, grads,
                                                      self._opt_state)
-        self._params.update(new)
+        self._store(new)
         self._step += 1
 
     @torch.no_grad()
@@ -1006,15 +1162,19 @@ class FFModel:
                              row_grads: Dict[str, torch.Tensor]) -> None:
         """Plain SGD on the looked-up rows alone: ``table[id] -= lr *
         grad`` for every id of the batch, duplicates summed, in place
-        (the rest of the table is neither read nor written).  Ids map by
+        (the rest of the table is neither read nor written), where the
+        table lives: on the device, or for a host-placed table on the
+        host, its ids and row gradients brought there.  Ids map by
         ``map_ids``, as the dense path's gradient does: negatives wrap,
-        ids outside the table are dropped.  A dropped lane adds -0.0, which leaves every
-        value's bits as they were."""
-        for op_name, tname, pos in self._sparse_specs:
+        ids outside the table are dropped.  A dropped lane adds -0.0,
+        which leaves every value's bits as they were."""
+        for op_name, tname, pos in self._sparse_specs + self._host_rows:
             lr = self.optimizer.lr
             table = self._params[tname]
-            idx, valid = map_ids(batch[pos].reshape(-1), table.shape[0])
-            g = row_grads[op_name].reshape(idx.shape[0], -1)
+            idx, valid = map_ids(batch[pos].reshape(-1).to(table.device),
+                                 table.shape[0])
+            g = row_grads[op_name].reshape(idx.shape[0], -1).to(
+                table.device)
             g = torch.where(valid[:, None], g, 0.0)
             table.index_add_(0, idx, (-lr * g).to(table.dtype))
 
@@ -1035,7 +1195,7 @@ class FFModel:
         self._apply_update(grads)
         # after the optimizer's step, as the JAX step returns
         # {**frozen, **updates, **new_trainable}
-        self._params.update(updates)
+        self._store(updates)
         return loss, sums
 
     def train_batch(self, *arrays) -> torch.Tensor:
@@ -1103,7 +1263,7 @@ class FFModel:
         # dense and unaccumulated, as the JAX package's imperative loop is
         loss, sums, self._cached_grads, updates, _ = self._loss_and_grads(
             self._batch, self._step_seed(self._step))
-        self._params.update(updates)
+        self._store(updates)
         self.perf_metrics.update(sums)
         return loss
 

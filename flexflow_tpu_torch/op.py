@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,6 +103,19 @@ class OpContext:
         return gen
 
 
+def pad_degrees(part_degrees, rank: int):
+    """Output partition degrees padded with 1s or truncated to ``rank``
+    dims."""
+    return tuple(part_degrees[:rank]) + \
+        (1,) * max(0, rank - len(part_degrees))
+
+
+def snap_degrees(dims, shape):
+    """Degree 1 (replicated) for any dim a degree does not divide."""
+    return tuple(d if d <= s and s % max(1, d) == 0 else 1
+                 for d, s in zip(dims, shape))
+
+
 def fold_seed(seed: int, i: int) -> int:
     """The seed of part ``i`` of a step whose seed is ``seed`` (the
     microbatches of an accumulated step), as the JAX step folds ``i``
@@ -132,12 +145,20 @@ class Op:
         return t
 
     def _add_weight(self, shape, initializer, name: str, dtype="float32",
+                    sharded_dim: Optional[int] = None,
                     trainable: bool = True) -> Parameter:
         p = Parameter(shape=tuple(int(s) for s in shape), dtype=dtype,
                       name=f"{self.name}/{name}", pcname=self.name,
-                      initializer=initializer, trainable=trainable)
+                      initializer=initializer, sharded_dim=sharded_dim,
+                      trainable=trainable)
         self.weights.append(p)
         return p
+
+    def parallel_dims(self) -> Tuple[bool, ...]:
+        """Which output dims a strategy may partition.  Default: the
+        sample dim only."""
+        nd = self.outputs[0].num_dims if self.outputs else 1
+        return (True,) + (False,) * (nd - 1)
 
     def forward(self, params: Dict[str, torch.Tensor],
                 inputs: List[torch.Tensor],

@@ -93,10 +93,16 @@ class MultiHeadAttention(Op):
         n, sq, dq = query.shape
         self._add_output((n, sq, embed_dim), query.dtype)
         init = kernel_initializer or GlorotUniform()
-        self.w_q = self._add_weight((embed_dim, dq), init, "wq")
-        self.w_k = self._add_weight((embed_dim, key.shape[-1]), init, "wk")
-        self.w_v = self._add_weight((embed_dim, value.shape[-1]), init, "wv")
-        self.w_o = self._add_weight((embed_dim, embed_dim), init, "wo")
+        # heads split over the channel axis: q/k/v by output row, the
+        # output projection by input column
+        self.w_q = self._add_weight((embed_dim, dq), init, "wq",
+                                    sharded_dim=0)
+        self.w_k = self._add_weight((embed_dim, key.shape[-1]), init, "wk",
+                                    sharded_dim=0)
+        self.w_v = self._add_weight((embed_dim, value.shape[-1]), init,
+                                    "wv", sharded_dim=0)
+        self.w_o = self._add_weight((embed_dim, embed_dim), init, "wo",
+                                    sharded_dim=1)
         if use_bias:
             self.w_bias = self._add_weight((embed_dim,), ZeroInitializer(),
                                            "bias")
@@ -124,6 +130,10 @@ class MultiHeadAttention(Op):
         if self.use_bias:
             out = out + params[self.w_bias.name].to(out.dtype)
         return cast_compute(out, ctx)
+
+    def parallel_dims(self):
+        # (n, s, c): samples, sequence and heads
+        return (True, True, True)
 
     def forward(self, params, inputs, ctx: OpContext):
         xq = cast_compute(inputs[0], ctx)
@@ -160,6 +170,9 @@ class PositionEmbedding(Op):
         self._add_output((n, s, d), input_tensor.dtype)
         self.w_table = self._add_weight(
             (self.max_len, d), kernel_initializer or GlorotUniform(), "table")
+
+    def parallel_dims(self):
+        return (True, True, False)
 
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]

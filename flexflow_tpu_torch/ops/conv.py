@@ -51,6 +51,10 @@ class Conv2D(Op):
                 (out_channels,), bias_initializer or ZeroInitializer(),
                 "bias")
 
+    def parallel_dims(self):
+        # n, h and w split; channels do not
+        return (True, False, True, True)
+
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
         k = cast_compute(params[self.w_kernel.name], ctx)
@@ -82,6 +86,9 @@ class Pool2D(Op):
         self.activation = activation
         oh, ow = out_hw(h, w, self.kernel, self.stride, self.padding)
         self._add_output((n, c, oh, ow), input_tensor.dtype)
+
+    def parallel_dims(self):
+        return (True, False, True, True)
 
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)

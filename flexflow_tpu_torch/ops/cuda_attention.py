@@ -150,7 +150,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     """(O, lse): O (n, sq, h, d) in q's dtype and the float32 row
     log-sum-exp (n, h, sq).  CUDA tensors launch the forward kernel or
     raise; CPU tensors take the plain versions.
-    ``flash_attention_forward.launches`` counts the kernel launches."""
+    ``flash_attention_forward.launches`` counts the kernel launches, and
+    ``launches_by_dtype`` counts them by the operands' dtype."""
     if q.device.type == "cpu":
         o = flash_attention_reference(q, k, v, causal, scale)
         return (o.to(q.dtype),
@@ -170,10 +171,13 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_attention_forward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_forward.launches += 1
+    by_dtype = flash_attention_forward.launches_by_dtype
+    by_dtype[str(q.dtype)] = by_dtype.get(str(q.dtype), 0) + 1
     return unpad(o, d), lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.launches_by_dtype = {}
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
@@ -182,7 +186,8 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
     gradient ``do`` of O.  CUDA tensors launch the backward (one C call,
     three kernels) or raise; CPU tensors take
     :func:`flash_attention_backward_reference`.
-    ``flash_attention_backward.launches`` counts the C calls."""
+    ``flash_attention_backward.launches`` counts the C calls, and
+    ``launches_by_dtype`` counts them by the operands' dtype."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, lse, do,
                                                   causal, scale)
@@ -210,10 +215,13 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
         raise RuntimeError(f"flash_attention_backward kernel launch failed: "
                            f"CUDA error {err}")
     flash_attention_backward.launches += 1
+    by_dtype = flash_attention_backward.launches_by_dtype
+    by_dtype[str(q.dtype)] = by_dtype.get(str(q.dtype), 0) + 1
     return unpad(dq, d), unpad(dk, d), unpad(dv, d)
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_dtype = {}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -61,6 +61,9 @@ class ElementUnary(Op):
         self.fn, self.scalar = fn, scalar
         self._add_output(input_tensor.shape, input_tensor.dtype)
 
+    def parallel_dims(self):
+        return (True,) * self.outputs[0].num_dims
+
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         if self.scalar is not None and self.fn in _SCALAR:
@@ -80,6 +83,9 @@ class ElementBinary(Op):
         self.fn = fn
         out_shape = tuple(np.broadcast_shapes(in1.shape, in2.shape))
         self._add_output(out_shape, in1.dtype)
+
+    def parallel_dims(self):
+        return (True,) * self.outputs[0].num_dims
 
     def forward(self, params, inputs, ctx):
         a, b = inputs

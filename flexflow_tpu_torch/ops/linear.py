@@ -1,6 +1,11 @@
 """Linear and Embedding, the counterparts of the ops of those names in
-``flexflow_tpu/ops/linear.py`` (the int8 serving path and host-placed
-tables come in later slices)."""
+``flexflow_tpu/ops/linear.py`` (the int8 serving path comes in a later
+slice).
+
+A host-placed Embedding (a strategy's device type CPU or ZCM memory:
+:func:`host_placed`, the reference's hetero DLRM placement) keeps its
+table in pinned host memory and gathers there (:func:`host_gather`):
+only the looked-up rows cross to the device."""
 
 from __future__ import annotations
 
@@ -11,6 +16,13 @@ from ..config import DeviceType, MemoryType
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
 from .common import apply_activation, cast_compute
+
+
+def host_placed(pc) -> bool:
+    """True when a ParallelConfig asks for host placement: device type
+    CPU, or any ZCM (zero-copy host) memory type."""
+    return pc is not None and (pc.device_type == DeviceType.HOST
+                               or MemoryType.ZCM in tuple(pc.memory_types))
 
 
 class Linear(Op):
@@ -29,10 +41,15 @@ class Linear(Op):
         # (out, in) kernel, as the reference and torch keep it
         self.w_kernel = self._add_weight(
             (out_dim, in_dim), kernel_initializer or GlorotUniform(),
-            "kernel")
+            "kernel", sharded_dim=0)
         if use_bias:
             self.w_bias = self._add_weight(
-                (out_dim,), bias_initializer or ZeroInitializer(), "bias")
+                (out_dim,), bias_initializer or ZeroInitializer(), "bias",
+                sharded_dim=0)
+
+    def parallel_dims(self):
+        # the sample dims and the output channels
+        return (True,) * self.outputs[0].num_dims
 
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
@@ -72,12 +89,44 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[..., None], y, float("nan"))
 
 
+class _RowsToDevice(torch.autograd.Function):
+    """Host rows to the device: staged in pinned memory and copied
+    non-blocking; their gradient comes back to the host."""
+
+    @staticmethod
+    def forward(ctx, rows, device):
+        return rows.pin_memory().to(device, non_blocking=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to("cpu"), None
+
+
+def host_gather(table: torch.Tensor, idx: torch.Tensor,
+                device) -> torch.Tensor:
+    """:func:`take_rows` of a host-resident ``table`` on the host, the
+    counterpart of the JAX package's ``_host_gather``: the ids come to
+    the host, the gather runs there, and only the rows cross to
+    ``device``.  Differentiable: the table's gradient builds on the
+    host.  A table that is not on the host raises; it never gathers on
+    the device instead."""
+    if table.device.type != "cpu":
+        raise RuntimeError(
+            f"host-placed embedding table is on {table.device}, not on "
+            f"the host")
+    rows = take_rows(table, idx.to("cpu")).to(torch.float32)
+    if torch.device(device).type == "cpu":
+        return rows
+    return _RowsToDevice.apply(rows, device)
+
+
 class Embedding(Op):
     """Table lookup: (n, s) ids -> (n, s, d) with ``aggr="none"``, or a
     bag of ids per sample reduced by ``sum``/``avg`` -> (n, d).  The
     table gathers in float32 by :func:`map_ids`'s id rules; the result
     is cast to the compute dtype.  In a training step on the sparse
-    update path the rows come pre-gathered in ``ctx.embedding_rows``."""
+    update path the rows come pre-gathered in ``ctx.embedding_rows``; a
+    host-placed table gathers on the host (:func:`host_gather`)."""
 
     op_type = OpType.EMBEDDING
 
@@ -95,22 +144,20 @@ class Embedding(Op):
             self._add_output((n, out_dim), "float32")
         self.w_table = self._add_weight(
             (num_entries, out_dim), kernel_initializer or GlorotUniform(),
-            "table")
+            "table", sharded_dim=1)
 
-    def host_placed(self) -> bool:
-        pc = self.parallel_config
-        return pc is not None and (pc.device_type == DeviceType.HOST or
-                                   MemoryType.ZCM in tuple(pc.memory_types))
+    def parallel_dims(self):
+        # the sample (and sequence) dims and the table's columns
+        return (True,) * self.outputs[0].num_dims
 
     def forward(self, params, inputs, ctx: OpContext):
-        if self.host_placed():
-            raise NotImplementedError(
-                f"{self.name}: host-placed embedding tables are not ported "
-                f"yet")
         if ctx.embedding_rows and self.name in ctx.embedding_rows:
             # the train step gathered the rows and differentiates with
             # respect to them; the table is not in the autograd graph
             y = ctx.embedding_rows[self.name]
+        elif host_placed(self.parallel_config):
+            y = host_gather(params[self.w_table.name], inputs[0],
+                            ctx.device)
         else:
             y = take_rows(params[self.w_table.name].to(torch.float32),
                           inputs[0])   # (n, [s,] d)

@@ -76,8 +76,11 @@ class MoE(Op):
         self.w_gate = self._add_weight((E, d), base, "gate")
 
         def ew(shape, init, nm):
-            return self._add_weight((E,) + shape, _PerExpertInit(init, E),
-                                    nm)
+            # expert-stacked on dim 0, which splits over the 'e' axis
+            p = self._add_weight((E,) + shape, _PerExpertInit(init, E), nm,
+                                 sharded_dim=0)
+            p.shard_axis = "e"
+            return p
 
         # per-expert FFN in Linear's (out, in) layout, stacked on dim 0
         self.w_up = ew((self.d_ff, d), base, "w_up")
@@ -120,6 +123,10 @@ class MoE(Op):
             dispatch = dispatch + slot
             combine = combine + slot * gates_k[:, j, None, None]
         return dispatch, combine, top_idx
+
+    def parallel_dims(self):
+        # (n, s, c): tokens split; the model dim stays whole
+        return (True, True, False)
 
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]

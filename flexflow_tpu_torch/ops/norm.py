@@ -49,6 +49,9 @@ class BatchNorm(Op):
         self.s_var = self._add_weight((c,), ConstantInitializer(1.0),
                                       "running_var", trainable=False)
 
+    def parallel_dims(self):
+        return (True, False, True, True)
+
     def forward(self, params, inputs, ctx: OpContext):
         xf = inputs[0].to(torch.float32)   # keeps channels_last memory
         if ctx.training:
@@ -83,6 +86,10 @@ class LayerNorm(Op):
         self.w_bias = (self._add_weight((d,), ZeroInitializer(), "bias")
                        if use_bias else None)
 
+    def parallel_dims(self):
+        nd = self.outputs[0].num_dims
+        return (True,) * (nd - 1) + (False,)
+
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]
         if self.w_scale is not None and self.w_bias is not None:
@@ -110,6 +117,10 @@ class RMSNorm(Op):
         self._add_output(input_tensor.shape, input_tensor.dtype)
         self.w_scale = self._add_weight((d,), ConstantInitializer(1.0),
                                         "scale")
+
+    def parallel_dims(self):
+        nd = self.outputs[0].num_dims
+        return (True,) * (nd - 1) + (False,)
 
     def forward(self, params, inputs, ctx: OpContext):
         xf = inputs[0].to(torch.float32)

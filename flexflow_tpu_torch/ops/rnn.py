@@ -49,9 +49,14 @@ class LSTM(Op):
         init = kernel_initializer or GlorotUniform()
         # (out, in) as Linear keeps it; the 4H rows are the i, f, g, o
         # gate blocks
-        self.w_x = self._add_weight((4 * h, d), init, "wx")
-        self.w_h = self._add_weight((4 * h, h), init, "wh")
+        self.w_x = self._add_weight((4 * h, d), init, "wx", sharded_dim=0)
+        self.w_h = self._add_weight((4 * h, h), init, "wh", sharded_dim=0)
         self.w_b = self._add_weight((4 * h,), ZeroInitializer(), "bias")
+
+    def parallel_dims(self):
+        # (n, s, c): samples and the hidden dim; the recurrence is serial
+        # in s
+        return (True, False, True)
 
     def forward(self, params, inputs, ctx: OpContext):
         f32 = torch.float32

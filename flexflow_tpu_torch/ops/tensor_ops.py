@@ -133,6 +133,9 @@ class Dropout(Op):
         self.rate, self.seed = float(rate), seed
         self._add_output(input_tensor.shape, input_tensor.dtype)
 
+    def parallel_dims(self):
+        return (True,) * self.outputs[0].num_dims
+
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         gen = ctx.op_generator(self.outputs[0].uid) if ctx.training else None

@@ -51,10 +51,21 @@ class Tensor:
 @dataclasses.dataclass
 class Parameter(Tensor):
     """A trainable weight.  ``pcname`` names the op whose strategy
-    governs it; ``trainable`` is False for op state."""
+    governs it; ``trainable`` is False for op state.
+
+    The sharding hints are the JAX package's, read by the strategy
+    analysis (``parallel/sharding.param_spec``, the memory model):
+    ``sharded_dim`` is the dim a channel-parallel strategy splits over
+    mesh axis ``shard_axis`` ("c", or "e" for expert-stacked weights);
+    ``inner_sharded_dim``/``inner_shard_axis`` a second split inside a
+    stage-stacked weight.  They change no forward."""
 
     pcname: str = ""
     initializer: Optional[object] = None
+    sharded_dim: Optional[int] = None
+    shard_axis: str = "c"
+    inner_sharded_dim: Optional[int] = None
+    inner_shard_axis: str = "c"
     trainable: bool = True
 
     def __hash__(self) -> int:

@@ -219,17 +219,22 @@ def test_embedding_refuses_an_unknown_aggregation():
 
 
 def test_embedding_refuses_unported_placements():
-    """Host-placed tables raise at the op; sparse row updates asked for
-    explicitly are ported, so compile takes them and puts the table on
-    that path."""
+    """A host-placed table gathers on the host; one that is not on the
+    host raises rather than gather on the device.  Sparse row updates
+    asked for explicitly are ported, so compile takes them and puts the
+    table on that path."""
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.config import DeviceType, ParallelConfig
 
     op = Embedding("embedding", Tensor((2, 3), "int32"), 10, 4, "none")
     op.parallel_config = ParallelConfig(device_type=DeviceType.HOST)
-    with pytest.raises(NotImplementedError, match="host-placed"):
-        op.forward({op.w_table.name: torch.zeros(10, 4)},
-                   [torch.zeros((2, 3), dtype=torch.int32)], OpContext())
+    table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    ids = torch.tensor([[1, 2, 3], [4, 5, 9]], dtype=torch.int32)
+    (y,) = op.forward({op.w_table.name: table}, [ids],
+                      OpContext(compute_dtype="float32"))
+    torch.testing.assert_close(y, table[ids.long()], rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="not on the host"):
+        op.forward({op.w_table.name: table.to("meta")}, [ids], OpContext())
     m = ft.FFModel(ft.FFConfig(batch_size=2,
                                sparse_embedding_updates=True), device="cpu")
     m.embedding(m.create_tensor((2, 3), "int32"), 10, 4)

@@ -3,7 +3,8 @@
 that pairs them, the flash-attention forward and backward kernels, and
 the fused LayerNorm kernel); and the zoo's ops on the card against the
 CPU: the Embedding's id rules, the sparse embedding update against the
-dense one, and the LSTM.  The bf16/f16 flash kernels load by TMA, so
+dense one, and the LSTM; host-placed embedding tables and a bf16-pinned
+attention under a strategy.  The bf16/f16 flash kernels load by TMA, so
 the flash cases include head dims that are not a multiple of 8 and
 unaligned storage, which the wrapper pads and copies.
 
@@ -848,3 +849,89 @@ def test_checkpoint_round_trip_on_the_card(no_tf32, tmp_path):
         f.write(raw)
     with pytest.raises(CorruptCheckpointError, match="flipped.npz"):
         m.load_checkpoint(bad)
+
+
+def _hetero_model(device, momentum):
+    """The small zoo-shaped model with both tables host-placed (the
+    hetero strategy's device type CPU and ZCM memory)."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=64, compute_dtype="float32", seed=0)
+    cfg.strategies = {name: ft.ParallelConfig(
+        device_type=ft.DeviceType.HOST, dims=(1, 1), device_ids=(0,),
+        memory_types=(ft.MemoryType.ZCM,) * 3) for name in ("emb0", "emb1")}
+    m = ft.FFModel(cfg, device=device)
+    ids0 = m.create_tensor((64, 3), dtype="int32", name="ids0")
+    ids1 = m.create_tensor((64, 1), dtype="int32", name="ids1")
+    t = m.concat([m.embedding(ids0, 5000, 16, name="emb0"),
+                  m.embedding(ids1, 300, 16, name="emb1")], axis=1)
+    t = m.dense(m.dense(t, 32, activation="relu"), 1)
+    p = m.mse_loss(t)
+    m.compile(ft.SGDOptimizer(lr=0.1, momentum=momentum), final_tensor=p)
+    m.init_layers(seed=0)
+    return m
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_host_table_stays_pinned_across_train_batch(no_tf32, momentum):
+    """Host-placed tables are pinned host tensors after init and after
+    every train_batch (the row update under plain SGD, the dense host
+    update under momentum), in the same buffers; three steps on the card
+    equal the CPU's within 1e-5."""
+    g = torch.Generator().manual_seed(4)
+    batches = [(torch.randint(0, 5000, (64, 3), generator=g,
+                              dtype=torch.int32),
+                torch.randint(0, 300, (64, 1), generator=g,
+                              dtype=torch.int32),
+                torch.rand(64, 1, generator=g)) for _ in range(3)]
+    card = _hetero_model("cuda", momentum)
+    cpu = _hetero_model("cpu", momentum)
+    assert bool(card._host_rows) == (momentum == 0.0)
+    tables = {n: card._params[n] for n in card._host_params}
+    assert sorted(tables) == ["emb0/table", "emb1/table"]
+    for b in batches:
+        for n, t in tables.items():
+            assert card._params[n] is t and t.is_pinned(), n
+            assert t.device.type == "cpu"
+        lc, lh = float(card.train_batch(*b)), float(cpu.train_batch(*b))
+        assert abs(lc - lh) <= 1e-5 * max(1.0, abs(lh)), (lc, lh)
+    for n, t in tables.items():
+        assert card._params[n] is t and t.is_pinned(), n
+    for k in cpu._params:
+        torch.testing.assert_close(card._params[k].cpu(), cpu._params[k],
+                                   rtol=1e-5, atol=1e-5, msg=k)
+
+
+def test_pinned_bf16_attention_launches_the_bf16_flash_kernel(no_tf32):
+    """A strategy pinning the attention ops to bf16 in a float32 session:
+    every flash launch, forward and backward, is a bf16 launch, one per
+    attention a forward and one more per attention a step's backward."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=2, compute_dtype="float32", seed=0)
+    cfg.strategies = {f"attention_{i}": ft.ParallelConfig(
+        dims=(1, 1, 1), device_ids=(0,), precision="bf16")
+        for i in range(2)}
+    m, _, logits = ft.build_transformer(
+        cfg, num_layers=2, d_model=128, num_heads=2, d_ff=256, seq_len=128,
+        vocab_size=1000, num_classes=2, device="cuda")
+    m.compile(ft.SGDOptimizer(lr=0.01), final_tensor=logits)
+    m.init_layers(seed=0)
+    report = m.verify_report
+    assert "FF141" in report.codes() and not report.errors, \
+        report.render_text()
+    fwd, bwd = (cuda_attention.flash_attention_forward,
+                cuda_attention.flash_attention_backward)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 1000, (2, 128), generator=g, dtype=torch.int32)
+    y = torch.randint(0, 2, (2, 1), generator=g, dtype=torch.int32)
+    for f in (fwd, bwd):
+        f.launches_by_dtype = {}
+    out = m.predict(x.numpy())
+    assert fwd.launches_by_dtype == {"torch.bfloat16": 2}
+    assert out.dtype.name == "float32"
+    for f in (fwd, bwd):
+        f.launches_by_dtype = {}
+    m.train_batch(x, y)
+    assert fwd.launches_by_dtype == {"torch.bfloat16": 2}
+    assert bwd.launches_by_dtype == {"torch.bfloat16": 2}

@@ -108,7 +108,9 @@ def test_model_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"import_strategy_file": "s.pb"}, NotImplementedError, "strateg"),
+    ({"strategies": {"conv2d": ft.ParallelConfig(dims=(2, 1, 1, 1),
+                                                  device_ids=(0, 1))}},
+     ValueError, "strategy needs 2 devices, have 1"),
     ({"search_budget": 10}, NotImplementedError, "strateg"),
     ({"workers_per_node": 2}, NotImplementedError, "one device"),
     ({"mesh_shape": {"n": 2}}, NotImplementedError, "one device"),
@@ -120,7 +122,8 @@ def test_model_without_device_raises_when_cuda_is_absent(monkeypatch):
 ])
 def test_compile_refuses_what_it_cannot_run(kw, exc, match):
     """What the port cannot run yet raises NotImplementedError; a
-    training-loop knob below 1 raises ValueError, as in the JAX
+    strategy that needs more devices than the one the port runs on, and
+    a training-loop knob below 1, raise ValueError, as in the JAX
     package."""
     cfg = ft.FFConfig(batch_size=BS, compute_dtype="float32", **kw)
     m, _, _ = build_alexnet(cfg, num_classes=10, image_size=IMAGE,
