@@ -51,17 +51,36 @@
    and 24 LayerNorm launches per step; times and profiles a step, and
    holds a small float32 Transformer training step on the card against
    its CPU twin;
-11. average-pool phase: times the slice-add loop the port ran before and
+11. generation phase: the fused LayerNorm kernel at a decode step's 16
+   rows and a prefill chunk's (1, 256, 768), and the causal flash
+   forward at (4, 1024, 12, 64), bf16, against their plain versions and
+   timed; then serves a causal LM at GPT-2 small's widths (12 x 768, 12
+   heads, d_ff 3072, 1024 positions, vocab 50257, bf16, random weights
+   from seed 0) through ``GenerationEngine`` (16 slots, the auto pool
+   of 1024 pages of 16 tokens, the prefix cache on, prefill chunks of
+   256): 64 greedy requests of 128 tokens (prompts of 32-512 tokens,
+   half behind one 256-token prefix), then 16 sampled ones: tokens/s,
+   TTFT and TPOT, the pool's high-water and prefix hits, allocated KV
+   bytes against ``kv_cache_bytes``, peak memory, 24 LayerNorm launches
+   a dispatch and no flash launch; then, on the warm engine, the
+   served greedy tokens against the full forward on the causal flash
+   kernel, 4 new prompts x 16 tokens (two behind the cached prefix)
+   whose every step's logits are held against it, and the same check
+   with two deliberately wrong attentions as its controls (the mask
+   off by one must fail it); the sampled requests in two fresh engines
+   (the same tokens); a decode step's and a prefill chunk's device and
+   wall time;
+12. average-pool phase: times the slice-add loop the port ran before and
    ``F.avg_pool2d`` (what the port runs now) at InceptionV3's 3x3/s1/p1
    pools and the two global pools;
-12. ResNet-50 and InceptionV3 phases (224 and 299 px, 1000 classes, bf16,
+13. ResNet-50 and InceptionV3 phases (224 and 299 px, 1000 classes, bf16,
    random weights from seed 0): serving through ``ServingEngine`` (1 and
    4 max-pool launches per dispatch), training at batch 64 with SGD
    through ``fit`` and ``train_batch`` (1 + 1 and 4 + 4 pool launches a
    step, the loss falls on a repeated batch), ResNet-50 with BatchNorm
    (every running statistic moves and ``evaluate`` reads them), and small
    float32 steps of each on the card against their CPU twins;
-13. zoo phases (DLRM with four 1,000,000-row tables, batch 2048;
+14. zoo phases (DLRM with four 1,000,000-row tables, batch 2048;
    CANDLE-Uno at its builder's defaults, batch 256; NMT, vocab 20000,
    2048 wide, 2 + 2 LSTM layers, 24 tokens, batch 256; bf16, random
    weights from seed 0, plain SGD): serving through ``ServingEngine``
@@ -76,7 +95,7 @@
    puts it); small float32 versions of the three, 3 steps on the card
    against their CPU twins.  No TPU kernel is on these paths: the five
    launch counts stay 0;
-14. training-loop knob phases: BERT-base (bf16, batch 16) one step from
+15. training-loop knob phases: BERT-base (bf16, batch 16) one step from
    one state without and with segmented remat (loss and parameters
    compared, predicted bit-equal; the step's peak memory must fall; the
    flash and LayerNorm launches against the segments' reckoning, forward
@@ -87,14 +106,14 @@
    accumulation 2, windows of 4 and the padded tail (finite losses, all
    96 running statistics move, 2 + 2 max-pool launches a step), then a
    ``train_window`` of 4 against 4 ``train_batch`` calls, bit for bit;
-15. checkpoint phase: ResNet-50 with BatchNorm on the card, saved at step
+16. checkpoint phase: ResNet-50 with BatchNorm on the card, saved at step
    3 (synchronously, then with an async write overlapping training),
    loaded and trained on: bit-equal to the uninterrupted run;
    ``verify_checkpoint`` and a flipped byte; save and load times;
-16. MoE phase: one MoE layer at BERT-base's width (8 experts, d_ff 3072,
+17. MoE phase: one MoE layer at BERT-base's width (8 experts, d_ff 3072,
    k 2, capacity 1.25, 4 x 512 tokens): forward, aux loss and gradients
    on the card against the CPU in float32, and its device times;
-17. prints each phase's seconds, one ``kernels`` JSON line and, last,
+18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
 Any failure raises and exits non-zero before the ok line.  Needs one
@@ -329,6 +348,38 @@ SEARCHED = [
 # every full-width training step's peak device memory beside the
 # verifier's analytic high-water for it (memory_estimate)
 MEMORY = []
+# paged token generation at GPT-2 small's published widths (Hugging Face
+# gpt2: n_layer 12, n_embd 768, n_head 12, n_positions 1024, vocab_size
+# 50257) in the repo's post-norm block, bf16, random weights from SEED;
+# 16 slots, pages of 16 tokens (the auto pool: 1024 pages), the prefix
+# cache on, prefill chunks of 256
+GPT2 = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
+            seq_len=1024, vocab_size=50257)
+GEN_SLOTS = 16
+GEN_PAGE = 16
+GEN_CHUNK = 256
+# traffic: 64 greedy requests of 128 new tokens, prompts of 32-512 tokens,
+# half of them behind one shared 256-token prefix; then 16 sampled ones
+GEN_REQUESTS = 64
+GEN_PROMPT = (32, 512)
+GEN_PREFIX = 256
+GEN_NEW = 128
+GEN_SAMPLED = 16
+GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# prompts x tokens whose every step's logits are held against the full
+# forward, and the tolerances on those logits; tokens must be equal
+# where the reference's top-2 gap exceeds them.  Each limit lies between
+# two readings on an H100 (PERF.md): the sound run's largest
+# error and the smallest error of a deliberately wrong attention that
+# leaves the noise.  bf16: the paged path attends in plain torch where
+# the reference runs the flash kernel, and every op rounds to bf16 (a
+# logit near 1 is one ulp, 0.0078, from its neighbour): sound 0.0088,
+# wrong 1.168 (attending another slot's pages; a mask off by one and
+# bf16 scores stay inside the rounding).  float32: sound 1.4e-6, wrong
+# 1.1e-4 (bf16 scores) and up
+GEN_CHECKED = (4, 16)
+GEN_LOGIT_TOL = 0.03
+GEN_F32_LOGIT_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -2891,6 +2942,609 @@ def verifier_phase(ft, card: str) -> None:
         assert not report.errors, report.render_text()
 
 
+# ---- paged token generation ---------------------------------------------
+def gen_traffic(rng, vocab: int) -> list:
+    """GEN_REQUESTS prompts from the seed: even ones uniform in length over
+    GEN_PROMPT, odd ones the shared GEN_PREFIX-token prefix and a suffix,
+    their length uniform over (GEN_PREFIX, GEN_PROMPT[1]]."""
+    import numpy as np
+
+    prefix = rng.integers(0, vocab, GEN_PREFIX)
+    lo, hi = GEN_PROMPT
+    out = []
+    for i in range(GEN_REQUESTS):
+        if i % 2:
+            n = int(rng.integers(GEN_PREFIX + 1, hi + 1))
+            p = np.concatenate([prefix, rng.integers(0, vocab,
+                                                     n - GEN_PREFIX)])
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        out.append(p.astype(np.int32))
+    return out
+
+
+def gen_kernel_checks(cuda_attention, cuda_norm) -> dict:
+    """The two kernels of the generation path at the shapes it gives
+    them, against their plain versions, and timed: the LayerNorm kernel
+    at a decode step's 16 rows and a prefill chunk's 256 (bf16 in, f32
+    out, d 768), the causal flash forward at the reference forward's
+    (4, 1024, 12, 64) in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = gen.device
+    d = GPT2["d_model"]
+    ln_rows = []
+    for shape in ((GEN_SLOTS, 1, d), (1, GEN_CHUNK, d)):
+        x = (3 * torch.randn(shape, generator=gen, device=dev)
+             + 1).to(torch.bfloat16)
+        scale = torch.randn(d, generator=gen, device=dev)
+        bias = torch.randn(d, generator=gen, device=dev)
+        y = cuda_norm.fused_layernorm(x, None, scale, bias, 1e-5)
+        torch.cuda.synchronize()
+        ref = cuda_norm.fused_layernorm_reference(x, None, scale, bias, 1e-5)
+        exact = cuda_norm.layernorm_float64(x, None, scale, bias, 1e-5)
+        u_plain = cuda_norm.ulp_distance(y, ref)
+        u_exact = cuda_norm.ulp_distance(y, exact)
+        assert u_exact <= LN_MAX_ULPS_EXACT and u_plain <= LN_MAX_ULPS_PLAIN, \
+            (shape, u_exact, u_plain)
+        err = float((y - ref).abs().max())
+        print(f"layernorm kernel vs plain: bf16 {tuple(shape)} (generation) "
+              f"max abs err {err:.3g}, {u_plain:g} ulp (tol "
+              f"{LN_MAX_ULPS_PLAIN}); vs float64 {u_exact:g} ulp (tol "
+              f"{LN_MAX_ULPS_EXACT})")
+        lib_w = (scale.to(torch.bfloat16), bias.to(torch.bfloat16))
+        xs = rotation(x)
+        rows = x.numel() // d
+        moved = rows * d * (2 + 4) + 2 * d * 4
+        row = {
+            "shape": list(shape), "dtype": "bf16 in, f32 out",
+            "path": "generation", "max_abs_err": err,
+            "kernel_ms": time_ms(lambda t: cuda_norm.fused_layernorm(
+                t, None, scale, bias, 1e-5), xs, 200),
+            "plain_ms": time_ms(lambda t: cuda_norm.fused_layernorm_reference(
+                t, None, scale, bias, 1e-5), xs, 50),
+            "library_ms": time_ms(lambda t: F.layer_norm(
+                t, (d,), *lib_w, 1e-5), xs, 200),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved,
+        }
+        print("layernorm timing: " + json.dumps(row))
+        ln_rows.append(row)
+        del xs
+
+    n, s = GEN_CHECKED[0], GPT2["seq_len"]
+    h = GPT2["num_heads"]
+    hd = d // h
+    scale = hd ** -0.5
+    q, k, v = (torch.randn((n, s, h, hd), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    o, lse = cuda_attention.flash_attention_forward(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    ref = cuda_attention.flash_attention_reference(q, k, v, True, scale)
+    diff = (o.float() - ref).abs()
+    err = float(diff.max())
+    tol = FLASH_LOW_TOL * float(ref.abs().max())
+    worst = float((diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max())
+    rms = rms_rel(o, ref)
+    lse_err = float((lse - cuda_attention.flash_attention_lse_reference(
+        q, k, True, scale)).abs().max())
+    print(f"flash kernel vs plain (generation's reference shape): bf16 "
+          f"causal=True (n,s,h,d)=({n},{s},{h},{hd}) forward max abs err "
+          f"{err:.3g} (tol {tol:.3g}), worst row {worst:.3g}, lse "
+          f"{lse_err:.3g} (tol {FLASH_LSE_TOL}), RMS-relative O {rms:.3g}")
+    assert err <= tol and worst <= FLASH_LOW_ROW_TOL, (err, tol, worst)
+    assert rms <= FLASH_LOW_RMS_TOL and lse_err <= FLASH_LSE_TOL, \
+        (rms, lse_err)
+    del o, lse, ref, diff
+    sets = [(q, k, v)] + [tuple(torch.randn(
+        (n, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        for _ in range(3)) for _ in range(7)]
+    lib = [tuple(t.transpose(1, 2).contiguous() for t in st) for st in sets]
+    b_ms, b_by, b_bytes, b_ops = flash_bounds(n, s, s, h, hd, 2, True, False)
+    flash_row = {
+        "shape": [n, s, h, hd], "dtype": "bf16", "causal": True,
+        "path": "generation", "max_abs_err": err, "design": FLASH_DESIGN,
+        "kernel_ms": time_ms(lambda t: cuda_attention.flash_attention_forward(
+            t[0], t[1], t[2], True, scale), sets, 50),
+        "plain_ms": time_ms(lambda t: cuda_attention.flash_attention_reference(
+            t[0], t[1], t[2], True, scale), sets, 5),
+        "library_ms": time_ms(lambda t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], scale=scale, is_causal=True), lib, 50),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": b_bytes, "ops": b_ops,
+    }
+    print("flash forward timing: " + json.dumps(flash_row))
+    del sets, lib
+    torch.cuda.empty_cache()
+    return {"ln": ln_rows, "flash": flash_row}
+
+
+def gen_capture(eng):
+    """Record the logits the running engine computes for each stream
+    (keyed by ``id(stream)``): the last real position of its final
+    prefill chunk, then each decode step's.  Undone by deleting the two
+    attributes from ``eng._decoder``."""
+    rec = {}
+    dec = eng._decoder
+    walk_prefill, walk_decode = dec._walk_prefill, dec._walk_decode
+
+    def prefill(params, caches, tokens, row, slot, start, length):
+        out = walk_prefill(params, caches, tokens, row, slot, start, length)
+        # a prompt's later chunk replaces its earlier one's logits
+        rec[id(eng._slots_state[slot].stream)] = [out.float().clone()]
+        return out
+
+    def decode(params, caches, tokens, pos, table, ws, wp, wr):
+        out = walk_decode(params, caches, tokens, pos, table, ws, wp, wr)
+        for i, s in enumerate(eng._slots_state):
+            if s is not None and not s.prefilling:
+                rec[id(s.stream)].append(out[i].float().clone())
+        return out
+
+    dec._walk_prefill, dec._walk_decode = prefill, decode
+    return rec
+
+
+def gen_reference(model, prompts, outs, counted) -> "torch.Tensor":
+    """The full forward (``forward_compiled``, one bucket of
+    GEN_CHECKED[0] rows, the causal flash kernel) over each prompt and
+    its generated tokens but the last: the float32 logits (len(prompts),
+    len(outs[0]), V) at the positions that chose the generated tokens.
+    At most GEN_CHECKED[0] prompts; the forward's flash launches, the
+    count set to 0 just before it, are added to ``counted["ref"]``."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ops import cuda_attention
+
+    fwd_k = cuda_attention.flash_attention_forward
+    nb, ntok = GEN_CHECKED[0], len(outs[0])
+    batch = np.zeros((nb, GPT2["seq_len"]), np.int32)
+    idx = np.zeros((nb, ntok), np.int64)
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        full = np.concatenate([p, o[:-1]])
+        batch[i, :len(full)] = full
+        idx[i] = len(p) - 1 + np.arange(ntok)
+    xb = model._to_device((batch,))
+    reset_counts(fwd_k)
+    out = model.forward_compiled(nb)(model._params, xb)
+    counted["ref"] += fwd_k.launches
+    ix = torch.as_tensor(idx, device=out.device)[:, :, None]
+    return out.gather(1, ix.expand(-1, -1, out.shape[-1])).float()[
+        :len(prompts)]
+
+
+def gen_decided(ref, tokens, tol: float):
+    """(decided, agree): the positions whose reference top-2 logit gap
+    exceeds ``tol``, and whether ``tokens`` (n, ntok) equal the
+    reference's argmax at every one of them."""
+    import torch
+
+    top2 = ref.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > tol).cpu()
+    ref_tok = ref.argmax(-1).cpu()
+    tokens = torch.as_tensor(tokens)
+    return decided, bool((tokens[decided] == ref_tok[decided]).all())
+
+
+def gen_logit_check(eng, model, prompts, tol: float, counted) -> dict:
+    """``prompts`` (at most GEN_CHECKED[0]) through the running engine,
+    GEN_CHECKED[1] greedy tokens each, every step's logits captured and
+    held against the full forward: the largest absolute error, whether
+    the tokens equal the reference's where its top-2 gap exceeds
+    ``tol``, and whether the check passes."""
+    import torch
+
+    ntok = GEN_CHECKED[1]
+    dec = eng._decoder
+    rec = gen_capture(eng)
+    try:
+        streams = [eng.submit(p, max_new_tokens=ntok) for p in prompts]
+        outs = [s.result(timeout=300).tolist() for s in streams]
+    finally:
+        del dec._walk_prefill, dec._walk_decode
+    got = torch.stack([torch.stack(rec[id(s)]) for s in streams])
+    ref = gen_reference(model, prompts, outs, counted)
+    decided, agree = gen_decided(ref, outs, tol)
+    err = float((got - ref).abs().max())
+    return {"err": err, "agree": agree, "passes": err <= tol and agree,
+            "decided": int(decided.sum()), "positions": decided.numel(),
+            "all_equal": bool((torch.tensor(outs)
+                               == ref.argmax(-1).cpu()).all()),
+            "rms": float(ref.pow(2).mean().sqrt())}
+
+
+GEN_CONTROLS = ("bf16 scores", "mask off by one", "another slot's pages")
+
+
+def gen_wrong_attention(kind: str):
+    """A deliberately wrong paged attention, the logit check's control
+    (in place of ``ops.attention._position_attention``): "bf16 scores"
+    rounds QK^T to bf16 before the softmax; "mask off by one" lets each
+    query see the next position too; "another slot's pages" attends
+    each decode slot over its neighbour's gathered pages."""
+    import torch
+    from flexflow_tpu_torch.ops.attention import NEG_INF
+
+    def wrong(q, kg, vg, qpos, scale):
+        f32 = torch.float32
+        if kind == "another slot's pages":
+            kg, vg = kg.roll(1, 0), vg.roll(1, 0)
+        if kind == "bf16 scores":
+            bf16 = torch.bfloat16
+            scores = torch.einsum("nqhd,nkhd->nhqk", q.to(bf16),
+                                  kg.to(bf16)).to(f32) * scale
+        else:
+            scores = torch.einsum("nqhd,nkhd->nhqk", q.to(f32),
+                                  kg.to(f32)) * scale
+        shift = 1 if kind == "mask off by one" else 0
+        kpos = torch.arange(kg.shape[1], device=kg.device)
+        scores = scores.masked_fill(
+            kpos[None, None, None, :] > qpos[:, None, :, None] + shift,
+            NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("nhqk,nkhd->nqhd", probs.to(vg.dtype).to(f32),
+                            vg.to(f32))
+
+    return wrong
+
+
+def gen_checked_prompts(prefix, vocab: int) -> list:
+    """GEN_CHECKED[0] new prompts from SEED + 1: odd ones the shared
+    prefix and a suffix (they hit the warm engine's cached prefix pages
+    and prefill at an offset), even ones fresh."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    lo, hi = GEN_PROMPT
+    out = []
+    for i in range(GEN_CHECKED[0]):
+        if i % 2:
+            n = int(rng.integers(GEN_PREFIX + 1, hi + 1))
+            p = np.concatenate([prefix, rng.integers(0, vocab,
+                                                     n - GEN_PREFIX)])
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        out.append(p.astype(np.int32))
+    return out
+
+
+def gen_served_check(model, prompts, outs, counted, card) -> dict:
+    """The served greedy tokens against the full forward: equal wherever
+    the reference's top-2 gap exceeds GEN_LOGIT_TOL."""
+    nb = GEN_CHECKED[0]
+    decided = agree = 0
+    for b0 in range(0, len(prompts), nb):
+        rows = [o.tolist() for o in outs[b0:b0 + nb]]
+        ref = gen_reference(model, prompts[b0:b0 + nb], rows, counted)
+        d, a = gen_decided(ref, rows, GEN_LOGIT_TOL)
+        decided += int(d.sum())
+        agree += a
+        del ref
+    nbatch = -(-len(prompts) // nb)
+    out = {"decided": decided, "positions": len(prompts) * len(outs[0]),
+           "agree": agree == nbatch, "forwards": nbatch}
+    print(f"generation served tokens vs full forward: {len(prompts)} x "
+          f"{len(outs[0])} greedy tokens, equal at all {decided} of "
+          f"{out['positions']} positions whose top-2 gap exceeds "
+          f"{GEN_LOGIT_TOL}: {out['agree']} ({nbatch} forwards) [{card}]")
+    return out
+
+
+def gen_controlled_check(eng, model, checked, tol, counted, card,
+                         label) -> dict:
+    """On the running warm engine: ``checked`` prompts x GEN_CHECKED[1]
+    tokens, every step's logits held against the full forward within
+    ``tol``; then the same check with each wrong attention of
+    GEN_CONTROLS in turn (last: their pages are wrong)."""
+    from flexflow_tpu_torch.ops import attention
+
+    hits0 = eng.stats()["prefix_hit_tokens"]
+    sound = gen_logit_check(eng, model, checked, tol, counted)
+    sound["hits"] = eng.stats()["prefix_hit_tokens"] - hits0
+    print(f"generation vs full forward ({label}, warm engine, "
+          f"{sound['hits']} prefix hit tokens): {len(checked)} prompts x "
+          f"{GEN_CHECKED[1]} tokens, logits max abs err {sound['err']:.4g} "
+          f"(tol {tol}, reference logits RMS {sound['rms']:.4g}), tokens "
+          f"equal at {sound['decided']} of {sound['positions']} positions "
+          f"whose top-2 gap exceeds the tolerance: {sound['agree']}; all "
+          f"tokens equal the reference's argmax: {sound['all_equal']} "
+          f"[{card}]")
+    controls = {}
+    plain = attention._position_attention
+    for kind in GEN_CONTROLS:
+        attention._position_attention = gen_wrong_attention(kind)
+        try:
+            c = gen_logit_check(eng, model, checked, tol, counted)
+        finally:
+            attention._position_attention = plain
+        controls[kind] = c
+        print(f"generation control ({label}, {kind}): logits max abs err "
+              f"{c['err']:.4g} (tol {tol}), tokens equal where decided: "
+              f"{c['agree']}; fails the check: {not c['passes']} [{card}]")
+    return {"sound": sound, "controls": controls}
+
+
+def gen_f32_check(ft, prompts, counted, card) -> dict:
+    """The controlled check again on a float32 twin of the LM (the same
+    seed's weights, float32 compute, the same engine settings), warmed
+    by the first GEN_SLOTS requests of the traffic (4 tokens each):
+    bf16 rounds every logit to a grid (0.0039 near 0.5) coarser than
+    what a wrong mask moves at these widths, float32 does not."""
+    import torch
+
+    cfg = ft.FFConfig(batch_size=GEN_CHECKED[0], compute_dtype="float32",
+                      seed=SEED)
+    cfg.serve_kv_page = GEN_PAGE
+    cfg.serve_prefix_cache = "on"
+    cfg.serve_prefill_chunk = GEN_CHUNK
+    model, _, logits = ft.build_transformer_lm(cfg, **GPT2)
+    model.compile(final_tensor=logits)
+    model.init_layers(seed=SEED)
+    with ft.GenerationEngine(model, slots=GEN_SLOTS) as eng:
+        for s in [eng.submit(p, max_new_tokens=4)
+                  for p in prompts[:GEN_SLOTS]]:
+            s.result(timeout=300)
+        out = gen_controlled_check(
+            eng, model, gen_checked_prompts(prompts[1][:GEN_PREFIX],
+                                            GPT2["vocab_size"]),
+            GEN_F32_LOGIT_TOL, counted, card, "float32")
+    del model, eng
+    free_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_step_timing(model, card) -> dict:
+    """A full decode step (16 active slots at positions 400-415) and a
+    256-token prefill chunk at offset 256, straight through the decoder:
+    device time by CUDA events behind a GPU spin, wall time to the token
+    fetch, and the profiler's busy time; plus the LayerNorm and flash
+    launches of one call of each."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm
+    from flexflow_tpu_torch.serving.generation import GraphDecoder
+
+    dec = GraphDecoder.for_model(model, GEN_SLOTS, GPT2["seq_len"],
+                                 page_size=GEN_PAGE)
+    caches = dec.init_cache()
+    pps = dec.pages_per_slot
+    rng = np.random.default_rng(SEED)
+    table = np.arange(GEN_SLOTS * pps, dtype=np.int32).reshape(
+        GEN_SLOTS, pps)
+    pos = (min(400, GPT2["seq_len"] // 2 - GEN_SLOTS)
+           + np.arange(GEN_SLOTS, dtype=np.int32))
+    tokens = rng.integers(0, GPT2["vocab_size"], GEN_SLOTS)
+    wp = table[np.arange(GEN_SLOTS), pos // GEN_PAGE]
+    wr = pos % GEN_PAGE
+    decode = dec.decode_fn()
+    chunk = rng.integers(0, GPT2["vocab_size"], (1, GEN_CHUNK))
+    prefill = dec.prefill_fn(GEN_CHUNK)
+
+    def step(_=None):
+        return decode(model._params, caches, tokens, pos, table, wp, wr)
+
+    def chunk_call(_=None):
+        return prefill(model._params, caches, chunk, table[0], 0, GEN_CHUNK,
+                       GEN_CHUNK)
+
+    sampled = dec.decode_sampled_fn()
+    strategy = (np.full(GEN_SLOTS, GEN_SAMPLING["temperature"], np.float32),
+                np.full(GEN_SLOTS, GEN_SAMPLING["top_k"], np.int32),
+                np.full(GEN_SLOTS, GEN_SAMPLING["top_p"], np.float32),
+                np.arange(GEN_SLOTS))
+
+    def sampled_step(_=None):
+        return sampled(model._params, caches, tokens, pos, table, wp, wr,
+                       *strategy)
+
+    ln, fl = cuda_norm.fused_layernorm, cuda_attention.flash_attention_forward
+    counts = {}
+    for name, fn in (("decode", step), ("chunk", chunk_call),
+                     ("sampled", sampled_step)):
+        reset_counts(ln, fl)
+        fn().cpu()
+        counts[name] = {"ln": ln.launches, "flash": fl.launches}
+        # the call enqueues its work with no host sync: the step's one
+        # sync is the caller's token fetch
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out.cpu()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step().cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    # device time by events behind a spin over the walks, their inputs
+    # uploaded once: a call stages its inputs in a pinned block, and a
+    # block made anew while the card spins waits for the card, which
+    # puts host time between the events
+    with torch.inference_mode():
+        step_in = dec.decode_inputs(tokens, pos, table, wp, wr)
+        chunk_in = dec._upload(chunk, table[0])
+
+    def walk_step(_):
+        with torch.inference_mode():
+            return dec._walk_decode(model._params, caches,
+                                    *step_in).argmax(-1)
+
+    def walk_chunk(_):
+        with torch.inference_mode():
+            return dec._walk_prefill(model._params, caches, *chunk_in, 0,
+                                     GEN_CHUNK, GEN_CHUNK).argmax()
+
+    def one_call_ms(fn):
+        # one call behind each spin, the median of five: the ~900
+        # launches of a step fit the launch queue, ten steps' do not,
+        # and an overflowing queue makes the host pace the card
+        return float(np.median([time_ms(fn, [None], 1, warmup=1,
+                                        spin_cycles=500_000_000)
+                                for _ in range(5)]))
+
+    out = {
+        "decode_device_ms": one_call_ms(walk_step),
+        "decode_wall_ms": float(np.median(walls)),
+        "chunk_device_ms": one_call_ms(walk_chunk),
+        "launches": counts,
+    }
+    print(f"generation step timing: decode step ({GEN_SLOTS} slots, "
+          f"positions {pos[0]}-{pos[-1]}) {out['decode_device_ms']:.4f} ms "
+          f"device (CUDA events, one call behind a GPU spin, inputs "
+          f"uploaded once), "
+          f"{out['decode_wall_ms']:.4f} ms wall to the "
+          f"token fetch (median of 20); prefill chunk of {GEN_CHUNK} at "
+          f"offset {GEN_CHUNK} {out['chunk_device_ms']:.4f} ms device; "
+          f"launches of one call {json.dumps(counts)}; each call enqueued "
+          f"with no host sync [{card}]")
+    busy = kernel_breakdown(step, 5, card, what="decode step")
+    out["decode_busy_ms"] = (sum(t for _, t in busy) / 5 / 1e3
+                             if busy else None)
+    kernel_breakdown(chunk_call, 5, card, what="prefill chunk")
+    layers = GPT2["num_layers"]
+    assert counts["decode"] == {"ln": 2 * layers, "flash": 0}, counts
+    assert counts["chunk"] == counts["sampled"] == {"ln": 2 * layers,
+                                                    "flash": 0}, counts
+    del caches
+    return out
+
+
+def generation_phase(ft, counters, card) -> dict:
+    """Serve GPT-2 small's widths through GenerationEngine (see the module
+    docstring); returns the kernel rows and launch counts."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.analysis.kv_memory import kv_cache_bytes
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm
+    from flexflow_tpu_torch.serving.metrics import quantiles
+
+    fwd_k, bwd_k, ln_k = counters
+    kchecks = gen_kernel_checks(cuda_attention, cuda_norm)
+    free_garbage()
+    cfg = ft.FFConfig(batch_size=GEN_CHECKED[0], compute_dtype="bfloat16",
+                      seed=SEED)
+    cfg.serve_kv_page = GEN_PAGE
+    cfg.serve_prefix_cache = "on"
+    cfg.serve_prefill_chunk = GEN_CHUNK
+    model, _, logits = ft.build_transformer_lm(cfg, **GPT2)   # on cuda
+    model.compile(final_tensor=logits)
+    model.init_layers(seed=SEED)
+    print(f"GPT-2 small widths: {model.num_parameters} parameters")
+    prompts = gen_traffic(np.random.default_rng(SEED), GPT2["vocab_size"])
+    torch.cuda.reset_peak_memory_stats()
+    eng = ft.GenerationEngine(model, slots=GEN_SLOTS, metrics_window_s=3600)
+    t0 = time.perf_counter()
+    eng.start()
+    warm = time.perf_counter() - t0
+    alloc = sum(t.numel() * t.element_size() for sub in eng._caches.values()
+                for t in sub.values())
+    want = kv_cache_bytes(model.layers, None, GEN_SLOTS, GPT2["seq_len"],
+                          kv_dtype_bytes=2, page_size=GEN_PAGE)
+    print(f"KV pool: {eng.num_pages} pages of {eng.page_size} tokens, "
+          f"{alloc} bytes allocated, kv_cache_bytes {want:.0f}, engine "
+          f"kv_cache_bytes {eng.kv_cache_bytes:.0f}; start with warmup "
+          f"{warm:.3f}s [{card}]")
+    assert alloc == want == eng.kv_cache_bytes, (alloc, want)
+
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    streams = [eng.submit(p, max_new_tokens=GEN_NEW) for p in prompts]
+    outs = [s.result(timeout=900) for s in streams]
+    wall = time.perf_counter() - t0
+    snap = eng.stats()
+    steps, chunks = eng._n_steps, eng._chunks_total
+    sp = [ft.SamplingParams(seed=i, **GEN_SAMPLING)
+          for i in range(GEN_SAMPLED)]
+    t1 = time.perf_counter()
+    sstreams = [eng.submit(p, max_new_tokens=GEN_NEW, sampling=s)
+                for p, s in zip(prompts, sp)]
+    sampled = [s.result(timeout=900).tolist() for s in sstreams]
+    swall = time.perf_counter() - t1
+    final = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    layers = GPT2["num_layers"]
+    dispatches = eng._n_steps + eng._chunks_total
+    vocab = GPT2["vocab_size"]
+    assert all(len(o) == GEN_NEW and 0 <= o.min() and o.max() < vocab
+               for o in outs)
+    assert all(len(o) == GEN_NEW for o in sampled)
+    assert final["errors"] == 0 and final["requests"] == \
+        GEN_REQUESTS + GEN_SAMPLED, final
+    assert launches == {"fwd": 0, "bwd": 0, "ln": 2 * layers * dispatches}, \
+        (launches, dispatches)
+    ttft = quantiles([s.ttft for s in streams])
+    print(f"generation serve: {GEN_REQUESTS} requests (prompts "
+          f"{GEN_PROMPT[0]}-{GEN_PROMPT[1]} tokens, half behind one "
+          f"{GEN_PREFIX}-token prefix), {GEN_NEW} greedy tokens each in "
+          f"{wall:.3f}s: {GEN_REQUESTS * GEN_NEW / wall:.1f} tokens/s; TTFT "
+          f"p50 {ttft[0.5] * 1e3:.1f} ms p99 {ttft[0.99] * 1e3:.1f} ms; "
+          f"TPOT p50 {snap['tpot_p50_ms']} ms p99 {snap['tpot_p99_ms']} ms; "
+          f"{steps} decode steps, {chunks} prefill chunks; pages high-water "
+          f"{snap['kv_pages_high_water']} of {eng.num_pages}, prefix hit "
+          f"tokens {snap['prefix_hit_tokens']} ({snap['prefix_hit_tokens'] // GEN_PAGE} "
+          f"pages, rate {snap['prefix_hit_rate']}) [{card}]")
+    print(f"generation sampled: {GEN_SAMPLED} requests "
+          f"({json.dumps(GEN_SAMPLING)}) x {GEN_NEW} tokens in "
+          f"{swall:.3f}s: {GEN_SAMPLED * GEN_NEW / swall:.1f} tokens/s; "
+          f"launches over both runs: layernorm {launches['ln']} = "
+          f"{2 * layers} x {dispatches} dispatches, flash forward "
+          f"{launches['fwd']}, backward {launches['bwd']}; peak memory "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    # on the warm engine: every slot used, the shared prefix cached
+    counted = {"ref": 0}
+    served = gen_served_check(model, prompts, outs, counted, card)
+    bf16 = gen_controlled_check(
+        eng, model, gen_checked_prompts(prompts[1][:GEN_PREFIX], vocab),
+        GEN_LOGIT_TOL, counted, card, "bf16")
+    eng.stop()
+    del eng
+    free_garbage()
+    f32 = gen_f32_check(ft, prompts, counted, card)
+    nref = served["forwards"] + 2 * (1 + len(GEN_CONTROLS))
+    print(f"flash forward launches on the reference path: "
+          f"{counted['ref']} ({nref} forwards) [{card}]")
+    # reproducibility: the sampled requests in two fresh engines, each
+    # queued before it starts, so both run one schedule on one prefix
+    # cache state (a prefix hit changes a prompt's chunking, and with it
+    # the bf16 rounding, so a replay on the first engine's warm cache
+    # need not give the same bits)
+    replays = []
+    for _ in range(2):
+        e = ft.GenerationEngine(model, slots=GEN_SLOTS)
+        rs = [e.submit(p, max_new_tokens=GEN_NEW, sampling=s)
+              for p, s in zip(prompts, sp)]
+        with e:
+            replays.append([r.result(timeout=900).tolist() for r in rs])
+        del e, rs
+        free_garbage()
+    same = replays[0] == replays[1]
+    print(f"generation sampled replay: {GEN_SAMPLED} x {GEN_NEW} tokens "
+          f"in two fresh engines, the same tokens: {same}; equal to the "
+          f"first engine's sampled run (whose prompts hit its prefix "
+          f"cache): {sum(a == b for a, b in zip(replays[0], sampled))} of "
+          f"{GEN_SAMPLED} [{card}]")
+    timing = gen_step_timing(model, card)
+    assert same
+    assert served["agree"], served
+    assert counted["ref"] == layers * nref, counted
+    for c in (bf16, f32):
+        assert c["sound"]["passes"] and c["sound"]["hits"] > 0, c["sound"]
+    # every control fails the float32 check; in bf16 only the gross one
+    # leaves the rounding noise (PERF.md)
+    assert not any(c["passes"] for c in f32["controls"].values()), f32
+    assert not bf16["controls"]["another slot's pages"]["passes"], bf16
+    # the engine's own launches, and the reference forwards' apart
+    return {"ln": launches["ln"], "fwd": launches["fwd"],
+            "ref_fwd": counted["ref"], "kernels": kchecks,
+            "checks": {"served": served, "bf16": bf16, "float32": f32},
+            "timing": timing}
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2975,6 +3629,7 @@ def main() -> int:
     ttrain = phase("transformer train", transformer_train_phase, ft,
                    counters, card)
     phase("transformer f32 step", transformer_f32_step_check, ft, counters)
+    tgen = phase("generation", generation_phase, ft, counters, card)
     bremat = phase("bert remat", bert_remat_phase, ft, counters, card)
     baccum = phase("bert accumulate", bert_accumulate_phase, ft, counters,
                    card)
@@ -3044,6 +3699,15 @@ def main() -> int:
         }
 
     flash_src = "flexflow_tpu_torch/csrc/flash_attention.cu"
+    # the generation path's shapes ride beside the earlier rows, and its
+    # errors join the entry's
+    gk = tgen["kernels"]
+    fp["fwd"]["shapes"] = fp["fwd"]["shapes"] + [gk["flash"]]
+    fp["fwd"]["max_abs_err"] = max(fp["fwd"]["max_abs_err"],
+                                   gk["flash"]["max_abs_err"])
+    lp["shapes"] = [lp["timing"]] + gk["ln"]
+    lp["max_abs_err"] = max([lp["max_abs_err"]]
+                            + [r["max_abs_err"] for r in gk["ln"]])
     fwd_paths = {}
     for name in CNNS:
         fwd_paths[f"{name}_serve"] = serve[name]
@@ -3063,7 +3727,9 @@ def main() -> int:
                     "transformer_train": ttrain["fwd"],
                     "bert_remat": bremat["fwd"],
                     "bert_accumulate": baccum["fwd"],
-                    "bert_pinned": bpin["fwd"]}, fp["fwd"]),
+                    "bert_pinned": bpin["fwd"],
+                    "generation": tgen["fwd"],
+                    "generation_reference": tgen["ref_fwd"]}, fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_train": ttrain["bwd"],
@@ -3077,7 +3743,8 @@ def main() -> int:
                     "transformer_train": ttrain["ln"],
                     "bert_remat": bremat["ln"],
                     "bert_accumulate": baccum["ln"],
-                    "bert_pinned": bpin["ln"]}, lp),
+                    "bert_pinned": bpin["ln"],
+                    "generation": tgen["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,9 @@ from .ops.norm import BatchNorm, LayerNorm, RMSNorm
 from .ops.rnn import LSTM
 from .ops.tensor_ops import Concat, Dropout, Reshape, Split, Transpose
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
-from .serving import (DeadlineExceeded, OverloadError, ServingEngine,
+from .serving import (DeadlineExceeded, GenerationCancelled,
+                      GenerationEngine, GenerationStream, KVCacheExhausted,
+                      OverloadError, SamplingParams, ServingEngine,
                       ServingError, SheddedError)
 from .tensor import Parameter, Tensor
 
@@ -45,6 +47,8 @@ __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "BatchNorm", "LayerNorm", "RMSNorm", "Concat",
            "Dropout", "Reshape", "Split", "Transpose", "resilience",
            "OverloadError", "ServingEngine", "ServingError", "SheddedError",
+           "GenerationCancelled", "GenerationEngine", "GenerationStream",
+           "KVCacheExhausted", "SamplingParams",
            "Parameter", "Tensor", "PerfMetrics", "AdamOptimizer",
            "Optimizer", "SGDOptimizer", "synthetic_dataset", "losses",
            "metrics", "LOSS_SPARSE_CATEGORICAL_CROSSENTROPY",

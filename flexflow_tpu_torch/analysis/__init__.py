@@ -6,11 +6,16 @@ replicate fallbacks and this verifier all judge a ``ParallelConfig``
 through :mod:`analysis.legality`.  Entry points:
 
 * :func:`verify` — static, device-free graph + strategy verification;
-* :func:`verify_compile` — the ``FFModel.compile(verify=...)`` hook.
+* :func:`verify_compile` — the ``FFModel.compile(verify=...)`` hook;
+* :func:`kv_cache_bytes` / :func:`kv_page_plan` — the paged KV pool's
+  bytes, which the generation engine allocates and the memory gate
+  charges.
 """
 
 from .diagnostics import (CODES, Diagnostic, DiagnosticReport, Severity,
                           VerificationError, make, validate_report_json)
+from .kv_memory import (kv_cache_bytes, kv_cache_layout, kv_page_plan,
+                        pages_per_slot)
 from .legality import config_diagnostics, degree_executable, per_dim_degrees
 from .sharding_passes import (comm_plan_digest, comm_plan_digest_for_model,
                               communication_plan, predict_fallbacks,
@@ -25,5 +30,6 @@ __all__ = [
     "record_replicate_fallback", "drain_replicate_fallbacks",
     "drain_fallback_sites", "predict_fallbacks", "propagate_specs",
     "communication_plan", "comm_plan_digest", "comm_plan_digest_for_model",
-    "validate_report_json",
+    "validate_report_json", "kv_cache_bytes", "kv_cache_layout",
+    "kv_page_plan", "pages_per_slot",
 ]

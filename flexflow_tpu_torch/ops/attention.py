@@ -1,7 +1,10 @@
 """MultiHeadAttention and PositionEmbedding, the counterparts of the ops of
-the same name in ``flexflow_tpu/ops/attention.py`` (the single-device
-forward; ring attention and the decode, paged and verify paths come with
-the generation and multi-device slices).
+the same name in ``flexflow_tpu/ops/attention.py``: the single-device
+forward and the token-generation paths (``forward_kv``, the dense-cache
+``decode``, the paged ``forward_paged``/``decode_paged``; the position
+table's ``decode``/``forward_at``).  Ring attention comes with the
+multi-device slice and the speculative ``verify_paged`` with speculative
+decoding.
 
 Kernel selection.  The JAX rule (``_use_flash``) allows its Pallas
 kernel only on a TPU, with 128-aligned sequence lengths and above a
@@ -19,6 +22,15 @@ port's rule:
 There is no length threshold and no alignment rule: the kernel masks
 its ragged tiles.  A kernel that fails to build or launch raises; there
 is no fallback to the dense path.
+
+The decode and paged-prefill attention is plain torch, as the JAX
+package computes it outside any kernel: float32 scores, the finite
+``NEG_INF`` mask keyed on global positions, probabilities rounded to v's
+dtype.  The page pools are updated in place (the JAX programs donate
+them).  A page id at or past the pool's end is the "no page" sentinel:
+gathers clamp it (its columns are masked), and the writes name only
+real pages (a prefill chunk writes its ``length`` real rows, a decode
+step the slots the caller lists), so no index ever leaves its tensor.
 """
 
 from __future__ import annotations
@@ -61,6 +73,51 @@ def _dense_attention(q, k, v, causal: bool, scale: float,
     return torch.einsum("nhqk,nkhd->nqhd",
                         probs.to(v.dtype).to(torch.float32),
                         v.to(torch.float32))
+
+
+def _position_attention(q, kg, vg, qpos, scale: float):
+    """Attention of queries at global positions ``qpos`` over a gathered
+    key/value view whose column j holds position j: q (n, sq, h, d), kg
+    and vg (n, L, h, d), qpos (n or 1, sq) -> float32 (n, sq, h, d).
+    Columns past a row's position (unwritten or stale pool rows) get the
+    finite mask, whose exp is an exact 0."""
+    f32 = torch.float32
+    scores = torch.einsum("nqhd,nkhd->nhqk", q.to(f32), kg.to(f32)) * scale
+    kpos = torch.arange(kg.shape[1], device=kg.device)
+    scores = scores.masked_fill(
+        kpos[None, None, None, :] > qpos[:, None, :, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("nhqk,nkhd->nqhd", probs.to(vg.dtype).to(f32),
+                        vg.to(f32))
+
+
+def _decode_attention(q, k_cache, v_cache, pos, scale: float):
+    """One query a slot against its cache: q (n, 1, h, d), caches (n, L,
+    h, d), ``pos`` (n,) the position of the current token, whose K/V the
+    caller already wrote."""
+    return _position_attention(q, k_cache, v_cache, pos[:, None], scale)
+
+
+def _paged_chunk_attention(q, kg, vg, qpos, scale: float):
+    """A prefill chunk's queries (1, B, h, d) at global positions ``qpos``
+    (B,) against the slot's gathered page view (1, L, h, d)."""
+    return _position_attention(q, kg, vg, qpos[None], scale)
+
+
+def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The pages a table names, in table order: pool (P, page, h, d) and
+    table (..., T) -> (..., T * page, h, d).  Sentinel ids clamp to the
+    last page (their columns are masked)."""
+    g = pool[table.clamp(0, pool.shape[0] - 1)]
+    return g.reshape(*table.shape[:-1], -1, *pool.shape[2:])
+
+
+def _write_rows(pools, pages, rows, vals) -> None:
+    """``pool[pages[i], rows[i]] = vals[i]`` in place, for each pool and
+    its values: ``pages``/``rows`` (m,) int, in the pool; each of
+    ``vals`` (m, h, d)."""
+    for pool, val in zip(pools, vals):
+        pool.index_put_((pages, rows), val.to(pool.dtype))
 
 
 class MultiHeadAttention(Op):
@@ -153,6 +210,94 @@ class MultiHeadAttention(Op):
                                     gen)
         return [self._out_proj(params, attn, n, sq, ctx)]
 
+    # ---- token generation ------------------------------------------------
+    def _check_decodable(self, what: str) -> None:
+        if not (self._self_attn and self.causal):
+            raise ValueError(f"{self.name}: {what} needs causal "
+                             f"self-attention")
+
+    def forward_kv(self, params, inputs, ctx: OpContext):
+        """The forward that also returns the per-position K/V (n, s, h,
+        hd) to seed a decode cache.  Causal self-attention only; on a
+        CUDA tensor the causal flash kernel runs under :func:`use_flash`
+        (no dropout: this is inference)."""
+        self._check_decodable("prefill")
+        xq = cast_compute(inputs[0], ctx)
+        n, sq, _ = xq.shape
+        q, k, v = self._qkv(params, xq, xq, xq, ctx)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if use_flash(q, k, v, ctx.flash_attention, False):
+            attn = flash_attention(q, k, v, True, scale)
+        else:
+            attn = _dense_attention(q, k, v, True, scale, 0.0, None)
+        return [self._out_proj(params, attn, n, sq, ctx)], k, v
+
+    def forward_paged(self, params, x, k_pool, v_pool, table_row, start,
+                      length, ctx: OpContext):
+        """One prefill chunk against the paged cache: project the chunk,
+        write its K/V rows into the slot's pages, attend each query over
+        the slot's whole gathered table (history pages and the chunk),
+        masked on global positions.  ``x`` (1, B, d) holds positions
+        ``start .. start+B-1``, of which the first ``length`` are real
+        (only those are written; the pad rows' outputs are ignored);
+        ``k_pool``/``v_pool`` (num_pages, page, h, hd) are updated in
+        place and returned; ``table_row`` (pages_per_slot,) int page ids,
+        real at the chunk's real positions, the sentinel at unallocated
+        entries."""
+        self._check_decodable("paged prefill")
+        xq = cast_compute(x, ctx)
+        n, b, _ = xq.shape
+        q, k, v = self._qkv(params, xq, xq, xq, ctx)
+        page = k_pool.shape[1]
+        qpos = start + torch.arange(b, device=xq.device)
+        real = qpos[:length]
+        _write_rows((k_pool, v_pool), table_row[real // page], real % page,
+                    (k[0, :length], v[0, :length]))
+        attn = _paged_chunk_attention(
+            q, _gather_pages(k_pool, table_row)[None],
+            _gather_pages(v_pool, table_row)[None], qpos,
+            1.0 / math.sqrt(self.head_dim))
+        return [self._out_proj(params, attn, n, b, ctx)], k_pool, v_pool
+
+    def decode_paged(self, params, x, k_pool, v_pool, table, pos,
+                     write_slots, write_pages, write_rows,
+                     ctx: OpContext):
+        """One decode step against the paged cache: project each slot's
+        current token, write the K/V of slot ``write_slots[i]`` at
+        ``(write_pages[i], write_rows[i])``, gather each slot's table and
+        attend.  The JAX op takes a write for every slot, the sentinel
+        for inactive and prefilling ones (dropped); here the caller
+        lists only the slots that write (``decoder.kept_writes``).
+        ``x`` (slots, 1, d); ``table`` (slots, pages_per_slot); ``pos``
+        (slots,) the current positions; the write triple (m,) for
+        m <= slots.  The pools are updated in place and returned."""
+        n = x.shape[0]
+        xq = cast_compute(x, ctx)
+        q, k, v = self._qkv(params, xq, xq, xq, ctx)
+        _write_rows((k_pool, v_pool), write_pages, write_rows,
+                    (k[write_slots, 0], v[write_slots, 0]))
+        attn = _decode_attention(q, _gather_pages(k_pool, table),
+                                 _gather_pages(v_pool, table), pos,
+                                 1.0 / math.sqrt(self.head_dim))
+        return [self._out_proj(params, attn, n, 1, ctx)], k_pool, v_pool
+
+    def decode(self, params, x, k_cache, v_cache, pos, ctx: OpContext):
+        """One decode step against the dense per-slot cache: write the
+        current token's K/V at ``pos`` (clamped into the cache, as
+        ``dynamic_update_slice`` clamps) and attend.  ``x`` (slots, 1,
+        d); caches (slots, max_seq, h, hd), updated in place and
+        returned; ``pos`` (slots,)."""
+        n = x.shape[0]
+        xq = cast_compute(x, ctx)
+        q, k, v = self._qkv(params, xq, xq, xq, ctx)
+        at = pos.clamp(0, k_cache.shape[1] - 1)
+        slots = torch.arange(n, device=xq.device)
+        k_cache.index_put_((slots, at), k[:, 0].to(k_cache.dtype))
+        v_cache.index_put_((slots, at), v[:, 0].to(v_cache.dtype))
+        attn = _decode_attention(q, k_cache, v_cache, pos,
+                                 1.0 / math.sqrt(self.head_dim))
+        return [self._out_proj(params, attn, n, 1, ctx)], k_cache, v_cache
+
 
 class PositionEmbedding(Op):
     """Learned absolute position table added to a (n, s, d) sequence."""
@@ -178,3 +323,19 @@ class PositionEmbedding(Op):
         x = inputs[0]
         table = params[self.w_table.name][: x.shape[1]]
         return [x + cast_compute(table, ctx)[None]]
+
+    def _rows(self, params, pos: torch.Tensor) -> torch.Tensor:
+        # positions past the table clamp to its last row (pad rows only;
+        # the JAX gather fills them with NaN)
+        return params[self.w_table.name][pos.clamp(0, self.max_len - 1)]
+
+    def decode(self, params, x, pos, ctx: OpContext):
+        """``x`` (slots, 1, d) plus the table row at each slot's position
+        ``pos`` (slots,)."""
+        return [x + cast_compute(self._rows(params, pos), ctx)[:, None, :]]
+
+    def forward_at(self, params, x, start, ctx: OpContext):
+        """A prefill chunk ``x`` (1, B, d) at global positions ``start ..
+        start+B-1`` plus those table rows."""
+        pos = start + torch.arange(x.shape[1], device=x.device)
+        return [x + cast_compute(self._rows(params, pos), ctx)[None]]

@@ -11,8 +11,9 @@ op's ``preferred_element_type=float32``; a bf16 ``torch.matmul`` would
 round its output to bf16).  Autograd through the loop is the
 counterpart of the scan's transpose.  cuDNN's fused RNN is not used: it
 has two biases and no run-time forget bias, and keeps neither this
-carry nor these product dtypes.  ``forward_states`` and ``decode``
-belong to token generation and come with it.
+carry nor these product dtypes.  Token generation runs the same cell
+through ``forward_states`` (the prefill, with every step's carry) and
+``decode`` (one step from a carried state).
 """
 
 from __future__ import annotations
@@ -58,22 +59,18 @@ class LSTM(Op):
         # in s
         return (True, False, True)
 
-    def forward(self, params, inputs, ctx: OpContext):
+    def _run(self, params, x, h, c, ctx: OpContext):
+        """The cell over x (n, s, d) from the float32 carry (h, c): the
+        input projection of every step in one product, then the
+        recurrence.  Returns the float32 ``hs`` (n, s, H) and the list
+        of every step's float32 c (n, H)."""
         f32 = torch.float32
-        x = cast_compute(inputs[0], ctx).to(f32)                # (n, s, d)
         wx = cast_compute(params[self.w_x.name], ctx).to(f32)
         wh = cast_compute(params[self.w_h.name], ctx).to(f32)
         b = params[self.w_b.name].to(f32)
-        n, s = x.shape[0], x.shape[1]
-        xg = F.linear(x, wx)                                    # (n, s, 4H)
-        if self._has_state:
-            h, c = inputs[1].to(f32), inputs[2].to(f32)
-        else:
-            h = torch.zeros((n, self.hidden_size), dtype=f32,
-                            device=x.device)
-            c = torch.zeros_like(h)
-        hs = []
-        for t in range(s):
+        xg = F.linear(cast_compute(x, ctx).to(f32), wx)         # (n, s, 4H)
+        hs, cs = [], []
+        for t in range(x.shape[1]):
             # the carry h goes through the compute dtype before the
             # recurrent product, as the JAX cell casts it
             gates = xg[:, t] + F.linear(cast_compute(h, ctx).to(f32), wh) + b
@@ -82,6 +79,36 @@ class LSTM(Op):
                  + torch.sigmoid(i) * torch.tanh(g))
             h = torch.sigmoid(o) * torch.tanh(c)
             hs.append(h)
-        seq = torch.stack(hs, dim=1)
-        return [cast_compute(seq, ctx), cast_compute(h, ctx),
-                cast_compute(c, ctx)]
+            cs.append(c)
+        return torch.stack(hs, dim=1), cs
+
+    def _initial_carry(self, inputs, n: int, device):
+        if self._has_state:
+            return inputs[1].to(torch.float32), inputs[2].to(torch.float32)
+        h = torch.zeros((n, self.hidden_size), dtype=torch.float32,
+                        device=device)
+        return h, torch.zeros_like(h)
+
+    def forward(self, params, inputs, ctx: OpContext):
+        return self.forward_states(params, inputs, ctx)[0]
+
+    def forward_states(self, params, inputs, ctx: OpContext):
+        """The forward that also returns every step's float32 carry,
+        ``(outs, hs, cs)``: hs (n, s, H) and cs a list of s (n, H)
+        tensors.  The prefill of token generation reads the carry at the
+        prompt's last position to seed :meth:`decode`."""
+        x = inputs[0]
+        h0, c0 = self._initial_carry(inputs, x.shape[0], x.device)
+        hs, cs = self._run(params, x, h0, c0, ctx)
+        outs = [cast_compute(hs, ctx), cast_compute(hs[:, -1], ctx),
+                cast_compute(cs[-1], ctx)]
+        return outs, hs, cs
+
+    def decode(self, params, x, h, c, ctx: OpContext):
+        """One step from the carried float32 state: ``x`` (slots, 1, d),
+        ``h``/``c`` (slots, H).  Returns ``([seq, h_n, c_n], h, c)`` with
+        the new carry."""
+        hs, cs = self._run(params, x, h, c, ctx)
+        h2, c2 = hs[:, 0], cs[0]
+        return ([cast_compute(hs, ctx), cast_compute(h2, ctx),
+                 cast_compute(c2, ctx)], h2, c2)

@@ -400,6 +400,18 @@ class MicroBatcher:
             self._cv.notify_all()
         return out
 
+    def reap_expired(self) -> int:
+        """Expire deadline-passed and stale queued requests now, taking
+        no batch: a consumer that takes work on another cadence (the
+        generation engine, whose slots can stay busy for seconds) calls
+        it at its own boundaries.  Returns the count expired."""
+        with self._cv:
+            if not self._watch:
+                return 0
+            fire = self._collect_expired(self.clock())
+        self._fire_expired(fire)
+        return len(fire)
+
     def poll(self) -> Optional[List[Request]]:
         """Non-blocking `next_batch`: a coalesced batch if one is due
         (full, past the wait, or draining after close), else None.

@@ -29,3 +29,16 @@ class DeadlineExceeded(ServingError):
     """The request's deadline passed while it was queued; it expired
     before packing, so no dispatch was spent on it.  Delivered through
     the request's future."""
+
+
+class KVCacheExhausted(SheddedError):
+    """The paged KV pool had no page left for a stream, even after
+    evicting every unreferenced prefix-cache page, so that stream alone
+    was shed.  Only an undersized ``serve_kv_pages`` reaches it: the
+    auto pool holds every slot's longest stream."""
+
+
+class GenerationCancelled(ServingError):
+    """A generation stream was cancelled by its client while prefilling
+    or decoding: its slot and pages were freed and only it failed;
+    tokens already streamed stay valid."""

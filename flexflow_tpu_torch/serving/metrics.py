@@ -16,7 +16,8 @@ import time
 from collections import deque
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
-from .errors import DeadlineExceeded, OverloadError, SheddedError
+from .errors import (DeadlineExceeded, GenerationCancelled, OverloadError,
+                     SheddedError)
 
 
 def quantiles(samples: Sequence[float],
@@ -43,6 +44,8 @@ def phase_of(exc: BaseException) -> str:
         return "expired"
     if isinstance(exc, SheddedError):
         return "shed"
+    if isinstance(exc, GenerationCancelled):
+        return "cancelled"
     if isinstance(exc, OverloadError):
         return "rejected"
     return "errors"

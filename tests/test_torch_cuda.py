@@ -935,3 +935,139 @@ def test_pinned_bf16_attention_launches_the_bf16_flash_kernel(no_tf32):
     m.train_batch(x, y)
     assert fwd.launches_by_dtype == {"torch.bfloat16": 2}
     assert bwd.launches_by_dtype == {"torch.bfloat16": 2}
+
+
+def _gen_lm(device):
+    """A small float32 causal LM for the generation tests."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=0)
+    m, _, logits = ft.build_transformer_lm(
+        cfg, num_layers=2, d_model=64, num_heads=4, d_ff=128, seq_len=64,
+        vocab_size=97, device=device)
+    m.compile(final_tensor=logits)
+    m.init_layers(seed=0)
+    return m
+
+
+def test_decode_step_drops_sentinel_writes_on_the_card(no_tf32):
+    """Inactive slots ride the no-page sentinel in the table and the
+    write page: no device assert and no host sync, the two real writes
+    land, and every other pool row keeps its bits."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.generation import GraphDecoder
+
+    m = _gen_lm("cuda")
+    dec = GraphDecoder(m, 4, 64, page_size=16, num_pages=12)
+    caches = dec.init_cache()
+    for sub in caches.values():
+        for t in sub.values():
+            t.copy_(torch.randn(t.shape, generator=no_tf32, device="cuda"))
+    before = {(n, leaf): t.clone() for n, sub in caches.items()
+              for leaf, t in sub.items()}
+    table = np.full((4, 4), 12, np.int32)
+    table[0, :2] = (3, 7)
+    table[2, 0] = 5
+    # the step enqueues with no host sync (the caller's fetch is the one)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt = dec.decode_fn()(m._params, caches, [5, 6, 7, 8],
+                              [20, 0, 9, 0], table, [7, 12, 5, 12],
+                              [4, 0, 9, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert nxt.shape == (4,) and bool(((nxt >= 0) & (nxt < 97)).all())
+    written = {(7, 4), (5, 9)}
+    for (name, leaf), old in before.items():
+        new = caches[name][leaf]
+        for page in range(12):
+            for row in range(16):
+                same = torch.equal(new[page, row], old[page, row])
+                assert same != ((page, row) in written), (name, page, row)
+
+
+def test_forward_kv_runs_the_causal_flash_kernel(no_tf32):
+    """``forward_kv`` on the card is one causal flash launch: its output
+    is bit-equal to the op's forward, and its output, K and V match the
+    CPU's dense path."""
+    from flexflow_tpu_torch.op import OpContext
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    m = _gen_lm("cuda")
+    op = next(o for o in m.layers if isinstance(o, MultiHeadAttention))
+    x = torch.randn((2, 64, 64), generator=no_tf32, device="cuda")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: v.to(dev) for k, v in m._params.items()}
+        ctx = OpContext(device=torch.device(dev), training=False,
+                        compute_dtype="float32")
+        fwd = cuda_attention.flash_attention_forward
+        fwd.launches = 0
+        with torch.inference_mode():
+            (out,), k, v = op.forward_kv(params, [x.to(dev)], ctx)
+            plain = op.forward(params, [x.to(dev)], ctx)[0]
+        got[dev] = (out, k, v)
+        if dev == "cuda":
+            assert fwd.launches == 2        # forward_kv's, forward's
+            assert torch.equal(out, plain)
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_prefill_chunk_past_the_position_table_runs(no_tf32):
+    """A 64-token bucket at offset 48 of a 64-row position table: its
+    pad rows reach position 111, which must clamp, not assert; the
+    token and the written pages match the CPU."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.generation import GraphDecoder
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = _gen_lm(dev)
+        dec = GraphDecoder(m, 2, 64, page_size=16, num_pages=8)
+        caches = dec.init_cache()
+        tokens = np.zeros((1, 64), np.int32)
+        tokens[0, :16] = np.arange(1, 17)
+        row = np.array([2, 4, 6, 1], np.int32)
+        tok = dec.prefill_fn(64)(m._params, caches, tokens, row, 0, 48, 16)
+        got[dev] = (int(tok.cpu()),
+                    {n: {k: v.cpu() for k, v in sub.items()}
+                     for n, sub in caches.items()})
+    assert got["cuda"][0] == got["cpu"][0]
+    for name, sub in got["cpu"][1].items():
+        for leaf, want in sub.items():
+            torch.testing.assert_close(got["cuda"][1][name][leaf], want,
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_generation_engine_on_the_card_equals_the_cpu(no_tf32):
+    """A small float32 LM through GenerationEngine (chunked prefill,
+    prefix cache on) gives the same greedy tokens, and the same sampled
+    tokens for the same seeds, on the card as on the CPU."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ft
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, 97, 20)
+    prompts = [np.concatenate([prefix, rng.integers(1, 97, n)])
+               for n in (3, 9, 1)] + [rng.integers(1, 97, 7)]
+    sp = ft.SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=3)
+    cuda_model = _gen_lm("cuda")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = cuda_model if dev == "cuda" else _gen_lm("cpu")
+        if dev == "cpu":
+            for p in cuda_model.parameters:
+                m.set_weights(p.name, cuda_model.get_weights(p.name))
+        with ft.GenerationEngine(m, slots=2, prefill_chunk=8) as eng:
+            greedy = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            sampled = [eng.submit(p, max_new_tokens=12, sampling=sp)
+                       for p in prompts]
+            got[dev] = [s.result(timeout=300).tolist()
+                        for s in greedy + sampled]
+            assert eng.stats()["prefix_hit_tokens"] > 0
+    assert got["cuda"] == got["cpu"]
