@@ -28,8 +28,11 @@
    time to enqueue a call), and splits the backward's device time by
    kernel;
 6. LayerNorm phase: the fused LayerNorm kernel against its plain version
-   and a float64 yardstick (residual or not, f32 and bf16, d 768 and an
-   odd d), timed at BERT-base's shape beside ``F.layer_norm``;
+   and a float64 yardstick (residual or not, f32 and bf16, d 768, an odd
+   d and a view at storage offset 1), its bf16 output bit-equal to its
+   float32 output cast; timed in both output forms at BERT-base's shape
+   beside the byte bound of each, an empty kernel on the same grid (the
+   launch floor), ``F.layer_norm`` and the host's time per call;
 7. AlexNet serving phase: serves full-width AlexNet (229x229, 10
    classes, bf16, random weights from seed 0) through ``ServingEngine``
    from two threads, checks the outputs, that the pool kernel ran 3
@@ -52,13 +55,13 @@
    holds a small float32 Transformer training step on the card against
    its CPU twin;
 11. generation phase: the fused LayerNorm kernel at a decode step's 16
-   rows and a prefill chunk's (1, 256, 768), and the causal flash
-   forward at (4, 1024, 12, 64), bf16, against their plain versions and
-   timed; then serves a causal LM at GPT-2 small's widths (12 x 768, 12
-   heads, d_ff 3072, 1024 positions, vocab 50257, bf16, random weights
-   from seed 0) through ``GenerationEngine`` (16 slots, the auto pool
-   of 1024 pages of 16 tokens, the prefix cache on, prefill chunks of
-   256): 64 greedy requests of 128 tokens (prompts of 32-512 tokens,
+   rows and a prefill chunk's (1, 256, 768) (checked and timed as in
+   6), and the causal flash forward at (4, 1024, 12, 64), bf16, against
+   their plain versions and timed; then serves a causal LM at GPT-2
+   small's widths (12 x 768, 12 heads, d_ff 3072, 1024 positions, vocab
+   50257, bf16, random weights from seed 0) through ``GenerationEngine``
+   (16 slots, the auto pool of 1024 pages of 16 tokens, the prefix cache
+   on, prefill chunks of 256): 64 greedy requests of 128 tokens (prompts of 32-512 tokens,
    half behind one 256-token prefix), then 16 sampled ones: tokens/s,
    TTFT and TPOT, the pool's high-water and prefix hits, allocated KV
    bytes against ``kv_cache_bytes``, peak memory, 24 LayerNorm launches
@@ -69,7 +72,10 @@
    with two deliberately wrong attentions as its controls (the mask
    off by one must fail it); the sampled requests in two fresh engines
    (the same tokens); a decode step's and a prefill chunk's device and
-   wall time;
+   wall time, and the decode step's kernels by the profiler (24 fewer
+   than with the LayerNorm's float32 output and the op's cast); then a
+   small float32 LSTM LM served on the card, its greedy tokens equal to
+   the same engine's on the CPU;
 12. average-pool phase: times the slice-add loop the port ran before and
    ``F.avg_pool2d`` (what the port runs now) at InceptionV3's 3x3/s1/p1
    pools and the two global pools;
@@ -267,6 +273,13 @@ FLASH_LSE_TOL = 1e-4
 # (kernel table row 4; H100 80GB HBM3 at 700 W), not measured here
 FLASH_DESIGN = "wgmma+tma"
 FLASH_EARLIER_MS_QUOTED = {"fwd": 0.1519, "bwd": 0.6989}
+# the LayerNorm kernel's design, and the times (bf16 in, f32 out) of the
+# warp-a-row shared-memory design it replaced, at 8192 rows and at a
+# decode step's and a chunk's rows: quoted from PERF.md (kernel table row
+# 3; H100 80GB HBM3 at 700 W), not measured here, and printed only in the
+# timing lines' text
+LN_DESIGN = "row in registers, 16-byte vectors, threads a row by (rows, d)"
+LN_EARLIER_MS_QUOTED = {8192: 0.0158, 16: 0.0062, 256: 0.0066}
 # LayerNorm, in units in the last place of the output's largest value
 # (at least 1): the kernel against the float64 function and against the
 # plain version, whose float32 statistics reduce in another order
@@ -377,6 +390,12 @@ GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 # wrong 1.168 (attending another slot's pages; a mask off by one and
 # bf16 scores stay inside the rounding).  float32: sound 1.4e-6, wrong
 # 1.1e-4 (bf16 scores) and up
+# the LSTM LM's decode, card against CPU: a small float32 LM (the JAX
+# package serves it whole-prompt, no prefix cache), greedy requests
+LSTM_GEN = dict(vocab_size=97, embed_dim=64, hidden_dim=128, num_layers=2,
+                seq_len=64)
+LSTM_GEN_PROMPTS = 6
+LSTM_GEN_NEW = 16
 GEN_CHECKED = (4, 16)
 GEN_LOGIT_TOL = 0.03
 GEN_F32_LOGIT_TOL = 1e-5
@@ -462,11 +481,12 @@ def host_us(fn, xs, iters: int, spin_cycles: int = 200_000_000) -> float:
     return wall / iters * 1e6
 
 
-def kernel_breakdown(fn, steps: int, card: str,
-                     what: str = "forward") -> list:
+def kernel_breakdown(fn, steps: int, card: str, what: str = "forward",
+                     counts: dict = None) -> list:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch
     profiler), and the device's busy share of the window's wall time;
-    returns the (kernel name, device µs over all calls) rows."""
+    returns the (kernel name, device µs over all calls) rows, and fills
+    ``counts``, when given, with each name's launches over the calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -479,10 +499,12 @@ def kernel_breakdown(fn, steps: int, card: str,
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    rows = [(e.key, e.self_device_time_total) for e in events]
+    if counts is not None:
+        counts.update({e.key: e.count for e in events})
     total = sum(t for _, t in rows)
     if not total:
         print("kernel breakdown: the profiler saw no device time "
@@ -1481,69 +1503,239 @@ def flash_phase(cuda_attention, gen, card: str) -> dict:
             for w in ("fwd", "bwd")}
 
 
-def layernorm_phase(cuda_norm, gen) -> dict:
-    """The LayerNorm kernel against its plain version and the float64
-    function, then timed at BERT-base's shape (16 x 512 rows of 768,
-    bf16 in, f32 out)."""
+def ln_check(cuda_norm, x, res, scale, bias, label: str) -> float:
+    """The LayerNorm kernel at ``x`` in both output forms: the float32
+    form within the ulp limits of the plain version and of the float64
+    function, the narrow form (x's bf16/f16) equal to it cast, bit for
+    bit.  Returns the float32 form's max abs error against the plain
+    version."""
+    import torch
+    y = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5)
+    narrow = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5, x.dtype)
+    torch.cuda.synchronize()
+    ref = cuda_norm.fused_layernorm_reference(x, res, scale, bias, 1e-5)
+    exact = cuda_norm.layernorm_float64(x, res, scale, bias, 1e-5)
+    u_plain = cuda_norm.ulp_distance(y, ref)
+    u_exact = cuda_norm.ulp_distance(y, exact)
+    u_ref = cuda_norm.ulp_distance(ref, exact)
+    d = x.shape[-1]
+    aligned = not (x.data_ptr() % 16 or (res is not None
+                                         and res.data_ptr() % 16))
+    plan = cuda_norm.launch_plan(x.numel() // d, d, x.element_size(), 4,
+                                 aligned)
+    name = (f"{str(x.dtype)[6:]} res={res is not None} {tuple(x.shape)}"
+            f"{label}")
+    assert u_exact <= LN_MAX_ULPS_EXACT and u_plain <= LN_MAX_ULPS_PLAIN, \
+        (name, u_exact, u_plain)
+    assert_bit_equal(narrow, y.to(x.dtype), f"layernorm {name} narrow out")
+    err = float((y - ref).abs().max())
+    print(f"layernorm kernel vs plain: {name} max abs err {err:.3g}, "
+          f"{u_plain:g} ulp (tol {LN_MAX_ULPS_PLAIN}); vs float64 "
+          f"{u_exact:g} ulp (tol {LN_MAX_ULPS_EXACT}), plain vs float64 "
+          f"{u_ref:g} ulp; {str(x.dtype)[6:]} out == float32 out cast "
+          f"(bit-equal); plan {json.dumps(plan._asdict())}")
+    return err
+
+
+def ln_timing_rows(cuda_norm, x, scale, bias, **extra) -> list:
+    """The LayerNorm kernel at ``x``'s shape in each output form (float32,
+    and x's own dtype when it is narrower): device ms beside the byte
+    bound of that form, the launch floor (an empty kernel on the same
+    grid), ``F.layer_norm`` (weights and output in x's dtype; the library
+    yardstick, never called by the port) and the plain version, and the
+    host's µs per call for the wrapper and the library call."""
     import torch
     import torch.nn.functional as F
 
+    d = x.shape[-1]
+    rows = x.numel() // d
+    xs = rotation(x)
+    lib_w = (scale.to(x.dtype), bias.to(x.dtype))
+
+    def library(t):
+        return F.layer_norm(t, (d,), *lib_w, 1e-5)
+
+    common = {
+        "library_ms": time_ms(library, xs, 200),
+        "library_host_us": host_us(library, xs, 200),
+    }
+    out = []
+    for out_dtype in dict.fromkeys((torch.float32, x.dtype)):
+        def kernel(t, o=out_dtype):
+            return cuda_norm.fused_layernorm(t, None, scale, bias, 1e-5, o)
+
+        def plain(t, o=out_dtype):
+            return cuda_norm.fused_layernorm_reference(t, None, scale, bias,
+                                                       1e-5, o)
+
+        out_b = torch.empty((), dtype=out_dtype).element_size()
+        moved = rows * d * (x.element_size() + out_b) + 2 * d * 4
+        row = {
+            "shape": list(x.shape),
+            "dtype": f"{str(x.dtype)[6:]} in, {str(out_dtype)[6:]} out",
+            **extra, "design": LN_DESIGN,
+            "kernel_ms": time_ms(kernel, xs, 200),
+            "plain_ms": time_ms(plain, xs, 20 if rows > 1024 else 50),
+            "floor_ms": time_ms(
+                lambda t, o=out_dtype: cuda_norm.empty_launch(t, o), xs,
+                200),
+            **common,
+            "host_us": host_us(kernel, xs, 200),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved,
+            "plan": cuda_norm.launch_plan(
+                rows, d, x.element_size(), out_b, True)._asdict(),
+        }
+        quote = ""
+        if x.dtype == torch.bfloat16 and out_dtype == torch.float32:
+            quote = (f" (earlier design: {LN_EARLIER_MS_QUOTED[rows]} ms, "
+                     f"quoted from PERF.md, not measured in this run)")
+        print(f"layernorm timing{quote}: " + json.dumps(row))
+        out.append(row)
+    del xs
+    return out
+
+
+def ln_sweep_plans(cuda_norm, nvec: int, vec: int):
+    """(threads a row, rows a block, vectors a thread) of the plan sweep:
+    a warp to 8 warps a row, 1, 2, 4 rows or 256 threads a block, and
+    both the fewest vectors a thread the kernel is compiled for and the
+    least power of two that hold a thread's share."""
+    for tpr in (32, 64, 128, 256):
+        per = -(-nvec // tpr)
+        nvs = {min(n for n in cuda_norm.NV_CHOICES if n >= per),
+               1 << (per - 1).bit_length()}
+        for rpb in sorted({1, 2, 4, 256 // tpr} - {0}):
+            if tpr * rpb <= 256:
+                for nv in sorted(nvs):
+                    if nv * vec <= cuda_norm.MAX_VALUES:
+                        yield tpr, rpb, nv
+
+
+def ln_plan_sweep(cuda_norm, gen, card) -> list:
+    """The LayerNorm kernel's device time at the main path's row counts
+    (16, 256 and 8192 rows of 768 bf16 in, and 8192 rows of 768 float32
+    in, the float32 BERT session's form; each output form) under each
+    plan of ``ln_sweep_plans``, each plan's output held to the ulp
+    limits: the measurement behind the plan's rule.  ``launch_plan``'s
+    own choice is marked, and its time over the sweep's best is printed
+    per form."""
+    import torch
+
+    dev = gen.device
+    d = BERT["d_model"]
+    real = cuda_norm.launch_plan
+    bert_rows = BERT_BATCH * BERT["seq_len"]
+    out = []
+    try:
+        for rows, dtype in ((GEN_SLOTS, torch.bfloat16),
+                            (GEN_CHUNK, torch.bfloat16),
+                            (bert_rows, torch.bfloat16),
+                            (bert_rows, torch.float32)):
+            x = (3 * torch.randn((rows, d), generator=gen, device=dev)
+                 + 1).to(dtype)
+            scale = torch.randn(d, generator=gen, device=dev)
+            bias = torch.randn(d, generator=gen, device=dev)
+            ref = cuda_norm.fused_layernorm_reference(x, None, scale, bias,
+                                                      1e-5)
+            xs = rotation(x)
+            vec = 16 // x.element_size()
+            forms = list(dict.fromkeys((torch.float32, dtype)))
+            chosen = {o: real(rows, d, x.element_size(),
+                              torch.empty((), dtype=o).element_size(), True)
+                      for o in forms}
+            for tpr, rpb, nv in ln_sweep_plans(cuda_norm, d // vec, vec):
+                plan = cuda_norm.LaunchPlan(vec, nv, tpr, rpb,
+                                            -(-rows // rpb))
+                cuda_norm.launch_plan = lambda *a, p=plan: p
+                y = cuda_norm.fused_layernorm(x, None, scale, bias, 1e-5)
+                torch.cuda.synchronize()
+                assert cuda_norm.ulp_distance(y, ref) <= \
+                    LN_MAX_ULPS_PLAIN, plan
+                row = {"rows": rows, "in": str(dtype)[6:], "tpr": tpr,
+                       "rpb": rpb, "nv": nv}
+                for o in forms:
+                    name = f"{str(o)[6:]}_out"
+                    row[f"{name}_ms"] = time_ms(
+                        lambda t, o=o: cuda_norm.fused_layernorm(
+                            t, None, scale, bias, 1e-5, o), xs, 200)
+                    row[f"{name}_chosen"] = plan == chosen[o]
+                out.append(row)
+            del xs
+    finally:
+        cuda_norm.launch_plan = real
+    print(f"layernorm plan sweep (d {d}, 16-byte vectors) [{card}]: "
+          + json.dumps(out))
+    for rows, dtype in dict.fromkeys((r["rows"], r["in"]) for r in out):
+        rs = [r for r in out if r["rows"] == rows and r["in"] == dtype]
+        for key in [k[:-3] for k in rs[0] if k.endswith("_out_ms")]:
+            best = min(rs, key=lambda r: r[f"{key}_ms"])
+            mine = next((r for r in rs if r[f"{key}_chosen"]), None)
+            if mine is None:
+                print(f"layernorm plan at {rows} rows, {dtype} in, {key}: "
+                      f"the chosen plan is not among the sweep's")
+                continue
+            print(f"layernorm plan at {rows} rows, {dtype} in, {key}: "
+                  f"chosen tpr {mine['tpr']} rpb {mine['rpb']} nv "
+                  f"{mine['nv']} {mine[f'{key}_ms']:.5f} ms, best tpr "
+                  f"{best['tpr']} rpb {best['rpb']} nv {best['nv']} "
+                  f"{best[f'{key}_ms']:.5f} ms (chosen / best "
+                  f"{mine[f'{key}_ms'] / best[f'{key}_ms']:.3f})")
+    return out
+
+
+def layernorm_phase(cuda_norm, gen) -> dict:
+    """The LayerNorm kernel against its plain version and the float64
+    function in both output forms (f32 and bf16, residual or not, d 768
+    and an odd d, and views one element into their storage), then timed
+    at BERT-base's shape (16 x 512 rows of 768: bf16 in, f32 and bf16
+    out; float32 in and out)."""
+    import torch
+
     dev = gen.device
     max_err = 0.0
+
+    def case(rows, d, dtype, with_res):
+        x = (3 * torch.randn((rows, d), generator=gen, device=dev)
+             + 1).to(dtype)
+        res = (torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+               if with_res else None)
+        return (x, res, torch.randn(d, generator=gen, device=dev),
+                torch.randn(d, generator=gen, device=dev))
+
     for dtype in (torch.float32, torch.bfloat16):
         for with_res in (False, True):
             for rows, d in ((BERT_BATCH * BERT["seq_len"], BERT["d_model"]),
                             (1000, 777)):
-                x = (3 * torch.randn((rows, d), generator=gen, device=dev)
-                     + 1).to(dtype)
-                res = (torch.randn((rows, d), generator=gen,
-                                   device=dev).to(dtype)
-                       if with_res else None)
-                scale = torch.randn(d, generator=gen, device=dev)
-                bias = torch.randn(d, generator=gen, device=dev)
-                y = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5)
-                torch.cuda.synchronize()
-                ref = cuda_norm.fused_layernorm_reference(x, res, scale,
-                                                          bias, 1e-5)
-                exact = cuda_norm.layernorm_float64(x, res, scale, bias,
-                                                    1e-5)
-                u_plain = cuda_norm.ulp_distance(y, ref)
-                u_exact = cuda_norm.ulp_distance(y, exact)
-                u_ref = cuda_norm.ulp_distance(ref, exact)
-                name = (f"{str(dtype)[6:]} res={with_res} ({rows}, {d})")
-                assert u_exact <= LN_MAX_ULPS_EXACT and \
-                    u_plain <= LN_MAX_ULPS_PLAIN, (name, u_exact, u_plain)
-                err = float((y - ref).abs().max())
-                max_err = max(max_err, err)
-                print(f"layernorm kernel vs plain: {name} max abs err "
-                      f"{err:.3g}, {u_plain:g} ulp (tol "
-                      f"{LN_MAX_ULPS_PLAIN}); vs float64 {u_exact:g} ulp "
-                      f"(tol {LN_MAX_ULPS_EXACT}), plain vs float64 "
-                      f"{u_ref:g} ulp")
+                max_err = max(max_err, ln_check(
+                    cuda_norm, *case(rows, d, dtype, with_res), ""))
+            # a contiguous view one element into its storage: no 16-byte
+            # vector lines up, so the kernel takes single elements
+            x, res, scale, bias = case(GEN_SLOTS, BERT["d_model"], dtype,
+                                       with_res)
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            assert view.data_ptr() % 16
+            max_err = max(max_err, ln_check(cuda_norm, view, res, scale,
+                                            bias, " at storage offset 1"))
 
     rows, d = BERT_BATCH * BERT["seq_len"], BERT["d_model"]
-    scale = torch.randn(d, generator=gen, device=dev)
-    bias = torch.randn(d, generator=gen, device=dev)
-    # torch's layer norm wants weights of the input's dtype: the library
-    # call normalises the same bf16 rows with bf16 weights and writes bf16
-    lib_w = (scale.to(torch.bfloat16), bias.to(torch.bfloat16))
-    xs = rotation(torch.randn((rows, d), generator=gen,
-                              device=dev).to(torch.bfloat16))
-    moved = rows * d * (2 + 4) + 2 * d * 4
-    row = {
-        "shape": [rows, d], "dtype": "bf16 in, f32 out",
-        "kernel_ms": time_ms(lambda t: cuda_norm.fused_layernorm(
-            t, None, scale, bias, 1e-5), xs, 200),
-        "plain_ms": time_ms(lambda t: cuda_norm.fused_layernorm_reference(
-            t, None, scale, bias, 1e-5), xs, 20),
-        "library_ms": time_ms(lambda t: F.layer_norm(
-            t, (d,), *lib_w, 1e-5), xs, 200),
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "bytes": moved,
-    }
-    print("layernorm timing: " + json.dumps(row))
+    rows_t = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows_t += ln_timing_rows(
+            cuda_norm, torch.randn((rows, d), generator=gen,
+                                   device=dev).to(dtype),
+            torch.randn(d, generator=gen, device=dev),
+            torch.randn(d, generator=gen, device=dev), path="bert")
     torch.cuda.synchronize()
-    return {"max_abs_err": max_err, "timing": row}
+    # the entry's headline is the form earlier runs reported (bf16 in,
+    # float32 out); the main path's form (a bf16 op stores bf16) beside it
+    narrow = rows_t[1]
+    return {"max_abs_err": max_err, "timing": rows_t[0], "shapes": rows_t,
+            "headline_extra": {"ms_bf16_out": narrow["kernel_ms"],
+                               "plain_ms_bf16_out": narrow["plain_ms"],
+                               "bound_ms_bf16_out": narrow["bound_ms"]}}
 
 
 def reset_counts(*fns) -> None:
@@ -2967,8 +3159,8 @@ def gen_kernel_checks(cuda_attention, cuda_norm) -> dict:
     """The two kernels of the generation path at the shapes it gives
     them, against their plain versions, and timed: the LayerNorm kernel
     at a decode step's 16 rows and a prefill chunk's 256 (bf16 in, f32
-    out, d 768), the causal flash forward at the reference forward's
-    (4, 1024, 12, 64) in bf16."""
+    and bf16 out, d 768), the causal flash forward at the reference
+    forward's (4, 1024, 12, 64) in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -2981,38 +3173,9 @@ def gen_kernel_checks(cuda_attention, cuda_norm) -> dict:
              + 1).to(torch.bfloat16)
         scale = torch.randn(d, generator=gen, device=dev)
         bias = torch.randn(d, generator=gen, device=dev)
-        y = cuda_norm.fused_layernorm(x, None, scale, bias, 1e-5)
-        torch.cuda.synchronize()
-        ref = cuda_norm.fused_layernorm_reference(x, None, scale, bias, 1e-5)
-        exact = cuda_norm.layernorm_float64(x, None, scale, bias, 1e-5)
-        u_plain = cuda_norm.ulp_distance(y, ref)
-        u_exact = cuda_norm.ulp_distance(y, exact)
-        assert u_exact <= LN_MAX_ULPS_EXACT and u_plain <= LN_MAX_ULPS_PLAIN, \
-            (shape, u_exact, u_plain)
-        err = float((y - ref).abs().max())
-        print(f"layernorm kernel vs plain: bf16 {tuple(shape)} (generation) "
-              f"max abs err {err:.3g}, {u_plain:g} ulp (tol "
-              f"{LN_MAX_ULPS_PLAIN}); vs float64 {u_exact:g} ulp (tol "
-              f"{LN_MAX_ULPS_EXACT})")
-        lib_w = (scale.to(torch.bfloat16), bias.to(torch.bfloat16))
-        xs = rotation(x)
-        rows = x.numel() // d
-        moved = rows * d * (2 + 4) + 2 * d * 4
-        row = {
-            "shape": list(shape), "dtype": "bf16 in, f32 out",
-            "path": "generation", "max_abs_err": err,
-            "kernel_ms": time_ms(lambda t: cuda_norm.fused_layernorm(
-                t, None, scale, bias, 1e-5), xs, 200),
-            "plain_ms": time_ms(lambda t: cuda_norm.fused_layernorm_reference(
-                t, None, scale, bias, 1e-5), xs, 50),
-            "library_ms": time_ms(lambda t: F.layer_norm(
-                t, (d,), *lib_w, 1e-5), xs, 200),
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": moved,
-        }
-        print("layernorm timing: " + json.dumps(row))
-        ln_rows.append(row)
-        del xs
+        err = ln_check(cuda_norm, x, None, scale, bias, " (generation)")
+        ln_rows += ln_timing_rows(cuda_norm, x, scale, bias,
+                                  path="generation", max_abs_err=err)
 
     n, s = GEN_CHECKED[0], GPT2["seq_len"]
     h = GPT2["num_heads"]
@@ -3400,11 +3563,46 @@ def gen_step_timing(model, card) -> dict:
           f"offset {GEN_CHUNK} {out['chunk_device_ms']:.4f} ms device; "
           f"launches of one call {json.dumps(counts)}; each call enqueued "
           f"with no host sync [{card}]")
-    busy = kernel_breakdown(step, 5, card, what="decode step")
+    new_counts, old_counts = {}, {}
+    busy = kernel_breakdown(step, 5, card, what="decode step",
+                            counts=new_counts)
     out["decode_busy_ms"] = (sum(t for _, t in busy) / 5 / 1e3
                              if busy else None)
-    kernel_breakdown(chunk_call, 5, card, what="prefill chunk")
+    # the same step with the LayerNorm op as it ran before its kernel
+    # stored bf16: float32 out, then the op's cast to bf16
+    from flexflow_tpu_torch.ops import norm as norm_op
+    real = norm_op.fused_layernorm_autograd
+    norm_op.fused_layernorm_autograd = (
+        lambda x, r, sc, b, eps, out_dtype: real(x, r, sc, b, eps))
+    try:
+        old_busy = kernel_breakdown(
+            step, 5, card, what="decode step (LayerNorm float32 out + cast)",
+            counts=old_counts)
+    finally:
+        norm_op.fused_layernorm_autograd = real
+
+    def per_step(counts, ln=False):
+        return sum(n for k, n in counts.items()
+                   if not ln or "layernorm_kernel" in k) / 5
+
     layers = GPT2["num_layers"]
+    out["kernels_per_step"] = {
+        "bf16_out": per_step(new_counts), "ln": per_step(new_counts, True),
+        "f32_out_cast": per_step(old_counts),
+        "ln_f32_out_cast": per_step(old_counts, True),
+        "busy_ms_f32_out_cast": (sum(t for _, t in old_busy) / 5 / 1e3
+                                 if old_busy else None)}
+    k = out["kernels_per_step"]
+    print(f"decode step device kernels (profiler, a step): "
+          f"{k['bf16_out']:g} with the LayerNorm kernel storing bf16 "
+          f"({k['ln']:g} LayerNorm launches), {k['f32_out_cast']:g} with "
+          f"float32 out and the op's cast ({k['ln_f32_out_cast']:g} "
+          f"LayerNorm launches): {k['f32_out_cast'] - k['bf16_out']:g} "
+          f"fewer; busy {out['decode_busy_ms']} against "
+          f"{k['busy_ms_f32_out_cast']} ms [{card}]")
+    assert k["ln"] == k["ln_f32_out_cast"] == 2 * layers, k
+    assert k["f32_out_cast"] - k["bf16_out"] == 2 * layers, k
+    kernel_breakdown(chunk_call, 5, card, what="prefill chunk")
     assert counts["decode"] == {"ln": 2 * layers, "flash": 0}, counts
     assert counts["chunk"] == counts["sampled"] == {"ln": 2 * layers,
                                                     "flash": 0}, counts
@@ -3529,6 +3727,9 @@ def generation_phase(ft, counters, card) -> dict:
           f"cache): {sum(a == b for a, b in zip(replays[0], sampled))} of "
           f"{GEN_SAMPLED} [{card}]")
     timing = gen_step_timing(model, card)
+    del model
+    free_garbage()
+    lstm = gen_lstm_check(ft, card)
     assert same
     assert served["agree"], served
     assert counted["ref"] == layers * nref, counted
@@ -3541,8 +3742,50 @@ def generation_phase(ft, counters, card) -> dict:
     # the engine's own launches, and the reference forwards' apart
     return {"ln": launches["ln"], "fwd": launches["fwd"],
             "ref_fwd": counted["ref"], "kernels": kchecks,
-            "checks": {"served": served, "bf16": bf16, "float32": f32},
+            "checks": {"served": served, "bf16": bf16, "float32": f32,
+                       "lstm": lstm},
             "timing": timing}
+
+
+def gen_lstm_check(ft, card) -> dict:
+    """The LSTM LM through GenerationEngine on the card, float32, a few
+    greedy requests, against the same engine on the CPU with the same
+    weights: every token equal."""
+    import numpy as np
+
+    models = {}
+    for dev in ("cuda", "cpu"):
+        cfg = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=SEED)
+        m = ft.build_lstm_lm(cfg, device=dev, **LSTM_GEN)[0]
+        m.compile()
+        m.init_layers(seed=SEED)
+        models[dev] = m
+    for p in models["cuda"].parameters:
+        models["cpu"].set_weights(p.name,
+                                  models["cuda"].get_weights(p.name))
+    rng = np.random.default_rng(SEED)
+    vocab = LSTM_GEN["vocab_size"]
+    prompts = [rng.integers(1, vocab, int(n))
+               for n in rng.integers(4, 24, LSTM_GEN_PROMPTS)]
+    toks = {}
+    for dev, m in models.items():
+        t0 = time.perf_counter()
+        with ft.GenerationEngine(m, slots=4,
+                                 max_new_tokens=LSTM_GEN_NEW) as eng:
+            streams = [eng.submit(p) for p in prompts]
+            toks[dev] = [s.result(timeout=300).tolist() for s in streams]
+        toks[dev + "_s"] = time.perf_counter() - t0
+    pairs = [(a, b) for x, y in zip(toks["cuda"], toks["cpu"])
+             for a, b in zip(x, y)]
+    equal = sum(a == b for a, b in pairs)
+    print(f"lstm lm generation card vs cpu: {LSTM_GEN_PROMPTS} greedy "
+          f"requests x {LSTM_GEN_NEW} tokens ({json.dumps(LSTM_GEN)}, "
+          f"float32, slots 4): {equal} of {len(pairs)} tokens equal; "
+          f"{toks['cuda_s']:.3f}s on the card, {toks['cpu_s']:.3f}s on "
+          f"the CPU [{card}]")
+    assert len(pairs) == LSTM_GEN_PROMPTS * LSTM_GEN_NEW, len(pairs)
+    assert equal == len(pairs), (toks["cuda"], toks["cpu"])
+    return {"equal": equal, "tokens": len(pairs)}
 
 
 def build_all(kernels) -> None:
@@ -3615,6 +3858,7 @@ def main() -> int:
     bp = phase("pool backward kernel", backward_kernel_phase, cuda_pool, gen)
     fp = phase("flash kernels", flash_phase, cuda_attention, gen, card)
     lp = phase("layernorm kernel", layernorm_phase, cuda_norm, gen)
+    phase("layernorm plan sweep", ln_plan_sweep, cuda_norm, gen, card)
     phase("avg pool forms", avg_pool_phase, gen, card)
     serve, train = {}, {}
     for name in CNNS:
@@ -3688,6 +3932,7 @@ def main() -> int:
         extra = {"design": t["design"]} if "design" in t else {}
         if "sweep_max_abs_err" in phase:
             extra["sweep_max_abs_err"] = phase["sweep_max_abs_err"]
+        extra.update(phase.get("headline_extra", {}))
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3705,7 +3950,7 @@ def main() -> int:
     fp["fwd"]["shapes"] = fp["fwd"]["shapes"] + [gk["flash"]]
     fp["fwd"]["max_abs_err"] = max(fp["fwd"]["max_abs_err"],
                                    gk["flash"]["max_abs_err"])
-    lp["shapes"] = [lp["timing"]] + gk["ln"]
+    lp["shapes"] = lp["shapes"] + gk["ln"]
     lp["max_abs_err"] = max([lp["max_abs_err"]]
                             + [r["max_abs_err"] for r in gk["ln"]])
     fwd_paths = {}

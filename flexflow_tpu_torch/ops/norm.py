@@ -11,9 +11,11 @@ With scale and bias, a CUDA tensor always goes through the fused
 LayerNorm kernel (``ops/cuda_norm.py``): the JAX package gates its Pallas
 kernel behind a default-off flag for a TPU cost question that does not
 carry over, and in the port the kernel is the CUDA path.  A CPU tensor
-takes the kernel's plain version.  Without scale or bias the op runs the
-stock math.  Statistics are float32 either way, and the output is cast
-to the compute dtype.
+takes the kernel's plain version.  The kernel stores the compute dtype
+itself when that is float32 or the input's dtype (one launch, no cast
+after it; bit-equal to the float32 output cast), else it writes float32
+and the op casts.  Without scale or bias the op runs the stock math.
+Statistics are float32 either way.
 
 RMSNorm is plain torch, as the JAX op is XLA: the float32 mean of
 squares, ``rsqrt``, the scale, then a cast to the compute dtype.
@@ -25,7 +27,7 @@ import torch
 
 from ..initializers import ConstantInitializer, ZeroInitializer
 from ..op import Op, OpContext, OpType
-from .common import cast_compute, relu
+from .common import cast_compute, relu, torch_dtype
 from .cuda_norm import fused_layernorm_autograd
 
 
@@ -93,8 +95,12 @@ class LayerNorm(Op):
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]
         if self.w_scale is not None and self.w_bias is not None:
-            y = fused_layernorm_autograd(x, None, params[self.w_scale.name],
-                                         params[self.w_bias.name], self.eps)
+            # the kernel stores the compute dtype itself where it can
+            dt = torch_dtype(ctx.compute_dtype)
+            y = fused_layernorm_autograd(
+                x, None, params[self.w_scale.name], params[self.w_bias.name],
+                self.eps, dt if dt in (torch.float32, x.dtype)
+                else torch.float32)
             return [cast_compute(y, ctx)]
         xf = x.to(torch.float32)
         mean = xf.mean(dim=-1, keepdim=True)

@@ -26,12 +26,15 @@ a request): the bounded queue with block/reject/shed_oldest, deadlines
 priority classes.
 
 Not ported yet, and refused where a caller asks for them: speculative
-decoding (``draft_model``, ``serve_spec_gamma > 0``; ROADMAP A.10b), KV
-page migration between engines (A.10b), ``from_strategy`` (more than one
-device, A.8), fleet-managed dispatch (``begin_external_dispatch``,
-``dispatch_pending``; with ``serving/fleet/``), ``serve_quantize``
-(A.10c).  Span tracing, the flight recorder, lock instrumentation and
-the ``FF_FAULT`` generation faults come with A.11.
+decoding with a ``draft_model`` (ROADMAP A.10b; without a draft,
+``serve_spec_gamma`` is 0 and the engine serves plain decode, as the JAX
+engine does), KV page migration between engines (A.10b),
+``from_strategy`` (more than one device, A.8), fleet-managed dispatch
+(``begin_external_dispatch``, ``dispatch_pending``; with
+``serving/fleet/``).  ``serve_quantize`` is refused for good with the
+JAX engine's ValueError: weight quantization covers dense serving only.
+Span tracing, the flight recorder, lock instrumentation and the
+``FF_FAULT`` generation faults come with A.11.
 """
 
 from __future__ import annotations
@@ -279,7 +282,15 @@ class GenerationEngine:
     ``serve_prefill_chunk``, and ``serve_max_queue_rows`` /
     ``serve_admission`` / ``serve_starvation_ms`` for admission, the
     queue bound counting requests) unless given here.  The engine runs on
-    ``model.device``; ``clock`` is injectable for tests."""
+    ``model.device``; ``clock`` is injectable for tests.
+
+    ``draft_model``, ``spec_gamma``, ``spec_gamma_max`` and
+    ``spec_policy`` are the JAX engine's speculative-decoding arguments,
+    taken so that its callers run unchanged.  Without a draft the JAX
+    engine serves plain decode whatever the gamma, and so does this one:
+    the two gammas are ignored, and only ``spec_policy`` is checked
+    (``fixed`` or ``adaptive``).  A draft model raises
+    ``NotImplementedError`` until speculative decoding is ported."""
 
     def __init__(self, model, slots: Optional[int] = None,
                  max_seq: Optional[int] = None,
@@ -294,18 +305,31 @@ class GenerationEngine:
                  prefix_cache: Optional[str] = None,
                  draft_model=None,
                  spec_gamma: Optional[int] = None,
+                 spec_gamma_max: Optional[int] = None,
+                 spec_policy: Optional[str] = None,
                  metrics_window_s: float = 30.0,
                  clock=time.monotonic, name: str = ""):
         if not model._compiled or not model._params:
             raise RuntimeError("compile() + init_layers() the model first")
         cfg = model.config
-        if cfg.serve_quantize:
-            raise _not_ported("serve_quantize for the generation engine",
-                              "A.10c")
-        gamma = cfg.serve_spec_gamma if spec_gamma is None else spec_gamma
-        if draft_model is not None or gamma:
-            raise _not_ported("speculative decoding (draft_model, "
-                              "serve_spec_gamma > 0)", "A.10b")
+        if cfg.serve_quantize or getattr(model, "_quantized", ""):
+            # weight quantization covers dense serving only, in the JAX
+            # package too: the KV + weight plan assumes full weights
+            raise ValueError(
+                "serve_quantize is not supported by the generation "
+                "engine (weight quantization covers dense serving "
+                "only); unset FFConfig.serve_quantize for this model")
+        # as the JAX engine: without a draft, gamma is 0 whatever
+        # spec_gamma says and the engine serves plain decode; the policy
+        # is checked either way
+        policy = str(cfg.serve_spec_policy if spec_policy is None
+                     else spec_policy)
+        if policy not in ("fixed", "adaptive"):
+            raise ValueError(f"spec_policy must be 'fixed' or "
+                             f"'adaptive', got {policy!r}")
+        if draft_model is not None:
+            raise _not_ported("speculative decoding (draft_model)",
+                              "A.10b")
         self.model = model
         self._params = model._params
         self.slots = int(slots or cfg.serve_gen_slots)

@@ -443,26 +443,66 @@ LN_MAX_ULPS_EXACT = 4
 LN_MAX_ULPS_PLAIN = 4
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("with_res", [False, True])
-@pytest.mark.parametrize("shape", [(8192, 768), (3, 100, 77), (5, 1000)])
-def test_layernorm_matches_plain_version(gen, shape, with_res, dtype):
-    x = (3 * torch.randn(shape, generator=gen, device="cuda") + 1).to(dtype)
+# the earlier shapes, then rows of 1 to 14336 at 1, 16 and 256 rows
+LN_SHAPES = [(8192, 768), (3, 100, 77), (5, 1000)] + [
+    (rows, d) for d in (1, 768, 1024, 4096, 14336) for rows in (1, 16, 256)]
+
+
+def _layernorm_case(gen, shape, with_res, dtype, x=None):
+    if x is None:
+        x = (3 * torch.randn(shape, generator=gen, device="cuda")
+             + 1).to(dtype)
     res = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
            if with_res else None)
     d = shape[-1]
     scale = torch.randn(d, generator=gen, device="cuda")
     bias = torch.randn(d, generator=gen, device="cuda")
+    return x, res, scale, bias
+
+
+def _check_layernorm(x, res, scale, bias, out_dtype):
+    """One launch; the float32 output within the ulp limits of the plain
+    version and of float64, and the narrow output equal to it cast."""
     before = cuda_norm.fused_layernorm.launches
-    y = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5)
+    y = cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5, out_dtype)
     torch.cuda.synchronize()
     assert cuda_norm.fused_layernorm.launches == before + 1
+    assert y.dtype == out_dtype and y.shape == x.shape
+    y32 = (y if out_dtype == torch.float32 else
+           cuda_norm.fused_layernorm(x, res, scale, bias, 1e-5))
+    if out_dtype != torch.float32:
+        assert torch.equal(y.view(torch.int16),
+                           y32.to(out_dtype).view(torch.int16))
     ref = cuda_norm.fused_layernorm_reference(x, res, scale, bias, 1e-5)
-    assert y.dtype == torch.float32 and y.shape == x.shape
     exact = cuda_norm.layernorm_float64(x, res, scale, bias, 1e-5)
-    assert cuda_norm.ulp_distance(y, exact) <= LN_MAX_ULPS_EXACT
-    assert cuda_norm.ulp_distance(y, ref) <= LN_MAX_ULPS_PLAIN
+    assert cuda_norm.ulp_distance(y32, exact) <= LN_MAX_ULPS_EXACT
+    assert cuda_norm.ulp_distance(y32, ref) <= LN_MAX_ULPS_PLAIN
+
+
+@pytest.mark.parametrize("out", ["float32", "input"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layernorm_matches_plain_version(gen, shape, with_res, dtype, out):
+    out_dtype = torch.float32 if out == "float32" else dtype
+    _check_layernorm(*_layernorm_case(gen, shape, with_res, dtype),
+                     out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_layernorm_offset_view_takes_the_element_path(gen, with_res, dtype):
+    # a contiguous view one element into its storage: no 16-byte vector
+    # lines up, so the plan takes single elements
+    rows, d = 16, 768
+    buf = torch.randn(rows * d + 1, generator=gen, device="cuda").to(dtype)
+    x = buf[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert cuda_norm.launch_plan(rows, d, x.element_size(), 4,
+                                 False).vec == 1
+    _check_layernorm(*_layernorm_case(gen, (rows, d), with_res, dtype, x),
+                     dtype)
 
 
 def test_layernorm_autograd_matches_plain_autograd(gen):
@@ -1071,3 +1111,33 @@ def test_generation_engine_on_the_card_equals_the_cpu(no_tf32):
                         for s in greedy + sampled]
             assert eng.stats()["prefix_hit_tokens"] > 0
     assert got["cuda"] == got["cpu"]
+
+
+def test_lstm_lm_generation_on_the_card_equals_the_cpu(no_tf32):
+    """The LSTM LM's decode (``LSTM.forward_states`` and ``decode``)
+    through GenerationEngine gives the same greedy tokens on the card as
+    on the CPU, in float32."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ft
+
+    models = {}
+    for dev in ("cuda", "cpu"):
+        cfg = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=0)
+        m = ft.build_lstm_lm(cfg, vocab_size=97, embed_dim=32,
+                             hidden_dim=48, num_layers=2, seq_len=48,
+                             device=dev)[0]
+        m.compile()
+        m.init_layers(seed=0)
+        models[dev] = m
+    for p in models["cuda"].parameters:
+        models["cpu"].set_weights(p.name, models["cuda"].get_weights(p.name))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 97, n) for n in (3, 11, 6, 17)]
+    got = {}
+    for dev, m in models.items():
+        with ft.GenerationEngine(m, slots=2, max_new_tokens=12) as eng:
+            got[dev] = [s.result(timeout=300).tolist()
+                        for s in [eng.submit(p) for p in prompts]]
+    assert got["cuda"] == got["cpu"]
+    assert all(len(t) == 12 for t in got["cpu"])

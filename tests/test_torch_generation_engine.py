@@ -10,7 +10,9 @@ prefix cache on and off and with whole and chunked prefill.  Then the
 engine's own behaviour: EOS, continuous batching, cancel while queued,
 mid-stream and during prefill, a queued deadline, admission reject, KV
 exhaustion shedding one stream, prefix eviction under pool pressure,
-the decoder's refusals and the features not ported yet; sampled decode
+the decoder's refusals, the features not ported yet and the JAX
+engine's refusals (``serve_quantize``; an unknown ``spec_policy``), and
+``serve_spec_gamma=2`` without a draft served as plain decode; sampled decode
 replays per seed, temperature 0 is greedy, and seeds differ.
 """
 
@@ -355,8 +357,10 @@ def test_unported_features_are_refused(lms):
     model = lms[1]
     with pytest.raises(NotImplementedError, match="A.10b"):
         GenerationEngine(model, slots=2, draft_model=model)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        GenerationEngine(model, slots=2, spec_gamma=2)
+    # without a draft, gamma is 0 and the policy is still checked, as in
+    # the JAX engine
+    with pytest.raises(ValueError, match="spec_policy"):
+        GenerationEngine(model, slots=2, spec_gamma=2, spec_policy="greedy")
     with pytest.raises(NotImplementedError, match="A.8"):
         GenerationEngine.from_strategy(model, "s.pb")
     eng = GenerationEngine(model, slots=2)
@@ -365,12 +369,36 @@ def test_unported_features_are_refused(lms):
     with pytest.raises(NotImplementedError, match="A.10b"):
         eng.adopt_migrated({})
     eng.stop()
+    # refused for good, with the JAX engine's error, on the config and
+    # on a model that carries the quantized mark
     model.config.serve_quantize = "int8"
     try:
-        with pytest.raises(NotImplementedError, match="A.10c"):
+        with pytest.raises(ValueError, match="dense serving only"):
             GenerationEngine(model, slots=2)
     finally:
         model.config.serve_quantize = ""
+    model._quantized = "int8"
+    try:
+        with pytest.raises(ValueError, match="dense serving only"):
+            GenerationEngine(model, slots=2)
+    finally:
+        del model._quantized
+
+
+def test_spec_gamma_without_draft_serves_plain_decode_as_jax(lms, prompts,
+                                                             jax_tokens):
+    """serve_spec_gamma=2 with no draft model: both engines force gamma
+    to 0 and serve plain greedy decode, the same tokens."""
+    jm, tm = lms
+    outs = {}
+    for name, model, cls in (("jax", jm, JaxGenerationEngine),
+                             ("port", tm, GenerationEngine)):
+        model.config.serve_spec_gamma = 2
+        try:
+            outs[name], _ = _run(cls, model, prompts, 6, slots=2)
+        finally:
+            model.config.serve_spec_gamma = 0
+    assert outs["port"] == outs["jax"] == jax_tokens[0]
 
 
 def test_sampled_decode_replays_and_temperature_zero_is_greedy(
