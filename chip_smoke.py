@@ -76,6 +76,28 @@
    than with the LayerNorm's float32 output and the op's cast); then a
    small float32 LSTM LM served on the card, its greedy tokens equal to
    the same engine's on the CPU;
+11b. int8 serving phase: BERT-base as in 9 with ``serve_quantize="int8"``:
+   ``memory_allocated`` falls by the quantizer's report within 1%, the
+   served rows equal the quantized ``predict`` bit for bit (requests of
+   a full bucket), their deviation from the bf16 model is printed, 12
+   flash and 24 LayerNorm launches a dispatch, the int8 forward's
+   profiler busy time and peak memory beside the bf16 forward's, the
+   training verbs refused and a tampered report refused at warm-up;
+11c. speculative generation phase: the LayerNorm kernel at the verify
+   windows' (16, gamma, 768) rows against its plain version and timed;
+   one full-width round enqueued with no host sync; then 16 greedy and
+   8 sampled requests of the generation traffic through the plain
+   engine and with two drafts: the target's own weights (gamma 4,
+   fixed) and DistilGPT2's widths (6 x 768, seed 1, adaptive, demoted
+   on accept collapse): tokens/s, TPOT, accept rates, draft
+   dispatches, fallbacks, the draft pool's bytes and the memory freed
+   by the demotion, LayerNorm launches against the rounds' reckoning;
+   greedy tokens equal the plain run's up to a divergence where the
+   plain top-2 gap is under 0.03 (the plain gaps' quantiles printed,
+   and a verify shifted one position on as the control the check must
+   flag), sampled streams replay in a fresh engine, and a float32 twin
+   (2 layers) gives every plain token; the launches of the draft runs,
+   the plain runs and the twin are reported as three paths;
 12. average-pool phase: times the slice-add loop the port ran before and
    ``F.avg_pool2d`` (what the port runs now) at InceptionV3's 3x3/s1/p1
    pools and the two global pools;
@@ -399,6 +421,39 @@ LSTM_GEN_NEW = 16
 GEN_CHECKED = (4, 16)
 GEN_LOGIT_TOL = 0.03
 GEN_F32_LOGIT_TOL = 1e-5
+# int8 weight-only serving: BERT-base as in the transformer phase with
+# serve_quantize="int8" (its 2-D Linear kernels int8 with float32
+# per-output-channel scales); the resident bytes must fall as the
+# quantizer's report says, within this share
+QUANT_DROP_TOL = 0.01
+# the served traffic: requests of a full bucket, so each dispatch is one
+# request and predict() sees the same batches
+QUANT_REQUESTS = 4
+# speculative generation: the generation phase's target (GPT2 above,
+# same engine settings) with two drafts: (a) its own weights, gamma
+# SPEC_GAMMA, fixed (every proposal verifies but for bf16 near-ties);
+# (b) DistilGPT2's published widths (Hugging Face distilgpt2: n_layer 6,
+# n_embd 768, n_head 12, n_positions 1024, vocab_size 50257) from seed 1
+# under the adaptive policy: random weights disagree, so the
+# correction, the collapse guard and the demotion run
+DISTILGPT2 = dict(num_layers=6, d_model=768, num_heads=12, d_ff=3072,
+                  seq_len=1024, vocab_size=50257)
+SPEC_GAMMA = 4
+# traffic: the first SPEC_REQUESTS greedy prompts of gen_traffic x
+# GEN_NEW tokens, then SPEC_SAMPLED sampled ones
+SPEC_REQUESTS = 16
+SPEC_SAMPLED = 8
+# the float32 twin: the target and the DistilGPT2 draft at this depth,
+# SPEC_F32_REQUESTS x SPEC_F32_NEW greedy tokens; every token must equal
+# plain greedy decode's
+SPEC_F32_LAYERS = 2
+SPEC_F32_REQUESTS = 8
+SPEC_F32_NEW = 32
+# the control of the bf16 check: the self-draft engine with its verify
+# window shifted one position on (each row then sees the next row's K/V
+# and the next position's embedding), SPEC_CONTROL_NEW tokens a
+# request; the check must flag it
+SPEC_CONTROL_NEW = 32
 
 
 def card_line() -> str:
@@ -1587,7 +1642,8 @@ def ln_timing_rows(cuda_norm, x, scale, bias, **extra) -> list:
                 rows, d, x.element_size(), out_b, True)._asdict(),
         }
         quote = ""
-        if x.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        if (x.dtype == torch.bfloat16 and out_dtype == torch.float32
+                and rows in LN_EARLIER_MS_QUOTED):
             quote = (f" (earlier design: {LN_EARLIER_MS_QUOTED[rows]} ms, "
                      f"quoted from PERF.md, not measured in this run)")
         print(f"layernorm timing{quote}: " + json.dumps(row))
@@ -3788,6 +3844,535 @@ def gen_lstm_check(ft, card) -> dict:
     return {"equal": equal, "tokens": len(pairs)}
 
 
+def fwd_cost(model, xb, label: str, card: str) -> dict:
+    """One bucket forward of ``model`` on ``xb``: its peak allocation over
+    the memory held before it, and its device busy ms by the profiler."""
+    import torch
+
+    fwd = model.forward_compiled(int(xb[0].shape[0]))
+    free_garbage()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd(model._params, xb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    busy = kernel_breakdown(lambda: fwd(model._params, xb), 3, card,
+                            what=f"{label} forward")
+    return {"busy_ms": sum(t for _, t in busy) / 3 / 1e3 if busy else None,
+            "peak_bytes": peak, "resident_bytes": base}
+
+
+def bert_quantized_phase(ft, counters, card: str) -> dict:
+    """Serve BERT-base with int8 weights (``serve_quantize="int8"``)
+    through ServingEngine: the resident bytes against the quantizer's
+    report, the served rows against the quantized predict (bit-equal)
+    and the bf16 model's, the kernels' launches a dispatch, the
+    quantized forward's device time and peak memory beside the bf16
+    one's, the training verbs refused and a tampered report refused at
+    warm-up.  Returns the kernels' launches during the serving run."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models import build_transformer
+
+    fwd_k, bwd_k, ln_k = counters
+    free_garbage()
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="bfloat16",
+                      seed=SEED, serve_quantize="int8")
+    model, _, _ = build_transformer(cfg, **BERT)   # on cuda
+    model.compile()
+    model.init_layers(seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    seq, vocab = BERT["seq_len"], BERT["vocab_size"]
+    reqs = [[rng.integers(0, vocab, (BERT_BATCH, seq)).astype(np.int32)
+             for _ in range(QUANT_REQUESTS)] for _ in range(2)]
+    xs = np.concatenate([x for r in reqs for x in r])
+    base = model.predict(xs, batch_size=BERT_BATCH)
+    xb = model._to_device((xs[:BERT_BATCH],))
+    bf16 = fwd_cost(model, xb, "bf16", card)
+    model._fwd_compiled = {}
+    free_garbage()
+    before = torch.cuda.memory_allocated()
+    rep = model.quantize_weights("int8")
+    free_garbage()
+    after = torch.cuda.memory_allocated()
+    drop, want = before - after, rep["bytes_before"] - rep["bytes_after"]
+    print(f"bert int8: {len(rep['weights'])} Linear kernels quantized, "
+          f"report bytes {rep['bytes_before']} -> {rep['bytes_after']} "
+          f"(drop {want}); memory_allocated {before} -> {after} (drop "
+          f"{drop}, {100 * (drop - want) / want:+.4f}% of the report's); "
+          f"max_abs_err {rep['max_abs_err']:.4g} <= bound "
+          f"{rep['error_bound']:.4g}: {rep['bound_ok']} [{card}]")
+    assert abs(drop - want) <= QUANT_DROP_TOL * want, (drop, want)
+    assert rep["bound_ok"] and all(
+        model._params[r["weight"]].dtype == torch.int8
+        for r in rep["weights"])
+    engine = ft.ServingEngine(model, max_batch=BERT_BATCH)
+    results = [[None] * QUANT_REQUESTS for _ in reqs]
+
+    def producer(t: int) -> None:
+        futs = [engine.submit(x) for x in reqs[t]]
+        for i, f in enumerate(futs):
+            results[t][i] = f.result(timeout=300)
+
+    reset_counts(*counters)
+    with engine:
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+            assert not th.is_alive(), "producer thread did not finish"
+    stats = engine.stats()
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    disp, layers = stats["dispatches"], BERT["num_layers"]
+    assert stats["quantize"] == "int8" and stats["errors"] == 0, stats
+    assert disp > 0 and launches == {"fwd": layers * disp, "bwd": 0,
+                                     "ln": 2 * layers * disp}, (launches,
+                                                                stats)
+    ys = np.concatenate([y for r in results for y in r])
+    qpred = model.predict(xs, batch_size=BERT_BATCH)
+    assert np.isfinite(ys).all(), "non-finite outputs"
+    assert np.array_equal(ys, qpred), float(np.abs(ys - qpred).max())
+    dev = float(np.abs(ys - base).max())
+    print(f"bert int8 serve: {len(xs)} rows in {disp} dispatches, served "
+          f"== quantized predict (bit-equal): True; max abs deviation "
+          f"from the bf16 model on the same rows {dev:.4g} (softmax "
+          f"outputs); flash forward launches {launches['fwd']} (= "
+          f"{layers} x dispatches), layernorm {launches['ln']} (= "
+          f"{2 * layers} x dispatches), flash backward {launches['bwd']} "
+          f"[{card}]")
+    quant = fwd_cost(model, xb, "int8", card)
+    print(f"bert forward at batch {BERT_BATCH}: bf16 {bf16['busy_ms']} ms "
+          f"busy, peak {bf16['peak_bytes'] / 2**20:.1f} MiB over "
+          f"{bf16['resident_bytes'] / 2**20:.1f} resident; int8 weights "
+          f"{quant['busy_ms']} ms busy, peak "
+          f"{quant['peak_bytes'] / 2**20:.1f} MiB over "
+          f"{quant['resident_bytes'] / 2**20:.1f} resident (each int8 "
+          f"kernel is cast to a float32 copy for its product) [{card}]")
+    refused = []
+    y = np.zeros((BERT_BATCH, 1), np.int32)
+    for verb, call in (
+            ("fit", lambda: model.fit(xs[:BERT_BATCH], y, epochs=1,
+                                      verbose=False)),
+            ("train_batch", lambda: model.train_batch(xs[:BERT_BATCH], y)),
+            ("evaluate", lambda: model.evaluate(xs[:BERT_BATCH], y)),
+            ("save_checkpoint", lambda: model.save_checkpoint(
+                os.path.join(HERE, "build", "refused.npz")))):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "quantized" in str(e), e
+            refused.append(verb)
+    assert refused == ["fit", "train_batch", "evaluate",
+                       "save_checkpoint"], refused
+    saved = model._quant_report
+    model._quant_report = dict(saved, bound_ok=False, max_abs_err=1.0,
+                               error_bound=0.1)
+    try:
+        ft.ServingEngine(model, max_batch=BERT_BATCH)
+        raise AssertionError("a violated quality bound was served")
+    except RuntimeError as e:
+        assert "quality bound" in str(e), e
+    finally:
+        model._quant_report = saved
+    print(f"bert int8 guards: {', '.join(refused)} raise RuntimeError on "
+          f"the card; a tampered report fails the warm-up [{card}]")
+    del model, engine, xb
+    free_garbage()
+    torch.cuda.empty_cache()
+    return {"fwd": launches["fwd"], "ln": launches["ln"],
+            "bytes": {"report_drop": want, "allocated_drop": drop},
+            "forward": {"bf16": bf16, "int8": quant}, "deviation": dev}
+
+
+def spec_ln_checks(cuda_norm) -> list:
+    """The LayerNorm kernel at the verify windows' (GEN_SLOTS, gamma,
+    d) rows, bf16 in, both output forms, against its plain version, and
+    timed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    d = GPT2["d_model"]
+    rows = []
+    for g in sorted({2, SPEC_GAMMA}):
+        x = (3 * torch.randn((GEN_SLOTS, g, d), generator=gen,
+                             device="cuda") + 1).to(torch.bfloat16)
+        scale = torch.randn(d, generator=gen, device="cuda")
+        bias = torch.randn(d, generator=gen, device="cuda")
+        err = ln_check(cuda_norm, x, None, scale, bias, " (verify window)")
+        rows += ln_timing_rows(cuda_norm, x, scale, bias,
+                               path="speculative", max_abs_err=err)
+    return rows
+
+
+def spec_model(ft, arch: dict, dtype: str, seed: int):
+    """A causal LM at ``arch``'s widths on the card with the generation
+    phase's engine settings."""
+    cfg = ft.FFConfig(batch_size=GEN_CHECKED[0], compute_dtype=dtype,
+                      seed=seed)
+    cfg.serve_kv_page = GEN_PAGE
+    cfg.serve_prefix_cache = "on"
+    cfg.serve_prefill_chunk = GEN_CHUNK
+    model, _, logits = ft.build_transformer_lm(cfg, **arch)
+    model.compile(final_tensor=logits)
+    model.init_layers(seed=seed)
+    return model
+
+
+def gap_capture(eng) -> dict:
+    """The top-2 logit gap of every row the running engine decides for
+    each stream (keyed by ``id(stream)``; the final prefill chunk's last
+    position, then each decode step's), kept on the device.  Undone by
+    deleting the two attributes from ``eng._decoder``."""
+    rec = {}
+    dec = eng._decoder
+    walk_prefill, walk_decode = dec._walk_prefill, dec._walk_decode
+
+    def prefill(params, caches, tokens, row, slot, start, length):
+        out = walk_prefill(params, caches, tokens, row, slot, start, length)
+        st = eng._slots_state[slot]
+        if st is not None:      # None: the warm-up's empty chunk
+            top = out.float().topk(2).values
+            rec[id(st.stream)] = [top[0] - top[1]]
+        return out
+
+    def decode(params, caches, tokens, pos, table, ws, wp, wr):
+        out = walk_decode(params, caches, tokens, pos, table, ws, wp, wr)
+        top = out.float().topk(2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        for i, s in enumerate(eng._slots_state):
+            if s is not None and not s.prefilling:
+                rec[id(s.stream)].append(gap[i])
+        return out
+
+    dec._walk_prefill, dec._walk_decode = prefill, decode
+    return rec
+
+
+def ln_ops(model) -> int:
+    return sum(1 for op in model.layers
+               if op.op_type.value == "layernorm")
+
+
+def verify_shifted(eng) -> None:
+    """Break the engine's greedy verify on purpose: every window is
+    walked at positions one on from the slot's (the control of the bf16
+    divergence check)."""
+    dec = eng._decoder
+    make = dec.verify_fn
+
+    def verify_fn(width, sampled=False):
+        assert not sampled
+        fn = make(width)
+
+        def shifted(params, caches, first, d, pos, *rest):
+            return fn(params, caches, first, d, pos + 1, *rest)
+        return shifted
+
+    dec.verify_fn = verify_fn
+
+
+def spec_run(ft, model, prompts, counters, ntok: int, sampling=None,
+             capture=False, tamper=None, **kw) -> dict:
+    """``prompts`` through a fresh GenerationEngine (queued before it
+    starts, so every run has the same schedule), ``ntok`` tokens each;
+    the stats after the dispatcher stops, the kernels' launches during
+    the run (counted from 0 after the warm-up) against the dispatches'
+    reckoning, and the memory the engine held at start and after.
+    ``tamper(engine)``, when given, runs before the engine starts."""
+    import torch
+
+    fwd_k, bwd_k, ln_k = counters
+    eng = ft.GenerationEngine(model, slots=GEN_SLOTS,
+                              metrics_window_s=3600, **kw)
+    streams = [eng.submit(p, max_new_tokens=ntok,
+                          sampling=None if sampling is None else sampling[i])
+               for i, p in enumerate(prompts)]
+    rec = gap_capture(eng) if capture else None
+    if tamper is not None:
+        tamper(eng)
+    free_garbage()
+    eng.start()
+    torch.cuda.synchronize()
+    started = torch.cuda.memory_allocated()
+    draft_bytes = eng.draft_kv_cache_bytes
+    draft_alloc = (sum(t.numel() * t.element_size()
+                       for c in eng._draft_caches.values()
+                       for t in c.values())
+                   if eng._draft_caches is not None else 0)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    try:
+        outs = [s.result(timeout=900).tolist() for s in streams]
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+        if capture:
+            del eng._decoder._walk_prefill, eng._decoder._walk_decode
+    snap = eng.stats()
+    free_garbage()
+    ended = torch.cuda.memory_allocated()
+    gaps = ({id_: torch.stack(v).cpu() for id_, v in rec.items()}
+            if capture else None)
+    # LayerNorm ops a walk of the target and of the draft: one kernel
+    # launch each
+    lns = ln_ops(model)
+    dlns = 0 if eng.draft_model is None else ln_ops(eng.draft_model)
+    want_ln = (lns * (eng._n_steps + eng._chunks_total)
+               + dlns * (eng._draft_steps + eng._draft_prefills))
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    assert snap["errors"] == 0 and snap["requests"] == len(prompts), snap
+    assert launches == {"fwd": 0, "bwd": 0, "ln": want_ln}, (launches,
+                                                             want_ln)
+    out = {"outs": outs, "snap": snap, "wall": wall,
+           "tokens": sum(len(o) for o in outs), "launches": launches,
+           "rounds": snap["draft_dispatches"], "steps": eng._n_steps,
+           "draft_steps": eng._draft_steps, "chunks": eng._chunks_total,
+           "draft_prefills": eng._draft_prefills, "draft_lns": dlns,
+           "lns": lns, "mem_started": started, "mem_ended": ended,
+           "draft_bytes": draft_bytes, "draft_alloc": draft_alloc,
+           "gaps": gaps, "ids": [id(s) for s in streams]}
+    del eng, streams
+    free_garbage()
+    return out
+
+
+def spec_report(label: str, r: dict, card: str) -> None:
+    s = r["snap"]
+    per_round = ""
+    if r["rounds"]:
+        per_round = (f"; layernorm a round {r['lns']} (verify) + "
+                     f"{r['draft_lns']} x gamma (draft steps: "
+                     f"{r['draft_steps']} over {r['rounds']} rounds, "
+                     f"gamma {r['draft_steps'] / r['rounds']:.3f} on "
+                     f"average)")
+    print(f"speculative {label}: {len(r['outs'])} requests, {r['tokens']} "
+          f"tokens in {r['wall']:.3f}s: {r['tokens'] / r['wall']:.1f} "
+          f"tokens/s; TPOT p50 {s['tpot_p50_ms']} ms p99 "
+          f"{s['tpot_p99_ms']} ms (a round under speculation); spec "
+          f"{s['spec']}, gamma {s['spec_gamma']} ({s['spec_policy']}), "
+          f"accept rate {s['accept_rate']} ({s['spec_accepted_tokens']} of "
+          f"{s['spec_proposed_tokens']}), draft dispatches "
+          f"{s['draft_dispatches']}, spec_fallbacks {s['spec_fallbacks']}; "
+          f"{r['steps']} rounds or steps, {r['chunks']} chunks, "
+          f"{r['draft_prefills']} draft prefills; layernorm launches "
+          f"{r['launches']['ln']} = {r['lns']} x (steps + chunks) + "
+          f"{r['draft_lns']} x (draft steps + draft prefills)"
+          f"{per_round}; flash launches {r['launches']['fwd']} [{card}]")
+
+
+def spec_divergence(plain: dict, spec: dict) -> list:
+    """The streams whose speculative tokens leave the plain run's, each
+    with its first divergence and the plain run's top-2 logit gap there
+    (the check holds it under GEN_LOGIT_TOL: a rounding flip, not a
+    fault)."""
+    diverged = []
+    for i, (a, b) in enumerate(zip(plain["outs"], spec["outs"])):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        gap = float(plain["gaps"][plain["ids"][i]][j])
+        diverged.append({"stream": i, "at": j, "gap": gap})
+    return diverged
+
+
+def gap_quantiles(plain: dict) -> dict:
+    """The plain run's top-2 logit gaps over every position it decided:
+    quantiles, and the share under GEN_LOGIT_TOL (the chance that the
+    divergence check passes a stream that a fault sends off at a random
+    position)."""
+    import torch
+
+    g = torch.cat([plain["gaps"][i] for i in plain["ids"]]).double()
+    qs = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9)
+    vals = torch.quantile(g, torch.tensor(qs, dtype=g.dtype)).tolist()
+    return {"positions": g.numel(),
+            "quantiles": {str(q): v for q, v in zip(qs, vals)},
+            "share_under_tol": float((g < GEN_LOGIT_TOL).double().mean())}
+
+
+def spec_sync_check(model, draft) -> None:
+    """One full-width round, the draft's SPEC_GAMMA steps then the
+    verify, enqueued under ``set_sync_debug_mode("error")`` (every write
+    through the sentinel); the round's one fetch after it."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.serving.generation import GraphDecoder
+
+    dec = GraphDecoder.for_model(model, GEN_SLOTS, GPT2["seq_len"])
+    ddec = GraphDecoder.for_model(draft, GEN_SLOTS, GPT2["seq_len"],
+                                  page_size=dec.page_size,
+                                  num_pages=dec.num_pages)
+    caches, dcaches = dec.init_cache(), ddec.init_cache()
+    g, no = SPEC_GAMMA, dec.num_pages
+    table = np.full((GEN_SLOTS, dec.pages_per_slot), no, np.int32)
+    first = np.arange(GEN_SLOTS, dtype=np.int32)
+    pos = np.full((GEN_SLOTS,), 100, np.int32)
+    wp, wr = np.full((g, GEN_SLOTS), no, np.int32), np.zeros(
+        (g, GEN_SLOTS), np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = ddec.draft_fn(g)(draft._params, dcaches, first, pos, table, wp,
+                             wr)
+        n_acc, out = dec.verify_fn(g)(model._params, caches, first, d, pos,
+                                      table, wp.T.copy(), wr.T.copy())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = torch.cat([n_acc[:, None], out], 1).cpu()
+    assert host.shape == (GEN_SLOTS, 1 + g)
+    del caches, dcaches
+
+
+SPEC_DRAFT_RUNS = ("self", "distil", "self sampled", "self sampled replay",
+                   "distil sampled")
+
+
+def spec_generation_phase(ft, counters, card) -> dict:
+    """Speculative decoding at GPT-2 small's widths (see the module
+    docstring); returns the kernel rows and launch counts."""
+    import torch
+    import numpy as np
+    from flexflow_tpu_torch.ops import cuda_norm
+
+    ln_rows = spec_ln_checks(cuda_norm)
+    free_garbage()
+    model = spec_model(ft, GPT2, "bfloat16", SEED)
+    distil = spec_model(ft, DISTILGPT2, "bfloat16", SEED + 1)
+    spec_sync_check(model, model)
+    print(f"speculative round (draft {SPEC_GAMMA} steps + verify, "
+          f"{GEN_SLOTS} slots, full width) enqueued with no host sync: "
+          f"True [{card}]")
+    traffic = gen_traffic(np.random.default_rng(SEED), GPT2["vocab_size"])
+    prompts = traffic[:SPEC_REQUESTS]
+    sp = [ft.SamplingParams(seed=i, **GEN_SAMPLING)
+          for i in range(SPEC_SAMPLED)]
+    sprompts = traffic[:SPEC_SAMPLED]
+    runs = {}
+    runs["plain"] = spec_run(ft, model, prompts, counters, GEN_NEW)
+    # the same run again with each step's top-2 gap captured (a topk a
+    # step, so not the timed run); the same schedule gives the same
+    # tokens
+    runs["plain captured"] = spec_run(ft, model, prompts, counters, GEN_NEW,
+                                      capture=True)
+    assert runs["plain captured"]["outs"] == runs["plain"]["outs"]
+    runs["self"] = spec_run(ft, model, prompts, counters, GEN_NEW,
+                            draft_model=model, spec_gamma=SPEC_GAMMA)
+    runs["distil"] = spec_run(ft, model, prompts, counters, GEN_NEW,
+                              draft_model=distil, spec_policy="adaptive",
+                              spec_gamma_max=SPEC_GAMMA)
+    runs["plain sampled"] = spec_run(ft, model, sprompts, counters, GEN_NEW,
+                                     sampling=sp)
+    runs["self sampled"] = spec_run(ft, model, sprompts, counters, GEN_NEW,
+                                    sampling=sp, draft_model=model,
+                                    spec_gamma=SPEC_GAMMA)
+    runs["self sampled replay"] = spec_run(
+        ft, model, sprompts, counters, GEN_NEW, sampling=sp,
+        draft_model=model, spec_gamma=SPEC_GAMMA)
+    runs["distil sampled"] = spec_run(
+        ft, model, sprompts, counters, GEN_NEW, sampling=sp,
+        draft_model=distil, spec_policy="adaptive",
+        spec_gamma_max=SPEC_GAMMA)
+    for label, r in runs.items():
+        spec_report(label, r, card)
+    # the control: the same check on a deliberately wrong verify must
+    # fail
+    control = spec_run(ft, model, prompts, counters, SPEC_CONTROL_NEW,
+                       tamper=verify_shifted, draft_model=model,
+                       spec_gamma=SPEC_GAMMA)
+    spec_report("self, verify one position off (control)", control, card)
+    gaps = gap_quantiles(runs["plain captured"])
+    print(f"speculative plain top-2 logit gaps (bf16) over "
+          f"{gaps['positions']} decided positions: quantiles "
+          f"{json.dumps(gaps['quantiles'])}; share under {GEN_LOGIT_TOL}: "
+          f"{gaps['share_under_tol']} [{card}]")
+    checks = {}
+    for label, r in (("self", runs["self"]), ("distil", runs["distil"]),
+                     ("control", control)):
+        div = spec_divergence(runs["plain captured"], r)
+        checks[label] = div
+        print(f"speculative {label} greedy tokens vs plain (bf16): "
+              f"{len(div)} of {len(prompts)} streams diverge; at "
+              f"{sum(d['gap'] >= GEN_LOGIT_TOL for d in div)} of them the "
+              f"plain top-2 gap is {GEN_LOGIT_TOL} or more; check passes: "
+              f"{all(d['gap'] < GEN_LOGIT_TOL for d in div)} "
+              f"{json.dumps(div)} [{card}]")
+    for label in ("self", "distil"):
+        r = runs[label]
+        assert r["draft_alloc"] == r["draft_bytes"] > 0, r
+    dr = runs["distil"]
+    print(f"speculative distil draft pool: {dr['draft_alloc']} bytes "
+          f"allocated = draft_kv_cache_bytes {dr['draft_bytes']}; "
+          f"memory_allocated at start {dr['mem_started']}, after the "
+          f"demotion and stop {dr['mem_ended']}: "
+          f"{dr['mem_started'] - dr['mem_ended']} bytes freed [{card}]")
+    same = runs["self sampled"]["outs"] == runs["self sampled replay"]["outs"]
+    print(f"speculative sampled replay: {SPEC_SAMPLED} x {GEN_NEW} tokens "
+          f"in two fresh engines, the same tokens: {same} [{card}]")
+    del model, distil
+    free_garbage()
+    torch.cuda.empty_cache()
+    f32 = spec_f32_check(ft, traffic, counters, card)
+    assert same
+    for label in ("self", "distil"):
+        assert all(d["gap"] < GEN_LOGIT_TOL for d in checks[label]), \
+            checks[label]
+    assert any(d["gap"] >= GEN_LOGIT_TOL for d in checks["control"]), \
+        checks["control"]
+    assert runs["self"]["snap"]["spec"] == "on"
+    assert runs["distil"]["snap"]["spec"] == "fallback"
+    assert runs["distil"]["snap"]["spec_fallbacks"] == 1
+    assert dr["mem_started"] - dr["mem_ended"] >= dr["draft_bytes"], dr
+    # the launches by path: the bf16 runs with a draft, the plain bf16
+    # runs beside them, and the float32 twin (a check at reduced depth)
+    paths = {"speculative": [runs[k] for k in SPEC_DRAFT_RUNS],
+             "speculative_plain": [runs[k] for k in runs
+                                   if k not in SPEC_DRAFT_RUNS],
+             "speculative_f32_check": f32.pop("runs")}
+    return {"ln": {p: sum(r["launches"]["ln"] for r in rs)
+                   for p, rs in paths.items()},
+            "fwd": {p: sum(r["launches"]["fwd"] for r in rs)
+                    for p, rs in paths.items()},
+            "ln_rows": ln_rows, "f32": f32, "gaps": gaps,
+            "control": checks["control"],
+            "runs": {k: {kk: v for kk, v in r.items()
+                         if kk not in ("outs", "gaps", "ids")}
+                     for k, r in runs.items()}}
+
+
+def spec_f32_check(ft, traffic, counters, card) -> dict:
+    """The float32 twin at SPEC_F32_LAYERS layers (the DistilGPT2 draft
+    at one): plain, self-draft and adaptive DistilGPT2-draft greedy
+    tokens, every one equal."""
+    arch = dict(GPT2, num_layers=SPEC_F32_LAYERS)
+    model = spec_model(ft, arch, "float32", SEED)
+    distil = spec_model(ft, dict(DISTILGPT2, num_layers=1), "float32",
+                        SEED + 1)
+    prompts = traffic[:SPEC_F32_REQUESTS]
+    runs = {"plain": spec_run(ft, model, prompts, counters, SPEC_F32_NEW),
+            "self": spec_run(ft, model, prompts, counters, SPEC_F32_NEW,
+                             draft_model=model, spec_gamma=SPEC_GAMMA),
+            "distil": spec_run(ft, model, prompts, counters, SPEC_F32_NEW,
+                               draft_model=distil, spec_policy="adaptive",
+                               spec_gamma_max=SPEC_GAMMA)}
+    equal = {k: runs[k]["outs"] == runs["plain"]["outs"]
+             for k in ("self", "distil")}
+    acc = {k: runs[k]["snap"]["accept_rate"] for k in ("self", "distil")}
+    print(f"speculative float32 twin ({SPEC_F32_LAYERS} layers, draft "
+          f"DistilGPT2 widths at 1 layer): {SPEC_F32_REQUESTS} x "
+          f"{SPEC_F32_NEW} greedy tokens equal to plain decode: "
+          f"{json.dumps(equal)}; accept rates {json.dumps(acc)} [{card}]")
+    del model, distil
+    free_garbage()
+    assert all(equal.values()), {k: (runs[k]["outs"], runs["plain"]["outs"])
+                                 for k in equal}
+    return {"equal": equal, "accept_rate": acc,
+            "runs": [{"launches": r["launches"]} for r in runs.values()]}
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3874,6 +4459,10 @@ def main() -> int:
                    counters, card)
     phase("transformer f32 step", transformer_f32_step_check, ft, counters)
     tgen = phase("generation", generation_phase, ft, counters, card)
+    tquant = phase("bert int8 serve", bert_quantized_phase, ft, counters,
+                   card)
+    tspec = phase("speculative generation", spec_generation_phase, ft,
+                  counters, card)
     bremat = phase("bert remat", bert_remat_phase, ft, counters, card)
     baccum = phase("bert accumulate", bert_accumulate_phase, ft, counters,
                    card)
@@ -3950,9 +4539,10 @@ def main() -> int:
     fp["fwd"]["shapes"] = fp["fwd"]["shapes"] + [gk["flash"]]
     fp["fwd"]["max_abs_err"] = max(fp["fwd"]["max_abs_err"],
                                    gk["flash"]["max_abs_err"])
-    lp["shapes"] = lp["shapes"] + gk["ln"]
+    lp["shapes"] = lp["shapes"] + gk["ln"] + tspec["ln_rows"]
     lp["max_abs_err"] = max([lp["max_abs_err"]]
-                            + [r["max_abs_err"] for r in gk["ln"]])
+                            + [r["max_abs_err"]
+                               for r in gk["ln"] + tspec["ln_rows"]])
     fwd_paths = {}
     for name in CNNS:
         fwd_paths[f"{name}_serve"] = serve[name]
@@ -3974,7 +4564,9 @@ def main() -> int:
                     "bert_accumulate": baccum["fwd"],
                     "bert_pinned": bpin["fwd"],
                     "generation": tgen["fwd"],
-                    "generation_reference": tgen["ref_fwd"]}, fp["fwd"]),
+                    "generation_reference": tgen["ref_fwd"],
+                    "bert_int8_serve": tquant["fwd"],
+                    **tspec["fwd"]}, fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_train": ttrain["bwd"],
@@ -3989,7 +4581,9 @@ def main() -> int:
                     "bert_remat": bremat["ln"],
                     "bert_accumulate": baccum["ln"],
                     "bert_pinned": bpin["ln"],
-                    "generation": tgen["ln"]}, lp),
+                    "generation": tgen["ln"],
+                    "bert_int8_serve": tquant["ln"],
+                    **tspec["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

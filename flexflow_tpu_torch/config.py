@@ -44,6 +44,13 @@ VALID_COMPUTE_DTYPES = ("bfloat16", "float32", "float16")
 VALID_PARAM_DTYPES = ("float32", "bfloat16", "float64")
 
 
+def dtype_short(dtype_name: str) -> str:
+    """The short spelling of a dtype name in a precision tag
+    ("bfloat16" -> "bf16")."""
+    return {"bfloat16": "bf16", "float32": "f32",
+            "float16": "f16"}.get(dtype_name, dtype_name)
+
+
 def _validate_dtype_field(field: str, value: str, allowed) -> None:
     if value not in allowed:
         raise ValueError(
@@ -185,3 +192,19 @@ class FFConfig:
     @property
     def num_devices(self) -> int:
         return max(1, self.workers_per_node) * self.num_nodes
+
+    def precision_policy(self) -> str:
+        """Short tag of the run's precision policy: the compute dtype
+        ("bf16", "f32", ...), then "+mixed(Bbf16/Ff32)" when per-op
+        strategy overrides are set (B ops bf16, F ops f32), then
+        "+int8w" under serving weight quantization."""
+        short = dtype_short(self.compute_dtype)
+        nb = sum(1 for pc in self.strategies.values()
+                 if pc is not None and pc.precision == "bf16")
+        nf = sum(1 for pc in self.strategies.values()
+                 if pc is not None and pc.precision == "f32")
+        if nb or nf:
+            short += f"+mixed({nb}bf16/{nf}f32)"
+        if self.serve_quantize:
+            short += f"+{self.serve_quantize}w"
+        return short

@@ -156,6 +156,10 @@ class FFModel:
         self._ckpt_exc: Optional[BaseException] = None
         self.perf_metrics = metrics_mod.PerfMetrics()
         self.last_epoch_losses = np.zeros((0,), np.float32)
+        # int8 weight-only serving (quantize_weights): the mode and the
+        # quality report; one-way for this instance
+        self._quantized: str = ""
+        self._quant_report: Optional[Dict] = None
 
     # ------------------------------------------------------------------
     # graph construction
@@ -671,6 +675,57 @@ class FFModel:
     def num_parameters(self) -> int:
         return sum(p.volume for p in self.parameters)
 
+    def quantize_weights(self, mode: str = "int8") -> Dict:
+        """Int8 weight-only quantization for serving: every eligible
+        matmul kernel (``serving.quantize.eligible_weights``: 2-D Linear
+        kernels that are not host-placed) is replaced in ``_params`` by
+        its per-output-channel symmetric int8 tensor on the same device,
+        with its float32 ``<name>::scale`` vector beside it.  The
+        float32 kernels are released: no reference stays in ``_params``
+        or a cached forward, so the resident bytes drop as the report's
+        ``bytes_before``/``bytes_after`` say.  Linear's forward then
+        multiplies through ``ops.common.dequant_matmul``.
+
+        Returns the quality report (``max_abs_err``, ``error_bound`` =
+        the largest scale / 2, ``bound_ok``, the bytes, per-weight
+        rows); the serving engine refuses to warm up when the bound is
+        violated.  One-way for this instance: ``fit``, ``train_batch``,
+        ``train_window``, ``evaluate`` and ``save_checkpoint`` refuse a
+        quantized model.  Idempotent: a second call with the same mode
+        returns the same report; another mode raises ValueError."""
+        if not (self._compiled and self._params):
+            raise RuntimeError("compile() + init_layers() before "
+                               "quantize_weights()")
+        if getattr(self, "_quantized", ""):
+            if self._quantized != mode:
+                raise ValueError(
+                    f"weights already quantized as {self._quantized!r}")
+            return self._quant_report
+        from .serving.events import event
+        from .serving.quantize import quantize_params
+        new_params, report = quantize_params(self, mode)
+        self._params = new_params
+        self._quantized = mode
+        self._quant_report = report
+        # the bucket forwards closed over nothing but self; drop them so
+        # no cached callable outlives the float32 parameters' shapes
+        self._fwd_compiled = {}
+        event("quantize_weights", mode=mode,
+              weights=len(report["weights"]),
+              bytes_before=report["bytes_before"],
+              bytes_after=report["bytes_after"],
+              max_abs_err=report["max_abs_err"],
+              error_bound=report["error_bound"])
+        return report
+
+    def _check_not_quantized(self, verb: str) -> None:
+        if getattr(self, "_quantized", ""):
+            raise RuntimeError(
+                f"{verb}() is not available on a weight-quantized model "
+                f"(quantize_weights({self._quantized!r}) is one-way for "
+                f"this instance: serving only); build and train a fresh "
+                f"model")
+
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
@@ -705,6 +760,7 @@ class FFModel:
         load or :meth:`wait_for_checkpoint`.  ``keep_last=K`` prunes the
         file's ``<name>_step<N>.npz`` family to its newest K, and stale
         ``*.tmp.npz`` orphans of the family are swept on every save."""
+        self._check_not_quantized("save_checkpoint")
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
         flat: Dict[str, np.ndarray] = {}
@@ -1202,6 +1258,7 @@ class FFModel:
         """One training step on one batch (the inputs, then the labels;
         numpy arrays or tensors).  Returns the loss as a 0-d device
         tensor, not fetched."""
+        self._check_not_quantized("train_batch")
         if arrays:
             self._check_accum_divisible(len(arrays[0]), "batch of")
         loss, sums = self._train_step(self._device_batch(arrays))
@@ -1228,6 +1285,7 @@ class FFModel:
         results are those of K ``train_batch`` calls on the K batches.
         Returns the device-resident ``(losses, metric_sums)``, stacked
         per step."""
+        self._check_not_quantized("train_window")
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
         self._check_accum_divisible(int(window[0].shape[1]),
@@ -1310,6 +1368,7 @@ class FFModel:
         ``validation_data=(x_val, y_val)`` runs ``evaluate`` after every
         epoch.  The per-epoch JSON event, the metrics registry, span
         tracing and fault hooks come with the tooling slice."""
+        self._check_not_quantized("fit")
         cfg = self.config
         epochs = epochs or cfg.epochs
         bs = batch_size or cfg.batch_size
@@ -1386,6 +1445,7 @@ class FFModel:
         zero-padded and masked, so only real rows count.  Per-batch
         loss and metric sums stay on the device until one fetch at the
         end.  Returns (loss, PerfMetrics)."""
+        self._check_not_quantized("evaluate")
         if not self._compiled:
             raise RuntimeError("call compile() first")
         bs = batch_size or self.config.batch_size

@@ -1,10 +1,10 @@
 """MultiHeadAttention and PositionEmbedding, the counterparts of the ops of
 the same name in ``flexflow_tpu/ops/attention.py``: the single-device
 forward and the token-generation paths (``forward_kv``, the dense-cache
-``decode``, the paged ``forward_paged``/``decode_paged``; the position
-table's ``decode``/``forward_at``).  Ring attention comes with the
-multi-device slice and the speculative ``verify_paged`` with speculative
-decoding.
+``decode``, the paged ``forward_paged``/``decode_paged`` and speculative
+decoding's ``verify_paged``; the position table's ``decode``,
+``decode_window`` and ``forward_at``).  Ring attention comes with the
+multi-device slice.
 
 Kernel selection.  The JAX rule (``_use_flash``) allows its Pallas
 kernel only on a TPU, with 128-aligned sequence lengths and above a
@@ -23,14 +23,15 @@ There is no length threshold and no alignment rule: the kernel masks
 its ragged tiles.  A kernel that fails to build or launch raises; there
 is no fallback to the dense path.
 
-The decode and paged-prefill attention is plain torch, as the JAX
-package computes it outside any kernel: float32 scores, the finite
+The decode, verify-window and paged-prefill attention is plain torch,
+as the JAX package computes it outside any kernel (einsums): float32 scores, the finite
 ``NEG_INF`` mask keyed on global positions, probabilities rounded to v's
 dtype.  The page pools are updated in place (the JAX programs donate
 them).  A page id at or past the pool's end is the "no page" sentinel:
 gathers clamp it (its columns are masked), and the writes name only
 real pages (a prefill chunk writes its ``length`` real rows, a decode
-step the slots the caller lists), so no index ever leaves its tensor.
+step and a verify window the entries the caller lists), so no index
+ever leaves its tensor.
 """
 
 from __future__ import annotations
@@ -281,6 +282,35 @@ class MultiHeadAttention(Op):
                                  1.0 / math.sqrt(self.head_dim))
         return [self._out_proj(params, attn, n, 1, ctx)], k_pool, v_pool
 
+    def verify_paged(self, params, x, k_pool, v_pool, table, pos,
+                     write_slots, write_cols, write_pages, write_rows,
+                     ctx: OpContext):
+        """A speculative verify window against the paged cache: project
+        W tokens a slot, write the K/V of window entry ``(write_slots[i],
+        write_cols[i])`` at ``(write_pages[i], write_rows[i])``, gather
+        each slot's table and attend every window row over it, causally
+        masked on global positions.  The JAX op takes a (slots, W) write
+        grid with the sentinel where nothing is written (dropped by
+        ``mode="drop"``); here the caller lists only the real writes
+        (``decoder.kept_window_writes``).  ``x`` (slots, W, d) at
+        positions ``pos[i] .. pos[i]+W-1``; ``table`` (slots,
+        pages_per_slot); ``pos`` (slots,); the write lists (m,).
+        The attention is the chunk attention batched over slots, masked
+        on each slot's global positions, so a window's later rows and the
+        rows a rejected round left behind stay invisible until a later
+        round overwrites them: they need no cleanup.  The pools are
+        updated in place and returned."""
+        n, w, _ = x.shape
+        xq = cast_compute(x, ctx)
+        q, k, v = self._qkv(params, xq, xq, xq, ctx)
+        _write_rows((k_pool, v_pool), write_pages, write_rows,
+                    (k[write_slots, write_cols], v[write_slots, write_cols]))
+        qpos = pos[:, None] + torch.arange(w, device=xq.device)[None, :]
+        attn = _position_attention(
+            q, _gather_pages(k_pool, table), _gather_pages(v_pool, table),
+            qpos, 1.0 / math.sqrt(self.head_dim))
+        return [self._out_proj(params, attn, n, w, ctx)], k_pool, v_pool
+
     def decode(self, params, x, k_cache, v_cache, pos, ctx: OpContext):
         """One decode step against the dense per-slot cache: write the
         current token's K/V at ``pos`` (clamped into the cache, as
@@ -333,6 +363,13 @@ class PositionEmbedding(Op):
         """``x`` (slots, 1, d) plus the table row at each slot's position
         ``pos`` (slots,)."""
         return [x + cast_compute(self._rows(params, pos), ctx)[:, None, :]]
+
+    def decode_window(self, params, x, pos, ctx: OpContext):
+        """A verify window ``x`` (slots, W, d) at global positions
+        ``pos[i] .. pos[i]+W-1`` plus those table rows: row for row what
+        :meth:`decode` adds one position at a time."""
+        qpos = pos[:, None] + torch.arange(x.shape[1], device=x.device)
+        return [x + cast_compute(self._rows(params, qpos), ctx)]
 
     def forward_at(self, params, x, start, ctx: OpContext):
         """A prefill chunk ``x`` (1, B, d) at global positions ``start ..

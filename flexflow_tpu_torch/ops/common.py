@@ -46,6 +46,26 @@ def cast_compute(x: torch.Tensor, ctx) -> torch.Tensor:
     return x
 
 
+def scale_param_name(weight_name: str) -> str:
+    """The params key of a quantized weight's per-output-channel scale
+    (the one spelling; ``serving.quantize`` builds the entries)."""
+    return weight_name + "::scale"
+
+
+def dequant_matmul(x: torch.Tensor, q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """Weight-only int8 product, ``(x @ q.T) * scale``: ``q`` (out, in)
+    int8, ``scale`` its float32 per-output-channel scale, ``x`` (..., in)
+    in the compute dtype.  ``q`` is cast to float32 (exact, as its cast
+    to bf16 or f16 would be for |q| <= 127) and multiplied in float32,
+    Linear's contract; the scale multiplies the product, not the weight,
+    so the result is ``x @ (q * scale).T`` exactly as the JAX package's
+    order has it.  The cast makes a float32 copy of ``q`` for the
+    product's life: resident weights are int8, the transient is not."""
+    y = F.linear(x.to(torch.float32), q.to(torch.float32))
+    return y * scale.to(y.dtype)
+
+
 class _Relu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):

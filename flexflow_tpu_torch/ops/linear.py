@@ -1,6 +1,7 @@
 """Linear and Embedding, the counterparts of the ops of those names in
-``flexflow_tpu/ops/linear.py`` (the int8 serving path comes in a later
-slice).
+``flexflow_tpu/ops/linear.py``.  A Linear whose kernel was quantized
+for serving (``FFModel.quantize_weights``) multiplies through
+:func:`~.common.dequant_matmul`.
 
 A host-placed Embedding (a strategy's device type CPU or ZCM memory:
 :func:`host_placed`, the reference's hetero DLRM placement) keeps its
@@ -15,7 +16,8 @@ import torch.nn.functional as F
 from ..config import DeviceType, MemoryType
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
-from .common import apply_activation, cast_compute
+from .common import (apply_activation, cast_compute, dequant_matmul,
+                     scale_param_name)
 
 
 def host_placed(pc) -> bool:
@@ -53,12 +55,19 @@ class Linear(Op):
 
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
-        k = cast_compute(params[self.w_kernel.name], ctx)
-        # the JAX op multiplies compute-dtype operands with float32
-        # accumulation and a float32 result (preferred_element_type);
-        # products of bf16 or f16 values are exact in float32, so a
-        # float32 product of the cast operands is that contract
-        y = F.linear(x.to(torch.float32), k.to(torch.float32))
+        k = params[self.w_kernel.name]
+        if k.dtype == torch.int8:
+            # int8 weight-only serving: cast_compute leaves int8 alone,
+            # so the dtype is tested here
+            y = dequant_matmul(x, k, params[scale_param_name(
+                self.w_kernel.name)])
+        else:
+            # the JAX op multiplies compute-dtype operands with float32
+            # accumulation and a float32 result (preferred_element_type);
+            # products of bf16 or f16 values are exact in float32, so a
+            # float32 product of the cast operands is that contract
+            y = F.linear(x.to(torch.float32),
+                         cast_compute(k, ctx).to(torch.float32))
         if self.use_bias:
             y = y + params[self.w_bias.name].to(torch.float32)
         y = apply_activation(y, self.activation)

@@ -24,7 +24,11 @@ Differences from the JAX engine:
 * ``torch.inference_mode`` is thread-local, so the dispatcher enters it
   in its own thread (inside the bucket forward);
 * span tracing, the flight recorder, the ``FF_FAULT`` serve faults,
-  event emission and fleet-managed dispatch come in a later slice.
+  the event stream and fleet-managed dispatch come in a later slice.
+
+``serve_quantize="int8"`` quantizes the model's eligible weights
+(``FFModel.quantize_weights``) before the buckets warm, and refuses to
+serve when the report's quality bound is violated.
 """
 
 from __future__ import annotations
@@ -138,9 +142,6 @@ class ServingEngine:
             raise RuntimeError(
                 "compile() + init_layers() the model first")
         cfg = model.config
-        if cfg.serve_quantize:
-            raise NotImplementedError(
-                "serve_quantize (int8 weights) is not ported yet")
         self.model = model
         self.max_batch = int(max_batch or cfg.serve_max_batch
                              or cfg.batch_size)
@@ -171,6 +172,20 @@ class ServingEngine:
         self._n_inputs = len(model.input_tensors)
         self._in_dtypes = [t.dtype for t in model.input_tensors]
         self._in_shapes = [tuple(t.shape[1:]) for t in model.input_tensors]
+        # int8 weight-only quantization (serve_quantize): applied before
+        # any bucket warms, with the quality bound checked first; a
+        # violating table means the quantizer is broken, and refusing to
+        # start beats serving wrong numbers
+        self.quantize = str(cfg.serve_quantize or "")
+        if self.quantize:
+            qrep = model.quantize_weights(self.quantize)
+            if not qrep["bound_ok"]:
+                raise RuntimeError(
+                    f"int8 quantization quality bound violated at "
+                    f"warmup: max_abs_err {qrep['max_abs_err']:.3e} > "
+                    f"bound {qrep['error_bound']:.3e} "
+                    f"({len(qrep['weights'])} weight(s)); refusing to "
+                    f"serve")
         # warm every bucket once at startup (kernel build and load,
         # cuDNN algorithm choice), so no request pays it
         for b in self.buckets:
@@ -402,7 +417,8 @@ class ServingEngine:
                 "health": self.health,
                 "admission": self.admission,
                 "max_queue_rows": self.max_queue_rows,
-                "peak_queue_rows": self._batcher.peak_rows}
+                "peak_queue_rows": self._batcher.peak_rows,
+                "quantize": self.quantize}
 
     # ---- dispatcher thread -----------------------------------------------
     def _dispatch_loop(self) -> None:

@@ -15,12 +15,19 @@ Both halves come from the layer list itself:
   written at each slot's host-computed ``(write_page, write_row)``, the
   sentinel for inactive and prefilling slots; the host drops those
   before the upload), argmax (or sample) the next token.
+* **speculative decoding** — the draft (``draft_fn``): gamma decode
+  steps of a draft graph back to back, each proposal fed to the next
+  step on the device; the verify (``verify_fn``): the target's walk
+  over a W-token window per slot (attention ``verify_paged``, the
+  position table ``decode_window``), then the greedy argmax match or
+  the sampled rejection test (``sampling.speculative_accept``).
 
 The functions run eagerly under ``torch.inference_mode()`` on the
 model's device, update the pool tensors in place (the JAX programs
 donate them) and return the next tokens as device tensors; the caller
-fetches them once.  The host's index arrays go to the device in one
-copy a call.  Pool geometry comes from ``analysis.kv_memory`` and the
+fetches them once (a speculative round: once after the verify, none
+between the draft's steps).  The host's index arrays go to the device in
+one copy a call.  Pool geometry comes from ``analysis.kv_memory`` and the
 tensors from ``pages.alloc_pool_arrays``.
 
 Supported graphs: one (n, s) integer token input; position-wise ops
@@ -60,6 +67,16 @@ def kept_writes(write_pages, write_rows, num_pages: int):
     wp = np.asarray(write_pages)
     keep = np.flatnonzero(wp < num_pages)
     return keep, wp[keep], np.asarray(write_rows)[keep]
+
+
+def kept_window_writes(write_pages, write_rows, num_pages: int):
+    """The verify window's writes that name a page, from the (slots, W)
+    host grids of the JAX op's form: (slots, columns, pages, rows) host
+    arrays of the entries whose page lies in the pool (inactive slots
+    and positions past ``max_seq`` carry the sentinel)."""
+    wp = np.asarray(write_pages)
+    slots, cols = np.nonzero(wp < num_pages)
+    return slots, cols, wp[slots, cols], np.asarray(write_rows)[slots, cols]
 
 
 def prefill_buckets(max_seq: int) -> Tuple[int, ...]:
@@ -204,6 +221,12 @@ class GraphDecoder:
             off += a.size
         return out
 
+    def _upload_floats(self, temp, top_p) -> torch.Tensor:
+        """The sampled steps' float strategy arrays as one (2, slots)
+        float32 tensor on the device: temperatures, then top-p."""
+        return self._to_device(np.stack([np.asarray(temp, np.float32),
+                                         np.asarray(top_p, np.float32)]))
+
     def _walk(self, params, tokens, ctx: OpContext, run_op
               ) -> torch.Tensor:
         """The layer list on ``tokens``, each op in its resolved compute
@@ -347,9 +370,7 @@ class GraphDecoder:
                 tok, p, tab, ws, wp, wr, k, sd = self.decode_inputs(
                     tokens, pos, table, write_pages, write_rows, top_k,
                     seeds)
-                fl = self._to_device(np.stack(
-                    [np.asarray(temp, np.float32),
-                     np.asarray(top_p, np.float32)]))
+                fl = self._upload_floats(temp, top_p)
                 logits = self._walk_decode(params, caches, tok, p, tab, ws,
                                            wp, wr)
                 probs = sampling.filtered_probs(logits, fl[0], k, fl[1])
@@ -357,6 +378,151 @@ class GraphDecoder:
                                             sampling.STREAM_MAIN)
 
         return decode_s
+
+    # ---- speculative decoding ------------------------------------------
+    def _walk_window(self, params, caches, window, pos, table, write_slots,
+                     write_cols, write_pages, write_rows) -> torch.Tensor:
+        """The W-position verify walk: ``window`` (slots, W) device
+        tokens at global positions ``pos[i] .. pos[i]+W-1`` through every
+        op's window path (attention ``verify_paged``, the position table
+        ``decode_window``, position-wise ops unchanged).  Returns the
+        (slots, W, V) logits; the window entries listed write their
+        K/V."""
+
+        def run_op(op, ins, ctx):
+            if isinstance(op, MultiHeadAttention):
+                c = caches[op.name]
+                return op.verify_paged(params, ins[0], c["k"], c["v"],
+                                       table, pos, write_slots, write_cols,
+                                       write_pages, write_rows, ctx)[0]
+            if isinstance(op, PositionEmbedding):
+                return op.decode_window(params, ins[0], pos, ctx)
+            return op.forward(params, ins, ctx)
+
+        return self._walk(params, window, self._ctx(), run_op)
+
+    def _check_speculable(self, what: str) -> None:
+        if not self.supports_chunking:
+            raise ValueError(f"speculative {what} needs a chunkable "
+                             f"graph (LSTM state cannot roll back)")
+
+    def verify_fn(self, width: int, sampled: bool = False):
+        """The speculative verify for windows of ``width`` W (the
+        round's gamma): the target's walk over ``[first, d_1 ..
+        d_{W-1}]`` at positions ``pos .. pos+W-1`` a slot; window row t's
+        logits decide the token at ``pos+t+1``, judged against proposal
+        ``d_{t+1}``.
+
+        Greedy: ``fn(params, caches, first (slots,), d (slots, W), pos,
+        table, wp (slots, W), wr (slots, W)) -> (n_accept (slots,), out
+        (slots, W))``, ``out`` the target's argmax a row: rows below
+        n_accept equal the accepted proposals and row n_accept (when
+        < W) is the correction, so the host emits ``out[i, :min(n+1,
+        W)]``.  Sampled adds ``q`` (slots, W, V), the draft's
+        probabilities, after ``d`` and the strategy arrays ``temp,
+        top_k, top_p, seeds`` at the end, and applies
+        :func:`sampling.speculative_accept`.  ``first``, ``pos``,
+        ``table`` and the write grids are host arrays (uploaded in one
+        copy; the grids in the JAX form, the sentinel where nothing is
+        written); ``d`` and ``q`` are the draft's device tensors.
+        Nothing is fetched."""
+        self._check_speculable("verify")
+        w = int(width)
+
+        def inputs(first, pos, table, wp, wr, *more):
+            return self._upload(first, pos, table,
+                                *kept_window_writes(wp, wr, self.num_pages),
+                                *more)
+
+        def walk(params, caches, tok, d, p, tab, ws, wc, wpg, wrw):
+            window = torch.cat([tok[:, None], d[:, :w - 1]], dim=1)
+            return self._walk_window(params, caches, window, p, tab, ws,
+                                     wc, wpg, wrw)
+
+        def verify(params, caches, first, d, pos, table, wp, wr):
+            with torch.inference_mode():
+                tok, p, tab, ws, wc, wpg, wrw = inputs(first, pos, table,
+                                                       wp, wr)
+                logits = walk(params, caches, tok, d, p, tab, ws, wc, wpg,
+                              wrw)
+                tgt = logits.argmax(-1)
+                n_acc = torch.cumprod((d == tgt).to(torch.int64),
+                                      dim=1).sum(dim=1)
+                return n_acc, tgt
+
+        def verify_s(params, caches, first, d, q, pos, table, wp, wr, temp,
+                     top_k, top_p, seeds):
+            with torch.inference_mode():
+                tok, p, tab, ws, wc, wpg, wrw, k, sd = inputs(
+                    first, pos, table, wp, wr, top_k, seeds)
+                fl = self._upload_floats(temp, top_p)
+                logits = walk(params, caches, tok, d, p, tab, ws, wc, wpg,
+                              wrw)
+                slots = logits.shape[0]
+                probs = sampling.filtered_probs(
+                    logits.reshape(slots * w, -1),
+                    fl[0].repeat_interleave(w), k.repeat_interleave(w),
+                    fl[1].repeat_interleave(w)).reshape(slots, w, -1)
+                tpos = p[:, None] + 1 + torch.arange(w, device=p.device)
+                return sampling.speculative_accept(d, probs, q, sd, tpos)
+
+        return verify_s if sampled else verify
+
+    def draft_fn(self, gamma: int, sampled: bool = False):
+        """The speculative draft: ``gamma`` decode steps of this (draft)
+        graph back to back.  Step t feeds the token at position
+        ``pos+t`` (step 0 the stream's last token, later steps the
+        previous proposal, which stays on the device), writes the
+        draft's K/V there and proposes the token for ``pos+t+1``.  With
+        the no-bonus verify window the draft cache covers exactly ``pos
+        .. pos+gamma-1`` after every round, accepted or not.  The JAX
+        package scans the steps in one program; here they are gamma
+        eager walks after one upload, with no host sync between them.
+
+        Greedy: ``fn(params, caches, first (slots,), pos, table, wp
+        (gamma, slots), wr (gamma, slots)) -> d (slots, gamma)``.
+        Sampled adds ``temp, top_k, top_p, seeds`` and returns ``(d, q)``
+        with the steps' filtered draft probabilities ``q`` (slots,
+        gamma, V), each draw keyed on ``STREAM_DRAFT``."""
+        self._check_speculable("draft")
+        g = int(gamma)
+
+        def inputs(first, pos, table, wp, wr, *more):
+            per_step = []
+            for t in range(g):
+                per_step += kept_writes(wp[t], wr[t], self.num_pages)
+            dev = self._upload(first, pos, table, *per_step, *more)
+            steps = [dev[3 + 3 * t:6 + 3 * t] for t in range(g)]
+            return dev[:3], steps, dev[3 + 3 * g:]
+
+        def draft(params, caches, first, pos, table, wp, wr):
+            with torch.inference_mode():
+                (tok, p, tab), steps, _ = inputs(first, pos, table, wp, wr)
+                props = []
+                for t, (ws, wpg, wrw) in enumerate(steps):
+                    tok = self._walk_decode(params, caches, tok, p + t, tab,
+                                            ws, wpg, wrw).argmax(-1)
+                    props.append(tok)
+                return torch.stack(props, dim=1)
+
+        def draft_s(params, caches, first, pos, table, wp, wr, temp, top_k,
+                    top_p, seeds):
+            with torch.inference_mode():
+                (tok, p, tab), steps, (k, sd) = inputs(
+                    first, pos, table, wp, wr, top_k, seeds)
+                fl = self._upload_floats(temp, top_p)
+                props, qs = [], []
+                for t, (ws, wpg, wrw) in enumerate(steps):
+                    logits = self._walk_decode(params, caches, tok, p + t,
+                                               tab, ws, wpg, wrw)
+                    qt = sampling.filtered_probs(logits, fl[0], k, fl[1])
+                    tok = sampling.categorical(qt, sd, p + t + 1,
+                                               sampling.STREAM_DRAFT)
+                    props.append(tok)
+                    qs.append(qt)
+                return torch.stack(props, dim=1), torch.stack(qs, dim=1)
+
+        return draft_s if sampled else draft
 
     # ---- shared-instance registry --------------------------------------
     @classmethod
@@ -383,4 +549,5 @@ class GraphDecoder:
         return dec
 
 
-__all__ = ["GraphDecoder", "kept_writes", "prefill_buckets"]
+__all__ = ["GraphDecoder", "kept_writes", "kept_window_writes",
+           "prefill_buckets"]

@@ -25,10 +25,19 @@ a request): the bounded queue with block/reject/shed_oldest, deadlines
 (a prompt still queued at its deadline expires before any prefill) and
 priority classes.
 
-Not ported yet, and refused where a caller asks for them: speculative
-decoding with a ``draft_model`` (ROADMAP A.10b; without a draft,
-``serve_spec_gamma`` is 0 and the engine serves plain decode, as the JAX
-engine does), KV page migration between engines (A.10b),
+* **Speculative decoding** — with a ``draft_model`` (a smaller LM of
+  the same vocabulary) a step boundary runs a round: the draft proposes
+  gamma tokens a slot (gamma eager decode steps, proposals kept on the
+  device), the target verifies the whole window in one walk, and one
+  fetch brings back the accept counts and the tokens to emit.  The
+  draft owns its own page pool, table and caches with the target's
+  geometry.  The ``adaptive`` policy re-prices gamma from the accept
+  rate and each gamma's round cost; a collapsing accept rate or a
+  draft-side failure demotes the engine to plain decode, freeing the
+  draft pool, and fails no stream.
+
+Not ported yet, and refused where a caller asks for them: KV page
+migration between engines (A.10b),
 ``from_strategy`` (more than one device, A.8), fleet-managed dispatch
 (``begin_external_dispatch``, ``dispatch_pending``; with
 ``serving/fleet/``).  ``serve_quantize`` is refused for good with the
@@ -39,6 +48,7 @@ Span tracing, the flight recorder, lock instrumentation and the
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
@@ -53,6 +63,7 @@ from ...analysis.kv_memory import dtype_bytes, kv_page_plan
 from ..batcher import MicroBatcher, Request
 from ..errors import (GenerationCancelled, KVCacheExhausted, OverloadError,
                       SheddedError)
+from ..events import event
 from ..metrics import ServingMetrics, quantiles
 from .decoder import GraphDecoder
 from .pages import KVPagePool, PrefixCache
@@ -174,8 +185,8 @@ class _Slot:
     progress.  A prefilling slot owns pages but writes nothing in decode
     steps (its write page is the sentinel)."""
 
-    __slots__ = ("stream", "prompt", "pages", "hit_tokens", "next_pos",
-                 "chunks", "last_token", "length", "generated",
+    __slots__ = ("stream", "prompt", "pages", "draft_pages", "hit_tokens",
+                 "next_pos", "chunks", "last_token", "length", "generated",
                  "prefilling", "t_join")
 
     def __init__(self, stream: GenerationStream, prompt: np.ndarray,
@@ -183,6 +194,9 @@ class _Slot:
         self.stream = stream
         self.prompt = prompt
         self.pages: List[int] = list(hit_pages)
+        # the slot's pages in the draft's pool under speculation (private:
+        # draft rows are never shared through the prefix trie)
+        self.draft_pages: List[int] = []
         self.hit_tokens = len(hit_pages) * int(page_size)
         self.next_pos = self.hit_tokens  # next prompt position to prefill
         self.chunks = 0
@@ -196,9 +210,10 @@ class _Slot:
 class GenerationMetrics(ServingMetrics):
     """ServingMetrics plus the generation figures: windowed tokens/s,
     TTFT (submit to first token: queue wait and prefill) and TPOT (a
-    decode step's wall time, which every active stream pays)
-    percentiles, token and prefill totals, and the engine's page-pool
-    view through ``pool_stats_fn``."""
+    decode step's wall time, which every active stream pays; under
+    speculation a round's) percentiles, token and prefill totals, the
+    speculation totals, and the engine's page-pool and speculation views
+    through ``pool_stats_fn`` and ``spec_stats_fn``."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -206,7 +221,13 @@ class GenerationMetrics(ServingMetrics):
         self._steps: deque = deque()             # guarded by self._lock
         self._tokens = 0                         # guarded by self._lock
         self._prefills = 0                       # guarded by self._lock
+        # speculation totals                      guarded by self._lock
+        self._draft_dispatches = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_fallbacks = 0
         self.pool_stats_fn = None
+        self.spec_stats_fn = None
 
     def _trim_steps(self, now: float) -> None:
         horizon = now - self.window_s
@@ -226,6 +247,18 @@ class GenerationMetrics(ServingMetrics):
             self._steps.append((now, int(ntokens), float(step_s)))
             self._trim_steps(now)
 
+    def record_spec_round(self, proposed: int, accepted: int) -> None:
+        """One speculative round: one draft dispatch, ``proposed`` draft
+        tokens judged, ``accepted`` of them kept."""
+        with self._lock:
+            self._draft_dispatches += 1
+            self._spec_proposed += int(proposed)
+            self._spec_accepted += int(accepted)
+
+    def record_spec_fallback(self) -> None:
+        with self._lock:
+            self._spec_fallbacks += 1
+
     def record_prefill_token(self) -> None:
         """The prefill's first token counts toward tokens/s too."""
         now = self.clock()
@@ -241,6 +274,8 @@ class GenerationMetrics(ServingMetrics):
             steps = list(self._steps)
             ttfts = [v for _, v in self._ttfts]
             tokens, prefills = self._tokens, self._prefills
+            proposed, accepted = self._spec_proposed, self._spec_accepted
+            drafts, fallbacks = self._draft_dispatches, self._spec_fallbacks
         span = self.window_s
         if steps:
             span = min(self.window_s, max(1e-6, now - steps[0][0]))
@@ -257,10 +292,18 @@ class GenerationMetrics(ServingMetrics):
             "ttft_p99_ms": ms(qt[0.99]),
             "tpot_p50_ms": ms(qp[0.5]), "tpot_p95_ms": ms(qp[0.95]),
             "tpot_p99_ms": ms(qp[0.99]),
+            # under speculation a "step" is a draft + verify round, so
+            # the tpot_* percentiles are rounds; tokens_per_s compares
+            "draft_dispatches": drafts,
+            "spec_proposed_tokens": proposed,
+            "spec_accepted_tokens": accepted,
+            "accept_rate": (round(accepted / proposed, 4)
+                            if proposed else 0.0),
+            "spec_fallbacks": fallbacks,
         })
-        fn = self.pool_stats_fn
-        if fn is not None:
-            snap.update(fn())
+        for fn in (self.pool_stats_fn, self.spec_stats_fn):
+            if fn is not None:
+                snap.update(fn())
         return snap
 
 
@@ -284,13 +327,22 @@ class GenerationEngine:
     queue bound counting requests) unless given here.  The engine runs on
     ``model.device``; ``clock`` is injectable for tests.
 
-    ``draft_model``, ``spec_gamma``, ``spec_gamma_max`` and
-    ``spec_policy`` are the JAX engine's speculative-decoding arguments,
-    taken so that its callers run unchanged.  Without a draft the JAX
-    engine serves plain decode whatever the gamma, and so does this one:
-    the two gammas are ignored, and only ``spec_policy`` is checked
-    (``fixed`` or ``adaptive``).  A draft model raises
-    ``NotImplementedError`` until speculative decoding is ported."""
+    ``draft_model`` (compiled and initialised, on the target's device,
+    with the target's vocabulary) turns on speculative decoding with
+    ``spec_gamma`` (``serve_spec_gamma``: 0 off, else >= 2),
+    ``spec_gamma_max`` and ``spec_policy`` (``fixed``, or ``adaptive``:
+    gamma re-priced among 2, 4 and ``spec_gamma_max``).  Without a draft
+    the engine serves plain decode whatever the gamma, as the JAX
+    engine does; the policy is checked either way."""
+
+    # speculation guardrails (class attributes, so tests can tighten
+    # them): a draft whose accept-rate EWMA sits below
+    # _SPEC_COLLAPSE_ACCEPT after _SPEC_COLLAPSE_MIN_PROPOSED proposals
+    # costs more than it saves, and the engine demotes to plain decode
+    _SPEC_COLLAPSE_MIN_PROPOSED = 64
+    _SPEC_COLLAPSE_ACCEPT = 0.1
+    _SPEC_EWMA_ALPHA = 0.2        # per-round accept and cost EWMA weight
+    _SPEC_RETUNE_EVERY = 16       # adaptive gamma re-pricing cadence
 
     def __init__(self, model, slots: Optional[int] = None,
                  max_seq: Optional[int] = None,
@@ -327,9 +379,6 @@ class GenerationEngine:
         if policy not in ("fixed", "adaptive"):
             raise ValueError(f"spec_policy must be 'fixed' or "
                              f"'adaptive', got {policy!r}")
-        if draft_model is not None:
-            raise _not_ported("speculative decoding (draft_model)",
-                              "A.10b")
         self.model = model
         self._params = model._params
         self.slots = int(slots or cfg.serve_gen_slots)
@@ -399,6 +448,7 @@ class GenerationEngine:
         self._evictions_base = 0
         self._pool_high_base = 0
         self.metrics.pool_stats_fn = self._pool_stats
+        self._init_spec(draft_model, spec_gamma, spec_gamma_max, policy)
         # lifecycle (single use, as ServingEngine)
         self._lifecycle = threading.Lock()
         self._thread: Optional[threading.Thread] = None
@@ -407,6 +457,100 @@ class GenerationEngine:
         self._closing = threading.Event()
         self._abort = threading.Event()
         self._shutdown_done = threading.Event()
+
+    def _init_spec(self, draft_model, spec_gamma, spec_gamma_max,
+                   policy: str) -> None:
+        """Speculative decoding's state, with the JAX engine's checks and
+        texts.  The draft gets its own decoder (the target's slots,
+        max_seq, page size and page count), page pool, table and caches;
+        ``draft_kv_cache_bytes`` is its pool's allocation."""
+        cfg = self.model.config
+        self.draft_model = draft_model
+        self._draft_params = None
+        self._draft_decoder: Optional[GraphDecoder] = None
+        self._draft_pool: Optional[KVPagePool] = None
+        self._draft_table = None
+        self._draft_caches = None
+        self.draft_kv_plan = None
+        self.draft_kv_cache_bytes = 0
+        g = (int(cfg.serve_spec_gamma if spec_gamma is None
+                 else spec_gamma) if draft_model is not None else 0)
+        gmax = int(cfg.serve_spec_gamma_max if spec_gamma_max is None
+                   else spec_gamma_max)
+        if draft_model is not None:
+            if not (draft_model._compiled and draft_model._params):
+                raise RuntimeError("compile() + init_layers() the draft "
+                                   "model first")
+            if policy == "fixed" and g == 0:
+                raise ValueError(
+                    "draft_model given but speculation is off "
+                    "(serve_spec_gamma=0, policy 'fixed'): set "
+                    "--serve-spec-gamma >= 2 or policy 'adaptive'")
+            if g != 0 and g < 2:
+                raise ValueError(
+                    f"spec_gamma must be 0 (off) or >= 2, got {g}: a "
+                    f"1-row verify window lowers matrix-vector kernels "
+                    f"whose bits drift from the full forward (same "
+                    f"floor as slots/serve_buckets)")
+            if gmax < max(g, 2):
+                raise ValueError(f"spec_gamma_max {gmax} < gamma "
+                                 f"{max(g, 2)}")
+            if not (self._decoder.has_attention
+                    and self._decoder.supports_chunking):
+                raise ValueError(
+                    "speculative decoding needs a chunkable causal-"
+                    "attention graph (LSTM state cannot roll back to "
+                    "an accept point)")
+            if draft_model.device != self.model.device:
+                raise ValueError(
+                    f"draft model is on {draft_model.device}, the target "
+                    f"on {self.model.device}: both must share the device")
+            self._draft_decoder = GraphDecoder.for_model(
+                draft_model, self.slots, self.max_seq,
+                page_size=self.page_size, num_pages=self.num_pages)
+            if not self._draft_decoder.supports_chunking:
+                raise ValueError("draft model must be a chunkable "
+                                 "attention graph too")
+            tv = self.model.layers[-1].outputs[0].shape[-1]
+            dv = draft_model.layers[-1].outputs[0].shape[-1]
+            if tv != dv:
+                raise ValueError(f"draft vocab {dv} != target vocab "
+                                 f"{tv}: the proposals would not be "
+                                 f"token ids of the target")
+            self.draft_kv_plan = kv_page_plan(
+                draft_model.layers, None, self.slots, self.max_seq,
+                kv_dtype_bytes=dtype_bytes(cfg.compute_dtype),
+                page_size=self.page_size, num_pages=self.num_pages)
+            self.draft_kv_cache_bytes = self.draft_kv_plan["total_bytes"]
+            self._draft_params = draft_model._params
+            self._draft_pool = KVPagePool(self.num_pages, self.page_size)
+            self._draft_table = np.full(
+                (self.slots, self._draft_decoder.pages_per_slot),
+                self._draft_pool.no_page, np.int32)
+        self.spec_policy = policy
+        self.spec_gamma_max = gmax
+        # the gammas the adaptive controller prices (fixed: just gamma)
+        if draft_model is None:
+            self._spec_candidates: List[int] = []
+        elif policy == "fixed":
+            self._spec_candidates = [g]
+        else:
+            self._spec_candidates = sorted(
+                {c for c in (2, 4, gmax) if 2 <= c <= gmax})
+        self._spec_gamma = (self._spec_candidates[0]
+                            if self._spec_candidates else 0)
+        if policy == "fixed" and g:
+            self._spec_gamma = g
+        self._spec_on = draft_model is not None
+        self._spec_rounds = 0
+        self._accept_ewma: Optional[float] = None
+        self._spec_seen_proposed = 0
+        self._spec_costs: Dict[int, float] = {}  # per-gamma round EWMA
+        # the draft's dispatches: decode steps (gamma a round) and
+        # prompt prefills, for launch accounting
+        self._draft_steps = 0
+        self._draft_prefills = 0
+        self.metrics.spec_stats_fn = self._spec_stats
 
     # ---- not ported ----------------------------------------------------
     @classmethod
@@ -444,6 +588,42 @@ class GenerationEngine:
             np.full((self.slots,), no_page, np.int32),
             np.zeros((self.slots,), np.int32))
         nxt.cpu()
+        if self._spec_on:
+            self._warmup_spec()
+
+    def _warmup_spec(self) -> None:
+        """The draft's smallest prefill bucket, then for every candidate
+        gamma two draft + verify rounds on sentinel tables (nothing is
+        written), the second timed: the per-gamma round cost the
+        adaptive controller starts from."""
+        ddec = self._draft_decoder
+        dno = self._draft_pool.no_page
+        b = ddec.buckets[0]
+        ddec.prefill_fn(b)(
+            self._draft_params, self._draft_caches,
+            np.zeros((1, b), np.int32),
+            np.full((ddec.pages_per_slot,), dno, np.int32), 0, 0, 0)
+        dtable = np.full((self.slots, ddec.pages_per_slot), dno, np.int32)
+        vtable = np.full((self.slots, self._decoder.pages_per_slot),
+                         self._pool.no_page, np.int32)
+        tokens = np.zeros((self.slots,), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        for g in self._spec_candidates:
+            dwp = np.full((g, self.slots), dno, np.int32)
+            dwr = np.zeros((g, self.slots), np.int32)
+            vwp = np.full((self.slots, g), self._pool.no_page, np.int32)
+            vwr = np.zeros((self.slots, g), np.int32)
+            dfn = ddec.draft_fn(g)
+            vfn = self._decoder.verify_fn(g)
+            for probe in range(2):
+                t0 = self.clock()
+                d = dfn(self._draft_params, self._draft_caches, tokens, pos,
+                        dtable, dwp, dwr)
+                n_acc, out = vfn(self._params, self._caches, tokens, d,
+                                 pos, vtable, vwp, vwr)
+                torch.cat([n_acc[:, None], out], dim=1).cpu()
+                if probe:
+                    self._spec_costs[g] = max(1e-6, self.clock() - t0)
 
     def start(self, warmup: bool = True) -> "GenerationEngine":
         with self._lifecycle:
@@ -452,6 +632,8 @@ class GenerationEngine:
                     "engine was stopped; create a new GenerationEngine")
             if self._thread is None:
                 self._caches = self._decoder.init_cache()
+                if self._spec_on:
+                    self._draft_caches = self._draft_decoder.init_cache()
                 if warmup:
                     self._warmup()
                 self._thread = threading.Thread(
@@ -614,6 +796,15 @@ class GenerationEngine:
             "prefill_chunks": self._chunks_total,
         }
 
+    def _spec_stats(self) -> Dict:
+        """The speculation view merged into stats(): ``spec`` is off (no
+        draft), on, or fallback (demoted)."""
+        state = ("off" if self.draft_model is None
+                 else ("on" if self._spec_on else "fallback"))
+        return {"spec": state, "spec_gamma": self._spec_gamma,
+                "spec_policy": self.spec_policy,
+                "draft_kv_cache_bytes": self.draft_kv_cache_bytes}
+
     def stats(self) -> Dict:
         active = sum(1 for s in self._slots_state if s is not None)
         return {**self.metrics.snapshot(), "slots": self.slots,
@@ -646,7 +837,7 @@ class GenerationEngine:
             if any(s is not None and not s.prefilling
                    for s in self._slots_state):
                 try:
-                    self._decode_once()
+                    self._step_active()
                 except Exception as e:  # noqa: BLE001 — a failed step
                     # fails the active streams, not the dispatcher
                     self._recover_from_dispatch_error(e)
@@ -779,6 +970,8 @@ class GenerationEngine:
         if self._prefix is not None:
             full = max(0, (int(prompt.size) - 1) // self.page_size)
             self._prefix.insert(prompt, st.pages[:full])
+        if self._spec_active():
+            self._draft_prefill(slot, st)
         self._retire(slot, st, now)
         return True
 
@@ -828,6 +1021,11 @@ class GenerationEngine:
             self._pool.release(pg)
         st.pages = []
         self._table[slot, :] = self._pool.no_page
+        if self._draft_pool is not None:
+            for pg in st.draft_pages:
+                self._draft_pool.release(pg)
+            self._draft_table[slot, :] = self._draft_pool.no_page
+        st.draft_pages = []
         self._slots_state[slot] = None
 
     def _fail_slot(self, slot: int, st: _Slot,
@@ -837,6 +1035,17 @@ class GenerationEngine:
         self._release_slot(slot, st)
 
     # ---- decode --------------------------------------------------------
+    def _step_active(self) -> None:
+        """Advance every active stream one boundary: a speculative round
+        while a live draft is attached, else one plain decode step."""
+        if self._spec_active():
+            self._spec_decode_once()
+        else:
+            self._decode_once()
+
+    def _spec_active(self) -> bool:
+        return self._spec_on and self._spec_gamma >= 2
+
     def _batch_sampling(self) -> bool:
         """Whether any active slot samples: an all-greedy step runs the
         argmax decode."""
@@ -904,6 +1113,239 @@ class GenerationEngine:
             self._retire(i, s, now)
         self.metrics.record_decode_step(nactive, now - t0)
 
+    # ---- speculative round ---------------------------------------------
+    def _spec_decode_once(self) -> None:
+        """One speculative round for the whole batch: the draft's gamma
+        steps, one verify walk of the target, and one fetch of the accept
+        counts with the rows to emit.  ``out[i, :min(n+1, gamma)]`` is
+        emitted as it stands (the accepted proposals, then the
+        correction), stopping where the plain engine stops (EOS or
+        ``max_new_tokens`` may land inside the window).  The draft cache
+        is caught up after every round by construction (no bonus token),
+        rows written past the accept point stay masked until they are
+        overwritten, and pages past the accepted length go back to both
+        pools at once."""
+        g = self._spec_gamma
+        # both pools cover the whole window up front; positions past
+        # max_seq keep the sentinel (their writes drop, and the stream
+        # retires before such a row could be emitted)
+        for i, s in enumerate(self._slots_state):
+            if s is None or s.prefilling:
+                continue
+            upto = min(s.length + g, self.max_seq)
+            if not self._ensure_pages(i, s, upto):
+                self._fail_slot(i, s, KVCacheExhausted(
+                    f"no KV page free for a gamma={g} verify window at "
+                    f"position {s.length} (pool {self.num_pages} pages, "
+                    f"{self._pool.pages_in_use} in use)"))
+                continue
+            if not self._ensure_draft_pages(i, s, upto):
+                self._fail_slot(i, s, KVCacheExhausted(
+                    f"no draft KV page free at position {s.length} "
+                    f"(draft pool {self.num_pages} pages, "
+                    f"{self._draft_pool.pages_in_use} in use)"))
+        active = [(i, s) for i, s in enumerate(self._slots_state)
+                  if s is not None and not s.prefilling]
+        if not active:
+            return
+        nactive = len(active)
+        tokens = np.zeros((self.slots,), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        vwp = np.full((self.slots, g), self._pool.no_page, np.int32)
+        vwr = np.zeros((self.slots, g), np.int32)
+        dwp = np.full((g, self.slots), self._draft_pool.no_page, np.int32)
+        dwr = np.zeros((g, self.slots), np.int32)
+        for i, s in active:
+            tokens[i] = s.last_token
+            pos[i] = s.length
+            for t in range(g):
+                p = s.length + t
+                if p >= self.max_seq:
+                    break  # the sentinel stays: the write drops
+                vwp[i, t] = self._table[i, p // self.page_size]
+                vwr[i, t] = p % self.page_size
+                dwp[t, i] = self._draft_table[i, p // self.page_size]
+                dwr[t, i] = p % self.page_size
+        sampled = self._batch_sampling()
+        arrays = self._sampling_arrays() if sampled else ()
+        t0 = self.clock()
+        try:
+            dfn = self._draft_decoder.draft_fn(g, sampled=sampled)
+            drafted = dfn(self._draft_params, self._draft_caches, tokens,
+                          pos, self._draft_table, dwp, dwr, *arrays)
+        except Exception as e:  # noqa: BLE001 — draft side only: the
+            # target's caches are untouched, so no stream fails; demote
+            # and decode this boundary plain
+            self._spec_demote("draft_error", e)
+            self._decode_once()
+            return
+        self._draft_steps += g
+        # a failed verify reaches the caller's containment: the target's
+        # pools may hold a partial window, so its streams must fail
+        vfn = self._decoder.verify_fn(g, sampled=sampled)
+        if sampled:
+            d, q = drafted
+            n_acc, out = vfn(self._params, self._caches, tokens, d, q, pos,
+                             self._table, vwp, vwr, *arrays)
+        else:
+            n_acc, out = vfn(self._params, self._caches, tokens, drafted,
+                             pos, self._table, vwp, vwr)
+        # THE host sync of the round, for the whole batch: the accept
+        # counts and the rows to emit in one fetch
+        host = torch.cat([n_acc[:, None], out], dim=1).cpu().numpy()
+        now = self.clock()
+        self._n_steps += 1
+        emitted = proposed = accepted = 0
+        for i, s in active:
+            n = int(host[i, 0])
+            proposed += g
+            accepted += n
+            for t in range(min(n + 1, g)):
+                tok = int(host[i, 1 + t])
+                s.length += 1
+                s.generated += 1
+                s.last_token = tok
+                s.stream._emit(tok)
+                emitted += 1
+                if s.generated >= s.stream.max_new or (
+                        self.eos_id is not None and tok == self.eos_id):
+                    break
+            self._trim_slot_pages(i, s)
+            self._retire(i, s, now)
+        self.metrics.record_spec_round(proposed, accepted)
+        self.metrics.record_decode_step(emitted, now - t0)
+        self._spec_account(g, proposed, accepted, now - t0)
+
+    def _ensure_draft_pages(self, slot: int, st: _Slot,
+                            upto_pos: int) -> bool:
+        """Grow the slot's draft pages to cover positions ``[0,
+        upto_pos)``: the target's geometry, but no prefix sharing and so
+        no eviction to fall back on."""
+        need = (int(upto_pos) - 1) // self.page_size + 1
+        while len(st.draft_pages) < need:
+            pg = self._draft_pool.alloc()
+            if pg is None:
+                return False
+            self._draft_table[slot, len(st.draft_pages)] = pg
+            st.draft_pages.append(pg)
+        return True
+
+    def _trim_slot_pages(self, slot: int, st: _Slot) -> None:
+        """Return the trailing pages a partly accepted window provisioned
+        past the accept point, in both pools (rejected rows inside kept
+        pages need no rollback: the mask hides them).  Trimmed target
+        pages lie past the prompt's shared prefix, so each has one
+        reference and goes back to the pool."""
+        keep = st.length // self.page_size + 1
+        while len(st.pages) > keep:
+            pg = st.pages.pop()
+            self._table[slot, len(st.pages)] = self._pool.no_page
+            self._pool.release(pg)
+        while len(st.draft_pages) > keep:
+            pg = st.draft_pages.pop()
+            self._draft_table[slot, len(st.draft_pages)] = \
+                self._draft_pool.no_page
+            self._draft_pool.release(pg)
+
+    def _draft_prefill(self, slot: int, st: _Slot) -> None:
+        """Mirror a joined stream's prompt into the draft's cache with one
+        prefill of the whole prompt (no chunking, no prefix sharing).  No
+        host sync: the draft's own next token is unused (round 0 starts
+        from the target's first token).  A draft-side failure demotes
+        speculation; the stream is untouched."""
+        prompt = st.prompt
+        size = int(prompt.size)
+        if st.generated >= st.stream.max_new or (
+                self.eos_id is not None and st.last_token == self.eos_id):
+            return  # retiring at this boundary: no draft rows needed
+        try:
+            if not self._ensure_draft_pages(slot, st, size):
+                raise KVCacheExhausted(
+                    f"no draft KV page free for a {size}-token prompt "
+                    f"({self._draft_pool.pages_in_use} of "
+                    f"{self.num_pages} in use)")
+            bucket = self._draft_decoder.prefill_bucket(size)
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :size] = prompt
+            self._draft_decoder.prefill_fn(bucket)(
+                self._draft_params, self._draft_caches, tokens,
+                self._draft_table[slot].copy(), slot, 0, size)
+            self._draft_prefills += 1
+        except Exception as e:  # noqa: BLE001 — draft side only
+            self._spec_demote("draft_prefill_error", e)
+
+    def _spec_account(self, g: int, proposed: int, accepted: int,
+                      wall: float) -> None:
+        """After a round: the accept-rate EWMA, the gamma's round-cost
+        EWMA, the collapse guard, and under ``adaptive`` the periodic
+        re-pricing of gamma."""
+        self._spec_rounds += 1
+        self._spec_seen_proposed += proposed
+        a = self._SPEC_EWMA_ALPHA
+        if proposed:
+            rate = accepted / proposed
+            self._accept_ewma = (
+                rate if self._accept_ewma is None
+                else (1 - a) * self._accept_ewma + a * rate)
+        prev = self._spec_costs.get(g)
+        self._spec_costs[g] = (wall if prev is None
+                               else (1 - a) * prev + a * wall)
+        if (self._spec_seen_proposed >= self._SPEC_COLLAPSE_MIN_PROPOSED
+                and self._accept_ewma is not None
+                and self._accept_ewma < self._SPEC_COLLAPSE_ACCEPT):
+            # a useless draft costs a dispatch a round for nothing
+            self._spec_demote("accept_collapse", None)
+            return
+        if (self.spec_policy == "adaptive"
+                and len(self._spec_candidates) > 1
+                and self._spec_rounds % self._SPEC_RETUNE_EVERY == 0):
+            self._spec_gamma = self._spec_retune()
+
+    def _spec_retune(self) -> int:
+        """Price each candidate gamma with the accept EWMA alpha and its
+        round-cost EWMA: a round emits ``(1 - alpha^gamma) / (1 -
+        alpha)`` tokens on average (the accepted prefix and the
+        correction, no bonus token), so the winner has the most tokens
+        over cost."""
+        alpha = (self._accept_ewma if self._accept_ewma is not None
+                 else 0.5)
+        alpha = min(0.999, max(0.001, alpha))
+        best, best_rate = self._spec_gamma, -1.0
+        for g in self._spec_candidates:
+            cost = self._spec_costs.get(g)
+            if not cost or cost <= 0:
+                continue
+            rate = (1.0 - alpha ** g) / (1.0 - alpha) / cost
+            if rate > best_rate:
+                best, best_rate = g, rate
+        return best
+
+    def _spec_demote(self, reason: str, exc) -> None:
+        """Plain decode for the rest of the engine's life: drop the draft
+        pool, table and caches (their device memory is freed), count the
+        fallback and emit one ``serve_health`` event.  No stream fails:
+        the target's state is untouched, and every active stream goes on
+        from where it is."""
+        if not self._spec_on:
+            return
+        self._spec_on = False
+        self._spec_gamma = 0
+        self._draft_caches = None
+        self._draft_pool = None
+        self._draft_table = None
+        self.draft_kv_cache_bytes = 0
+        for s in self._slots_state:
+            if s is not None:
+                s.draft_pages = []
+        self.metrics.record_spec_fallback()
+        event("serve_health", level=logging.WARNING, model=self.name,
+              component="speculation", status="fallback", reason=reason,
+              error=("" if exc is None
+                     else f"{type(exc).__name__}: {exc}"[:300]),
+              step=self._n_steps,
+              accept_ewma=(round(self._accept_ewma, 4)
+                           if self._accept_ewma is not None else None))
+
     def _recover_from_dispatch_error(self, e: BaseException) -> None:
         """A prefill or decode dispatch raised part way: the pools may
         hold a partial step, so every stream in flight and every cached
@@ -927,6 +1369,14 @@ class GenerationEngine:
         self._table = np.full((self.slots, self._decoder.pages_per_slot),
                               self._pool.no_page, np.int32)
         self._caches = self._decoder.init_cache()
+        if self._spec_on:
+            # a failed round may have written either side, and the slots
+            # the draft state described are gone: re-arm it too
+            self._draft_pool = KVPagePool(self.num_pages, self.page_size)
+            self._draft_table = np.full(
+                (self.slots, self._draft_decoder.pages_per_slot),
+                self._draft_pool.no_page, np.int32)
+            self._draft_caches = self._draft_decoder.init_cache()
 
     def _retire(self, slot: int, s: _Slot, now: float) -> None:
         """Free the slot and its pages if its stream finished or was

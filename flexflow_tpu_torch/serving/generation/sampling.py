@@ -13,8 +13,14 @@ and its CPU and CUDA streams differ).  So a request replays the same
 tokens for the same seed, and a slot's draw does not depend on which
 other slots share its step.
 
-Speculative decoding's acceptance (``speculative_accept``) is not
-ported yet (ROADMAP A.10b).
+Speculative decoding's acceptance is the JAX package's rule
+(Leviathan-style): accept the draft token ``x ~ q`` when ``u * q(x) <=
+p(x)``, keep the accepted prefix of the window, and at the first
+rejection draw from the residual ``norm(max(p - q, 0))``.  The emitted
+token's marginal is ``p``.  The draft's proposal, the accept uniform and
+the residual draw at one position take stream tags of their own, so the
+three are independent (the uniform must not be correlated with the
+proposal it judges).
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ import torch.nn.functional as F
 NEG_INF = -1e30  # the finite mask value of ops.attention
 
 # stream tags: one independent stream per kind of random decision at a
-# (seed, position); speculative decoding's draft, accept and residual
-# streams (1-3 in the JAX package) come with it
-STREAM_MAIN = 0
+# (seed, position of the token decided), the JAX package's numbering
+STREAM_MAIN = 0      # plain sampled decode
+STREAM_DRAFT = 1     # the draft's proposal
+STREAM_ACCEPT = 2    # the accept/reject uniform
+STREAM_RESIDUAL = 3  # the residual draw at the first rejected position
 
 _MASK32 = 0xFFFFFFFF
 # odd multipliers below 2**31, so a product of a 32-bit value never
@@ -139,5 +147,85 @@ def categorical(probs: torch.Tensor, seeds: torch.Tensor,
     return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
 
 
-__all__ = ["SamplingParams", "GREEDY", "STREAM_MAIN", "filtered_probs",
-           "uniform_01", "categorical"]
+def residual_probs(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The rejection residual ``norm(max(p - q, 0))`` per row; a row
+    whose residual sums to 0 (p == q) falls back to ``p``, whose tokens
+    were all accepted with probability 1, so the branch guards the
+    arithmetic and never changes the marginal."""
+    r = torch.clamp(p - q, min=0.0)
+    rs = r.sum(dim=-1, keepdim=True)
+    pos = rs > 0.0
+    return torch.where(pos, r / torch.where(pos, rs, torch.ones_like(rs)),
+                       p)
+
+
+def accept_count(d: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                 u: torch.Tensor) -> torch.Tensor:
+    """The accepted prefix of each window: ``d`` (n, W) proposals,
+    ``p``/``q`` (n, W, V) target and draft probabilities at the same
+    positions, ``u`` (n, W) uniforms.  Entry t is accepted when ``u *
+    q(d) <= p(d)`` (no 0/0), and the count is the length of the run of
+    accepts from the start (the cumulative product).  Returns int64
+    (n,)."""
+    pd = p.gather(-1, d[..., None].long())[..., 0]
+    qd = q.gather(-1, d[..., None].long())[..., 0]
+    accept = u.to(pd.dtype) * qd <= pd
+    return torch.cumprod(accept.to(torch.int64), dim=-1).sum(dim=-1)
+
+
+def accept_uniforms(seeds: torch.Tensor, positions: torch.Tensor
+                    ) -> torch.Tensor:
+    """The accept uniforms, float64 (n, W), keyed on each slot's seed
+    and the position of the token each window entry decides
+    (``positions`` (n, W)) on ``STREAM_ACCEPT``."""
+    n, w = positions.shape
+    return uniform_01(seeds.repeat_interleave(w), positions.reshape(-1),
+                      STREAM_ACCEPT, 1).reshape(n, w)
+
+
+def speculative_accept(d: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                       seeds: torch.Tensor, positions: torch.Tensor,
+                       u=None):
+    """Rejection-sampling acceptance over a verify window: ``d`` (n, W)
+    proposals, ``p``/``q`` (n, W, V), ``seeds`` (n,) and ``positions``
+    (n, W) the position of the token each entry decides.  Returns
+    ``(n_accept (n,), out (n, W))``: ``out[:, :n]`` are the accepted
+    proposals and ``out[:, n]`` (when n < W) the residual draw at the
+    first rejected entry, keyed on its position on ``STREAM_RESIDUAL``
+    (for a full accept the draw at index W-1 is made and discarded).
+    ``u`` replaces the accept uniforms (:func:`accept_uniforms`) when
+    given."""
+    n, w, _ = p.shape
+    if u is None:
+        u = accept_uniforms(seeds, positions)
+    n_acc = accept_count(d, p, q, u)
+    idx = n_acc.clamp(max=w - 1)
+    rows = torch.arange(n, device=p.device)
+    c = categorical(residual_probs(p[rows, idx], q[rows, idx]), seeds,
+                    positions[rows, idx], STREAM_RESIDUAL)
+    out = torch.where(torch.arange(w, device=p.device)[None, :]
+                      == n_acc[:, None], c[:, None], d.long())
+    return n_acc, out
+
+
+def speculative_sample(p: torch.Tensor, q: torch.Tensor, n: int,
+                       seed: int = 0) -> torch.Tensor:
+    """The single-position reference sampler for the property test:
+    ``n`` independent tokens through draft -> accept -> residual with
+    target ``p`` (V,) and draft ``q`` (V,), draw i keyed on (seed, i).
+    Their distribution must be ``p``, the invariant the windowed
+    :func:`speculative_accept` inherits position by position."""
+    seeds = torch.full((n,), int(seed), dtype=torch.int64, device=p.device)
+    pos = torch.arange(n, device=p.device)
+    d = categorical(q.expand(n, -1), seeds, pos, STREAM_DRAFT)
+    u = uniform_01(seeds, pos, STREAM_ACCEPT, 1)[:, 0]
+    accept = u.to(p.dtype) * q[d] <= p[d]
+    r = residual_probs(p[None], q[None])[0]
+    c = categorical(r.expand(n, -1), seeds, pos, STREAM_RESIDUAL)
+    return torch.where(accept, d, c)
+
+
+__all__ = ["SamplingParams", "GREEDY", "STREAM_MAIN", "STREAM_DRAFT",
+           "STREAM_ACCEPT", "STREAM_RESIDUAL", "filtered_probs",
+           "uniform_01", "categorical", "residual_probs", "accept_count",
+           "accept_uniforms", "speculative_accept", "speculative_sample"]

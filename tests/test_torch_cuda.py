@@ -1141,3 +1141,154 @@ def test_lstm_lm_generation_on_the_card_equals_the_cpu(no_tf32):
                         for s in [eng.submit(p) for p in prompts]]
     assert got["cuda"] == got["cpu"]
     assert all(len(t) == 12 for t in got["cpu"])
+
+
+def _quant_mlp(device):
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=8, compute_dtype="float32", seed=0)
+    m = ft.FFModel(cfg, device=device)
+    t = m.create_tensor((8, 256), name="x")
+    t = m.dense(t, 1024, activation="relu", name="d1")
+    t = m.dense(t, 512, activation="relu", name="d2")
+    m.dense(t, 10, name="d3")
+    m.compile()
+    m.init_layers(seed=0)
+    return m
+
+
+def test_quantized_linear_on_the_card_equals_the_cpu(no_tf32):
+    """An int8-quantized MLP: the same q and scales on the card as on the
+    CPU, and the forward within 1e-5 of the CPU's (the float32 products'
+    summation order differs)."""
+    import numpy as np
+
+    card, host = _quant_mlp("cuda"), _quant_mlp("cpu")
+    for p in card.parameters:
+        host.set_weights(p.name, card.get_weights(p.name))
+    rep = {d: m.quantize_weights("int8") for d, m in
+           (("cuda", card), ("cpu", host))}
+    assert rep["cuda"] == rep["cpu"]
+    for name in ("d1/kernel", "d2/kernel", "d3/kernel"):
+        assert card._params[name].dtype == torch.int8
+        assert card._params[name].device.type == "cuda"
+        assert torch.equal(card._params[name].cpu(), host._params[name])
+        assert torch.equal(card._params[name + "::scale"].cpu(),
+                           host._params[name + "::scale"])
+    x = np.random.default_rng(0).standard_normal((8, 256)).astype(
+        np.float32)
+    np.testing.assert_allclose(card.predict(x), host.predict(x),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_quantize_weights_frees_the_float32_kernels_on_the_card(no_tf32):
+    """memory_allocated falls by the report's bytes_before - bytes_after
+    (within 1%): no float32 kernel outlives quantize_weights."""
+    import gc
+
+    m = _quant_mlp("cuda")
+    m.predict(torch.zeros((8, 256)).numpy())
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rep = m.quantize_weights("int8")
+    gc.collect()
+    torch.cuda.synchronize()
+    drop = before - torch.cuda.memory_allocated()
+    want = rep["bytes_before"] - rep["bytes_after"]
+    assert abs(drop - want) <= 0.01 * want, (drop, want)
+
+
+def _spec_models(device):
+    """A small float32 LM, a draft of other widths and weights, and
+    prompts, for the speculative tests on ``device``."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ft
+
+    target = _gen_lm(device)
+    cfg = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=1)
+    draft = ft.build_transformer_lm(
+        cfg, num_layers=1, d_model=32, num_heads=2, d_ff=64, seq_len=64,
+        vocab_size=97, device=device)[0]
+    draft.compile()
+    draft.init_layers(seed=1)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 97, n) for n in (3, 11, 6, 17)]
+    return target, draft, prompts
+
+
+def test_speculative_round_makes_no_host_sync(no_tf32):
+    """The draft's gamma steps and the verify walk enqueue with no host
+    sync; the caller's one fetch brings the accept counts and tokens."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving import GraphDecoder
+
+    target, draft, _ = _spec_models("cuda")
+    dec = GraphDecoder(target, 4, 64, page_size=16, num_pages=12)
+    ddec = GraphDecoder(draft, 4, 64, page_size=16, num_pages=12)
+    caches, dcaches = dec.init_cache(), ddec.init_cache()
+    table = np.full((4, 4), 12, np.int32)
+    table[0, :2] = (3, 7)
+    table[2, 0] = 5
+    g = 4
+    pos = np.array([20, 0, 9, 0], np.int32)
+    vwp = np.full((4, g), 12, np.int32)
+    vwr = np.zeros((4, g), np.int32)
+    for i in (0, 2):
+        for t in range(g):
+            p = pos[i] + t
+            vwp[i, t] = table[i, p // 16]
+            vwr[i, t] = p % 16
+    dwp, dwr = np.ascontiguousarray(vwp.T), np.ascontiguousarray(vwr.T)
+    first = np.array([5, 6, 7, 8], np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = ddec.draft_fn(g)(draft._params, dcaches, first, pos, table,
+                             dwp, dwr)
+        n_acc, out = dec.verify_fn(g)(target._params, caches, first, d,
+                                      pos, table, vwp, vwr)
+        sp = ([0.8, 0.0, 0.8, 0.0], [0, 0, 5, 0], [0.9, 1, 1, 1],
+              [1, 0, 2, 0])
+        arrays = tuple(np.asarray(a) for a in sp)
+        ds, q = ddec.draft_fn(g, sampled=True)(
+            draft._params, dcaches, first, pos, table, dwp, dwr, *arrays)
+        ns, outs = dec.verify_fn(g, sampled=True)(
+            target._params, caches, first, ds, q, pos, table, vwp, vwr,
+            *arrays)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = torch.cat([n_acc[:, None], out, ns[:, None], outs], 1).cpu()
+    assert host.shape == (4, 2 + 2 * g)
+    assert bool(((host[:, 0] >= 0) & (host[:, 0] <= g)).all())
+    assert bool(((host[:, 1:1 + g] >= 0) & (host[:, 1:1 + g] < 97)).all())
+
+
+def test_speculative_generation_on_the_card_equals_the_cpu(no_tf32):
+    """Greedy speculative tokens in float32 are the same on the card as
+    on the CPU, and equal plain greedy decode on the card."""
+    import flexflow_tpu_torch as ft
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        target, draft, prompts = _spec_models(dev)
+        if dev == "cpu":
+            src = got["cuda_models"]
+            for a, b in ((target, src[0]), (draft, src[1])):
+                for p in b.parameters:
+                    a.set_weights(p.name, b.get_weights(p.name))
+        with ft.GenerationEngine(target, slots=2, max_new_tokens=12,
+                                 draft_model=draft, spec_gamma=3) as eng:
+            got[dev] = [s.result(timeout=300).tolist()
+                        for s in [eng.submit(p) for p in prompts]]
+        snap = eng.stats()
+        assert snap["draft_dispatches"] > 0
+        if dev == "cuda":
+            got["cuda_models"] = (target, draft)
+            with ft.GenerationEngine(target, slots=2,
+                                     max_new_tokens=12) as eng:
+                got["plain"] = [s.result(timeout=300).tolist()
+                                for s in [eng.submit(p) for p in prompts]]
+    assert got["cuda"] == got["cpu"] == got["plain"]

@@ -11,7 +11,9 @@ engine's own behaviour: EOS, continuous batching, cancel while queued,
 mid-stream and during prefill, a queued deadline, admission reject, KV
 exhaustion shedding one stream, prefix eviction under pool pressure,
 the decoder's refusals, the features not ported yet and the JAX
-engine's refusals (``serve_quantize``; an unknown ``spec_policy``), and
+engine's refusals (``serve_quantize``; an unknown ``spec_policy``), a
+draft model served (speculative decoding, ``tests/test_torch_speculative.py``
+holds it in full), and
 ``serve_spec_gamma=2`` without a draft served as plain decode; sampled decode
 replays per seed, temperature 0 is greedy, and seeds differ.
 """
@@ -353,10 +355,15 @@ def test_decoder_refuses_unsupported_graphs(lms):
         GraphDecoder(lms[1], 2, SEQ, page_size=16, num_pages=1)
 
 
-def test_unported_features_are_refused(lms):
+def test_unported_features_are_refused(lms, prompts, refs):
     model = lms[1]
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        GenerationEngine(model, slots=2, draft_model=model)
+    # speculative decoding is ported: a draft is accepted and served
+    # (the model as its own draft: every proposal verifies)
+    outs, eng = _run(GenerationEngine, model, prompts[:2], 6, slots=2,
+                     draft_model=model, spec_gamma=2)
+    assert outs == refs[0][:2]
+    snap = eng.stats()
+    assert snap["spec"] == "on" and snap["draft_dispatches"] > 0
     # without a draft, gamma is 0 and the policy is still checked, as in
     # the JAX engine
     with pytest.raises(ValueError, match="spec_policy"):
