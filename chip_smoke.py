@@ -141,6 +141,39 @@
 17. MoE phase: one MoE layer at BERT-base's width (8 experts, d_ff 3072,
    k 2, capacity 1.25, 4 x 512 tokens): forward, aux loss and gradients
    on the card against the CPU in float32, and its device times;
+17b. disaggregated serving phase (the two serving-fleet phases run
+   last: see ``main``): the generation phase's LM behind the
+   port's ``build_disagg`` (a prefill-role and a decode-role
+   ``FleetEngine`` under a ``FleetRouter``, 16 slots each, pages of 16,
+   chunks of 256, one copy of the parameters): the first 32 greedy
+   prompts of the generation traffic x 128 tokens with the prefix cache
+   off and on, each against one co-located engine of the same settings
+   and submission order; tokens equal token for token, every stream
+   migrated, ``migrated_bytes`` equal to the chains' pages x 589,824
+   bytes (``kv_page_plan``'s page), both pools drained with the cache
+   off, LayerNorm launches 24 a dispatch of either engine; export,
+   handoff and import times and GB/s, TTFT and TPOT beside the
+   co-located run's; one 32-page chain exported, copied and imported
+   (read back bit-equal, one copy each way at the dispatcher, each
+   leg timed); the prefill host's pacing against none, cache off, in
+   the order A B B A (tokens equal, wall, TTFT and TPOT of each run);
+   ``FF_FAULT=migrate_fail_at:1`` (one ``serve_health`` fallback, that
+   stream decodes co-located with equal tokens, nothing fails); a
+   2-layer float32 twin (equal tokens, bit-equal pages); the kernels'
+   launches of each kind of run stand apart in the ``kernels`` line
+   (``disagg``: the two bf16 runs; ``disagg_pacing``, ``disagg_fault``,
+   ``disagg_f32_check``), flash read from each (0: the paged attention
+   is plain torch);
+17c. fleet phase: BERT-base (dense ``ServingEngine``, bf16) and the LM
+   (``GenerationEngine``) as two tenants of one ``FleetEngine``: the
+   gate's residency bytes equal the tenants' tensor bytes, which equal
+   the requested bytes of the blocks the allocator added, whose sizes
+   (rounded up to 512 bytes, a large block keeping an unsplit remainder)
+   equal the ``memory_allocated`` rise; 8 full-bucket BERT requests and 8 LM prompts x 32
+   tokens served together: rows bit-equal and tokens equal to the
+   standalone engines', each tenant's charged device seconds, 12 flash
+   and 24 LayerNorm launches a BERT dispatch and 24 LayerNorm launches an
+   LM dispatch;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -455,6 +488,35 @@ SPEC_F32_NEW = 32
 # request; the check must flag it
 SPEC_CONTROL_NEW = 32
 
+# disaggregated serving: the generation phase's LM (GPT2 above) behind
+# the port's build_disagg (a prefill-role and a decode-role FleetEngine
+# under a FleetRouter, 16 slots each, pages of 16, prefill chunks of 256,
+# sharing the model's parameters on the card), against one co-located
+# engine of the same settings; the first DISAGG_REQUESTS greedy prompts
+# of gen_traffic x GEN_NEW tokens, the prefix cache off and on.  A page
+# is 2 (K, V) x 12 layers x 16 tokens x 12 heads x 64 x 2 bytes
+DISAGG_REQUESTS = 32
+DISAGG_PAGE_BYTES = 2 * 12 * 16 * 12 * 64 * 2
+# the float32 twin: GPT2's widths at this depth, the first
+# DISAGG_F32_REQUESTS prompts x DISAGG_F32_NEW tokens
+DISAGG_F32_LAYERS = 2
+DISAGG_F32_REQUESTS = 8
+DISAGG_F32_NEW = 32
+# the fault run: FF_FAULT=migrate_fail_at:1 over this many prompts
+DISAGG_FAULT_REQUESTS = 4
+# the fleet: BERT-base (the transformer phase's model, bf16) as a dense
+# tenant and the generation LM as a generation tenant under one
+# FleetEngine; FLEET_BERT_REQUESTS requests of a full bucket (one
+# dispatch each) and the first FLEET_GEN_REQUESTS prompts x
+# FLEET_GEN_NEW tokens, submitted together
+FLEET_BERT_REQUESTS = 8
+FLEET_GEN_REQUESTS = 8
+FLEET_GEN_NEW = 32
+# the CUDA caching allocator rounds every block up to this many bytes
+ALLOC_ROUND = 512
+# decode steps a profiler window counts kernels over (generation phase)
+PROFILED_STEPS = 5
+
 
 def card_line() -> str:
     r = subprocess.run(
@@ -541,25 +603,42 @@ def kernel_breakdown(fn, steps: int, card: str, what: str = "forward",
     """Device time by kernel over ``steps`` calls of ``fn`` (torch
     profiler), and the device's busy share of the window's wall time;
     returns the (kernel name, device µs over all calls) rows, and fills
-    ``counts``, when given, with each name's launches over the calls."""
+    ``counts``, when given, with each kernel's launches over the calls
+    (copies and memsets left out).
+    When ``counts`` is given, one more call runs first in the profiler's
+    warm-up, whose events are dropped: a window that starts with the
+    tracing itself gained or lost a pinned upload and compare kernels on
+    an H100, which are not launches of the counted calls."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    warm = counts is not None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=(schedule(wait=0, warmup=1, active=1, repeat=1)
+                           if warm else None)) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a schedule's step annotation spans the device's timeline too, and
+    # is no kernel
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not e.key.startswith("ProfilerStep")]
     rows = [(e.key, e.self_device_time_total) for e in events]
     if counts is not None:
-        counts.update({e.key: e.count for e in events})
+        # kernels only: the profiler's device copies come and go between
+        # runs of one process on an H100 (see host_copies)
+        counts.update({e.key: e.count for e in events
+                       if not e.key.startswith(("Memcpy", "Memset"))})
     total = sum(t for _, t in rows)
     if not total:
         print("kernel breakdown: the profiler saw no device time "
@@ -3620,10 +3699,10 @@ def gen_step_timing(model, card) -> dict:
           f"launches of one call {json.dumps(counts)}; each call enqueued "
           f"with no host sync [{card}]")
     new_counts, old_counts = {}, {}
-    busy = kernel_breakdown(step, 5, card, what="decode step",
+    busy = kernel_breakdown(step, PROFILED_STEPS, card, what="decode step",
                             counts=new_counts)
-    out["decode_busy_ms"] = (sum(t for _, t in busy) / 5 / 1e3
-                             if busy else None)
+    out["decode_busy_ms"] = (sum(t for _, t in busy) / PROFILED_STEPS
+                             / 1e3 if busy else None)
     # the same step with the LayerNorm op as it ran before its kernel
     # stored bf16: float32 out, then the op's cast to bf16
     from flexflow_tpu_torch.ops import norm as norm_op
@@ -3632,21 +3711,28 @@ def gen_step_timing(model, card) -> dict:
         lambda x, r, sc, b, eps, out_dtype: real(x, r, sc, b, eps))
     try:
         old_busy = kernel_breakdown(
-            step, 5, card, what="decode step (LayerNorm float32 out + cast)",
+            step, PROFILED_STEPS, card,
+            what="decode step (LayerNorm float32 out + cast)",
             counts=old_counts)
     finally:
         norm_op.fused_layernorm_autograd = real
 
-    def per_step(counts, ln=False):
+    def launches(counts, ln=False):
         return sum(n for k, n in counts.items()
-                   if not ln or "layernorm_kernel" in k) / 5
+                   if not ln or "layernorm_kernel" in k)
+
+    def per_step(counts, ln=False):
+        # the window's launches over its steps, not rounded: a kernel
+        # outside the steps would show as a fraction
+        return launches(counts, ln) / PROFILED_STEPS
 
     layers = GPT2["num_layers"]
     out["kernels_per_step"] = {
         "bf16_out": per_step(new_counts), "ln": per_step(new_counts, True),
         "f32_out_cast": per_step(old_counts),
         "ln_f32_out_cast": per_step(old_counts, True),
-        "busy_ms_f32_out_cast": (sum(t for _, t in old_busy) / 5 / 1e3
+        "busy_ms_f32_out_cast": (sum(t for _, t in old_busy)
+                                 / PROFILED_STEPS / 1e3
                                  if old_busy else None)}
     k = out["kernels_per_step"]
     print(f"decode step device kernels (profiler, a step): "
@@ -3656,8 +3742,14 @@ def gen_step_timing(model, card) -> dict:
           f"LayerNorm launches): {k['f32_out_cast'] - k['bf16_out']:g} "
           f"fewer; busy {out['decode_busy_ms']} against "
           f"{k['busy_ms_f32_out_cast']} ms [{card}]")
-    assert k["ln"] == k["ln_f32_out_cast"] == 2 * layers, k
-    assert k["f32_out_cast"] - k["bf16_out"] == 2 * layers, k
+    # names launched a number of times that is no multiple of the steps
+    odd = {n[:60]: c for cs in (new_counts, old_counts)
+           for n, c in cs.items() if c % PROFILED_STEPS}
+    steps_ln = 2 * layers * PROFILED_STEPS
+    assert launches(new_counts, True) == launches(old_counts, True) \
+        == steps_ln, (k, odd)
+    assert launches(old_counts) - launches(new_counts) == steps_ln, (k, odd)
+    assert not odd, (k, odd)
     kernel_breakdown(chunk_call, 5, card, what="prefill chunk")
     assert counts["decode"] == {"ln": 2 * layers, "flash": 0}, counts
     assert counts["chunk"] == counts["sampled"] == {"ln": 2 * layers,
@@ -4373,6 +4465,548 @@ def spec_f32_check(ft, traffic, counters, card) -> dict:
             "runs": [{"launches": r["launches"]} for r in runs.values()]}
 
 
+def colo_run(ft, model, prompts, ntok: int, prefix_cache: str) -> dict:
+    """``prompts`` x ``ntok`` greedy tokens through one co-located engine
+    of the disaggregated pair's settings, all submitted at once."""
+    eng = ft.GenerationEngine(model, slots=GEN_SLOTS, page_size=GEN_PAGE,
+                              prefill_chunk=GEN_CHUNK,
+                              prefix_cache=prefix_cache, stats_every=0,
+                              metrics_window_s=3600)
+    with eng:
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=ntok) for p in prompts]
+        outs = [s.result(timeout=900).tolist() for s in streams]
+        wall = time.perf_counter() - t0
+    return {"tokens": outs, "wall": wall, "stats": eng.stats(),
+            "ttft": [s.ttft for s in streams]}
+
+
+def disagg_run(ft, model, layers: int, prompts, ntok: int,
+               prefix_cache: str, counters, pace_s: float = None) -> dict:
+    """The same prompts through the port's ``build_disagg`` pair: every
+    stream prefills on the prefill engine and decodes on the decode
+    engine after its KV pages migrate; the model has ``layers``
+    transformer blocks.  ``pace_s`` is the prefill
+    host's pacing (``build_disagg``'s default when None).  Returns the
+    tokens, the router's and both engines' stats, the migration costs
+    and the kernels' launches of the run with each engine's
+    dispatches."""
+    from flexflow_tpu_torch.serving.cluster import build_disagg
+    from flexflow_tpu_torch.serving.cluster.bench import _reconciled
+
+    fwd_k, bwd_k, ln_k = counters
+    kw = {} if pace_s is None else {"pf_pace_s": pace_s}
+    # the page size is the model's serve_kv_page (spec_model: GEN_PAGE)
+    router, fleets, (pf, dc) = build_disagg(
+        model, GEN_SLOTS, model.input_tensors[0].shape[1], GEN_CHUNK,
+        prefix_cache=prefix_cache, **kw)
+    try:
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        streams = [router.submit("lm", p, max_new_tokens=ntok)
+                   for p in prompts]
+        outs = [s.result(timeout=900).tolist() for s in streams]
+        wall = time.perf_counter() - t0
+        if prefix_cache == "off":
+            deadline = time.monotonic() + 60
+            while pf._pool.pages_in_use or dc._pool.pages_in_use:
+                assert time.monotonic() < deadline, "pools never drained"
+                time.sleep(0.005)
+        rstats = router.stats()
+    finally:
+        router.stop()
+        for f in fleets:
+            f.stop()
+    launches = {"ln": ln_k.launches, "fwd": fwd_k.launches,
+                "bwd": bwd_k.launches}
+    snaps = [pf.stats(), dc.stats()]
+    assert _reconciled(snaps), snaps
+    assert snaps[0]["errors"] == 0 and snaps[1]["errors"] == 0, snaps
+    disp = {"prefill": pf._n_steps + pf._chunks_total,
+            "decode": dc._n_steps + dc._chunks_total}
+    # the paged attention is plain torch: no flash launch on either engine
+    assert launches["fwd"] == launches["bwd"] == 0, launches
+    assert launches["ln"] == 2 * layers * sum(disp.values()), \
+        (launches, disp)
+    return {"tokens": outs, "wall": wall, "router": rstats,
+            "stats": snaps, "engines": (pf, dc),
+            "ttft": [s.ttft for s in streams], "launches": launches,
+            "dispatches": disp, "pools": (pf._pool.pages_in_use,
+                                          dc._pool.pages_in_use)}
+
+
+def pct(xs, q):
+    from flexflow_tpu_torch.serving.metrics import quantiles
+
+    return quantiles(xs, (q,))[q]
+
+
+def host_copies(fn):
+    """Run ``fn()``; returns its result and every copy between the host
+    and a card that its ops issued, as ``{"DtoH": [bytes, ...], "HtoD":
+    [...]}``.  The copies are seen at PyTorch's dispatcher (a
+    ``TorchDispatchMode``), not by the profiler: on an H100 the
+    profiler's device copies came and went between runs of one process
+    (a device-to-host copy recorded in one run and not in the next).
+    An op counts as a copy when a tensor it reads lies on one side and
+    what it returns on the other; a ``.item()`` of a card's tensor is a
+    device-to-host copy.  An upload made below the dispatcher, such as
+    ``torch.tensor`` of a Python list onto the card, is not seen."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    copies = {"DtoH": [], "HtoD": []}
+    scalar = torch.ops.aten._local_scalar_dense.default
+
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    class Copies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = tensors((args, kwargs))
+            if func is scalar and ins[0].device.type != "cpu":
+                copies["DtoH"].append(ins[0].element_size())
+                return out
+            sides = {t.device.type == "cpu" for t in ins if t.dim() > 0}
+            for t in tensors(out):
+                to_host = t.device.type == "cpu"
+                if (not to_host) in sides:
+                    copies["DtoH" if to_host else "HtoD"].append(
+                        t.numel() * t.element_size())
+            return out
+
+    with Copies():
+        result = fn()
+    return result, copies
+
+
+def page_copy_checks(pf, dc, npages: int, card: str) -> dict:
+    """One chain of ``npages`` pages of the prefill engine's pool through
+    ``export_pages``, ``pages_to_device`` and ``import_pages`` into other
+    pages of the decode engine's pool: the imported rows read back
+    bit-equal to the exported ones; the chain crosses to the host and
+    back in one copy each way, of the chain's bytes (:func:`host_copies`;
+    the index arrays' uploads are not seen); each leg is timed over 10
+    runs (p50 and p99 ms, GB/s)."""
+    import torch
+
+    from flexflow_tpu_torch.serving.generation.pages import (
+        export_pages, import_pages, pages_to_device)
+
+    src = list(range(npages))
+    dst = list(range(pf.num_pages - npages, pf.num_pages))
+    nbytes = npages * pf.kv_plan["page_bytes"]
+
+    def once():
+        host = export_pages(pf._caches, src, pf.num_pages)
+        dev = pages_to_device(host, dc.device)
+        import_pages(dc._caches, dev, dst)
+        return host
+
+    once()
+    torch.cuda.synchronize()
+    _, copies = host_copies(once)
+    torch.cuda.synchronize()
+    same = all(torch.equal(pf._caches[n][leaf][src],
+                           dc._caches[n][leaf][dst])
+               for n in pf._caches for leaf in pf._caches[n])
+    times = {"export": [], "to_device": [], "import": []}
+    for _ in range(10):
+        t0 = time.perf_counter()
+        host = export_pages(pf._caches, src, pf.num_pages)
+        t1 = time.perf_counter()
+        dev = pages_to_device(host, dc.device)
+        t2 = time.perf_counter()
+        import_pages(dc._caches, dev, dst)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, a, b in (("export", t0, t1), ("to_device", t1, t2),
+                        ("import", t2, t3)):
+            times[k].append((b - a) * 1e3)
+    legs = {k: {"p50_ms": round(pct(v, 0.5), 4),
+                "p99_ms": round(pct(v, 0.99), 4),
+                "GB_per_s": round(nbytes / pct(v, 0.5) / 1e6, 3)}
+            for k, v in times.items()}
+    print(f"migration legs at {npages} pages ({nbytes} bytes): "
+          f"{json.dumps(legs)}; copies in one migration (bytes each, at "
+          f"the dispatcher) {json.dumps(copies)}; imported pages "
+          f"bit-equal to the exported: {same} [{card}]")
+    return {"same": same, "copies": copies, "legs": legs,
+            "bytes": nbytes}
+
+
+def disagg_pace_default() -> float:
+    """``build_disagg``'s prefill pacing when the caller names none."""
+    import inspect
+
+    from flexflow_tpu_torch.serving.cluster import build_disagg
+
+    return inspect.signature(build_disagg).parameters["pf_pace_s"].default
+
+
+def pacing_timing(run) -> dict:
+    ds = run["stats"][1]
+    return {"wall_s": run["wall"], "ttft_p50_ms": pct(run["ttft"], 0.5) * 1e3,
+            "tpot_p50_ms": ds["tpot_p50_ms"], "tpot_p95_ms": ds["tpot_p95_ms"]}
+
+
+def pacing_pairs(ft, model, layers, prompts, want, counters, card,
+                 pairs: int, first: dict = None) -> dict:
+    """The prefill host's pacing: ``build_disagg``'s default (A) against
+    the other of 0 and 0.002 s (B), prefix cache off, ``pairs`` pairs in
+    the order A B, B A, A B, ...; ``first`` is the timing of an A run
+    already made, the first pair's.  Every run's tokens must equal
+    ``want``.  Prints each metric's runs, the pairs B won (lower is
+    better), both arms' medians and A's quartile distance; returns them
+    with the runs' launches."""
+    import numpy as np
+
+    pace_a = disagg_pace_default()
+    pace_b = 0.0 if pace_a else 0.002
+    order = [p for i in range(pairs)
+             for p in ((pace_a, pace_b) if i % 2 == 0 else (pace_b, pace_a))]
+    arms = {pace_a: [], pace_b: []}
+    if first is not None:
+        arms[pace_a].append(first)
+        order = order[1:]
+    launches = {"ln": 0, "fwd": 0}
+    for pace in order:
+        run = disagg_run(ft, model, layers, prompts, GEN_NEW, "off",
+                         counters, pace_s=pace)
+        assert run["tokens"] == want
+        for k in launches:
+            launches[k] += run["launches"][k]
+        arms[pace].append(pacing_timing(run))
+        del run
+        free_garbage()
+    summary = {}
+    for m in ("wall_s", "ttft_p50_ms", "tpot_p50_ms", "tpot_p95_ms"):
+        a = [r[m] for r in arms[pace_a]]
+        b = [r[m] for r in arms[pace_b]]
+        q1, q3 = np.percentile(a, [25, 75])
+        summary[m] = {"b_won": sum(y < x for x, y in zip(a, b)),
+                      "pairs": pairs, "median_a": float(np.median(a)),
+                      "median_b": float(np.median(b)),
+                      "iqr_a": float(q3 - q1), "a": a, "b": b}
+    print(f"disagg prefill pacing (prefix off, {pairs} pairs, A = "
+          f"{pace_a} s, B = {pace_b} s; pairs B won, medians A / B, A's "
+          f"quartile distance): "
+          + "; ".join(f"{m} {v['b_won']} of {pairs}, {v['median_a']:.3f} / "
+                      f"{v['median_b']:.3f}, {v['iqr_a']:.3f}"
+                      for m, v in summary.items())
+          + f"; runs {json.dumps({m: [v['a'], v['b']] for m, v in summary.items()})}"
+          f" [{card}]")
+    return {"pace_a": pace_a, "pace_b": pace_b, "summary": summary,
+            "launches": launches}
+
+
+def disagg_pacing_phase(ft, counters, card, pairs: int = 10) -> dict:
+    """The pacing arms alone, ``pairs`` pairs after one run that is not
+    kept (the first run of a process is the slowest)."""
+    import numpy as np
+
+    model = spec_model(ft, GPT2, "bfloat16", SEED)
+    prompts = gen_traffic(np.random.default_rng(SEED),
+                          GPT2["vocab_size"])[:DISAGG_REQUESTS]
+    want = colo_run(ft, model, prompts, GEN_NEW, "off")["tokens"]
+    disagg_run(ft, model, GPT2["num_layers"], prompts, GEN_NEW, "off",
+               counters)
+    free_garbage()
+    return pacing_pairs(ft, model, GPT2["num_layers"], prompts, want,
+                        counters, card, pairs)
+
+
+def disagg_phase(ft, counters, card) -> dict:
+    """Serve GPT-2 small's widths disaggregated (see the module
+    docstring); returns the kernels' launches by path, each read from
+    its own runs: ``disagg`` (the two bf16 runs, prefix cache off and
+    on), ``disagg_pacing`` (the pacing arms), ``disagg_fault`` (the
+    ``migrate_fail_at:1`` run) and ``disagg_f32_check`` (the float32
+    twin)."""
+    import math
+
+    import numpy as np
+
+    from flexflow_tpu_torch import faults
+    from flexflow_tpu_torch.fflogger import capture_events
+
+    free_garbage()
+    model = spec_model(ft, GPT2, "bfloat16", SEED)
+    prompts = gen_traffic(np.random.default_rng(SEED),
+                          GPT2["vocab_size"])[:DISAGG_REQUESTS]
+    layers = GPT2["num_layers"]
+    # only counts and tokens leave a run: an engine kept alive would hold
+    # its KV pools (604 MB each) through every later phase's peak
+    out = {"ln": {}, "fwd": {}}
+
+    def count(path, run):
+        for k in ("ln", "fwd"):
+            out[k][path] = out[k].get(path, 0) + run["launches"][k]
+
+    pace0 = disagg_pace_default()
+    for pc in ("off", "on"):
+        colo = colo_run(ft, model, prompts, GEN_NEW, pc)
+        dis = disagg_run(ft, model, layers, prompts, GEN_NEW, pc, counters)
+        count("disagg", dis)
+        pf, dc = dis["engines"]
+        r = dis["router"]
+        page_bytes = pf.kv_plan["page_bytes"]
+        pages = [math.ceil(len(p) / GEN_PAGE) for p in prompts]
+        want_bytes = sum(pages) * DISAGG_PAGE_BYTES
+        equal = dis["tokens"] == colo["tokens"]
+        first_diff = next((i for i, (a, b) in enumerate(
+            zip(dis["tokens"], colo["tokens"])) if a != b), None)
+        mig_bytes = [n * page_bytes for n in pages]
+        exp_ms, imp_ms = pf.migrate_export_ms, dc.migrate_import_ms
+        handoff_ms = r["migrate_ms_total"] / max(1, r["migrations"])
+        cs, ds = colo["stats"], dis["stats"][1]
+        print(f"disagg prefix {pc}: {DISAGG_REQUESTS} requests x {GEN_NEW} "
+              f"greedy tokens, tokens equal to the co-located engine's: "
+              f"{equal} (first differing request {first_diff}); routes "
+              f"{r['routes']}, migrations {r['migrations']}, migrated bytes "
+              f"{r['migrated_bytes']} (sum of pages_used x "
+              f"{DISAGG_PAGE_BYTES} = {want_bytes}); pools in use after "
+              f"the run {dis['pools']}; prefill pacing {pace0} s; wall "
+              f"{dis['wall']:.3f}s against "
+              f"{colo['wall']:.3f}s co-located; TTFT p50 "
+              f"{pct(dis['ttft'], 0.5) * 1e3:.1f} ms against "
+              f"{pct(colo['ttft'], 0.5) * 1e3:.1f}; TPOT p50/p95 "
+              f"{ds['tpot_p50_ms']}/{ds['tpot_p95_ms']} ms against "
+              f"{cs['tpot_p50_ms']}/{cs['tpot_p95_ms']} [{card}]")
+        print(f"disagg prefix {pc} migrations: export (gather + one "
+              f"device-to-host copy) p50 {pct(exp_ms, 0.5):.3f} ms p99 "
+              f"{pct(exp_ms, 0.99):.3f} ms, "
+              f"{sum(mig_bytes) / sum(exp_ms) / 1e6:.3f} GB/s; handoff "
+              f"(pick + host-to-device copy + queue) mean "
+              f"{handoff_ms:.3f} ms, "
+              f"{sum(mig_bytes) / max(1, r['migrations']) / handoff_ms / 1e6:.3f}"
+              f" GB/s; import (scatter) p50 {pct(imp_ms, 0.5):.3f} ms p99 "
+              f"{pct(imp_ms, 0.99):.3f} ms; bytes a migration mean "
+              f"{sum(mig_bytes) / len(mig_bytes):.0f} [{card}]")
+        print(f"disagg prefix {pc} launches: layernorm "
+              f"{dis['launches']['ln']} = prefill engine "
+              f"{dis['dispatches']['prefill']} dispatches x {2 * layers} + "
+              f"decode engine {dis['dispatches']['decode']} x "
+              f"{2 * layers}; flash forward {dis['launches']['fwd']}, "
+              f"backward {dis['launches']['bwd']} [{card}]")
+        assert page_bytes == DISAGG_PAGE_BYTES, page_bytes
+        assert equal, (pc, first_diff)
+        assert r["routes"] == r["migrations"] == DISAGG_REQUESTS, r
+        assert r["migrated_bytes"] == want_bytes, (r, want_bytes)
+        assert len(exp_ms) == len(imp_ms) == DISAGG_REQUESTS
+        assert dis["stats"][0]["requests"] == 0, dis["stats"][0]
+        assert dis["stats"][1]["requests"] == DISAGG_REQUESTS
+        if pc == "off":
+            assert dis["pools"] == (0, 0), dis["pools"]
+            out["copies"] = page_copy_checks(pf, dc, 32, card)
+            assert out["copies"]["same"] and out["copies"]["copies"] == {
+                "DtoH": [out["copies"]["bytes"]],
+                "HtoD": [out["copies"]["bytes"]]}, out["copies"]
+            want = colo["tokens"]
+            first = pacing_timing(dis)
+        del dis, pf, dc
+        free_garbage()
+        if pc == "off":
+            # the run above is the first of the pacing arms' two pairs
+            out["pacing"] = pacing_pairs(ft, model, layers, prompts, want,
+                                         counters, card, 2, first)
+            count("disagg_pacing", out["pacing"])
+    # FF_FAULT=migrate_fail_at:1: the first stream decodes co-located
+    fprompts = prompts[:DISAGG_FAULT_REQUESTS]
+    os.environ["FF_FAULT"] = "migrate_fail_at:1"
+    faults.reset()
+    try:
+        with capture_events("serve") as events:
+            fault = disagg_run(ft, model, layers, fprompts, GEN_NEW, "off",
+                               counters)
+    finally:
+        os.environ.pop("FF_FAULT", None)
+        faults.reset()
+    count("disagg_fault", fault)
+    health = [e for e in events if e["event"] == "serve_health"
+              and e.get("component") == "migration"]
+    r = fault["router"]
+    print(f"disagg fault migrate_fail_at:1: {len(health)} fallback "
+          f"event(s) ({[h['reason'] for h in health]}), migrations "
+          f"{r['migrations']} of {r['migrate_attempts']} attempts, tokens "
+          f"equal to co-located: "
+          f"{fault['tokens'] == want[:DISAGG_FAULT_REQUESTS]}, errors "
+          f"{[s['errors'] for s in fault['stats']]}; launches "
+          f"{json.dumps(fault['launches'])} [{card}]")
+    assert len(health) == 1 and health[0]["reason"] == "handoff_error"
+    assert r["migrations"] == DISAGG_FAULT_REQUESTS - 1
+    assert r["migrate_attempts"] == DISAGG_FAULT_REQUESTS
+    assert fault["stats"][0]["requests"] == 1
+    assert fault["tokens"] == want[:DISAGG_FAULT_REQUESTS]
+    del fault, model
+    free_garbage()
+    # the float32 twin
+    f32 = spec_model(ft, dict(GPT2, num_layers=DISAGG_F32_LAYERS),
+                     "float32", SEED)
+    fp = prompts[:DISAGG_F32_REQUESTS]
+    colo = colo_run(ft, f32, fp, DISAGG_F32_NEW, "off")
+    dis = disagg_run(ft, f32, DISAGG_F32_LAYERS, fp, DISAGG_F32_NEW, "off",
+                     counters)
+    count("disagg_f32_check", dis)
+    pf, dc = dis["engines"]
+    checks = page_copy_checks(pf, dc, 8, card)
+    print(f"disagg float32 twin ({DISAGG_F32_LAYERS} layers): "
+          f"{DISAGG_F32_REQUESTS} x {DISAGG_F32_NEW} tokens equal to the "
+          f"co-located engine's: {dis['tokens'] == colo['tokens']}; "
+          f"migrations {dis['router']['migrations']}; launches "
+          f"{json.dumps(dis['launches'])} [{card}]")
+    assert dis["tokens"] == colo["tokens"]
+    assert checks["same"] and dis["router"]["migrations"] == len(fp)
+    assert checks["copies"] == {"DtoH": [checks["bytes"]],
+                                "HtoD": [checks["bytes"]]}, checks
+    del dis, pf, dc, f32
+    free_garbage()
+    return out
+
+
+def allocated_blocks() -> dict:
+    """The caching allocator's allocated blocks, address -> (size,
+    requested bytes), from ``torch.cuda.memory_snapshot()``."""
+    import torch
+
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                out[b.get("address", addr)] = (
+                    b["size"], b.get("requested_size", b["size"]))
+            addr += b["size"]
+    return out
+
+
+def fleet_phase(ft, counters, card) -> dict:
+    """BERT-base and the generation LM as two tenants of one FleetEngine
+    (see the module docstring); returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.serving.fleet import (FleetEngine, TenantSpec,
+                                                  model_residency)
+
+    fwd_k, bwd_k, ln_k = counters
+    # the warm-ups below run on this thread: its cuBLAS workspace (32
+    # MiB a handle and stream on an H100) must exist before the count
+    # starts, or it would show as a block no tenant owns
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.ones((16, 16), dtype=dt, device="cuda")
+        (a @ a).sum().item()
+    del a
+    free_garbage()
+    m0 = torch.cuda.memory_allocated()
+    blocks0 = allocated_blocks()
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="bfloat16",
+                      seed=SEED)
+    bert, _, _ = build_transformer(cfg, **BERT)   # on cuda
+    bert.compile()
+    bert.init_layers(seed=SEED)
+    lm = spec_model(ft, GPT2, "bfloat16", SEED)
+    gen_kw = {"slots": GEN_SLOTS, "page_size": GEN_PAGE,
+              "prefill_chunk": GEN_CHUNK, "prefix_cache": "off"}
+    fleet = FleetEngine()
+    fleet.add_engine("bert", ft.ServingEngine(bert, max_batch=BERT_BATCH,
+                                              name="bert"))
+    fleet.add_engine("lm", ft.GenerationEngine(lm, name="lm",
+                                               metrics_window_s=3600,
+                                               **gen_kw))
+    free_garbage()
+    rise = torch.cuda.memory_allocated() - m0
+    new = {a: b for a, b in allocated_blocks().items() if a not in blocks0}
+    specs = {"bert": (TenantSpec("bert", build_transformer,
+                                 batch_size=BERT_BATCH), bert),
+             "lm": (TenantSpec("lm", build_transformer, engine="generation",
+                               generation=gen_kw), lm)}
+    predicted = {n: model_residency(s, m.layers, m.input_tensors, None,
+                                    model_config=m.config)["resident_bytes"]
+                 for n, (s, m) in specs.items()}
+    tensors = list(bert._params.values()) + list(lm._params.values())
+    lm_eng = fleet._tenant("lm").engine
+    tensors += [t for sub in lm_eng._caches.values() for t in sub.values()]
+    nbytes = [t.numel() * t.element_size() for t in tensors]
+    rounded = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in nbytes)
+    resident = {n: fleet.stats(n)["resident_bytes"] for n in specs}
+    # the allocator's own account of the blocks that appeared: each
+    # block's requested bytes and its size (rounded to 512 bytes, and a
+    # large-pool block keeps an unsplit remainder of at most 1 MiB)
+    ptrs = {t.data_ptr() for t in tensors}
+    requested = sum(b[1] for b in new.values())
+    block_bytes = sum(b[0] for b in new.values())
+    strays = sorted((b[1], b[0]) for a, b in new.items() if a not in ptrs)
+    print(f"fleet memory: gate resident bytes {json.dumps(predicted)} "
+          f"(sum {sum(predicted.values()):.0f}), the tenants' tensors "
+          f"{sum(nbytes)} bytes in {len(nbytes)} tensors, "
+          f"{rounded} in {ALLOC_ROUND}-byte blocks; memory_allocated rose "
+          f"{rise} bytes: {len(new)} new blocks requesting {requested} "
+          f"bytes in {block_bytes} bytes of blocks (rounding "
+          f"{block_bytes - requested}); blocks not a tenant tensor's "
+          f"(requested, size): {strays[:8]} [{card}]")
+    assert resident == predicted, (resident, predicted)
+    assert sum(nbytes) == sum(predicted.values())
+
+    rng = np.random.default_rng(SEED)
+    rows = [rng.integers(0, BERT["vocab_size"], (BERT_BATCH,
+                                                 BERT["seq_len"])
+                         ).astype(np.int32)
+            for _ in range(FLEET_BERT_REQUESTS)]
+    prompts = gen_traffic(np.random.default_rng(SEED),
+                          GPT2["vocab_size"])[:FLEET_GEN_REQUESTS]
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    with fleet:
+        futs = [fleet.submit("bert", x) for x in rows]
+        streams = [fleet.submit("lm", p, max_new_tokens=FLEET_GEN_NEW)
+                   for p in prompts]
+        got_rows = [f.result(timeout=600) for f in futs]
+        got_toks = [s.result(timeout=600).tolist() for s in streams]
+        wall = time.perf_counter() - t0
+        stats = fleet.stats()
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    bs, gs = stats["tenants"]["bert"], stats["tenants"]["lm"]
+    gen_disp = lm_eng._n_steps + lm_eng._chunks_total
+    layers, lm_layers = BERT["num_layers"], GPT2["num_layers"]
+    print(f"fleet serve: {FLEET_BERT_REQUESTS} BERT-base requests of "
+          f"{BERT_BATCH} rows and {FLEET_GEN_REQUESTS} LM prompts x "
+          f"{FLEET_GEN_NEW} tokens in {wall:.3f}s; charged device seconds "
+          f"bert {bs['vtime_s']} (weight {bs['weight']}), lm "
+          f"{gs['vtime_s']} (weight {gs['weight']}), {stats['dispatches']} "
+          f"fleet dispatches; launches: flash forward {launches['fwd']} "
+          f"= {layers} x {bs['dispatches']} BERT dispatches, layernorm "
+          f"{launches['ln']} = {2 * layers} x {bs['dispatches']} + "
+          f"{2 * lm_layers} x {gen_disp} LM dispatches, flash backward "
+          f"{launches['bwd']} [{card}]")
+    assert bs["requests"] == FLEET_BERT_REQUESTS and bs["errors"] == 0
+    assert gs["requests"] == FLEET_GEN_REQUESTS and gs["errors"] == 0
+    assert launches == {"fwd": layers * bs["dispatches"], "bwd": 0,
+                        "ln": 2 * layers * bs["dispatches"]
+                        + 2 * lm_layers * gen_disp}, \
+        (launches, bs["dispatches"], gen_disp)
+    # the standalone engines on the same models and traffic
+    with ft.ServingEngine(bert, max_batch=BERT_BATCH) as eng:
+        want_rows = [eng.submit(x).result(timeout=600) for x in rows]
+    want_toks = colo_run(ft, lm, prompts, FLEET_GEN_NEW, "off")["tokens"]
+    same_rows = all(np.array_equal(a, b)
+                    for a, b in zip(got_rows, want_rows))
+    print(f"fleet vs standalone: BERT-base rows bit-equal {same_rows}, "
+          f"LM tokens equal {got_toks == want_toks} [{card}]")
+    assert same_rows and got_toks == want_toks
+    # the rise is the tenants' tensors and the allocator's rounding of
+    # their blocks, nothing else
+    assert rise == block_bytes and requested == sum(nbytes) \
+        and not strays, (rise, block_bytes, requested, strays[:8])
+    del fleet, bert, lm, lm_eng
+    free_garbage()
+    return launches
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4418,6 +5052,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the engines' event lines (serve_stats, gen_stats, ...) stay off
+    # stdout: the phases read what they check through capture_events
+    # and the engines' stats(), and print their own lines
+    from flexflow_tpu_torch.fflogger import silenced
+    stack = contextlib.ExitStack()
+    stack.enter_context(silenced("serve", "obs"))
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     card = card_line()
@@ -4476,6 +5116,11 @@ def main() -> int:
     phase("dlrm hetero", dlrm_hetero_phase, ft, card, kernel_counters)
     bpin = phase("bert pinned", bert_precision_phase, ft, counters, card)
     phase("verifier", verifier_phase, ft, card)
+    # last: each engine thread that ran a matmul leaves its cuBLAS
+    # workspace (32 MiB a concurrently used handle) allocated, which no
+    # training step's peak above may count
+    tdis = phase("disaggregated serving", disagg_phase, ft, counters, card)
+    tfleet = phase("fleet", fleet_phase, ft, counters, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -4566,7 +5211,8 @@ def main() -> int:
                     "generation": tgen["fwd"],
                     "generation_reference": tgen["ref_fwd"],
                     "bert_int8_serve": tquant["fwd"],
-                    **tspec["fwd"]}, fp["fwd"]),
+                    **tspec["fwd"], **tdis["fwd"],
+                    "fleet": tfleet["fwd"]}, fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_train": ttrain["bwd"],
@@ -4583,7 +5229,8 @@ def main() -> int:
                     "bert_pinned": bpin["ln"],
                     "generation": tgen["ln"],
                     "bert_int8_serve": tquant["ln"],
-                    **tspec["ln"]}, lp),
+                    **tspec["ln"], **tdis["ln"],
+                    "fleet": tfleet["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -701,7 +701,7 @@ class FFModel:
                 raise ValueError(
                     f"weights already quantized as {self._quantized!r}")
             return self._quant_report
-        from .serving.events import event
+        from .fflogger import get_logger
         from .serving.quantize import quantize_params
         new_params, report = quantize_params(self, mode)
         self._params = new_params
@@ -710,12 +710,13 @@ class FFModel:
         # the bucket forwards closed over nothing but self; drop them so
         # no cached callable outlives the float32 parameters' shapes
         self._fwd_compiled = {}
-        event("quantize_weights", mode=mode,
-              weights=len(report["weights"]),
-              bytes_before=report["bytes_before"],
-              bytes_after=report["bytes_after"],
-              max_abs_err=report["max_abs_err"],
-              error_bound=report["error_bound"])
+        get_logger("serve").event(
+            "quantize_weights", mode=mode,
+            weights=len(report["weights"]),
+            bytes_before=report["bytes_before"],
+            bytes_after=report["bytes_after"],
+            max_abs_err=report["max_abs_err"],
+            error_bound=report["error_bound"])
         return report
 
     def _check_not_quantized(self, verb: str) -> None:

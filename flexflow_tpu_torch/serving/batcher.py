@@ -29,11 +29,11 @@ drive a fake clock through :meth:`poll` instead of sleeping.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..obs import lockwatch
 from .errors import DeadlineExceeded, OverloadError, SheddedError
 
 ADMISSION_POLICIES = ("block", "reject", "shed_oldest")
@@ -98,14 +98,16 @@ class Request:
     ``deadline`` is an absolute clock() time (None = none);
     ``priority`` the admission class; ``stale`` an optional predicate —
     True means the logical request is already resolved and the entry is
-    dropped silently at the next scan."""
+    dropped silently at the next scan; ``trace`` the request's sampled
+    trace id (``obs.trace``) or None, which only the dispatcher reads."""
 
     __slots__ = ("xs", "n", "on_done", "t_submit", "deadline", "priority",
-                 "stale")
+                 "stale", "trace")
 
     def __init__(self, xs, n: int, on_done, t_submit: float,
                  deadline: Optional[float] = None, priority: int = 0,
-                 stale: Optional[Callable[[], bool]] = None):
+                 stale: Optional[Callable[[], bool]] = None,
+                 trace: Optional[str] = None):
         self.xs = xs
         self.n = n
         self.on_done = on_done
@@ -113,6 +115,7 @@ class Request:
         self.deadline = deadline
         self.priority = int(priority)
         self.stale = stale
+        self.trace = trace
 
     @property
     def _watched(self) -> bool:
@@ -143,7 +146,7 @@ class MicroBatcher:
         self.admission = admission
         self.starvation_s = float(starvation_ms) / 1e3
         self.clock = clock
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = lockwatch.condition("MicroBatcher._cv")
         # priority class -> FIFO deque; every field below is guarded by
         # self._cv
         self._classes: Dict[int, deque] = {}
@@ -160,11 +163,14 @@ class MicroBatcher:
     def submit(self, req: Request) -> float:
         return self.submit_all((req,))
 
-    def submit_all(self, reqs: Sequence[Request]) -> float:
+    def submit_all(self, reqs: Sequence[Request],
+                   admission: Optional[str] = None) -> float:
         """Enqueue ``reqs`` atomically: every request is accepted or
         none is (closed batcher, rejected or unsheddable overload), so
         the chunks of a split request never half-enqueue.  Applies the
-        admission policy when the queue bound is set.  Returns the
+        admission policy when the queue bound is set (``admission=``
+        overrides the instance policy: the engine's injected queue
+        spikes must never block the dispatcher thread).  Returns the
         seconds spent blocked for admission."""
         if not reqs:
             return 0.0
@@ -175,6 +181,7 @@ class MicroBatcher:
                     f"request of {req.n} rows exceeds max_batch "
                     f"{self.max_batch}; split first (split_sizes)")
             total += req.n
+        policy = admission or self.admission
         blocked_s = 0.0
         shed: List[Request] = []
         overload: Optional[OverloadError] = None
@@ -186,7 +193,7 @@ class MicroBatcher:
                     raise OverloadError(
                         f"request of {total} rows exceeds the queue bound "
                         f"serve_max_queue_rows={self.max_queue_rows}")
-                if self.admission == "block":
+                if policy == "block":
                     t0 = self.clock()
                     while (self._rows + total > self.max_queue_rows
                            and not self._closed):
@@ -194,7 +201,7 @@ class MicroBatcher:
                     blocked_s = self.clock() - t0
                     if self._closed:
                         raise RuntimeError("batcher is closed")
-                elif self.admission == "reject":
+                elif policy == "reject":
                     if self._rows + total > self.max_queue_rows:
                         overload = OverloadError(
                             f"queue full ({self._rows} rows pending, "
@@ -274,6 +281,27 @@ class MicroBatcher:
             self._closed = True
             self._cv.notify_all()
 
+    def requeue(self, reqs: Sequence[Request]) -> None:
+        """Move already-admitted requests into this batcher, bypassing
+        admission: a fleet hot swap moves the outgoing engine's queue to
+        its replacement, and a router drains a downed host's queue to a
+        survivor.  Work admitted once is never judged again.  Requeued
+        requests keep their submit times."""
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            was_empty = self._count == 0
+            for req in reqs:
+                self._classes.setdefault(req.priority,
+                                         deque()).append(req)
+                self._rows += req.n
+                self._count += 1
+                if req._watched:
+                    self._watch += 1
+            self._peak_rows = max(self._peak_rows, self._rows)
+            if reqs and (was_empty or self._rows >= self.max_batch):
+                self._cv.notify_all()
+
     def fail_pending(self) -> List[Request]:
         """Atomically remove everything still queued and hand it to the
         caller (drain-timeout stragglers), oldest first."""
@@ -295,6 +323,12 @@ class MicroBatcher:
         """Pending requests (live snapshot)."""
         with self._cv:
             return self._count
+
+    @property
+    def pending_rows(self) -> int:
+        """Rows pending (live snapshot)."""
+        with self._cv:
+            return self._rows
 
     @property
     def peak_rows(self) -> int:

@@ -97,14 +97,17 @@ class GraphDecoder:
     share an instance."""
 
     def __init__(self, model, slots: int, max_seq: int,
-                 page_size: int = 0, num_pages: int = 0):
+                 page_size: int = 0, num_pages: int = 0, device=None):
         if slots < 2:
             raise ValueError(
                 f"slots must be >= 2, got {slots}: a 1-slot decode "
                 f"batch lowers matrix-vector kernels whose bits differ "
                 f"from the full forward (same floor as serve_buckets)")
         self.model = model
-        self.device = model.device
+        # the device the pools live on and the walks run on: the
+        # model's, unless an engine pins another (its own params copy)
+        self.device = (model.device if device is None
+                       else torch.device(device))
         self.slots = int(slots)
         self.max_seq = int(max_seq)
         cfg = model.config
@@ -527,10 +530,11 @@ class GraphDecoder:
     # ---- shared-instance registry --------------------------------------
     @classmethod
     def for_model(cls, model, slots: int, max_seq: int,
-                  page_size: int = 0, num_pages: int = 0
+                  page_size: int = 0, num_pages: int = 0, device=None
                   ) -> "GraphDecoder":
-        """One decoder per (model, slots, max_seq, page geometry), keyed
-        on the resolved geometry (a later config change gets its own)."""
+        """One decoder per (model, slots, max_seq, page geometry,
+        device), keyed on the resolved geometry (a later config change
+        gets its own)."""
         cfg = model.config
         ps = int(page_size
                  or getattr(cfg, "serve_kv_page", 0)
@@ -540,11 +544,12 @@ class GraphDecoder:
                    or (default_num_pages(slots, max_seq, ps)
                        if ps > 0 else 0))
         reg = model.__dict__.setdefault("_gen_decoders", {})
-        key = (int(slots), int(max_seq), ps, pool)
+        dev = model.device if device is None else torch.device(device)
+        key = (int(slots), int(max_seq), ps, pool, str(dev))
         dec = reg.get(key)
         if dec is None:
             dec = cls(model, slots, max_seq, page_size=ps,
-                      num_pages=pool)
+                      num_pages=pool, device=dev)
             reg[key] = dec
         return dec
 

@@ -36,19 +36,31 @@ priority classes.
   draft-side failure demotes the engine to plain decode, freeing the
   draft pool, and fails no stream.
 
-Not ported yet, and refused where a caller asks for them: KV page
-migration between engines (A.10b),
-``from_strategy`` (more than one device, A.8), fleet-managed dispatch
-(``begin_external_dispatch``, ``dispatch_pending``; with
-``serving/fleet/``).  ``serve_quantize`` is refused for good with the
-JAX engine's ValueError: weight quantization covers dense serving only.
-Span tracing, the flight recorder, lock instrumentation and the
-``FF_FAULT`` generation faults come with A.11.
+* **KV page migration** (disaggregated prefill/decode) — a stream
+  submitted with a ``handoff`` exports its page chain at prefill
+  completion (``pages.export_pages``: one device-to-host copy) and offers
+  it to the handoff; a decode engine's :meth:`GenerationEngine.adopt_migrated`
+  queues it, and that engine's own dispatch thread imports it
+  (``pages.import_pages``) and decodes on from where the prefill left
+  off.  A declined or failed handoff decodes co-located with one
+  ``serve_health`` event and fails no stream.
+* **Fleet mode** — :meth:`GenerationEngine.begin_external_dispatch` and
+  :meth:`GenerationEngine.dispatch_pending` let a
+  :class:`~..fleet.FleetEngine` drive the steps from its one dispatcher.
+
+Events (``gen_engine_start``, ``gen_stats``, ``gen_drain``,
+``serve_health``, ``gen_*_error``) go through
+:mod:`~flexflow_tpu_torch.fflogger`; sampled streams record spans; the
+``serve_slow_decode``, ``serve_cancel_at_token`` and ``spec_draft_fail``
+``FF_FAULT`` kinds fire at step boundaries.
+
+Not ported yet, and refused: ``from_strategy`` (more than one device,
+A.8).  ``serve_quantize`` is refused for good with the JAX engine's
+ValueError: weight quantization covers dense serving only.
 """
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
@@ -59,14 +71,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ... import faults
 from ...analysis.kv_memory import dtype_bytes, kv_page_plan
+from ...fflogger import get_logger
+from ...obs import lockwatch
+from ...obs.flight import flight_dump, get_flight
+from ...obs.registry import get_registry
+from ...obs.trace import phase_of, tracer_from_config
 from ..batcher import MicroBatcher, Request
 from ..errors import (GenerationCancelled, KVCacheExhausted, OverloadError,
                       SheddedError)
-from ..events import event
 from ..metrics import ServingMetrics, quantiles
 from .decoder import GraphDecoder
-from .pages import KVPagePool, PrefixCache
+from .pages import KVPagePool, PrefixCache, export_pages, import_pages
 from .sampling import SamplingParams
 
 _END = object()  # token-stream sentinel
@@ -75,6 +92,22 @@ _END = object()  # token-stream sentinel
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to flexflow_tpu_torch yet (ROADMAP {item})")
+
+
+def _params_on(model, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The model's parameters on ``device``: the model's own dict when it
+    lives there (engines of one model on one card share it), else a
+    copy."""
+    if _canon(device) == _canon(model.device):
+        return model._params
+    return {k: v.to(device) for k, v in model._params.items()}
+
+
+def _canon(device: torch.device) -> torch.device:
+    """``cuda`` as the index it means on this thread."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _resolve(fut: Future, out) -> bool:
@@ -100,15 +133,24 @@ class GenerationStream:
     with :class:`~..errors.GenerationCancelled`."""
 
     def __init__(self, prompt_len: int, max_new: int, t_submit: float,
-                 deadlined: bool = False,
-                 sampling: Optional[SamplingParams] = None):
+                 deadlined: bool = False, trace: Optional[str] = None,
+                 sampling: Optional[SamplingParams] = None,
+                 handoff=None):
         self.future: Future = Future()
+        # disaggregated prefill/decode: when set, the engine offers the
+        # stream's KV page chain to ``handoff(payload) -> bool`` at
+        # prefill completion.  True: a decode engine adopted the stream
+        # and this engine frees its slot; False or a raise: the stream
+        # decodes here and nothing fails.  Set at submit() by the router.
+        self.handoff = handoff
         self.prompt_len = int(prompt_len)
         self.max_new = int(max_new)
         self.t_submit = t_submit
         self.deadlined = deadlined
         # None or greedy keeps the stream on the argmax decode
         self.sampling = sampling
+        # sampled trace id (obs.trace) or None
+        self.trace = trace
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._tokens: List[int] = []  # engine-thread writes, then frozen
         self._cancelled = threading.Event()
@@ -213,21 +255,49 @@ class GenerationMetrics(ServingMetrics):
     decode step's wall time, which every active stream pays; under
     speculation a round's) percentiles, token and prefill totals, the
     speculation totals, and the engine's page-pool and speculation views
-    through ``pool_stats_fn`` and ``spec_stats_fn``."""
+    through ``pool_stats_fn`` and ``spec_stats_fn``.  The totals are
+    registry counters like every serving counter; emitted as
+    ``gen_stats`` events."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
         self._ttfts: deque = deque(maxlen=4096)  # guarded by self._lock
         self._steps: deque = deque()             # guarded by self._lock
-        self._tokens = 0                         # guarded by self._lock
-        self._prefills = 0                       # guarded by self._lock
-        # speculation totals                      guarded by self._lock
-        self._draft_dispatches = 0
-        self._spec_proposed = 0
-        self._spec_accepted = 0
-        self._spec_fallbacks = 0
+        # the engine's pool and speculation views, merged into
+        # snapshot(); only this object holds them (the registry holds
+        # no reference to it once released), so stats() keeps them
+        # after the engine stops
         self.pool_stats_fn = None
         self.spec_stats_fn = None
+        reg = get_registry()
+        kv = {"model": self.model_tag, "eng": self.eng_id}
+        labels = ("model", "eng")
+        # into self._fams too: unregister() reclaims these series with
+        # the rest
+        for key, name, text in (
+                ("tokens", "ff_gen_tokens_total",
+                 "Tokens generated (incl. the prefill's first token)"),
+                ("prefills", "ff_gen_prefills_total",
+                 "Prefill completions (stream joins)"),
+                ("draft_dispatches", "ff_gen_draft_dispatches_total",
+                 "Speculative draft dispatches (one a round)"),
+                ("spec_proposed", "ff_gen_spec_proposed_tokens_total",
+                 "Draft tokens proposed to the verifier"),
+                ("spec_accepted", "ff_gen_spec_accepted_tokens_total",
+                 "Draft tokens the verifier accepted"),
+                ("spec_fallbacks", "ff_gen_spec_fallbacks_total",
+                 "Demotions to plain decode (draft failure or "
+                 "accept-rate collapse)")):
+            self._fams[key] = reg.counter(name, text, labels)
+            self._ctr[key] = self._fams[key].labels(**kv)
+
+    @property
+    def total_tokens(self) -> int:
+        return int(self._ctr["tokens"].value)
+
+    @property
+    def total_prefills(self) -> int:
+        return int(self._ctr["prefills"].value)
 
     def _trim_steps(self, now: float) -> None:
         horizon = now - self.window_s
@@ -236,34 +306,32 @@ class GenerationMetrics(ServingMetrics):
 
     def record_ttft(self, seconds: float) -> None:
         now = self.clock()
+        self._ctr["prefills"].inc()
         with self._lock:
-            self._prefills += 1
             self._ttfts.append((now, float(seconds)))
 
     def record_decode_step(self, ntokens: int, step_s: float) -> None:
         now = self.clock()
+        self._ctr["tokens"].inc(int(ntokens))
         with self._lock:
-            self._tokens += int(ntokens)
             self._steps.append((now, int(ntokens), float(step_s)))
             self._trim_steps(now)
 
     def record_spec_round(self, proposed: int, accepted: int) -> None:
         """One speculative round: one draft dispatch, ``proposed`` draft
         tokens judged, ``accepted`` of them kept."""
-        with self._lock:
-            self._draft_dispatches += 1
-            self._spec_proposed += int(proposed)
-            self._spec_accepted += int(accepted)
+        self._ctr["draft_dispatches"].inc()
+        self._ctr["spec_proposed"].inc(int(proposed))
+        self._ctr["spec_accepted"].inc(int(accepted))
 
     def record_spec_fallback(self) -> None:
-        with self._lock:
-            self._spec_fallbacks += 1
+        self._ctr["spec_fallbacks"].inc()
 
     def record_prefill_token(self) -> None:
         """The prefill's first token counts toward tokens/s too."""
         now = self.clock()
+        self._ctr["tokens"].inc()
         with self._lock:
-            self._tokens += 1
             self._steps.append((now, 1, 0.0))
             self._trim_steps(now)
 
@@ -273,9 +341,6 @@ class GenerationMetrics(ServingMetrics):
         with self._lock:
             steps = list(self._steps)
             ttfts = [v for _, v in self._ttfts]
-            tokens, prefills = self._tokens, self._prefills
-            proposed, accepted = self._spec_proposed, self._spec_accepted
-            drafts, fallbacks = self._draft_dispatches, self._spec_fallbacks
         span = self.window_s
         if steps:
             span = min(self.window_s, max(1e-6, now - steps[0][0]))
@@ -285,26 +350,34 @@ class GenerationMetrics(ServingMetrics):
         def ms(v):
             return None if v != v else round(v * 1e3, 3)
 
+        proposed = int(self._ctr["spec_proposed"].value)
+        accepted = int(self._ctr["spec_accepted"].value)
         snap.update({
             "tokens_per_s": round(sum(s[1] for s in steps) / span, 3),
-            "tokens": tokens, "prefills": prefills,
+            "tokens": self.total_tokens, "prefills": self.total_prefills,
             "ttft_p50_ms": ms(qt[0.5]), "ttft_p95_ms": ms(qt[0.95]),
             "ttft_p99_ms": ms(qt[0.99]),
             "tpot_p50_ms": ms(qp[0.5]), "tpot_p95_ms": ms(qp[0.95]),
             "tpot_p99_ms": ms(qp[0.99]),
             # under speculation a "step" is a draft + verify round, so
             # the tpot_* percentiles are rounds; tokens_per_s compares
-            "draft_dispatches": drafts,
+            "draft_dispatches": int(self._ctr["draft_dispatches"].value),
             "spec_proposed_tokens": proposed,
             "spec_accepted_tokens": accepted,
             "accept_rate": (round(accepted / proposed, 4)
                             if proposed else 0.0),
-            "spec_fallbacks": fallbacks,
+            "spec_fallbacks": int(self._ctr["spec_fallbacks"].value),
         })
         for fn in (self.pool_stats_fn, self.spec_stats_fn):
             if fn is not None:
                 snap.update(fn())
         return snap
+
+    def emit(self, extra: Optional[Dict] = None) -> None:
+        # eng rides as an event field, as serve_stats': the cluster
+        # router's load scrape keys on it
+        get_logger("serve").event("gen_stats", eng=self.eng_id,
+                                  **self.snapshot(), **(extra or {}))
 
 
 class GenerationEngine:
@@ -325,7 +398,9 @@ class GenerationEngine:
     ``serve_prefill_chunk``, and ``serve_max_queue_rows`` /
     ``serve_admission`` / ``serve_starvation_ms`` for admission, the
     queue bound counting requests) unless given here.  The engine runs on
-    ``model.device``; ``clock`` is injectable for tests.
+    ``model.device`` unless ``device`` names another (the engine then
+    keeps its own copy of the parameters there); ``clock`` and ``sleep``
+    are injectable for tests.
 
     ``draft_model`` (compiled and initialised, on the target's device,
     with the target's vocabulary) turns on speculative decoding with
@@ -359,8 +434,9 @@ class GenerationEngine:
                  spec_gamma: Optional[int] = None,
                  spec_gamma_max: Optional[int] = None,
                  spec_policy: Optional[str] = None,
-                 metrics_window_s: float = 30.0,
-                 clock=time.monotonic, name: str = ""):
+                 stats_every: int = 32, metrics_window_s: float = 30.0,
+                 clock=time.monotonic, sleep=time.sleep,
+                 name: str = "", device=None):
         if not model._compiled or not model._params:
             raise RuntimeError("compile() + init_layers() the model first")
         cfg = model.config
@@ -380,7 +456,11 @@ class GenerationEngine:
             raise ValueError(f"spec_policy must be 'fixed' or "
                              f"'adaptive', got {policy!r}")
         self.model = model
-        self._params = model._params
+        # the device this engine's pools live on and its steps run on;
+        # two engines of one model on one card share the parameters
+        self.device = (model.device if device is None
+                       else torch.device(device))
+        self._params = _params_on(model, self.device)
         self.slots = int(slots or cfg.serve_gen_slots)
         seq_len = (model.input_tensors[0].shape[1]
                    if model.input_tensors else 0)
@@ -389,6 +469,8 @@ class GenerationEngine:
                                   or cfg.serve_gen_max_new_tokens)
         self.eos_id = eos_id
         self.clock = clock
+        self._sleep = sleep
+        self.stats_every = int(stats_every)
         self.admission = (cfg.serve_admission if admission is None
                           else admission)
         self.max_queue_requests = int(
@@ -405,9 +487,14 @@ class GenerationEngine:
             window_s=metrics_window_s, clock=clock,
             queue_depth_fn=lambda: self._batcher.queue_depth,
             model=self.name)
+        # one lock-free `active` read a step when tracing is off; flight
+        # taps installed for post-mortem dumps
+        self._tracer = tracer_from_config(cfg)
+        get_flight()
         self._decoder = GraphDecoder.for_model(
             model, self.slots, self.max_seq,
-            page_size=int(page_size or 0), num_pages=int(num_pages or 0))
+            page_size=int(page_size or 0), num_pages=int(num_pages or 0),
+            device=self.device)
         self.page_size = self._decoder.page_size
         self.num_pages = self._decoder.num_pages
         # what the memory gate charges is what the pool allocates
@@ -438,6 +525,15 @@ class GenerationEngine:
         self._table = np.full((self.slots, self._decoder.pages_per_slot),
                               self._pool.no_page, np.int32)
         self._prefill_q: deque = deque()  # (slot, _Slot) FIFO
+        # migrated-stream inbox: the router's handoff appends payloads
+        # from the SOURCE engine's thread; this engine's dispatch thread
+        # drains it at step boundaries (deque append and popleft are
+        # atomic, so no lock and no cross-engine lock edge)
+        self._adopt_q: deque = deque()
+        # per-migration wall costs (ms): export here as a source, import
+        # here as a destination
+        self.migrate_export_ms: List[float] = []
+        self.migrate_import_ms: List[float] = []
         self._caches = None
         self._n_steps = 0
         self._chunks_total = 0
@@ -449,11 +545,16 @@ class GenerationEngine:
         self._pool_high_base = 0
         self.metrics.pool_stats_fn = self._pool_stats
         self._init_spec(draft_model, spec_gamma, spec_gamma_max, policy)
+        self._gen_faults: List[Dict] = []
+        # set by each host fetch, so dispatch_pending knows whether its
+        # charged time already waited for the device
+        self._fetched = False
         # lifecycle (single use, as ServingEngine)
-        self._lifecycle = threading.Lock()
+        self._lifecycle = lockwatch.lock("GenerationEngine._lifecycle")
         self._thread: Optional[threading.Thread] = None
         self._stopped = False
         self._draining = False
+        self._finalized = False
         self._closing = threading.Event()
         self._abort = threading.Event()
         self._shutdown_done = threading.Event()
@@ -507,7 +608,8 @@ class GenerationEngine:
                     f"on {self.model.device}: both must share the device")
             self._draft_decoder = GraphDecoder.for_model(
                 draft_model, self.slots, self.max_seq,
-                page_size=self.page_size, num_pages=self.num_pages)
+                page_size=self.page_size, num_pages=self.num_pages,
+                device=self.device)
             if not self._draft_decoder.supports_chunking:
                 raise ValueError("draft model must be a chunkable "
                                  "attention graph too")
@@ -522,7 +624,7 @@ class GenerationEngine:
                 kv_dtype_bytes=dtype_bytes(cfg.compute_dtype),
                 page_size=self.page_size, num_pages=self.num_pages)
             self.draft_kv_cache_bytes = self.draft_kv_plan["total_bytes"]
-            self._draft_params = draft_model._params
+            self._draft_params = _params_on(draft_model, self.device)
             self._draft_pool = KVPagePool(self.num_pages, self.page_size)
             self._draft_table = np.full(
                 (self.slots, self._draft_decoder.pages_per_slot),
@@ -557,15 +659,6 @@ class GenerationEngine:
     def from_strategy(cls, model, strategy_file: str, mesh=None, **kw):
         raise _not_ported("GenerationEngine.from_strategy (a sharded "
                           "engine)", "A.8")
-
-    def begin_external_dispatch(self, warmup: bool = True):
-        raise _not_ported("fleet-managed dispatch", "with serving/fleet/")
-
-    def dispatch_pending(self):
-        raise _not_ported("fleet-managed dispatch", "with serving/fleet/")
-
-    def adopt_migrated(self, payload: Dict) -> bool:
-        raise _not_ported("KV page migration", "A.10b")
 
     # ---- lifecycle -----------------------------------------------------
     def _warmup(self) -> None:
@@ -625,17 +718,35 @@ class GenerationEngine:
                 if probe:
                     self._spec_costs[g] = max(1e-6, self.clock() - t0)
 
+    def _arm(self, warmup: bool, external: bool) -> None:
+        """Allocate the pools, warm the programs, read the fault plan and
+        announce the engine (``gen_engine_start``).  Lifecycle lock
+        held."""
+        self._caches = self._decoder.init_cache()
+        if self._spec_on:
+            self._draft_caches = self._draft_decoder.init_cache()
+        if warmup:
+            self._warmup()
+        self._gen_faults = _load_gen_faults()
+        get_logger("serve").event(
+            "gen_engine_start", model=self.name, slots=self.slots,
+            max_seq=self.max_seq, kv_cache_bytes=self.kv_cache_bytes,
+            kv_page_size=self.page_size, kv_num_pages=self.num_pages,
+            prefix_cache="on" if self.prefix_cache_enabled else "off",
+            prefill_chunk=self.prefill_chunk, admission=self.admission,
+            max_queue_requests=self.max_queue_requests,
+            external=external, **self._spec_stats())
+
     def start(self, warmup: bool = True) -> "GenerationEngine":
         with self._lifecycle:
             if self._stopped:
                 raise RuntimeError(
                     "engine was stopped; create a new GenerationEngine")
             if self._thread is None:
-                self._caches = self._decoder.init_cache()
-                if self._spec_on:
-                    self._draft_caches = self._draft_decoder.init_cache()
-                if warmup:
-                    self._warmup()
+                if self._caches is not None:
+                    raise RuntimeError("engine is fleet-managed "
+                                       "(begin_external_dispatch)")
+                self._arm(warmup, external=False)
                 self._thread = threading.Thread(
                     target=self._decode_loop, name="ff-generate",
                     daemon=True)
@@ -644,8 +755,9 @@ class GenerationEngine:
 
     def stop(self) -> None:
         """Close admissions, serve everything queued and in flight to
-        completion, stop the dispatcher.  Idempotent; single use.  For a
-        bounded shutdown see :meth:`drain`."""
+        completion, stop the dispatcher and emit the final stats.
+        Idempotent; single use.  For a bounded shutdown see
+        :meth:`drain`."""
         to_fail: List[Request] = []
         with self._lifecycle:
             self._closing.set()
@@ -655,6 +767,10 @@ class GenerationEngine:
                 # cannot deadlock
                 self._thread.join()
                 self._thread = None
+                if not self._finalized:
+                    self._finalized = True
+                    self.metrics.emit(extra={"final": True,
+                                             "slots": self.slots})
             else:
                 to_fail = self._batcher.fail_pending()
             self._stopped = True
@@ -662,6 +778,8 @@ class GenerationEngine:
         for r in to_fail:
             r.on_done(SheddedError("engine stopped before it was started"),
                       now)
+        # a stopped engine must not be retained by the process registry
+        self.metrics.release()
         self._shutdown_done.set()
 
     def drain(self, timeout: Optional[float] = None) -> Dict:
@@ -679,27 +797,40 @@ class GenerationEngine:
         if already:
             self._shutdown_done.wait()
             return self.stats()
+        get_logger("serve").event(
+            "gen_drain", model=self.name, timeout_s=timeout,
+            queue_depth=self._batcher.queue_depth)
+        shed = 0
         if thread is not None:
             thread.join(timeout)
             if thread.is_alive():
                 self._abort.set()
                 now = self.clock()
                 for r in self._batcher.fail_pending():
-                    r.on_done(SheddedError(
-                        f"engine drained with work still queued (drain "
-                        f"timeout {timeout}s)"), now)
+                    if r.on_done(SheddedError(
+                            f"engine drained with work still queued (drain "
+                            f"timeout {timeout}s)"), now):
+                        shed += 1
                 thread.join(timeout)
         else:
             now = self.clock()
             for r in self._batcher.fail_pending():
-                r.on_done(SheddedError(
-                    "engine drained before it was started"), now)
+                if r.on_done(SheddedError(
+                        "engine drained before it was started"), now):
+                    shed += 1
         with self._lifecycle:
             self._stopped = True
             self._draining = False
             self._thread = None
+            first = not self._finalized
+            self._finalized = True
+        snap = self.stats()
+        if first:
+            self.metrics.emit(extra={"final": True, "slots": self.slots,
+                                     "drain_shed": shed})
+        self.metrics.release()
         self._shutdown_done.set()
-        return self.stats()
+        return snap
 
     def __enter__(self) -> "GenerationEngine":
         return self.start()
@@ -707,18 +838,79 @@ class GenerationEngine:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    # ---- fleet-managed (external) dispatch -----------------------------
+    def begin_external_dispatch(self, warmup: bool = True
+                                ) -> "GenerationEngine":
+        """Fleet mode: ready the engine without its own decode thread; a
+        :class:`~..fleet.FleetEngine` drives :meth:`dispatch_pending`
+        from one shared dispatcher, interleaved with its co-resident
+        tenants.  The producer side behaves exactly as under
+        :meth:`start`."""
+        with self._lifecycle:
+            if self._stopped:
+                raise RuntimeError(
+                    "engine was stopped; create a new GenerationEngine")
+            if self._thread is not None:
+                raise RuntimeError(
+                    "engine already runs its own decode thread")
+            if self._caches is None:
+                self._arm(warmup, external=True)
+        return self
+
+    def dispatch_pending(self) -> Optional[float]:
+        """One externally driven step (fleet mode): expire queued
+        deadlines, adopt one migrated stream, join queued prompts into
+        free slots, advance prefill by at most one chunk and every active
+        stream by one token.  Returns the seconds the fleet's fair
+        scheduler charges this tenant, or None when nothing was due.  The
+        charge ends once the step's work has finished on the device: a
+        step that ended without a host fetch (a prefill chunk short of
+        the prompt's end) waits for the device first.  A failed step
+        fails the active streams; the engine serves on."""
+        t0 = self.clock()
+        self._fetched = False
+        self._batcher.reap_expired()
+        adopted = self._join_adopted()
+        self._admit()
+        progressed = self._prefill_step() or adopted
+        self._grow_active_pages()
+        if any(s is not None and not s.prefilling
+               for s in self._slots_state):
+            self._fire_slow_decode()
+            try:
+                self._step_active()
+            except Exception as e:  # noqa: BLE001 — the step's failure
+                # is the streams', not the fleet dispatcher's
+                self._recover_from_dispatch_error(e, "gen_decode_error")
+        elif not progressed:
+            return None
+        if not self._fetched and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return max(0.0, self.clock() - t0)
+
+    @property
+    def has_pending(self) -> bool:
+        """Whether an external dispatcher has work to schedule here:
+        occupied slots, queued prompts or migrated streams to adopt."""
+        return (any(s is not None for s in self._slots_state)
+                or self._batcher.queue_depth > 0
+                or len(self._adopt_q) > 0)
+
     # ---- producer side -------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                deadline_ms: Optional[float] = None, priority: int = 0,
-               sampling: Optional[SamplingParams] = None
-               ) -> GenerationStream:
+               sampling: Optional[SamplingParams] = None,
+               handoff=None) -> GenerationStream:
         """Queue one prompt (1-D int token ids) and return its
         :class:`GenerationStream`.  Thread-safe.  ``max_new_tokens`` caps
         the stream (default from config); generation also ends at
         ``eos_id``.  ``deadline_ms`` and ``priority`` behave as the dense
         engine's.  ``sampling`` selects temperature/top-k/top-p with a
         seed; None or temperature 0 is greedy argmax, and a step with no
-        sampled stream runs the argmax decode."""
+        sampled stream runs the argmax decode.  ``handoff`` (disaggregated
+        serving) is a ``callable(payload) -> bool`` offered the stream's
+        exported KV pages at prefill completion (see
+        :meth:`adopt_migrated`)."""
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if arr.size < 1:
             raise ValueError("empty prompt")
@@ -737,40 +929,60 @@ class GenerationEngine:
                 f"exceeds the KV cache length max_seq={self.max_seq}")
         t0 = self.clock()
         self.metrics.record_submitted()
+        tr = self._tracer
+        trace = tr.new_trace() if tr.active else None
         stream = GenerationStream(arr.size, max_new, t0,
                                   deadlined=deadline_ms is not None,
-                                  sampling=sampling)
+                                  trace=trace, sampling=sampling,
+                                  handoff=handoff)
         deadline = None if deadline_ms is None else t0 + deadline_ms / 1e3
         metrics = self.metrics
+        trace_term = self._trace_terminal
 
         def on_done(out, now: float) -> bool:
             # the failure paths (expiry, shed, drain, stop); success is
             # the decode loop's _finish
             if isinstance(out, BaseException) and stream._fail(out):
                 metrics.record_failure(out)
+                trace_term(stream, phase_of(out), now)
                 return True
             return False
 
         req = _GenRequest(stream, arr.copy(), on_done, t0,
                           deadline=deadline, priority=priority)
+        req.trace = trace
 
         def count_cancel(f):
             # a cancel while queued resolves through no engine path:
             # count it here (a claimed future cannot be cancelled)
             if f.cancelled():
                 metrics.record_cancelled()
+                trace_term(stream, "cancelled", self.clock())
 
         stream.future.add_done_callback(count_cancel)
         try:
             self._batcher.submit(req)
         except OverloadError:
             self.metrics.record_rejected()
+            self._trace_terminal(stream, "rejected", self.clock())
             raise
         except RuntimeError as e:
             self.metrics.record_rejected()
+            self._trace_terminal(stream, "rejected", self.clock())
             raise OverloadError(
                 f"engine is not admitting new work ({e})") from e
         return stream
+
+    def _trace_terminal(self, stream: GenerationStream, phase: str,
+                        now: float) -> None:
+        """The stream's one terminal ``request`` span (no-op for an
+        unsampled stream)."""
+        if stream.trace is None:
+            return
+        self._tracer.span(
+            "request", stream.trace, stream.t_submit, now,
+            tid=self.name or "generate", phase=phase,
+            tokens=len(stream._tokens), model=self.name)
 
     def _pool_stats(self) -> Dict:
         """The page-pool and prefix-cache view merged into stats();
@@ -831,16 +1043,19 @@ class GenerationEngine:
             # expiry at every boundary: with every slot busy _admit never
             # polls, and a deadline must fail at the deadline
             self._batcher.reap_expired()
+            self._join_adopted()
             self._admit()
             progressed = self._prefill_step()
             self._grow_active_pages()
             if any(s is not None and not s.prefilling
                    for s in self._slots_state):
+                self._fire_slow_decode()
                 try:
                     self._step_active()
                 except Exception as e:  # noqa: BLE001 — a failed step
                     # fails the active streams, not the dispatcher
-                    self._recover_from_dispatch_error(e)
+                    self._recover_from_dispatch_error(e,
+                                                      "gen_decode_error")
                 continue
             if progressed or any(s is not None
                                  for s in self._slots_state):
@@ -909,7 +1124,7 @@ class GenerationEngine:
                 self._fail_slot(slot, st, GenerationCancelled(
                     f"stream cancelled during prefill after "
                     f"{st.chunks} chunk(s); KV slot {slot} and "
-                    f"{len(st.pages)} page(s) freed"))
+                    f"{len(st.pages)} page(s) freed"), "cancelled")
                 return True
             return self._run_chunk(slot, st)
         return False
@@ -930,7 +1145,7 @@ class GenerationEngine:
                 f"no KV page free for prefill at position {start} "
                 f"(pool {self.num_pages} pages, "
                 f"{self._pool.pages_in_use} in use, prefix cache "
-                f"fully referenced)"))
+                f"fully referenced)"), "shed")
             return True
         bucket = self._decoder.prefill_bucket(chunk)
         tokens = np.zeros((1, bucket), np.int32)
@@ -942,14 +1157,17 @@ class GenerationEngine:
             first = fn(self._params, self._caches, tokens,
                        self._table[slot].copy(), slot, start, chunk)
             if final:
+                # one fetch a join, not a chunk: the first token
                 tok = int(first.cpu())
+                self._fetched = True
         except Exception as e:  # noqa: BLE001 — a failed chunk fails the
             # joining stream and (the pools may hold partial writes)
             # every stream in flight; the engine re-arms and serves on
             self._prefill_q.popleft()
             if st.stream._fail(e):
                 self.metrics.record_failure(e)
-            self._recover_from_dispatch_error(e)
+                self._trace_terminal(st.stream, "error", self.clock())
+            self._recover_from_dispatch_error(e, "gen_prefill_error")
             return True
         st.next_pos = start + chunk
         st.chunks += 1
@@ -970,10 +1188,205 @@ class GenerationEngine:
         if self._prefix is not None:
             full = max(0, (int(prompt.size) - 1) // self.page_size)
             self._prefix.insert(prompt, st.pages[:full])
+        if self._tracer.active and stream.trace is not None:
+            tname = self.name or "generate"
+            self._tracer.span("queue", stream.trace, stream.t_submit,
+                              st.t_join, tid=tname, slot=slot)
+            self._tracer.span("prefill", stream.trace, st.t_join, now,
+                              tid=tname, slot=slot, phase="target",
+                              prompt_len=int(prompt.size),
+                              prefix_hit_tokens=st.hit_tokens,
+                              prefill_chunks=st.chunks)
+        if stream.handoff is not None and not (
+                st.generated >= stream.max_new
+                or (self.eos_id is not None and tok == self.eos_id)):
+            # disaggregated serving: offer the page chain to the
+            # router's handoff.  A stream retiring at this boundary stays
+            # (its pages would ship with nothing left to decode).
+            if self._migrate_out(slot, st, now):
+                return True
         if self._spec_active():
             self._draft_prefill(slot, st)
         self._retire(slot, st, now)
         return True
+
+    # ---- disaggregated prefill/decode migration ------------------------
+    def _migrate_out(self, slot: int, st: _Slot, now: float) -> bool:
+        """Export the slot's KV pages and stream state and offer them to
+        ``stream.handoff``.  True: a decode engine adopted the stream and
+        the slot is freed (prefix pages the trie holds stay cached
+        here).  False: the stream decodes here, with one ``serve_health``
+        event and no stream failed; the slot is untouched either way
+        until adoption is confirmed.  The chain ships unpadded: torch
+        has no per-shape compile to amortize."""
+        stream = st.stream
+        t0 = self.clock()
+        try:
+            if not (self._decoder.has_attention
+                    and self._decoder.supports_chunking):
+                raise RuntimeError(
+                    "graph state is not pageable (no paged attention): "
+                    "KV migration needs a chunkable attention graph")
+            e0 = time.perf_counter()
+            host = export_pages(self._caches, st.pages, self.num_pages)
+            self.migrate_export_ms.append(
+                (time.perf_counter() - e0) * 1e3)
+            self._fetched = True
+            # the real chain's bytes
+            nbytes = sum(t.numel() * t.element_size() // int(t.shape[0])
+                         for sub in host.values()
+                         for t in sub.values()) * len(st.pages)
+            payload = {
+                "stream": stream,
+                "prompt": st.prompt,
+                "pages": host,
+                "pages_used": len(st.pages),
+                "nbytes": nbytes,
+                "page_size": self.page_size,
+                "last_token": int(st.last_token),
+                "length": int(st.length),
+                "generated": int(st.generated),
+                "source": self.name,
+            }
+            adopted = bool(stream.handoff(payload))
+        except Exception as e:  # noqa: BLE001 — a failed export or
+            # handoff costs this stream nothing but staying here
+            self._migrate_fallback(slot, e)
+            return False
+        if not adopted:
+            self._migrate_fallback(slot, None)
+            return False
+        if self._tracer.active and stream.trace is not None:
+            self._tracer.span("migrate", stream.trace, t0, self.clock(),
+                              tid=self.name or "generate", slot=slot,
+                              phase="export", pages=len(st.pages),
+                              bytes=payload["nbytes"])
+        # the destination owns the stream now: free the slot without
+        # finishing it (the trie keeps its own references)
+        self._release_slot(slot, st)
+        return True
+
+    def _migrate_fallback(self, slot: int, exc) -> None:
+        """Migration declined or failed: one ``serve_health`` event (no
+        stream fails, the stream decodes here) and a flight dump when it
+        was an error rather than a routing decision."""
+        err = ("" if exc is None
+               else f"{type(exc).__name__}: {exc}"[:300])
+        get_logger("serve").event(
+            "serve_health", model=self.name, component="migration",
+            status="fallback", slot=slot,
+            reason=("handoff_declined" if exc is None
+                    else "handoff_error"),
+            error=err, step=self._n_steps)
+        if exc is not None:
+            flight_dump("gen_migrate_error",
+                        extra={"model": self.name, "slot": slot,
+                               "error": err, "step": self._n_steps})
+
+    def adopt_migrated(self, payload: Dict) -> bool:
+        """Decode-engine side of migration: queue an
+        :func:`~.pages.export_pages` payload (with its stream state) for
+        adoption at this engine's next step boundary.  Thread-safe: the
+        source engine's thread calls it through the router's handoff.
+        The payload's pages are complete where they are (host, or this
+        engine's device after ``pages.pages_to_device``); the import runs
+        on this engine's own dispatch thread, which alone writes its
+        pools.  Returns False once the engine is stopping."""
+        with self._lifecycle:
+            if self._stopped or self._closing.is_set():
+                return False
+        self._adopt_q.append(payload)
+        return True
+
+    def _join_adopted(self) -> bool:
+        """Import one queued migrated stream into a free slot.  A payload
+        with no free slot waits at the queue head.  One adoption a step
+        boundary bounds the gap an arriving burst costs the streams in
+        flight.  True when a stream joined."""
+        if not self._adopt_q:
+            return False
+        if not any(s is None for s in self._slots_state):
+            return False
+        try:
+            payload = self._adopt_q.popleft()
+        except IndexError:
+            return False
+        self._import_migrated(payload)
+        return True
+
+    def _import_migrated(self, payload: Dict) -> None:
+        """Allocate destination pages, write the payload into them
+        (:func:`~.pages.import_pages`) and seat the stream in a free slot
+        mid-generation: decode goes on here where the source's prefill
+        stopped.  The prompt's full pages join this engine's prefix
+        trie, as a co-located join's do; an exhausted pool sheds the
+        stream, as a co-located allocation failure does."""
+        stream: GenerationStream = payload["stream"]
+        prompt = np.asarray(payload["prompt"], np.int32).reshape(-1)
+        now = self.clock()
+        slot = next((i for i, s in enumerate(self._slots_state)
+                     if s is None), None)
+        if slot is None:  # _join_adopted guards this; never strand
+            self._adopt_q.appendleft(payload)
+            return
+        first = next(iter(next(iter(payload["pages"].values())).values()))
+        need = int(payload.get("pages_used") or first.shape[0])
+        pages: List[int] = []
+        while len(pages) < need:
+            pg = self._alloc_page()
+            if pg is None:
+                break
+            pages.append(pg)
+        if len(pages) < need or int(payload["page_size"]) != \
+                self.page_size:
+            for pg in pages:
+                self._pool.release(pg)
+            exc = KVCacheExhausted(
+                f"cannot adopt migrated stream: need {need} page(s) "
+                f"of size {payload['page_size']} (pool {self.num_pages} "
+                f"pages of {self.page_size}, {self._pool.pages_in_use} "
+                f"in use)")
+            if stream._fail(exc):
+                self.metrics.record_failure(exc)
+                self._trace_terminal(stream, "shed", now)
+            return
+        try:
+            i0 = time.perf_counter()
+            import_pages(self._caches, payload["pages"], pages)
+            self.migrate_import_ms.append(
+                (time.perf_counter() - i0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — a poisoned import fails
+            # only the migrating stream (import_pages validates every
+            # leaf before its first write)
+            for pg in pages:
+                self._pool.release(pg)
+            if stream._fail(e):
+                self.metrics.record_failure(e)
+                self._trace_terminal(stream, "error", now)
+            return
+        st = _Slot(stream, prompt, [], self.page_size, now)
+        st.pages = pages
+        st.prefilling = False
+        st.length = int(payload["length"])
+        st.next_pos = st.length
+        st.last_token = int(payload["last_token"])
+        st.generated = int(payload["generated"])
+        for i, pg in enumerate(pages):
+            self._table[slot, i] = pg
+        self._slots_state[slot] = st
+        if self._tracer.active and stream.trace is not None:
+            self._tracer.span("migrate", stream.trace, now, self.clock(),
+                              tid=self.name or "generate", slot=slot,
+                              phase="import", pages=len(pages),
+                              bytes=int(payload.get("nbytes", 0)),
+                              source=str(payload.get("source", "")))
+        if self._prefix is not None:
+            full = max(0, (int(prompt.size) - 1) // self.page_size)
+            self._prefix.insert(prompt, st.pages[:full])
+        if self._spec_active():
+            # speculation composes with migration by hosting the draft
+            # with the decode engine: mirror the prompt into its cache
+            self._draft_prefill(slot, st)
 
     # ---- page bookkeeping ----------------------------------------------
     def _alloc_page(self) -> Optional[int]:
@@ -1011,7 +1424,7 @@ class GenerationEngine:
                 self._fail_slot(i, s, KVCacheExhausted(
                     f"no KV page free for decode at position "
                     f"{s.length} (pool {self.num_pages} pages, "
-                    f"{self._pool.pages_in_use} in use)"))
+                    f"{self._pool.pages_in_use} in use)"), "shed")
 
     def _release_slot(self, slot: int, st: _Slot) -> None:
         """Return the slot's pages (shared prefix pages drop one
@@ -1028,10 +1441,11 @@ class GenerationEngine:
         st.draft_pages = []
         self._slots_state[slot] = None
 
-    def _fail_slot(self, slot: int, st: _Slot,
-                   exc: BaseException) -> None:
+    def _fail_slot(self, slot: int, st: _Slot, exc: BaseException,
+                   phase: str) -> None:
         if st.stream._fail(exc):
             self.metrics.record_failure(exc)
+            self._trace_terminal(st.stream, phase, self.clock())
         self._release_slot(slot, st)
 
     # ---- decode --------------------------------------------------------
@@ -1089,6 +1503,7 @@ class GenerationEngine:
                 wp[i] = self._table[i, s.length // self.page_size]
                 wr[i] = s.length % self.page_size
                 nactive += 1
+        traced = self._tracer.active
         t0 = self.clock()
         if self._batch_sampling():
             nxt = self._decoder.decode_sampled_fn()(
@@ -1100,6 +1515,7 @@ class GenerationEngine:
                 wr)
         # THE host sync of the step, for the whole batch
         host = nxt.cpu().numpy()
+        self._fetched = True
         now = self.clock()
         self._n_steps += 1
         for i, s in enumerate(self._slots_state):
@@ -1111,7 +1527,19 @@ class GenerationEngine:
             s.last_token = tok
             s.stream._emit(tok)
             self._retire(i, s, now)
+        if traced:
+            self._tracer.span("decode_step", None, t0, now,
+                              tid=self.name or "generate",
+                              step=self._n_steps - 1, active=nactive,
+                              phase="decode")
         self.metrics.record_decode_step(nactive, now - t0)
+        self._fire_cancel_at_token(now)
+        self._maybe_emit(nactive)
+
+    def _maybe_emit(self, nactive: int) -> None:
+        if self.stats_every and self._n_steps % self.stats_every == 0:
+            self.metrics.emit(extra={"slots": self.slots,
+                                     "active": nactive})
 
     # ---- speculative round ---------------------------------------------
     def _spec_decode_once(self) -> None:
@@ -1137,13 +1565,13 @@ class GenerationEngine:
                 self._fail_slot(i, s, KVCacheExhausted(
                     f"no KV page free for a gamma={g} verify window at "
                     f"position {s.length} (pool {self.num_pages} pages, "
-                    f"{self._pool.pages_in_use} in use)"))
+                    f"{self._pool.pages_in_use} in use)"), "shed")
                 continue
             if not self._ensure_draft_pages(i, s, upto):
                 self._fail_slot(i, s, KVCacheExhausted(
                     f"no draft KV page free at position {s.length} "
                     f"(draft pool {self.num_pages} pages, "
-                    f"{self._draft_pool.pages_in_use} in use)"))
+                    f"{self._draft_pool.pages_in_use} in use)"), "shed")
         active = [(i, s) for i, s in enumerate(self._slots_state)
                   if s is not None and not s.prefilling]
         if not active:
@@ -1168,8 +1596,10 @@ class GenerationEngine:
                 dwr[t, i] = p % self.page_size
         sampled = self._batch_sampling()
         arrays = self._sampling_arrays() if sampled else ()
+        traced = self._tracer.active
         t0 = self.clock()
         try:
+            self._fire_spec_draft_fail()
             dfn = self._draft_decoder.draft_fn(g, sampled=sampled)
             drafted = dfn(self._draft_params, self._draft_caches, tokens,
                           pos, self._draft_table, dwp, dwr, *arrays)
@@ -1180,6 +1610,12 @@ class GenerationEngine:
             self._decode_once()
             return
         self._draft_steps += g
+        t1 = self.clock()
+        if traced:
+            self._tracer.span("decode_step", None, t0, t1,
+                              tid=self.name or "generate",
+                              step=self._n_steps, phase="draft",
+                              gamma=g, active=nactive)
         # a failed verify reaches the caller's containment: the target's
         # pools may hold a partial window, so its streams must fail
         vfn = self._decoder.verify_fn(g, sampled=sampled)
@@ -1193,6 +1629,7 @@ class GenerationEngine:
         # THE host sync of the round, for the whole batch: the accept
         # counts and the rows to emit in one fetch
         host = torch.cat([n_acc[:, None], out], dim=1).cpu().numpy()
+        self._fetched = True
         now = self.clock()
         self._n_steps += 1
         emitted = proposed = accepted = 0
@@ -1212,9 +1649,17 @@ class GenerationEngine:
                     break
             self._trim_slot_pages(i, s)
             self._retire(i, s, now)
+        if traced:
+            self._tracer.span("decode_step", None, t1, now,
+                              tid=self.name or "generate",
+                              step=self._n_steps - 1, phase="verify",
+                              gamma=g, active=nactive,
+                              proposed=proposed, accepted=accepted)
         self.metrics.record_spec_round(proposed, accepted)
         self.metrics.record_decode_step(emitted, now - t0)
         self._spec_account(g, proposed, accepted, now - t0)
+        self._fire_cancel_at_token(now)
+        self._maybe_emit(nactive)
 
     def _ensure_draft_pages(self, slot: int, st: _Slot,
                             upto_pos: int) -> bool:
@@ -1267,10 +1712,17 @@ class GenerationEngine:
             bucket = self._draft_decoder.prefill_bucket(size)
             tokens = np.zeros((1, bucket), np.int32)
             tokens[0, :size] = prompt
+            t0 = self.clock()
             self._draft_decoder.prefill_fn(bucket)(
                 self._draft_params, self._draft_caches, tokens,
                 self._draft_table[slot].copy(), slot, 0, size)
             self._draft_prefills += 1
+            if self._tracer.active and st.stream.trace is not None:
+                self._tracer.span("prefill", st.stream.trace, t0,
+                                  self.clock(),
+                                  tid=self.name or "generate",
+                                  slot=slot, phase="draft",
+                                  prompt_len=size)
         except Exception as e:  # noqa: BLE001 — draft side only
             self._spec_demote("draft_prefill_error", e)
 
@@ -1338,25 +1790,31 @@ class GenerationEngine:
             if s is not None:
                 s.draft_pages = []
         self.metrics.record_spec_fallback()
-        event("serve_health", level=logging.WARNING, model=self.name,
-              component="speculation", status="fallback", reason=reason,
-              error=("" if exc is None
-                     else f"{type(exc).__name__}: {exc}"[:300]),
-              step=self._n_steps,
-              accept_ewma=(round(self._accept_ewma, 4)
-                           if self._accept_ewma is not None else None))
+        get_logger("serve").event(
+            "serve_health", model=self.name, component="speculation",
+            status="fallback", reason=reason,
+            error=("" if exc is None
+                   else f"{type(exc).__name__}: {exc}"[:300]),
+            step=self._n_steps,
+            accept_ewma=(round(self._accept_ewma, 4)
+                         if self._accept_ewma is not None else None))
 
-    def _recover_from_dispatch_error(self, e: BaseException) -> None:
+    def _recover_from_dispatch_error(self, e: BaseException,
+                                     event: str) -> None:
         """A prefill or decode dispatch raised part way: the pools may
         hold a partial step, so every stream in flight and every cached
         prefix page is lost.  Fail them all, rebuild the pool, trie and
         zeroed pools (lifetime counters carry over) and keep serving the
         queue."""
+        failed = 0
+        now = self.clock()
         for i, s in enumerate(self._slots_state):
             if s is None:
                 continue
             if s.stream._fail(e):
                 self.metrics.record_failure(e)
+                self._trace_terminal(s.stream, "error", now)
+                failed += 1
             self._slots_state[i] = None
         self._prefill_q.clear()
         if self._prefix is not None:
@@ -1377,6 +1835,14 @@ class GenerationEngine:
                 (self.slots, self._draft_decoder.pages_per_slot),
                 self._draft_pool.no_page, np.int32)
             self._draft_caches = self._draft_decoder.init_cache()
+        err = f"{type(e).__name__}: {e}"[:300]
+        # event is gen_decode_error or gen_prefill_error
+        get_logger("serve").event(event, model=self.name,
+                                  step=self._n_steps, error=err,
+                                  failed_streams=failed)
+        flight_dump(event, extra={"model": self.name,
+                                  "step": self._n_steps, "error": err,
+                                  "failed_streams": failed})
 
     def _retire(self, slot: int, s: _Slot, now: float) -> None:
         """Free the slot and its pages if its stream finished or was
@@ -1385,7 +1851,8 @@ class GenerationEngine:
         if s.stream.cancelled:
             self._fail_slot(slot, s, GenerationCancelled(
                 f"stream cancelled after {s.generated} token(s); "
-                f"KV slot {slot} and {len(s.pages)} page(s) freed"))
+                f"KV slot {slot} and {len(s.pages)} page(s) freed"),
+                "cancelled")
             return
         done = s.generated >= s.stream.max_new or (
             self.eos_id is not None and s.last_token == self.eos_id)
@@ -1393,6 +1860,7 @@ class GenerationEngine:
             if s.stream._finish():
                 self.metrics.record_request(now - s.stream.t_submit,
                                             deadlined=s.stream.deadlined)
+                self._trace_terminal(s.stream, "completed", now)
             self._release_slot(slot, s)
 
     def _abort_active(self) -> None:
@@ -1401,8 +1869,61 @@ class GenerationEngine:
         for i, s in enumerate(self._slots_state):
             if s is not None:
                 self._fail_slot(i, s, SheddedError(
-                    "engine drained mid-generation (drain timeout)"))
+                    "engine drained mid-generation (drain timeout)"),
+                    "shed")
         self._prefill_q.clear()
+        now = self.clock()
+        while self._adopt_q:
+            try:
+                payload = self._adopt_q.popleft()
+            except IndexError:
+                break
+            exc = SheddedError(
+                "engine drained before adopting a migrated stream")
+            if payload["stream"]._fail(exc):
+                self.metrics.record_failure(exc)
+                self._trace_terminal(payload["stream"], "shed", now)
+
+    # ---- fault injection (FF_FAULT generation kinds) -------------------
+    def _fire_slow_decode(self) -> None:
+        for st in self._gen_faults:
+            if st["kind"] == "serve_slow_decode" and st["fired"] < st["n"]:
+                st["fired"] += 1
+                self._sleep(st["ms"] / 1e3)
+
+    def _fire_spec_draft_fail(self) -> None:
+        """``spec_draft_fail:N``: the Nth draft round raises (once), so
+        the engine demotes to plain decode and no stream fails."""
+        for st in self._gen_faults:
+            if st["kind"] == "spec_draft_fail" and not st["fired"] \
+                    and self._spec_rounds + 1 >= st["n"]:
+                st["fired"] = 1
+                raise RuntimeError(
+                    f"FF_FAULT spec_draft_fail: injected draft "
+                    f"failure at round {self._spec_rounds + 1}")
+
+    def _fire_cancel_at_token(self, now: float) -> None:
+        for st in self._gen_faults:
+            if st["kind"] != "serve_cancel_at_token" or st["fired"]:
+                continue
+            for i, s in enumerate(self._slots_state):
+                if s is not None and not s.prefilling \
+                        and s.generated >= st["n"]:
+                    st["fired"] = 1
+                    get_logger("serve").event(
+                        "gen_fault_cancel", model=self.name, slot=i,
+                        generated=s.generated, at_token=st["n"])
+                    s.stream.cancel()
+                    self._retire(i, s, now)
+                    break
+
+
+def _load_gen_faults() -> List[Dict]:
+    """The FF_FAULT generation specs as per-engine firing state (read
+    once a start)."""
+    return [{"kind": spec.kind, "n": int(spec.arg),
+             "ms": float(spec.extras.get("ms", "50")), "fired": 0}
+            for spec in faults.generation_faults()]
 
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationMetrics"]

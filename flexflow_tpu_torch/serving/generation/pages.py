@@ -19,6 +19,12 @@ and every write lands in the slot's private pages.
 :func:`alloc_pool_arrays` is the one place the pool tensors are
 allocated, from ``analysis.kv_memory.kv_cache_layout``, so the bytes
 allocated are the bytes ``kv_page_plan`` accounts.
+
+:func:`export_pages` and :func:`import_pages` move a slot's page chain
+between two engines' pools (disaggregated prefill/decode): one packed
+device-to-host copy on the source, one host-to-device copy
+(:func:`pages_to_device`) and one in-place row scatter per leaf on the
+destination.
 """
 
 from __future__ import annotations
@@ -265,4 +271,171 @@ def alloc_pool_arrays(layout: Dict[str, Dict], device,
     return caches
 
 
-__all__ = ["KVPagePool", "PrefixCache", "alloc_pool_arrays"]
+# segment alignment inside a packed migration buffer: every leaf starts
+# on a 16-byte boundary, so its bytes view back as any element type
+_ALIGN = 16
+
+
+def _nbytes(dtype: torch.dtype, shape) -> int:
+    n = dtype.itemsize
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _packed_layout(metas) -> Tuple[List[int], int]:
+    """Byte offsets of the leaves ``metas`` (dtype, shape) in one packed
+    buffer, each aligned to ``_ALIGN``, and the buffer's size."""
+    offs, off = [], 0
+    for dtype, shape in metas:
+        offs.append(off)
+        off += -(-_nbytes(dtype, shape) // _ALIGN) * _ALIGN
+    return offs, off
+
+
+def _unpack(buf: torch.Tensor, metas, offs):
+    """Views of the uint8 ``buf`` as the leaves ``metas`` (dtype, shape)
+    describe, at ``offs``."""
+    return [buf[off:off + _nbytes(dtype, shape)].view(dtype).view(shape)
+            for (dtype, shape), off in zip(metas, offs)]
+
+
+def _tree_leaves(tree) -> List[Tuple[str, str, torch.Tensor]]:
+    return [(name, leaf, t) for name, sub in tree.items()
+            for leaf, t in sub.items()]
+
+
+def _tree_from(names, values) -> Dict[str, Dict[str, torch.Tensor]]:
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (name, leaf), v in zip(names, values):
+        out.setdefault(name, {})[leaf] = v
+    return out
+
+
+def export_pages(caches, pages: List[int], num_pages: int,
+                 pad_to: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Gather a slot's page rows out of every pool leaf and bring them to
+    the host in one copy: the export half of KV page migration.  ``pages``
+    is the slot's page-id chain in order.  Every leaf must be page-major
+    (``shape[0] == num_pages``), which holds exactly for the attention
+    K/V pools; an LSTM ``state`` leaf is slot-major and raises
+    ValueError before anything is gathered.
+
+    ``pad_to`` pads the chain to that many rows by repeating the last
+    page id (the JAX package pads to one shape per pool geometry for its
+    compile cache); :func:`import_pages` pads its destination ids the
+    same way, and the real length travels beside the payload.
+
+    The rows are gathered on the device straight into one packed buffer
+    (one ``index_select`` per leaf), and that buffer is copied to the
+    host once: one device-to-host copy and one wait a migration, however
+    many layers.  Returns ``{op: {leaf: CPU tensor (rows, ...)}}``, views
+    of one host buffer that the payload owns (nothing reuses it)."""
+    for name, leaf, arr in _tree_leaves(caches):
+        if arr.shape[0] != num_pages:
+            raise ValueError(
+                f"cache leaf {name}.{leaf} is not page-major "
+                f"(shape {tuple(arr.shape)}, pool has {num_pages} "
+                f"pages): this graph's state cannot migrate")
+    ids = [int(p) for p in pages]
+    if not ids:
+        raise ValueError("export_pages needs at least one page")
+    if pad_to > len(ids):
+        ids += [ids[-1]] * (pad_to - len(ids))
+    items = _tree_leaves(caches)
+    device = items[0][2].device
+    idx = torch.tensor(ids, dtype=torch.long, device=device)
+    metas = [(arr.dtype, (len(ids),) + tuple(arr.shape[1:]))
+             for _, _, arr in items]
+    offs, total = _packed_layout(metas)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    for (_, _, arr), dst in zip(items, _unpack(buf, metas, offs)):
+        torch.index_select(arr, 0, idx, out=dst)
+    host = buf.cpu()  # THE device-to-host copy of the migration
+    return _tree_from([(n, lf) for n, lf, _ in items],
+                      _unpack(host, metas, offs))
+
+
+def pages_to_device(payload, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An :func:`export_pages` payload on ``device`` in one host-to-device
+    copy: the leaves are packed into one host buffer (pinned for a card),
+    copied on a side stream, and the copy has completed when this
+    returns, so the caller may hand the result to another thread.  A
+    payload already on ``device`` comes back as it is."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    items = _tree_leaves(payload)
+    if all(t.device == device for _, _, t in items):
+        return payload
+    metas = [(t.dtype, tuple(t.shape)) for _, _, t in items]
+    offs, total = _packed_layout(metas)
+    cuda = device.type == "cuda"
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+    for (_, _, t), dst in zip(items, _unpack(host, metas, offs)):
+        dst.copy_(t)
+    if cuda:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            dev = host.to(device, non_blocking=True)
+        stream.synchronize()
+    else:
+        dev = host.to(device)
+    return _tree_from([(n, lf) for n, lf, _ in items],
+                      _unpack(dev, metas, offs))
+
+
+def import_pages(caches, payload, pages: List[int]):
+    """Write an :func:`export_pages` payload into ``pages`` (freshly
+    allocated destination ids, one per exported page, in order) of the
+    destination pools, in place: the import half of KV page migration.
+    Returns ``caches``.
+
+    A payload with more rows than ``pages`` was padded at export: the
+    destination ids are padded the same way (repeating the last real id),
+    so the duplicate positions rewrite the last real page with its own
+    row.  Every leaf is validated before the first write, so a payload
+    of another graph or page geometry leaves the pools untouched.  Leaves
+    not yet on the pools' device go there in one copy
+    (:func:`pages_to_device`); leaves already there are used as they
+    are."""
+    ids = [int(p) for p in pages]
+    if not ids:
+        raise ValueError("import_pages needs at least one page")
+    items = _tree_leaves(payload)
+    rows0 = int(items[0][2].shape[0]) if items else len(ids)
+    if rows0 > len(ids):
+        ids += [ids[-1]] * (rows0 - len(ids))
+    for name, sub in caches.items():
+        rows = payload.get(name) if isinstance(payload, dict) else None
+        if rows is None or set(rows) != set(sub):
+            raise ValueError(
+                f"migration payload does not cover cache op {name!r}: "
+                f"source and destination graphs differ")
+        for leaf, arr in sub.items():
+            val = rows[leaf]
+            if tuple(val.shape[1:]) != tuple(arr.shape[1:]) \
+                    or val.shape[0] != len(ids):
+                raise ValueError(
+                    f"migration payload {name}.{leaf} shape "
+                    f"{tuple(val.shape)} does not fit destination pool "
+                    f"leaf {tuple(arr.shape)} over {len(ids)} page(s): "
+                    f"page geometry must match across engines")
+    if not caches:
+        return caches
+    device = next(iter(next(iter(caches.values())).values())).device
+    dev = pages_to_device({n: payload[n] for n in caches}, device)
+    idx = torch.tensor(ids, dtype=torch.long, device=device)
+    for name, sub in caches.items():
+        for leaf, arr in sub.items():
+            val = dev[name][leaf]
+            arr.index_copy_(0, idx, val.to(arr.dtype))
+            if device.type == "cuda":
+                # the rows may come from a side stream's allocation:
+                # keep its block alive until this stream has read it
+                val.record_stream(torch.cuda.current_stream(device))
+    return caches
+
+
+__all__ = ["KVPagePool", "PrefixCache", "alloc_pool_arrays",
+           "export_pages", "import_pages", "pages_to_device"]

@@ -4,7 +4,8 @@ that pairs them, the flash-attention forward and backward kernels, and
 the fused LayerNorm kernel); and the zoo's ops on the card against the
 CPU: the Embedding's id rules, the sparse embedding update against the
 dense one, and the LSTM; host-placed embedding tables and a bf16-pinned
-attention under a strategy.  The bf16/f16 flash kernels load by TMA, so
+attention under a strategy; KV page migration (one device-to-host copy
+an export) and the disaggregated pair's tokens against the CPU's.  The bf16/f16 flash kernels load by TMA, so
 the flash cases include head dims that are not a multiple of 8 and
 unaligned storage, which the wrapper pads and copies.
 
@@ -1292,3 +1293,103 @@ def test_speculative_generation_on_the_card_equals_the_cpu(no_tf32):
                 got["plain"] = [s.result(timeout=300).tolist()
                                 for s in [eng.submit(p) for p in prompts]]
     assert got["cuda"] == got["cpu"] == got["plain"]
+
+
+def test_disaggregated_tokens_on_the_card_equal_the_cpu(no_tf32):
+    """A small float32 LM through the port's ``build_disagg`` on the card:
+    every stream migrates, the tokens equal a co-located engine's on the
+    card and the disaggregated pair's on the CPU, and both pools drain."""
+    import time
+
+    import numpy as np
+
+    from flexflow_tpu_torch.fflogger import silenced
+    from flexflow_tpu_torch.serving.cluster import build_disagg
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 97, n) for n in (5, 20, 33, 9)]
+    cuda_model = _gen_lm("cuda")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = cuda_model if dev == "cuda" else _gen_lm("cpu")
+        if dev == "cpu":
+            for p in cuda_model.parameters:
+                m.set_weights(p.name, cuda_model.get_weights(p.name))
+        with silenced("serve"):
+            router, fleets, (pf, dc) = build_disagg(m, 2, 64, 8)
+        try:
+            with silenced("serve"):
+                got[dev] = [router.submit("lm", p, max_new_tokens=12)
+                            .result(timeout=300).tolist() for p in prompts]
+            assert router.stats()["migrations"] == len(prompts)
+            deadline = time.monotonic() + 30
+            while pf._pool.pages_in_use or dc._pool.pages_in_use:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+        finally:
+            with silenced("serve"):
+                router.stop()
+                for f in fleets:
+                    f.stop()
+    import flexflow_tpu_torch as ft
+    with silenced("serve"), ft.GenerationEngine(
+            cuda_model, slots=2, max_seq=64, prefill_chunk=8,
+            prefix_cache="off") as eng:
+        colo = [eng.submit(p, max_new_tokens=12).result(timeout=300)
+                .tolist() for p in prompts]
+    assert got["cuda"] == got["cpu"] == colo
+
+
+def test_export_pages_makes_one_device_to_host_copy(gen):
+    """``export_pages`` gathers every leaf into one packed buffer and
+    copies it to the host once; ``pages_to_device`` then ``import_pages``
+    write the rows back bit for bit, and a payload of another geometry
+    leaves the destination pool untouched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from flexflow_tpu_torch.serving.generation.pages import (
+        export_pages, import_pages, pages_to_device)
+
+    class DeviceToHost(TorchDispatchMode):
+        """The bytes of each op that reads a card's tensor and returns a
+        host one, seen at the dispatcher (the profiler's device copies
+        came and went between runs of one process on an H100)."""
+        def __init__(self):
+            super().__init__()
+            self.copies = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in args if isinstance(t, torch.Tensor)]
+            if isinstance(out, torch.Tensor) and out.device.type == "cpu" \
+                    and any(t.is_cuda for t in ins):
+                self.copies.append(out.numel() * out.element_size())
+            return out
+
+    def pool():
+        return {f"attn{i}": {
+            leaf: torch.randn((12, 16, 4, 8), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            for leaf in ("k", "v")} for i in range(3)}
+
+    src, dst = pool(), pool()
+    torch.cuda.synchronize()
+    with DeviceToHost() as mode:
+        host = export_pages(src, [7, 2, 9], 12)
+    # 3 pages x 6 leaves x 16 x 4 x 8 bf16
+    assert mode.copies == [3 * 6 * 16 * 4 * 8 * 2]
+    assert all(t.device.type == "cpu" for sub in host.values()
+               for t in sub.values())
+    dev = pages_to_device(host, "cuda")
+    before = {n: {k: v.clone() for k, v in sub.items()}
+              for n, sub in dst.items()}
+    bad = dict(dev, attn0={"k": dev["attn0"]["k"][:, :8],
+                           "v": dev["attn0"]["v"]})
+    with pytest.raises(ValueError):
+        import_pages(dst, bad, [0, 1, 4])
+    assert all(torch.equal(dst[n][k], before[n][k])
+               for n in dst for k in dst[n])
+    import_pages(dst, dev, [0, 1, 4])
+    for n in src:
+        for k in src[n]:
+            assert torch.equal(dst[n][k][[0, 1, 4]], src[n][k][[7, 2, 9]])

@@ -10,8 +10,8 @@ prefix cache on and off and with whole and chunked prefill.  Then the
 engine's own behaviour: EOS, continuous batching, cancel while queued,
 mid-stream and during prefill, a queued deadline, admission reject, KV
 exhaustion shedding one stream, prefix eviction under pool pressure,
-the decoder's refusals, the features not ported yet and the JAX
-engine's refusals (``serve_quantize``; an unknown ``spec_policy``), a
+the decoder's refusals, the feature not ported yet, fleet-managed
+dispatch, and the JAX engine's refusals (``serve_quantize``; an unknown ``spec_policy``), a
 draft model served (speculative decoding, ``tests/test_torch_speculative.py``
 holds it in full), and
 ``serve_spec_gamma=2`` without a draft served as plain decode; sampled decode
@@ -370,12 +370,18 @@ def test_unported_features_are_refused(lms, prompts, refs):
         GenerationEngine(model, slots=2, spec_gamma=2, spec_policy="greedy")
     with pytest.raises(NotImplementedError, match="A.8"):
         GenerationEngine.from_strategy(model, "s.pb")
-    eng = GenerationEngine(model, slots=2)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        eng.begin_external_dispatch()
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        eng.adopt_migrated({})
+    # fleet-managed dispatch and KV page migration are ported: an
+    # externally driven engine serves the reference tokens, and a
+    # stopped engine declines a migrated stream
+    eng = GenerationEngine(model, slots=2, max_new_tokens=6)
+    eng.begin_external_dispatch()
+    stream = eng.submit(prompts[0])
+    while not stream.future.done():
+        assert eng.dispatch_pending() is not None
+    assert [int(t) for t in stream.result()] == refs[0][0]
+    assert eng.dispatch_pending() is None
     eng.stop()
+    assert eng.adopt_migrated({}) is False
     # refused for good, with the JAX engine's error, on the config and
     # on a model that carries the quantized mark
     model.config.serve_quantize = "int8"

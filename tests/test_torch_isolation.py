@@ -101,3 +101,40 @@ def test_the_training_loop_slice_modules_are_checked(module):
     assert module in _modules()
     path = os.path.join(REPO, *module.split(".")) + ".py"
     assert path in _port_sources()
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.fflogger", "flexflow_tpu_torch.faults",
+    "flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.events",
+    "flexflow_tpu_torch.obs.flight", "flexflow_tpu_torch.obs.lockwatch",
+    "flexflow_tpu_torch.obs.registry", "flexflow_tpu_torch.obs.trace",
+    "flexflow_tpu_torch.serving.metrics",
+    "flexflow_tpu_torch.serving.batcher",
+    "flexflow_tpu_torch.serving.engine",
+    "flexflow_tpu_torch.serving.generation.pages",
+    "flexflow_tpu_torch.serving.generation.engine",
+    "flexflow_tpu_torch.serving.fleet",
+    "flexflow_tpu_torch.serving.fleet.registry",
+    "flexflow_tpu_torch.serving.fleet.autoscale",
+    "flexflow_tpu_torch.serving.fleet.gate",
+    "flexflow_tpu_torch.serving.fleet.engine",
+    "flexflow_tpu_torch.serving.cluster",
+    "flexflow_tpu_torch.serving.cluster.router",
+    "flexflow_tpu_torch.serving.cluster.bench"])
+def test_the_fleet_and_cluster_slice_modules_are_checked(module):
+    """The serving fleet, disaggregated-serving and event-layer slice's
+    modules (the port's own copies of the host-only ``fflogger``,
+    ``faults`` and ``obs`` among them) are among those the import and
+    parse tests above check."""
+    assert module in _modules()
+    path = os.path.join(REPO, *module.split("."))
+    if os.path.isdir(path):
+        path = os.path.join(path, "__init__")
+    assert path + ".py" in _port_sources()
+
+
+def test_faults_never_names_jax():
+    """The port's fault switchboard resolves ranks through
+    torch.distributed; no line of it names jax."""
+    with open(os.path.join(PKG, "faults.py"), encoding="utf-8") as f:
+        assert "jax" not in f.read()

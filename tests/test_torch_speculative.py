@@ -27,7 +27,6 @@ the JAX texts.
 """
 
 import gc
-import logging
 import weakref
 
 import jax
@@ -48,6 +47,7 @@ from flexflow_tpu.serving.generation import sampling as jsampling
 from flexflow_tpu.tensor import Tensor as JaxTensor
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch import interop
+from flexflow_tpu_torch.fflogger import capture_events
 from flexflow_tpu_torch.op import OpContext
 from flexflow_tpu_torch.ops.attention import (MultiHeadAttention,
                                               PositionEmbedding)
@@ -411,20 +411,19 @@ def test_spec_prefix_cache_keeps_tokens(lms, draft_lm, cache):
     assert snap["accept_rate"] == 1.0
 
 
-def _serve_events(caplog):
-    return [r.ff_fields for r in caplog.records
-            if getattr(r, "ff_event", "") == "serve_health"
-            and r.ff_fields.get("component") == "speculation"]
+def _serve_events(events):
+    return [e for e in events if e["event"] == "serve_health"
+            and e.get("component") == "speculation"]
 
 
 def test_spec_accept_collapse_demotes_to_plain(lms, draft_off, prompts,
-                                               plain, monkeypatch, caplog):
+                                               plain, monkeypatch):
     monkeypatch.setattr(GenerationEngine, "_SPEC_COLLAPSE_MIN_PROPOSED", 8)
     monkeypatch.setattr(GenerationEngine, "_SPEC_COLLAPSE_ACCEPT", 0.9)
     refs = [reference_decode(lms[1], p, 8) for p in prompts[:3]]
     eng = GenerationEngine(lms[1], slots=2, draft_model=draft_off[1],
                            spec_gamma=4)
-    with caplog.at_level(logging.INFO, logger="flexflow_tpu_torch.serve"):
+    with capture_events("serve") as events:
         with eng:
             pool = weakref.ref(next(iter(
                 eng._draft_caches.values()))["k"])
@@ -435,7 +434,7 @@ def test_spec_accept_collapse_demotes_to_plain(lms, draft_off, prompts,
     assert outs == refs
     assert snap["spec"] == "fallback" and snap["spec_fallbacks"] == 1
     assert snap["errors"] == 0 and snap["draft_kv_cache_bytes"] == 0
-    ev = _serve_events(caplog)
+    ev = _serve_events(events)
     assert len(ev) == 1
     assert ev[0]["reason"] == "accept_collapse"
     assert ev[0]["status"] == "fallback"
@@ -447,7 +446,7 @@ def test_spec_accept_collapse_demotes_to_plain(lms, draft_off, prompts,
 
 
 def test_draft_failure_demotes_and_fails_no_stream(lms, draft_lm, prompts,
-                                                   monkeypatch, caplog):
+                                                   monkeypatch):
     eng = GenerationEngine(lms[1], slots=2, draft_model=draft_lm[1],
                            spec_gamma=2)
     calls = {"n": 0}
@@ -463,7 +462,7 @@ def test_draft_failure_demotes_and_fails_no_stream(lms, draft_lm, prompts,
             return fn(*a)
         return wrapped
 
-    with caplog.at_level(logging.INFO, logger="flexflow_tpu_torch.serve"):
+    with capture_events("serve") as events:
         with eng:
             monkeypatch.setattr(eng._draft_decoder, "draft_fn", failing)
             streams = [eng.submit(p, max_new_tokens=8) for p in prompts[:2]]
@@ -472,7 +471,7 @@ def test_draft_failure_demotes_and_fails_no_stream(lms, draft_lm, prompts,
     assert outs == [reference_decode(lms[1], p, 8) for p in prompts[:2]]
     snap = eng.stats()
     assert snap["spec"] == "fallback" and snap["errors"] == 0
-    ev = _serve_events(caplog)
+    ev = _serve_events(events)
     assert [e["reason"] for e in ev] == ["draft_error"]
     assert "draft step lost" in ev[0]["error"]
 
@@ -594,8 +593,8 @@ def test_spec_config_validation(lms, draft_lm):
         GenerationEngine(lstm, slots=2, draft_model=dm, spec_gamma=2)
     with pytest.raises(ValueError, match="chunkable"):
         GenerationEngine(tm, slots=2, draft_model=lstm, spec_gamma=2)
-    # KV migration stays refused, naming its item
+    # KV migration is ported (tests/test_torch_cluster.py holds it): a
+    # stopped speculating engine declines a migrated stream
     eng = GenerationEngine(tm, slots=2, draft_model=dm, spec_gamma=2)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        eng.adopt_migrated({})
     eng.stop()
+    assert eng.adopt_migrated({}) is False
