@@ -174,6 +174,24 @@
    standalone engines', each tenant's charged device seconds, 12 flash
    and 24 LayerNorm launches a BERT dispatch and 24 LayerNorm launches an
    LM dispatch;
+17d. mesh phase: four ranks on the one card over gloo
+   (``"cpu:gloo,cuda:gloo"``: NCCL refuses two ranks on one GPU), each
+   on ``cuda:0``, run the multichip dryrun's CNN at {"n": 2, "c": 2} and
+   a 2-layer transformer with the dryrun's strategies at {"s": 2, "c":
+   2} (ring attention) and {"n": 2, "c": 2} (heads split), float32, one
+   step each; full-width AlexNet (229 px, batch 64, bf16, conv on n,
+   dense on n x c, 2 SGD steps) at {"n": 2, "c": 2}; BERT-base (bf16,
+   batch 16, Adam 1e-4) one step at {"n": 2, "c": 2} and one at {"s": 2,
+   "c": 2}.  Each rank counts each step's kernel launches (3 + 3 pool
+   launches an AlexNet step; 12 + 12 flash and 24 LayerNorm a BERT step
+   on 6 local heads; 24 LayerNorm and no flash under the ring), its
+   step's wall and busy ms and its collectives (calls, bytes, and which
+   were staged through pinned host memory); each rank's pools are
+   bit-equal to the plain version on its shard.  Then this process runs
+   each on one rank: the float32 mesh steps equal it within rtol 1e-4,
+   the bf16 ones within 15% by the L2 norm of the change (the first
+   moment under Adam).  Then a one-rank group on the default backend
+   (NCCL): a {"n": 1} mesh step bit-equal to the step without a mesh;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -5007,6 +5025,408 @@ def fleet_phase(ft, counters, card) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the mesh phase: MESH_WORLD ranks on the one card
+# ----------------------------------------------------------------------
+# four ranks share the card: NCCL refuses two ranks on one GPU, so the
+# phase names gloo for both device types itself
+MESH_WORLD = 4
+MESH_BACKEND = "cpu:gloo,cuda:gloo"
+# the float32 twins' mesh step against the one-rank step
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+# the bf16 runs: the L2 norm of the difference of the mesh's and the one
+# rank's change of a state over all trainable parameters, within this
+# share of the one rank's change (ROADMAP C: the rule the ResNet-50
+# step is held by).  SGD's state is the parameters; under Adam, whose
+# first step moves every parameter by about alpha whatever its
+# gradient, the state held is the first moment, (1 - beta1) times the
+# gradient after one step, and the parameters' share is printed
+MESH_L2_SHARE = 0.15
+MESH_TIMEOUT = 600
+
+
+def mesh_pc(ft, dims):
+    return ft.ParallelConfig(dims=tuple(dims),
+                             device_ids=tuple(range(math.prod(dims))))
+
+
+def mesh_tf_strategies(ft, layers: int, attention, ffn_up) -> dict:
+    out = {}
+    for i in range(layers):
+        out[f"attention_{i}"] = mesh_pc(ft, attention)
+        out[f"ffn_up_{i}"] = mesh_pc(ft, ffn_up)
+    return out
+
+
+# the runs of the phase: mesh shape, the kernels expected a step on
+# each rank (pool forward, pool backward, flash forward, flash backward,
+# LayerNorm) and the steps.  "cnn_f32" is the multichip dryrun's CNN
+# (__graft_entry__.py), "tf_f32_*" a 2-layer transformer with the
+# dryrun's strategies; both float32, held at MESH_RTOL.  AlexNet (229 px,
+# batch 64) and BERT-base (batch 16, s 512) run bf16 at full width
+MESH_RUNS = {
+    "cnn_f32": ({"n": 2, "c": 2}, (1, 1, 0, 0, 0), 1),
+    "tf_f32_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 4), 1),
+    "tf_f32_n2c2": ({"n": 2, "c": 2}, (0, 0, 2, 2, 4), 1),
+    "alexnet": ({"n": 2, "c": 2}, (3, 3, 0, 0, 0), 2),
+    "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 12, 12, 24), 1),
+    "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 24), 1),
+}
+MESH_TF_F32 = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128,
+                   seq_len=32, vocab_size=128, num_classes=4)
+
+
+def mesh_model(ft, name: str, mesh=None, strategies: bool = True):
+    """The run's model, compiled (on ``mesh`` when given; without its
+    strategies when ``strategies`` is False), its parameters from SEED,
+    and its batch."""
+    import numpy as np
+    from flexflow_tpu_torch.models import build_alexnet, build_transformer
+
+    rng = np.random.default_rng(SEED)
+    if name == "cnn_f32":
+        cfg = ft.FFConfig(batch_size=8, compute_dtype="float32", seed=SEED)
+        cfg.strategies = {"conv2d": mesh_pc(ft, (2, 1, 1, 1)),
+                          "dense": mesh_pc(ft, (2, 2)),
+                          "dense_1": mesh_pc(ft, (2, 2))}
+        model = ft.FFModel(cfg)
+        x = model.create_tensor((8, 3, 16, 16), name="img")
+        t = model.conv2d(x, 8, 3, 3, 1, 1, 1, 1, activation="relu")
+        t = model.pool2d(t, 2, 2, 2, 2, 0, 0)
+        t = model.flat(t)
+        t = model.dense(t, 32, activation="relu")
+        logits = model.dense(t, 8)
+        opt = ft.SGDOptimizer(lr=0.05, momentum=0.9)
+        batch = (rng.standard_normal((8, 3, 16, 16), dtype=np.float32),
+                 rng.integers(0, 8, (8, 1)).astype(np.int32))
+    elif name == "alexnet":
+        cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16",
+                          seed=SEED)
+        cfg.strategies = {n: mesh_pc(ft, (2, 1, 1, 1)) for n in (
+            "conv2d", "conv2d_1", "conv2d_2", "conv2d_3", "conv2d_4")}
+        cfg.strategies.update({n: mesh_pc(ft, (2, 2))
+                               for n in ("dense", "dense_1", "dense_2")})
+        model, _, logits = build_alexnet(cfg, num_classes=10,
+                                         image_size=229)
+        opt = ft.SGDOptimizer(lr=0.01, momentum=0.9)
+        batch = (rng.standard_normal((BATCH, 3, 229, 229),
+                                     dtype=np.float32),
+                 rng.integers(0, 10, (BATCH, 1)).astype(np.int32))
+    else:
+        bert = name.startswith("bert")
+        arch = BERT if bert else MESH_TF_F32
+        batch_size = BERT_BATCH if bert else 4
+        cfg = ft.FFConfig(batch_size=batch_size, seed=SEED,
+                          compute_dtype="bfloat16" if bert else "float32")
+        split = (((1, 2, 1), (1, 1, 2)) if name.endswith("s2c2")
+                 else ((2, 1, 2), (2, 1, 2)))
+        cfg.strategies = mesh_tf_strategies(ft, arch["num_layers"], *split)
+        model, _, logits = build_transformer(cfg, **arch)
+        opt = (ft.AdamOptimizer(alpha=1e-4) if bert
+               else ft.SGDOptimizer(lr=0.05))
+        batch = (rng.integers(0, arch["vocab_size"],
+                              (batch_size, arch["seq_len"])).astype(np.int32),
+                 rng.integers(0, arch["num_classes"],
+                              (batch_size, 1)).astype(np.int32))
+    if not strategies:
+        model.config.strategies = {}
+    model.compile(opt, metrics=["accuracy"], final_tensor=logits, mesh=mesh)
+    model.init_layers(seed=SEED)
+    return model, batch
+
+
+def mesh_state(model, bf16: bool) -> dict:
+    """The state a run is held by: the parameters, or under Adam the
+    first moment (full values, gathered: every rank calls it)."""
+    import numpy as np
+    from flexflow_tpu_torch.parallel.sharding import gather
+    from flexflow_tpu_torch.model import to_host
+
+    names = sorted(model._trainable_names())
+    out = {f"param/{k}": model.get_weights(k) for k in names}
+    if bf16 and "m" in (model._opt_state or {}):
+        out.update({f"m/{k}": np.array(to_host(gather(
+            model._opt_state["m"][k]))) for k in names})
+    return out
+
+
+def busy_ms(fn) -> float:
+    """Device busy time of one call of ``fn`` (the sum of its kernels'
+    device time, torch profiler), or NaN where the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 if total else float("nan")
+
+
+def mesh_pool_check(model, batch, cuda_pool) -> int:
+    """Each rank's local pool outputs against the plain version on the
+    same local shard, bit-equal; returns the pools checked (these
+    launches are not the path's: the counts were read before)."""
+    import torch
+    from flexflow_tpu_torch.model import _mesh_context
+    from flexflow_tpu_torch.ops.conv import Pool2D
+
+    with torch.no_grad(), _mesh_context(True):
+        vals = model._forward_values(model._params,
+                                     model._to_device(batch[:1]))
+    pools = [op for op in model.layers if isinstance(op, Pool2D)]
+    for op in pools:
+        xl = vals[op.inputs[0].uid].to_local().contiguous(
+            memory_format=torch.channels_last)
+        y = cuda_pool.max_pool_nhwc(xl, op.kernel, op.stride, op.padding)
+        ref = cuda_pool.max_pool_nhwc_reference(xl, op.kernel, op.stride,
+                                                op.padding)
+        assert_bit_equal(y, ref, f"{op.name} on the rank's shard")
+        got = vals[op.outputs[0].uid].to_local()
+        assert_bit_equal(got.contiguous(memory_format=torch.channels_last),
+                         y, f"{op.name} output on the rank's shard")
+    return len(pools)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of the mesh phase: ``chip_smoke.py --mesh-rank <rank>
+    <dir>``.  Runs every MESH_RUNS entry on its mesh, prints its lines
+    and writes ``rank<r>.json`` (and, rank 0, each run's state)."""
+    rank, workdir = int(argv[0]), argv[1]
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
+    from flexflow_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    ft.initialize_distributed(
+        init_method="file://" + os.path.join(workdir, "store"),
+        world_size=MESH_WORLD, rank=rank, backend=MESH_BACKEND)
+    counters = (cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward,
+                cuda_attention.flash_attention_forward,
+                cuda_attention.flash_attention_backward,
+                cuda_norm.fused_layernorm)
+    card = card_line()
+    record = {}
+    for name, (shape, want, steps) in MESH_RUNS.items():
+        mesh = ft.MachineMesh(shape)
+        model, batch = mesh_model(ft, name, mesh)
+        bf16 = model.config.compute_dtype == "bfloat16"
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}-init.npz"),
+                     **mesh_state(model, False))
+        else:
+            mesh_state(model, False)
+        distributed.collectives.clear()
+        losses, launches, walls = [], [], []
+        for step in range(steps):
+            reset_counts(*counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == steps - 1:
+                busy = busy_ms(lambda: losses.append(
+                    float(model.train_batch(*batch))))
+            else:
+                losses.append(float(model.train_batch(*batch)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append([f.launches for f in counters])
+            assert tuple(launches[-1]) == want, (
+                f"{name} rank {rank} step {step}: launches {launches[-1]} "
+                f"(pool fwd, pool bwd, flash fwd, flash bwd, layernorm), "
+                f"want {want}")
+        colls = {k: dict(v) for k, v in distributed.collectives.items()}
+        pools = (mesh_pool_check(model, batch, cuda_pool)
+                 if name in ("alexnet", "cnn_f32") else 0)
+        state = mesh_state(model, bf16)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}-final.npz"), **state)
+        local = {k: list(v.to_local().shape) for k, v in
+                 list(model._params.items())[:4]}
+        print(f"mesh {name} rank {rank} {model.mesh}: losses {losses}, "
+              f"launches a step {launches[-1]} (pool fwd, pool bwd, flash "
+              f"fwd, flash bwd, layernorm), step wall "
+              f"{[round(w, 3) for w in walls]} ms, last step busy "
+              f"{busy:.3f} ms (the ranks share the card), collectives "
+              f"{colls}, pools bit-equal on the shard {pools}, local "
+              f"shards {local} [{card}]", flush=True)
+        record[name] = {"losses": losses, "launches": launches,
+                        "wall_ms": walls, "busy_ms": busy,
+                        "collectives": colls, "pools_checked": pools}
+        del model
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    ft.finalize_distributed()
+    return 0
+
+
+def mesh_nccl_main(argv) -> int:
+    """``chip_smoke.py --mesh-nccl <dir>``: a one-rank group on the
+    default backend (NCCL on the card); the dryrun CNN's float32 step on
+    a {"n": 1} mesh against the step without a mesh, bit-equal."""
+    workdir = argv[0]
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    import flexflow_tpu_torch as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ft.initialize_distributed(
+        init_method="file://" + os.path.join(workdir, "nccl-store"),
+        world_size=1, rank=0)
+    backend = str(dist.get_backend())
+    assert backend == "nccl", backend
+    out = {}
+    for tag, mesh in (("mesh", ft.MachineMesh({"n": 1})), ("plain", None)):
+        model, batch = mesh_model(ft, "cnn_f32", mesh, strategies=False)
+        assert model._on_mesh == (mesh is not None), tag
+        loss = float(model.train_batch(*batch))
+        out[tag] = (loss, {k: model.get_weights(k)
+                           for k in sorted(model._params)})
+    import numpy as np
+    assert out["mesh"][0] == out["plain"][0], (out["mesh"][0],
+                                               out["plain"][0])
+    for k, v in out["plain"][1].items():
+        np.testing.assert_array_equal(out["mesh"][1][k], v, err_msg=k)
+    print(f"mesh nccl one-rank group: backend {backend}, {{'n': 1}} mesh "
+          f"step bit-equal to the step without a mesh (loss "
+          f"{out['mesh'][0]!r}, {len(out['plain'][1])} parameters) "
+          f"[{card_line()}]", flush=True)
+    ft.finalize_distributed()
+    return 0
+
+
+def mesh_children(args, n: int, workdir: str) -> None:
+    """Run ``n`` children ``chip_smoke.py <args> <i> <workdir>`` (or one
+    ``<args> <workdir>``) together; print each one's output; raise if
+    one fails or outlasts MESH_TIMEOUT (every child is stopped)."""
+    procs = []
+    for i in range(n):
+        cmd = [sys.executable, os.path.abspath(__file__), *args]
+        cmd += [str(i), workdir] if n > 1 else [workdir]
+        log = open(os.path.join(workdir, f"{args[0][2:]}-{i}.log"), "w")
+        procs.append((subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + MESH_TIMEOUT
+    codes = []
+    try:
+        for p, _ in procs:
+            codes.append(p.wait(timeout=max(1.0,
+                                            deadline - time.monotonic())))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for i in range(n):
+        with open(os.path.join(workdir, f"{args[0][2:]}-{i}.log")) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("mesh ") or codes[i]]
+        print("\n".join(lines[-60:] if codes[i] else lines))
+    assert not any(codes), f"{args[0]} children exited {codes}"
+
+
+def mesh_phase(ft, card: str) -> dict:
+    """MESH_WORLD ranks on the card over MESH_BACKEND run MESH_RUNS; then
+    this process runs each one on one rank, and holds the mesh's against
+    it; then a one-rank NCCL group.  Returns the kernels' launches by
+    run, summed over the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    free_garbage()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="ff-mesh-")
+    t0 = time.perf_counter()
+    mesh_children(["--mesh-rank"], MESH_WORLD, workdir)
+    print(f"mesh ranks: {MESH_WORLD} processes on one card over "
+          f"{MESH_BACKEND} in {time.perf_counter() - t0:.1f} s [{card}]")
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    names = ("pool fwd", "pool bwd", "flash fwd", "flash bwd", "layernorm")
+    launches = {}
+    for name, (shape, want, steps) in MESH_RUNS.items():
+        launches[name] = [sum(sum(r[name]["launches"][s][i]
+                                  for s in range(steps)) for r in ranks)
+                          for i in range(len(names))]
+        model, batch = mesh_model(ft, name, None, strategies=False)
+        bf16 = model.config.compute_dtype == "bfloat16"
+        with np.load(os.path.join(workdir, f"{name}-init.npz")) as z:
+            init = {k: z[k] for k in z.files}
+        mine = mesh_state(model, False)
+        for k, v in init.items():   # both drew their parameters from SEED
+            np.testing.assert_array_equal(v, mine[k], err_msg=k)
+        losses = [float(model.train_batch(*batch)) for _ in range(steps)]
+        one = mesh_state(model, bf16)
+        del model
+        torch.cuda.empty_cache()
+        with np.load(os.path.join(workdir, f"{name}-final.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        mesh_losses = ranks[0][name]["losses"]
+        if not bf16:
+            np.testing.assert_allclose(mesh_losses, losses, rtol=MESH_RTOL,
+                                       atol=MESH_ATOL)
+            worst = 0.0
+            for k, v in one.items():
+                np.testing.assert_allclose(got[k], v, rtol=MESH_RTOL,
+                                           atol=MESH_ATOL, err_msg=k)
+                worst = max(worst, float(np.max(np.abs(got[k] - v))))
+            print(f"mesh {name} {shape}: the mesh step equals the one-rank "
+                  f"step on the card (losses {mesh_losses} / {losses}, "
+                  f"largest parameter difference {worst:.3g}, rtol "
+                  f"{MESH_RTOL}) [{card}]")
+            continue
+        held = "m/" if any(k.startswith("m/") for k in one) else "param/"
+        shares = {}
+        for prefix in ("param/", "m/"):
+            keys = [k for k in one if k.startswith(prefix)]
+            if not keys:
+                continue
+            base = {k: init[k] if prefix == "param/" else 0.0 for k in keys}
+            d_one = sum(float(np.sum((one[k] - base[k]) ** 2)) for k in keys)
+            d_gap = sum(float(np.sum((got[k] - one[k]) ** 2)) for k in keys)
+            shares[prefix[:-1]] = math.sqrt(d_gap / max(d_one, 1e-30))
+        share = shares[held[:-1]]
+        print(f"mesh {name} {shape} bf16: losses {mesh_losses} against one "
+              f"rank's {losses}; L2 of the difference over L2 of the "
+              f"one-rank change: {shares} (held: {held[:-1]} <= "
+              f"{MESH_L2_SHARE}) [{card}]")
+        assert share <= MESH_L2_SHARE, (name, shares)
+        assert np.all(np.isfinite(mesh_losses)), mesh_losses
+    for name, counts in launches.items():
+        print(f"mesh launches over the {MESH_WORLD} ranks, {name}: "
+              + ", ".join(f"{n} {c}" for n, c in zip(names, counts))
+              + f" [{card}]")
+    colls = {}
+    for r in ranks:
+        for run in r.values():
+            for k, v in run["collectives"].items():
+                c = colls.setdefault(k, {"calls": 0, "bytes": 0,
+                                         "host": v["host"]})
+                c["calls"] += v["calls"]
+                c["bytes"] += v["bytes"]
+    print("mesh collectives over the ranks and runs (host: staged through "
+          f"pinned host memory) [{card}]: " + json.dumps(colls))
+    mesh_children(["--mesh-nccl"], 1, workdir)
+    return {"launches": launches, "collectives": colls}
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5119,6 +5539,7 @@ def main() -> int:
     # last: each engine thread that ran a matmul leaves its cuBLAS
     # workspace (32 MiB a concurrently used handle) allocated, which no
     # training step's peak above may count
+    tmesh = phase("mesh", mesh_phase, ft, card)
     tdis = phase("disaggregated serving", disagg_phase, ft, counters, card)
     tfleet = phase("fleet", fleet_phase, ft, counters, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
@@ -5196,6 +5617,16 @@ def main() -> int:
     for path, counts in (("resnet50_knobs", rknobs), ("checkpoint", ckpt)):
         fwd_paths[path] = counts["fwd"]
         bwd_paths[path] = counts["bwd"]
+    # the mesh runs' launches, summed over the ranks: (pool fwd, pool
+    # bwd, flash fwd, flash bwd, layernorm)
+    ml = tmesh["launches"]
+    for run in ("alexnet", "cnn_f32"):
+        fwd_paths[f"mesh_{run}"] = ml[run][0]
+        bwd_paths[f"mesh_{run}"] = ml[run][1]
+    mesh_flash = {f"mesh_{run}": ml[run] for run in ("bert_n2c2",
+                                                     "tf_f32_n2c2")}
+    mesh_ln = {f"mesh_{run}": ml[run][4] for run in (
+        "bert_n2c2", "bert_s2c2", "tf_f32_n2c2", "tf_f32_s2c2")}
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
               fwd_paths, kp),
@@ -5212,13 +5643,17 @@ def main() -> int:
                     "generation_reference": tgen["ref_fwd"],
                     "bert_int8_serve": tquant["fwd"],
                     **tspec["fwd"], **tdis["fwd"],
-                    "fleet": tfleet["fwd"]}, fp["fwd"]),
+                    "fleet": tfleet["fwd"],
+                    **{k: v[2] for k, v in mesh_flash.items()}},
+                   fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
                    {"transformer_train": ttrain["bwd"],
                     "bert_remat": bremat["bwd"],
                     "bert_accumulate": baccum["bwd"],
-                    "bert_pinned": bpin["bwd"]}, fp["bwd"]),
+                    "bert_pinned": bpin["bwd"],
+                    **{k: v[3] for k, v in mesh_flash.items()}},
+                   fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
                    "flexflow_tpu/ops/pallas_norm.py:143",
@@ -5230,7 +5665,7 @@ def main() -> int:
                     "generation": tgen["ln"],
                     "bert_int8_serve": tquant["ln"],
                     **tspec["ln"], **tdis["ln"],
-                    "fleet": tfleet["ln"]}, lp),
+                    "fleet": tfleet["ln"], **mesh_ln}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5239,4 +5674,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-nccl"]:
+        sys.exit(mesh_nccl_main(sys.argv[2:]))
     sys.exit(main())

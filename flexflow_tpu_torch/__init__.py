@@ -4,7 +4,9 @@ A second package beside the JAX one: the FFModel graph API and its
 operators in PyTorch, running on an NVIDIA GPU (Hopper), with the JAX
 package's Pallas kernels rewritten by hand in CUDA (``csrc/``).  It
 imports neither jax nor flexflow_tpu.  Entry points run on CUDA unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``.  On several devices it runs one
+process per device and a ``MachineMesh`` over them
+(``parallel/distributed.py``).
 """
 
 from . import losses, metrics, resilience
@@ -29,6 +31,9 @@ from .ops.norm import BatchNorm, LayerNorm, RMSNorm
 from .ops.rnn import LSTM
 from .ops.tensor_ops import Concat, Dropout, Reshape, Split, Transpose
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
+from .parallel.distributed import (finalize_distributed,
+                                   initialize_distributed)
+from .parallel.mesh import MachineMesh
 from .serving import (DeadlineExceeded, GenerationCancelled,
                       GenerationEngine, GenerationStream, KVCacheExhausted,
                       OverloadError, SamplingParams, ServingEngine,
@@ -50,7 +55,9 @@ __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "GenerationCancelled", "GenerationEngine", "GenerationStream",
            "KVCacheExhausted", "SamplingParams",
            "Parameter", "Tensor", "PerfMetrics", "AdamOptimizer",
-           "Optimizer", "SGDOptimizer", "synthetic_dataset", "losses",
+           "Optimizer", "SGDOptimizer", "MachineMesh",
+           "initialize_distributed", "finalize_distributed",
+           "synthetic_dataset", "losses",
            "metrics", "LOSS_SPARSE_CATEGORICAL_CROSSENTROPY",
            "LOSS_CATEGORICAL_CROSSENTROPY", "LOSS_MEAN_SQUARED_ERROR",
            "METRICS_ACCURACY", "METRICS_SPARSE_CATEGORICAL_CROSSENTROPY",

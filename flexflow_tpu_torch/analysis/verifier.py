@@ -188,6 +188,12 @@ def record_replicate_fallback(name: str, dim: int, degree: int,
         _fallbacks[key] = _fallbacks.get(key, 0) + 1
 
 
+def has_fallback_records() -> bool:
+    """Is any fallback record waiting to be drained?  (The hot path's
+    cheap test before a drain.)"""
+    return bool(_fallbacks) or _fallback_overflow > 0
+
+
 def drain_fallback_sites(owned_names=None) -> tuple:
     """Return (and clear) the raw aggregated fallback records:
     ``({(name, dim, degree, axis, axis_size, reason): count}, dropped)``.

@@ -15,9 +15,13 @@ import numpy as np
 
 
 def params_from_jax_numpy(model, weights: Mapping[str, np.ndarray]) -> None:
-    """Load ``weights`` (parameter name -> array) into the port's
-    ``model``.  The two sets of names must be equal: a missing or extra
-    name means the graphs differ, and the copy is refused."""
+    """Load ``weights`` (parameter name -> full array) into the port's
+    compiled and initialized ``model``.  The two sets of names must be
+    equal: a missing or extra name means the graphs differ, and the copy
+    is refused before anything is loaded.  Each array is a parameter's
+    full value, whatever mesh the JAX model ran on; on a model compiled
+    on a ``MachineMesh`` every rank passes the same arrays and keeps its
+    own shard of each (``FFModel.set_weights``)."""
     have = {p.name for p in model.parameters}
     got = set(weights)
     if have != got:

@@ -25,12 +25,24 @@ other's file.
 
 ``compile`` resolves a parallelization strategy (``FFConfig.strategies``
 and ``import_strategy_file``; ``export_strategy_file`` writes it) and runs
-the static verifier over it (``verify=``).  On one device two kinds of
-strategy change the run: a per-op ``precision`` sets that op's compute
-dtype, and a host-placed Embedding keeps its table in pinned host
-memory, gathers there and updates there.  A strategy that needs more
-than one device is refused, as are strategy search, meshes, profiling
-and trace directories, each until the slice that brings it.
+the static verifier over it (``verify=``).  A per-op ``precision`` sets
+that op's compute dtype, and on one device a host-placed Embedding keeps
+its table in pinned host memory, gathers there and updates there.
+
+Under a :class:`~flexflow_tpu_torch.parallel.mesh.MachineMesh` (one
+process per device, ``parallel/distributed.py``) the degrees of the axes
+``n``, ``c``, ``h``, ``w`` and ``s`` shard the run, GSPMD mapped onto
+DTensor: each parameter is a DTensor placed by its ``param_spec``, each
+input batch by its ``batch_spec``, and each output of an op with a
+strategy is redistributed to its ``output_spec`` (the JAX package's
+``with_sharding_constraint``).  The hand-written kernels run on each
+rank's local shard (``parallel.sharding.shard_map``), ring attention
+runs over ``s``, the loss and metrics reduce over the global batch, and
+``predict``/``evaluate``/``get_weights`` return full arrays on every
+rank.  Every rank feeds the same full arrays, the JAX package's
+multi-controller contract.  The axes ``p`` and ``e``, host placement on
+a mesh of more than one device, ``reshard`` and strategy search are
+refused, each naming its roadmap item.
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
@@ -39,6 +51,7 @@ raises instead of falling back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -69,7 +82,11 @@ from .ops.rnn import LSTM
 from .ops.tensor_ops import (Concat, Dropout, Flat, Reshape, Softmax, Split,
                              Transpose)
 from .optimizers import SGDOptimizer
-from .parallel.mesh import AbstractMesh, dim_axis_names
+from .parallel import distributed
+from .parallel.mesh import AbstractMesh, MachineMesh, dim_axis_names
+from .parallel.sharding import (batch_spec, distribute, gather, is_dtensor,
+                                keep_shards, output_spec, param_spec,
+                                redistribute)
 from .resilience import (MANIFEST_KEY, _atomic_savez, _cleanup_stale_tmps,
                          _prune_step_family, build_manifest,
                          read_npz_verified)
@@ -120,14 +137,26 @@ def _leaf_to_host(leaf) -> np.ndarray:
     """An optimizer-state leaf as an owned numpy array (Adam's step
     count, a Python int, as the JAX package's int32 scalar)."""
     if isinstance(leaf, torch.Tensor):
-        return np.array(to_host(leaf))
+        return np.array(to_host(gather(leaf)))
     return np.asarray(leaf, np.int32)
+
+
+def _mesh_context(on_mesh: bool):
+    """Where the model runs on a mesh, plain tensors (masks, constants)
+    meet DTensors as replicated values: every rank holds the same full
+    value, so they are."""
+    if not on_mesh:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None,
-                 device=None):
+                 device=None, mesh: Optional[MachineMesh] = None):
         self.config = config if config is not None else FFConfig()
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = (default_device() if device is None
                        else torch.device(device))
         self.layers: List[Op] = []
@@ -146,7 +175,14 @@ class FFModel:
         # the row update on the host (_host_row_specs)
         self._host_params: set = set()
         self._host_rows: List[tuple] = []
-        self.mesh: Optional[AbstractMesh] = None
+        self.mesh = mesh
+        # on a MachineMesh with a DeviceMesh: the DTensor placements of
+        # every parameter and of every output of an op with a strategy
+        self._on_mesh = False
+        self._param_pl: Dict[str, list] = {}
+        self._out_pl: Dict[int, list] = {}
+        # the replicate-fallback sites drained after dispatches (FF106)
+        self.runtime_fallback_sites: set = set()
         self.verify_report = None
         self._opt_state = None
         self._step = 0
@@ -376,10 +412,15 @@ class FFModel:
                 comp_mode: str = "training", mesh=None,
                 final_tensor: Optional[Tensor] = None,
                 verify: str = "warn") -> None:
-        """Resolve the single-device plan: loss tensor, label tensor, conv
-        layout, optimizer (default: SGD from the config's learning rate
-        and weight decay), metrics, the strategy and the embedding
+        """Resolve the plan: loss tensor, label tensor, conv layout,
+        optimizer (default: SGD from the config's learning rate and
+        weight decay), metrics, the strategy, the mesh and the embedding
         tables' update paths.
+
+        The mesh is ``mesh`` (or the one given to the constructor), else,
+        where a process group is up, a :class:`MachineMesh` of
+        ``config.mesh_shape`` or of the shape the strategies need over
+        every rank, else one device.
 
         The strategy is ``config.strategies`` updated from
         ``import_strategy_file``; each op takes the entry of its name as
@@ -390,25 +431,37 @@ class FFModel:
         ``"error"`` raises ``analysis.VerificationError`` on an ERROR,
         ``"off"`` skips it; the report is kept on ``verify_report``.
 
-        Raises ValueError for a strategy that needs more than one device,
-        for ``gradient_accumulation_steps`` or ``steps_per_dispatch``
-        below 1 and for a batch size that does not divide into the
-        microbatches, and NotImplementedError for what the port cannot
-        run yet (strategy search, a mesh of more than one device,
-        profiling, a trace directory, host placement of an op other than
-        an Embedding), each naming the roadmap item that lifts it."""
+        Raises ValueError for a strategy that needs more devices than
+        the mesh has, for ``gradient_accumulation_steps`` or
+        ``steps_per_dispatch`` below 1 and for a batch size that does not
+        divide into the microbatches, and NotImplementedError for what
+        the port cannot run yet (strategy search, a multi-device mesh in
+        a process without a process group, the mesh axes ``p`` and
+        ``e``, host placement on a mesh of more than one device or of an
+        op other than an Embedding, profiling, a trace directory), each
+        naming the roadmap item that lifts it."""
         cfg = self.config
         if cfg.search_budget > 0:
             raise NotImplementedError(
                 "strategy search (search_budget > 0) is not ported yet "
                 "(ROADMAP A.9); import a strategy file instead")
-        n_dev = 1
-        for v in (cfg.mesh_shape or {}).values():
-            n_dev *= int(v)
-        if mesh is not None or cfg.num_devices > 1 or n_dev > 1:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP A.8); "
-                "the port runs on one device")
+        if mesh is not None:
+            if not isinstance(mesh, MachineMesh):
+                raise TypeError(f"mesh must be a MachineMesh, got "
+                                f"{type(mesh).__name__}")
+            self.mesh = mesh
+        elif not isinstance(self.mesh, MachineMesh):
+            self.mesh = None   # an earlier compile's inferred mesh
+        if self.mesh is None and distributed.world_size() == 1:
+            n_dev = math.prod(int(v) for v in
+                              (cfg.mesh_shape or {}).values())
+            if cfg.num_devices > 1 or n_dev > 1:
+                raise NotImplementedError(
+                    "a mesh of more than one device needs one process "
+                    "per device and their process group (ROADMAP A.8a: "
+                    "parallel.distributed.initialize_distributed, then "
+                    "compile(mesh=MachineMesh(...))); this process runs "
+                    "one device")
         unported = [name for name, on in (
             ("profiling", cfg.profiling),
             ("trace_dir", bool(cfg.trace_dir))) if on]
@@ -457,9 +510,14 @@ class FFModel:
                 load_strategy_file(cfg.import_strategy_file))
         for op in self.layers:
             op.parallel_config = cfg.strategies.get(op.name)
-        shape = (cfg.mesh_shape if cfg.mesh_shape is not None
-                 else self._infer_mesh_shape())
-        self.mesh = AbstractMesh(shape, num_devices=1)
+        if self.mesh is None:
+            world = distributed.world_size()
+            shape = (cfg.mesh_shape if cfg.mesh_shape is not None
+                     else self._infer_mesh_shape(world))
+            self.mesh = (MachineMesh(shape, device=self.device)
+                         if distributed.world_size() > 1
+                         else AbstractMesh(shape, num_devices=1))
+        self._bind_mesh()
         if cfg.export_strategy_file:
             from .strategy.proto import save_strategy_file
             save_strategy_file(cfg.export_strategy_file,
@@ -486,13 +544,12 @@ class FFModel:
         self._fwd_compiled = {}
         self._compiled = True
 
-    def _infer_mesh_shape(self) -> Dict[str, int]:
-        """The mesh the resolved strategies need, as the JAX package
-        infers it: each canonical axis sized to the LCM of the degrees
-        ops assign to it, or to the largest degree when the LCM
-        overshoots the devices.  The port has one device, so a strategy
-        with any degree above 1 raises."""
-        ndev = 1
+    def _infer_mesh_shape(self, ndev: int = 1) -> Dict[str, int]:
+        """The mesh the resolved strategies need on ``ndev`` devices, as
+        the JAX package infers it: each canonical axis sized to the LCM
+        of the degrees ops assign to it, or to the largest degree when
+        the LCM overshoots the devices; a strategy that needs more
+        raises."""
         lcm = {"n": 1, "c": 1, "h": 1, "w": 1, "s": 1}
         mx = dict(lcm)
         any_cfg = False
@@ -511,10 +568,40 @@ class FFModel:
             return lcm
         used = math.prod(mx.values())
         if used > ndev:
-            raise ValueError(
-                f"strategy needs {used} devices, have {ndev} "
-                f"(multi-device strategies: ROADMAP A.8)")
+            raise ValueError(f"strategy needs {used} devices, have {ndev}")
         return mx
+
+    def _bind_mesh(self) -> None:
+        """Check the mesh against what the port runs on one and resolve
+        the DTensor placements of the parameters and of the outputs of
+        the ops with a strategy.  The specs are computed here once, so
+        their replicate fallbacks are recorded once (FF106, drained after
+        the first dispatch), as the JAX package records them at trace
+        time."""
+        mesh = self.mesh
+        for axis in ("p", "e"):
+            if mesh.axis_size(axis) > 1:
+                what = "pipeline stages" if axis == "p" else "experts"
+                raise NotImplementedError(
+                    f"mesh axis {axis!r} ({what}) is not ported yet "
+                    f"(ROADMAP A.8b)")
+        self._on_mesh = (isinstance(mesh, MachineMesh)
+                         and mesh.device_mesh is not None)
+        self._param_pl, self._out_pl = {}, {}
+        if not self._on_mesh:
+            return
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the model runs on {self.device} and its mesh "
+                             f"on {mesh.device}")
+        self.device = mesh.device
+        for op in self.layers:
+            for w in op.weights:
+                self._param_pl[w.name] = mesh.sharding(
+                    param_spec(w, op.parallel_config, mesh))
+            if op.parallel_config is not None:
+                for t in op.outputs:
+                    self._out_pl[t.uid] = mesh.sharding(
+                        output_spec(t, op.parallel_config, mesh))
 
     def _resolve_host_placements(self) -> set:
         """The parameters of host-placed ops (device type CPU or ZCM
@@ -528,8 +615,12 @@ class FFModel:
             if not isinstance(op, Embedding):
                 raise NotImplementedError(
                     f"{op.name}: host placement of a {op.op_type.value} "
-                    f"op is not ported yet (ROADMAP A.8); the port places "
+                    f"op is not ported yet (ROADMAP A.8b); the port places "
                     f"Embedding tables on the host")
+            if self.mesh.mesh_product > 1:
+                raise NotImplementedError(
+                    f"{op.name}: host-placed tables on a mesh of more than "
+                    f"one device are not ported yet (ROADMAP A.8b)")
             names.update(w.name for w in op.weights)
         return names
 
@@ -564,8 +655,9 @@ class FFModel:
         table.  Eligible, as in the JAX package: plain SGD (momentum 0,
         weight decay 0, which would touch every row), no gradient
         accumulation, and a trainable, device-placed table used by one
-        op whose ids are a graph input.  Returns [(op name, table name,
-        input position)]."""
+        op whose ids are a graph input.  On a mesh every table takes the
+        dense update, whose values these are.  Returns [(op name, table
+        name, input position)]."""
         return self._row_update_specs(host=False)
 
     def _host_row_specs(self) -> List[tuple]:
@@ -583,7 +675,7 @@ class FFModel:
         position)]."""
         cfg = self.config
         opt = self.optimizer
-        if (cfg.sparse_embedding_updates is False
+        if (cfg.sparse_embedding_updates is False or self._on_mesh
                 or cfg.gradient_accumulation_steps > 1
                 or not isinstance(opt, SGDOptimizer)
                 or opt.momentum != 0.0 or opt.weight_decay != 0.0):
@@ -611,7 +703,8 @@ class FFModel:
     def init_layers(self, seed: Optional[int] = None) -> None:
         """Create every parameter on the model's device from ``seed``
         (default ``config.seed``), and the optimizer's state for the
-        trainable ones."""
+        trainable ones.  On a mesh every rank draws the same full values
+        and keeps its own shard of each."""
         if not self._compiled:
             raise RuntimeError("call compile() first")
         seed = self.config.seed if seed is None else seed
@@ -623,7 +716,7 @@ class FFModel:
                                 if p.dtype == "float32" else p.dtype)
             value = init(gen, p.shape, dtype)
             params[p.name] = (self._pin(value) if p.name in self._host_params
-                              else value.to(self.device))
+                              else self._place_param(p.name, value))
         self._params = params
         self._opt_state = self.optimizer.init_state(
             {k: v for k, v in params.items()
@@ -637,13 +730,27 @@ class FFModel:
         value = value.to("cpu")
         return value.pin_memory() if self.device.type == "cuda" else value
 
+    def _place_param(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A parameter's value on the model's device; on a mesh a full
+        value becomes this rank's shard of it and a DTensor is
+        redistributed to the parameter's placements."""
+        if not self._on_mesh:
+            return value.to(self.device)
+        pl = self._param_pl[name]
+        if is_dtensor(value):
+            return redistribute(value, pl)
+        return distribute(value.to(self.device), self.mesh, pl)
+
     def _store(self, values: Dict[str, torch.Tensor]) -> None:
         """Install new parameter values; a host-placed parameter's value
         is copied into its pinned buffer, so the table never leaves
-        pinned host memory."""
+        pinned host memory, and on a mesh each value keeps its
+        parameter's placements."""
         for k, v in values.items():
             if k in self._host_params:
                 self._params[k].copy_(v)
+            elif self._on_mesh:
+                self._params[k] = self._place_param(k, v)
             else:
                 self._params[k] = v
 
@@ -659,17 +766,34 @@ class FFModel:
         raise KeyError(name)
 
     def get_weights(self, name: str) -> np.ndarray:
-        return to_host(self._params[self._resolve(name)])
+        """An owned copy of a parameter's full value (the sparse update
+        writes tables in place).  On a mesh the shards are gathered, a
+        collective: every rank calls it."""
+        return np.array(to_host(gather(self._params[self._resolve(name)])))
 
     def set_weights(self, name: str, value) -> None:
+        """Install a parameter's full value (on a mesh every rank passes
+        the same value and keeps its shard)."""
         key = self._resolve(name)
         cur = self._params[key]
         arr = np.asarray(value)
         if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16
             arr = arr.astype(np.float32)
         val = torch.tensor(arr)  # a copy: the caller keeps its array
-        self._store({key: val.to(device=cur.device,
+        dev = self.device if is_dtensor(cur) else cur.device
+        self._store({key: val.to(device=dev,
                                  dtype=cur.dtype).reshape(cur.shape)})
+
+    def reshard(self, new_mesh=None, num_devices: Optional[int] = None,
+                **kw) -> None:
+        """Moving live training state onto another mesh, the JAX
+        package's ``FFModel.reshard``, is not ported yet (ROADMAP A.8b).
+        A checkpoint moves between meshes: save on one, compile on the
+        other, load."""
+        raise NotImplementedError(
+            "FFModel.reshard (live state onto another mesh) is not ported "
+            "yet (ROADMAP A.8b); save_checkpoint on this mesh and "
+            "load_checkpoint on the other")
 
     @property
     def num_parameters(self) -> int:
@@ -760,31 +884,46 @@ class FFModel:
         background thread, whose failure is re-raised at the next save,
         load or :meth:`wait_for_checkpoint`.  ``keep_last=K`` prunes the
         file's ``<name>_step<N>.npz`` family to its newest K, and stale
-        ``*.tmp.npz`` orphans of the family are swept on every save."""
+        ``*.tmp.npz`` orphans of the family are swept on every save.
+
+        On a mesh every rank calls it: the shards are gathered on every
+        rank, rank 0 writes the full arrays (the manifest records the
+        mesh, its devices and the world's processes), and the others
+        wait for the file; ``async_write`` applies to one-process runs."""
         self._check_not_quantized("save_checkpoint")
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
         flat: Dict[str, np.ndarray] = {}
         for k, v in self._params.items():
             # an owned copy: the sparse update writes tables in place
-            flat[f"param:{k}"] = np.array(to_host(v))
+            flat[f"param:{k}"] = np.array(to_host(gather(v)))
         for i, leaf in enumerate(_flatten_state(self._opt_state)):
             flat[f"opt:{i}"] = _leaf_to_host(leaf)
         flat["meta:step"] = np.asarray(self._step, np.int64)
         self.wait_for_checkpoint()  # one writer at a time, in order
         final = self._ckpt_path(path)
-        _cleanup_stale_tmps(final)
         step = self._step
         digest = self._strategy_digest()
+        mesh_shape = {a: s for a, s in self.mesh.sizes.items() if s > 1}
+        world = distributed.world_size()
 
         def write():
             flat[MANIFEST_KEY] = np.asarray(
-                build_manifest(flat, step, mesh_shape={}, num_devices=1,
-                               process_count=1, strategy_digest=digest))
+                build_manifest(flat, step, mesh_shape=mesh_shape,
+                               num_devices=self.mesh.mesh_product,
+                               process_count=world,
+                               strategy_digest=digest))
             _atomic_savez(final, flat)
             if keep_last is not None:
                 _prune_step_family(final, keep_last)
 
+        if world > 1:
+            if torch.distributed.get_rank() == 0:
+                _cleanup_stale_tmps(final)
+                write()
+            distributed.coordination_barrier("save_checkpoint")
+            return
+        _cleanup_stale_tmps(final)
         if not async_write:
             write()
             return
@@ -825,9 +964,10 @@ class FFModel:
         CRCs checked first (a truncated or corrupt file raises
         ``resilience.CorruptCheckpointError`` naming the path), then its
         parameter and optimizer-state sets and shapes are checked
-        against this model, all before any state changes.  The port
-        runs one device, so the manifest's topology is not compared:
-        the arrays are whole either way."""
+        against this model, all before any state changes.  The arrays
+        are whole whatever mesh wrote them, so a checkpoint loads on any
+        mesh: each rank reads the file and keeps its shards, and the
+        manifest's topology is not compared."""
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
         self.wait_for_checkpoint()  # never read under a pending writer
@@ -873,14 +1013,17 @@ class FFModel:
 
     def _restore_from_host(self, data: Dict[str, np.ndarray]) -> None:
         """Apply already-read, verified and validated checkpoint arrays:
-        each value takes the current parameter's (or slot's) dtype and
-        device; Adam's step count comes back as an int."""
+        each value takes the current parameter's (or slot's) dtype,
+        device and placements; Adam's step count comes back as an int."""
         def put(arr, like: torch.Tensor) -> torch.Tensor:
             arr = np.asarray(arr)
             if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16
                 arr = arr.astype(np.float32)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                device=like.device, dtype=like.dtype)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if is_dtensor(like):
+                return distribute(t.to(device=self.device, dtype=like.dtype),
+                                  self.mesh, like.placements)
+            return t.to(device=like.device, dtype=like.dtype)
 
         self._store({name: put(data[f"param:{name}"], cur)
                      for name, cur in self._params.items()})
@@ -912,7 +1055,11 @@ class FFModel:
         With ``config.remat`` and ``keep_uids`` (the training step passes
         the loss and final tensors) the layer list runs in segments
         (``_execute_remat``) and only the segment boundaries and
-        ``keep_uids`` come back; otherwise every tensor does."""
+        ``keep_uids`` come back; otherwise every tensor does.
+
+        On a mesh the inputs are the full batch (the same on every rank)
+        and are placed by their batch spec first; the values are
+        DTensors."""
         base = self.config.compute_dtype
         ctx = OpContext(device=self.device, seed=seed,
                         training=training, compute_dtype=base,
@@ -920,7 +1067,11 @@ class FFModel:
                         flash_attention=self.config.flash_attention,
                         updates={} if updates is None else updates,
                         embedding_rows=embedding_rows,
-                        aux_losses={} if aux_losses is None else aux_losses)
+                        aux_losses={} if aux_losses is None else aux_losses,
+                        mesh=self.mesh if self._on_mesh else None,
+                        out_placements=self._out_pl)
+        if self._on_mesh:
+            inputs = self._place_batch(inputs, infer=not training)
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         if (self.config.remat and keep_uids is not None
                 and len(self.layers) > 3):
@@ -931,12 +1082,18 @@ class FFModel:
     @staticmethod
     def _run_ops(ops, params, values: Dict[int, torch.Tensor],
                  ctx: OpContext) -> None:
+        """Run ``ops`` in order into ``values``; on a mesh each output of
+        an op with a strategy is redistributed to its output spec, the
+        counterpart of the JAX package's ``with_sharding_constraint``."""
         base = ctx.compute_dtype
         for op in ops:
             ctx.compute_dtype = resolve_op_dtype(op, base)
             outs = op.forward(params, [values[t.uid] for t in op.inputs],
                               ctx)
             for t, v in zip(op.outputs, outs):
+                pl = ctx.out_placements.get(t.uid)
+                if pl is not None:
+                    v = redistribute(v, pl)
                 values[t.uid] = v
         ctx.compute_dtype = base
 
@@ -1001,15 +1158,18 @@ class FFModel:
 
     def _forward(self, params: Dict[str, torch.Tensor],
                  inputs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The inference forward: the final tensor of the layer list."""
-        return self._forward_values(params, inputs)[self._final_tensor.uid]
+        """The inference forward: the final tensor of the layer list
+        (its full value on every rank of a mesh)."""
+        with _mesh_context(self._on_mesh):
+            return gather(self._forward_values(params, inputs)[
+                self._final_tensor.uid])
 
     def forward_compiled(self, bucket_bs: int) -> Callable:
         """The inference forward for batches of exactly ``bucket_bs``
         rows, cached per bucket.  Call as ``fwd(model._params, batch)``
         with ``batch`` a tuple of input tensors on the model's device;
-        it runs under ``torch.inference_mode()`` and returns the output
-        tensor on the device.  The serving engine warms one per shape
+        it runs under ``torch.inference_mode()`` (``no_grad`` on a mesh)
+        and returns the output tensor on the device.  The serving engine warms one per shape
         bucket and ``predict()`` shares the cache."""
         if not self._compiled:
             raise RuntimeError("call compile() first")
@@ -1026,7 +1186,9 @@ class FFModel:
                 if got != shapes:
                     raise ValueError(f"bucket {bs} forward expects inputs "
                                      f"shaped {shapes}, got {got}")
-                with torch.inference_mode():
+                # DTensor views cannot be taken in inference mode
+                with (torch.no_grad() if self._on_mesh
+                      else torch.inference_mode()):
                     return self._forward(params, batch)
 
             self._fwd_compiled[bs] = fwd
@@ -1050,6 +1212,33 @@ class FFModel:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device) for a in arrays)
 
+    def _batch_entries(self, shape, dtype, infer: bool = False) -> list:
+        """The spec entries of one batch array on the mesh, as the JAX
+        package's ``_batch_entries``: the sample dim over ``n``, and the
+        sequence dim over ``s`` for (n, s) integer ids and (n, s, d)
+        activations; a dim its axis does not divide replicates.  For
+        inference (``infer``) the sample dim replicates below 2 rows a
+        shard, as the JAX package's ``_infer_batch_entries`` keeps a
+        request's bits independent of its bucket."""
+        ndim = len(shape)
+        seq_shaped = ndim == 3 or (ndim == 2 and not dtype.is_floating_point)
+        spec = batch_spec(ndim, self.mesh, seq_sharded=(
+            seq_shaped and self.mesh.axis_size("s") > 1))
+        entries = [ax if ax is None or shape[i] % self.mesh.axis_size(ax)
+                   == 0 else None for i, ax in enumerate(spec)]
+        if (infer and entries and entries[0] is not None
+                and shape[0] < 2 * self.mesh.axis_size(entries[0])):
+            entries[0] = None
+        return entries
+
+    def _place_batch(self, arrays, infer: bool = False) -> tuple:
+        """Full batch tensors as DTensors placed by their batch spec
+        (each rank keeps its block; a DTensor passes as it is)."""
+        return tuple(a if is_dtensor(a) else distribute(
+            a.to(self.device), self.mesh, self.mesh.sharding(
+                self._batch_entries(tuple(a.shape), a.dtype, infer)))
+            for a in arrays)
+
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Batched inference through the bucket forward for
         ``batch_size``.  Outputs stay on the device until one fetch at
@@ -1071,6 +1260,7 @@ class FFModel:
             if hi - lo < bs:
                 arrs = self._pad_tail(arrs, bs)
             outs.append(fwd(self._params, self._to_device(arrs))[:hi - lo])
+        self._surface_runtime_fallbacks()
         return to_host(torch.cat(outs, dim=0))
 
     # ------------------------------------------------------------------
@@ -1120,7 +1310,14 @@ class FFModel:
         rows are gathered outside autograd (by the Embedding's id rules;
         a host table's on the host, then moved to the device) and handed
         to the ops as leaves, and ``row_grads`` holds the gradient of
-        each op's rows, (n, [bag or s,] d), on the device."""
+        each op's rows, (n, [bag or s,] d), on the device.
+
+        On a mesh the batch is placed by its batch spec, the loss and the
+        metric sums reduce over the global batch (they come back as full
+        values), and each gradient comes back under its parameter's
+        placements: a data-parallel gradient is all-reduced there."""
+        if self._on_mesh:
+            batch = self._place_batch(batch)
         specs = self._sparse_specs + self._host_rows if sparse else []
         tables = {tname for _, tname, _ in specs}
         names = self._trainable_names() - tables
@@ -1139,13 +1336,13 @@ class FFModel:
         labels = batch[-1]
         updates: Dict[str, torch.Tensor] = {}
         aux_losses: Dict[str, torch.Tensor] = {}
-        with torch.enable_grad():
+        with torch.enable_grad(), _mesh_context(self._on_mesh):
             values = self._forward_values(
                 params, batch[:-1], training=True, seed=seed,
                 updates=updates, embedding_rows=rows or None,
                 aux_losses=aux_losses,
                 keep_uids=(self._loss_tensor.uid, self._final_tensor.uid))
-            logits = values[self._loss_tensor.uid]
+            logits = self._whole_rows(values[self._loss_tensor.uid])
             mb = logits.shape[0]
             if nvalid is None:
                 loss = self._loss_fn(logits, labels)
@@ -1159,18 +1356,24 @@ class FFModel:
                 loss = total / denom
             if aux_losses:
                 loss = loss + sum(aux_losses.values()) * aux_scale
+            if self._on_mesh:
+                loss = redistribute(loss, self.mesh.replicated())
             leaves = list(trainable.values()) + list(rows.values())
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        with torch.no_grad():
+        with torch.no_grad(), _mesh_context(self._on_mesh):
             sums = metrics_mod.compute_batch_metrics(
                 logits.detach(), labels, self.metrics, self.loss_type,
                 nvalid=(None if nvalid is None
                         else min(max(nvalid - base, 0), mb)))
+            sums = {k: gather(v) for k, v in sums.items()}
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         row_grads = dict(zip(rows, grads[len(trainable):]))
         grads = dict(zip(trainable, grads[:len(trainable)]))
-        return (loss.detach(), sums, grads,
+        if self._on_mesh:
+            grads = {k: redistribute(g, self._param_pl[k])
+                     for k, g in grads.items()}
+        return (gather(loss.detach()), sums, grads,
                 {k: v.detach() for k, v in updates.items()}, row_grads)
 
     def _accumulate(self, batch, seed: int, nvalid: Optional[int]):
@@ -1206,6 +1409,41 @@ class FFModel:
             return ls.sum(), sums, acc, updates
         return ls.mean(), sums, {k: g / accum for k, g in acc.items()}, \
             updates
+
+    def _whole_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """On a mesh, the loss's input with its class dim gathered (the
+        batch and sequence dims stay split): the losses and metrics
+        reduce over whole rows."""
+        if not is_dtensor(logits):
+            return logits
+        return redistribute(logits, keep_shards(
+            logits.placements, range(logits.dim() - 1)))
+
+    def _surface_runtime_fallbacks(self) -> None:
+        """Drain this model's replicate-fallback records (FF106) after a
+        dispatch, as the JAX package's ``_surface_runtime_fallbacks``:
+        the sites join ``runtime_fallback_sites`` and ``verify_report``
+        and one aggregate line is logged.  A no-op when nothing fell
+        back."""
+        from .analysis.verifier import (drain_fallback_sites,
+                                        fallback_site_diagnostics,
+                                        has_fallback_records)
+        if not has_fallback_records():
+            return
+        owned = {t.name for op in self.layers for t in op.outputs}
+        owned.update(w.name for op in self.layers for w in op.weights)
+        sites, dropped = drain_fallback_sites(owned_names=owned)
+        if not sites and not dropped:
+            return
+        self.runtime_fallback_sites.update(sites)
+        diags = fallback_site_diagnostics(sites, dropped, code="FF106")
+        if self.verify_report is not None:
+            self.verify_report.extend(diags)
+        from .fflogger import get_logger
+        get_logger("sharding").warning(
+            f"{sum(d.count for d in diags)} replicate fallback(s) across "
+            f"{len(diags)} site(s) [FF106]: the executor replicated "
+            f"requested splits; see model.verify_report")
 
     def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
         trainable = {k: self._params[k] for k in grads}
@@ -1253,6 +1491,7 @@ class FFModel:
         # after the optimizer's step, as the JAX step returns
         # {**frozen, **updates, **new_trainable}
         self._store(updates)
+        self._surface_runtime_fallbacks()
         return loss, sums
 
     def train_batch(self, *arrays) -> torch.Tensor:
@@ -1454,22 +1693,24 @@ class FFModel:
         n = xs[0].shape[0]
         pm = metrics_mod.PerfMetrics()
         loss_sums, all_sums = [], []
-        with torch.no_grad():
+        with torch.no_grad(), _mesh_context(self._on_mesh):
             for it in range(-(-n // bs)):
                 lo, hi = it * bs, min(n, (it + 1) * bs)
                 batch = upload(self._pad_tail(
                     tuple(a[lo:hi] for a in xs) + (y[lo:hi],), bs),
                     self.device)
-                logits = self._forward_values(
-                    self._params, batch[:-1])[self._loss_tensor.uid]
+                logits = self._whole_rows(self._forward_values(
+                    self._params, batch[:-1])[self._loss_tensor.uid])
                 labels = batch[-1]
                 mask = (torch.arange(bs, device=self.device)
                         < hi - lo).to(torch.float32)
-                loss_sums.append(torch.sum(
-                    self._per_example_loss(logits, labels) * mask))
-                all_sums.append(metrics_mod.compute_batch_metrics(
-                    logits, labels, self.metrics, self.loss_type,
-                    nvalid=hi - lo))
+                loss_sums.append(gather(torch.sum(
+                    self._per_example_loss(logits, labels) * mask)))
+                all_sums.append({k: gather(v) for k, v in
+                                 metrics_mod.compute_batch_metrics(
+                                     logits, labels, self.metrics,
+                                     self.loss_type, nvalid=hi - lo).items()})
+        self._surface_runtime_fallbacks()
         host_losses, host_sums = self._fetch(loss_sums, all_sums)
         for sums in host_sums:
             pm.update(sums)

@@ -89,6 +89,12 @@ class OpContext:
     # loss, as the JAX step does
     aux_losses: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # the MachineMesh of a run on a mesh (values are DTensors there),
+    # else None; ``out_placements`` maps the uid of each output of an op
+    # with a strategy to the placements it is redistributed to
+    mesh: Optional[object] = None
+    out_placements: Dict[int, list] = dataclasses.field(
+        default_factory=dict)
 
     def op_generator(self, uid: int) -> Optional[torch.Generator]:
         """The random stream of the op whose output has ``uid`` in this

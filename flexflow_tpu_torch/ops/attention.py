@@ -3,8 +3,19 @@ the same name in ``flexflow_tpu/ops/attention.py``: the single-device
 forward and the token-generation paths (``forward_kv``, the dense-cache
 ``decode``, the paged ``forward_paged``/``decode_paged`` and speculative
 decoding's ``verify_paged``; the position table's ``decode``,
-``decode_window`` and ``forward_at``).  Ring attention comes with the
-multi-device slice.
+``decode_window`` and ``forward_at``), and on a mesh the head-parallel
+attention and ring attention.
+
+On a mesh (DTensor values) the attention runs on each rank's local batch
+and local heads (``parallel.sharding.shard_map``; a split sequence is
+gathered first), through the same selection rule, so the flash kernels
+run forward and backward on the local heads.  Where the op's strategy
+(or, without one, the mesh) splits the sequence over the whole ``s``
+axis, :func:`ring_attention` runs instead, as the JAX package gates it:
+plain torch in both packages (einsums with an online softmax), the
+key/value blocks passed round the ring of the ``s`` axis and, in the
+backward, round it again with their gradients (the transpose of
+``ppermute``).
 
 Kernel selection.  The JAX rule (``_use_flash``) allows its Pallas
 kernel only on a TPU, with 128-aligned sequence lengths and above a
@@ -42,13 +53,15 @@ import torch
 import torch.nn.functional as F
 
 from ..initializers import GlorotUniform, ZeroInitializer
-from ..op import Op, OpContext, OpType
+from ..op import Op, OpContext, OpType, fold_seed
+from ..parallel.sharding import is_dtensor, keep_shards, linear, \
+    local_block, shard_map
 from .common import cast_compute
 from .cuda_attention import (NEG_INF, attention_scores, flash_attention,
                              flash_attention_reference, kernel_takes)
 
 __all__ = ["MultiHeadAttention", "PositionEmbedding", "NEG_INF",
-           "use_flash"]
+           "use_flash", "ring_attention"]
 
 
 def use_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,21 +72,160 @@ def use_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _dense_attention(q, k, v, causal: bool, scale: float,
-                     dropout_rate: float, generator):
+                     dropout_rate: float, generator, draw=None):
     """(n,sq,h,d),(n,sk,h,d),(n,sk,h,d) -> float32 (n,sq,h,d): float32
     scores and softmax, the finite ``NEG_INF`` causal mask, dropout on
-    the probabilities (mask drawn from ``generator``), probabilities
-    rounded to v's dtype before the product."""
+    the probabilities (uniforms drawn from ``generator``, or the
+    (n, h, sq, sk) block that ``draw(generator, shape)`` returns),
+    probabilities rounded to v's dtype before the product."""
     if dropout_rate <= 0.0 or generator is None:
         return flash_attention_reference(q, k, v, causal, scale)
     probs = torch.softmax(attention_scores(q, k, causal, scale), dim=-1)
     keep = 1.0 - dropout_rate
-    mask = torch.rand(probs.shape, generator=generator,
-                      device=probs.device) < keep
+    uniforms = (draw(generator, probs.shape) if draw is not None else
+                torch.rand(probs.shape, generator=generator,
+                           device=probs.device))
+    mask = uniforms < keep
     probs = torch.where(mask, probs / keep, torch.zeros_like(probs))
     return torch.einsum("nhqk,nkhd->nqhd",
                         probs.to(v.dtype).to(torch.float32),
                         v.to(torch.float32))
+
+
+class _RingAttention(torch.autograd.Function):
+    """The per-rank ring body: this rank's sequence block of q against
+    every rank's key/value block in turn, merged by an online softmax
+    (running max, running denominator, unnormalized accumulator), as
+    the JAX package's ``_ring_attention_local``.  The denominator takes
+    the undropped probabilities and dropout masks the numerator only,
+    which is dense attention's dropout after the softmax.
+
+    The backward runs the ring again: the key/value blocks go round with
+    their gradient accumulators, each rank adds its queries' share, and
+    after a full turn each block's dK and dV are home.  ``keep(qi, kj,
+    shape)`` returns the dropout keep-mask of a block pair, the same on
+    every call, or is None without dropout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ranks, idx, causal, scale, rate, keep):
+        from ..parallel.distributed import ring_shift
+        size = len(ranks)
+        send_to, recv_from = ranks[(idx - 1) % size], ranks[(idx + 1) % size]
+        f32 = torch.float32
+        n, sq, h, _ = q.shape
+        qf = q.to(f32)
+        m = torch.full((n, h, sq), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((n, h, sq), dtype=f32, device=q.device)
+        o = torch.zeros(q.shape, dtype=f32, device=q.device)
+        qpos = idx * sq + torch.arange(sq, device=q.device)
+        kb, vb = k, v
+        for step in range(size):
+            src = (idx + step) % size
+            s = _ring_scores(qf, kb, qpos, src, causal, scale)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            pv = p
+            if keep is not None:
+                pv = torch.where(keep(idx, src, p.shape), p / (1.0 - rate),
+                                 0.0)
+            o = (o * corr.transpose(1, 2)[..., None]
+                 + torch.einsum("nhqk,nkhd->nqhd", pv, vb.to(f32)))
+            m = m_new
+            if step < size - 1:
+                kb, vb = ring_shift([kb, vb], send_to, recv_from)
+        out = o / l.transpose(1, 2)[..., None]
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        ctx.ring = (ranks, idx, causal, scale, rate, keep)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from ..parallel.distributed import ring_shift
+        q, k, v, out, lse = ctx.saved_tensors
+        ranks, idx, causal, scale, rate, keep = ctx.ring
+        size = len(ranks)
+        send_to, recv_from = ranks[(idx - 1) % size], ranks[(idx + 1) % size]
+        f32 = torch.float32
+        qf, do = q.to(f32), dout.to(f32)
+        qpos = idx * q.shape[1] + torch.arange(q.shape[1], device=q.device)
+        # rowsum(dP * P) = rowsum(dO * O), with dropout or without
+        dvec = (do * out).sum(dim=-1).transpose(1, 2)          # (n, h, sq)
+        dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=f32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=f32, device=q.device)
+        kb, vb = k, v
+        for step in range(size):
+            src = (idx + step) % size
+            s = _ring_scores(qf, kb, qpos, src, causal, scale)
+            prob = torch.exp(s - lse[..., None])
+            dp = torch.einsum("nqhd,nkhd->nhqk", do, vb.to(f32))
+            if keep is not None:
+                mask = keep(idx, src, prob.shape)
+                dv = dv + torch.einsum(
+                    "nhqk,nqhd->nkhd",
+                    torch.where(mask, prob / (1.0 - rate), 0.0), do)
+                dp = torch.where(mask, dp / (1.0 - rate), 0.0)
+            else:
+                dv = dv + torch.einsum("nhqk,nqhd->nkhd", prob, do)
+            ds = prob * (dp - dvec[..., None])
+            dq = dq + torch.einsum("nhqk,nkhd->nqhd", ds, kb.to(f32)) * scale
+            dk = dk + torch.einsum("nhqk,nqhd->nkhd", ds, qf) * scale
+            if step < size - 1:
+                kb, vb, dk, dv = ring_shift([kb, vb, dk, dv], send_to,
+                                            recv_from)
+            else:
+                dk, dv = ring_shift([dk, dv], send_to, recv_from)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def _ring_scores(qf, kb, qpos, src: int, causal: bool, scale: float):
+    """float32 (n, h, sq, sk) scores of this rank's queries (at global
+    positions ``qpos``) against the key block of ring position ``src``,
+    causally masked by global position."""
+    s = torch.einsum("nqhd,nkhd->nhqk", qf, kb.to(torch.float32)) * scale
+    if causal:
+        sk = kb.shape[1]
+        kpos = src * sk + torch.arange(sk, device=kb.device)
+        s = s.masked_fill(kpos[None, None, None, :]
+                          > qpos[None, None, :, None], NEG_INF)
+    return s
+
+
+def ring_attention(q, k, v, mesh, causal: bool, scale: float,
+                   dropout_rate: float = 0.0, seed=None):
+    """Sequence-parallel attention over the mesh's ``s`` axis, the
+    counterpart of the JAX package's ``ring_attention``: q, k, v (n, s,
+    h, d) DTensors -> float32 (n, s, h, d), one ring per ``n`` shard, the
+    sequence split over the whole ``s`` axis and the heads replicated.  A
+    batch that the ``n`` axis does not divide is not split (every ring
+    then holds the whole batch).  ``seed`` (the op's seed for the step)
+    turns dropout on at ``dropout_rate``: the keep-mask of each (query
+    block, key block) pair is drawn over the global batch from the seed
+    and the pair, and each rank keeps its batch shard of it."""
+    n_sharded = (mesh.axis_size("n") > 1
+                 and q.shape[0] % mesh.axis_size("n") == 0)
+    pl = mesh.sharding(("n" if n_sharded else None, "s", None, None))
+    mask_pl = keep_shards(pl, (0,))
+    ranks, idx = mesh.axis_ring("s")
+    rate = float(dropout_rate) if seed is not None else 0.0
+    n_global = q.shape[0]
+
+    def keep(qi, kj, shape):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(fold_seed(int(seed), qi * len(ranks) + kj))
+        draws = torch.rand((n_global,) + tuple(shape[1:]), generator=gen,
+                           device=mesh.device)
+        return local_block(draws, mesh, mask_pl) < 1.0 - rate
+
+    def body(ql, kl, vl):
+        return _RingAttention.apply(ql, kl, vl, ranks, idx, bool(causal),
+                                    float(scale), rate,
+                                    keep if rate > 0.0 else None)
+
+    return shard_map(body, [q, k, v], [pl, pl, pl], pl)
 
 
 def _position_attention(q, kg, vg, qpos, scale: float):
@@ -173,21 +325,21 @@ class MultiHeadAttention(Op):
         h, hd = self.num_heads, self.head_dim
 
         def proj(x, w):
-            y = F.linear(x.to(torch.float32),
-                         cast_compute(params[w.name], ctx).to(torch.float32))
-            return cast_compute(y, ctx).reshape(n, x.shape[1], h, hd)
+            y = linear(x.to(torch.float32),
+                       cast_compute(params[w.name], ctx).to(torch.float32),
+                       None, lambda y: cast_compute(y, ctx))
+            return y.reshape(n, x.shape[1], h, hd)
 
         return proj(xq, self.w_q), proj(xk, self.w_k), proj(xv, self.w_v)
 
     def _out_proj(self, params, attn, n, sq, ctx):
         """The context -> embed output projection (+bias)."""
         attn = cast_compute(attn, ctx).reshape(n, sq, self.embed_dim)
-        out = F.linear(attn.to(torch.float32),
-                       cast_compute(params[self.w_o.name],
-                                    ctx).to(torch.float32))
-        if self.use_bias:
-            out = out + params[self.w_bias.name].to(out.dtype)
-        return cast_compute(out, ctx)
+        bias = params[self.w_bias.name] if self.use_bias else None
+        return linear(attn.to(torch.float32),
+                      cast_compute(params[self.w_o.name],
+                                   ctx).to(torch.float32),
+                      bias, lambda y: cast_compute(y, ctx))
 
     def parallel_dims(self):
         # (n, s, c): samples, sequence and heads
@@ -200,16 +352,59 @@ class MultiHeadAttention(Op):
         n, sq, _ = xq.shape
         q, k, v = self._qkv(params, xq, xk, xv, ctx)
         scale = 1.0 / math.sqrt(self.head_dim)
+        rate = self.dropout if ctx.training else 0.0
         gen = None
         if ctx.training and self.dropout > 0.0:
             gen = ctx.op_generator(self.outputs[0].uid)
-        if use_flash(q, k, v, ctx.flash_attention, gen is not None):
-            attn = flash_attention(q, k, v, self.causal, scale)
+        if not is_dtensor(q):
+            attn = self._attend(q, k, v, scale, rate, gen, ctx)
+        elif self._wants_ring(ctx.mesh):
+            attn = ring_attention(q, k, v, ctx.mesh, self.causal, scale,
+                                  rate, None if gen is None
+                                  else gen.initial_seed())
         else:
-            attn = _dense_attention(q, k, v, self.causal, scale,
-                                    self.dropout if ctx.training else 0.0,
-                                    gen)
+            # each rank attends with its local batch and heads; the
+            # dropout uniforms are drawn for the global (n, h, sq, sk)
+            # and each rank keeps its block
+            from torch.distributed.tensor import Shard
+            pl = keep_shards(q.placements, (0, 2))
+            # the probabilities are (n, h, sq, sk): q's heads, its dim 2,
+            # are their dim 1
+            mask_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2
+                       else p for p in pl]
+            mesh = ctx.mesh
+
+            def draw(generator, shape):
+                full = torch.rand((q.shape[0], q.shape[2]) + tuple(
+                    shape[2:]), generator=generator, device=mesh.device)
+                return local_block(full, mesh, mask_pl)
+
+            attn = shard_map(
+                lambda ql, kl, vl: self._attend(ql, kl, vl, scale, rate,
+                                                gen, ctx, draw),
+                [q, k, v], [pl, pl, pl], pl)
         return [self._out_proj(params, attn, n, sq, ctx)]
+
+    def _attend(self, q, k, v, scale, rate, gen, ctx, draw=None):
+        """Attention of one device or of one rank's local shard, by the
+        port's selection rule: the flash kernels, or the dense path."""
+        if use_flash(q, k, v, ctx.flash_attention, gen is not None):
+            return flash_attention(q, k, v, self.causal, scale)
+        return _dense_attention(q, k, v, self.causal, scale, rate, gen,
+                                draw)
+
+    def _wants_ring(self, mesh) -> bool:
+        """The JAX package's gate: self-attention on a mesh with an ``s``
+        axis, whose strategy splits the sequence over the whole axis
+        (no strategy counts as the whole axis), with a sequence that
+        the axis divides."""
+        if mesh.axis_size("s") <= 1 or not self._self_attn:
+            return False
+        pc = self.parallel_config
+        s_deg = (pc.dims[1] if pc is not None and len(pc.dims) >= 2
+                 else mesh.axis_size("s"))
+        return (s_deg == mesh.axis_size("s")
+                and self.inputs[0].shape[1] % s_deg == 0)
 
     # ---- token generation ------------------------------------------------
     def _check_decodable(self, what: str) -> None:

@@ -11,6 +11,17 @@ and autograd differentiates it.  Tensor metadata stays NCHW: under
 ``torch.channels_last`` memory, and the max pool converts to
 channels-last at its own boundary in either layout, as the JAX ops
 transpose at theirs.
+
+On a mesh (DTensor values, ``OpContext.mesh``) each rank convolves its
+shard of the batch with the whole kernel, as DTensor's convolution rule
+would: a Conv2D whose input is split over h or w gathers h and w first,
+and its output is resharded by its strategy after it.  The max pool is lifted onto each rank's local
+shard of the batch (``parallel.sharding.shard_map``), where it runs the
+same kernels, forward and backward, as the JAX package lifts its Pallas
+kernel into ``shard_map`` on each batch shard.  A pool whose strategy
+splits h or w takes the JAX package's route there, XLA's
+``reduce_window`` with ``-inf`` padding, here in plain torch over the
+gathered spatial dims.  ``POOL_ROUTES`` counts the routes taken.
 """
 
 from __future__ import annotations
@@ -20,9 +31,15 @@ import torch.nn.functional as F
 
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
+from ..parallel.sharding import is_dtensor, keep_shards, redistribute, \
+    shard_map
 from .common import apply_activation, cast_compute
 from .cuda_pool import (max_pool_nhwc_autograd, max_pool_nhwc_reference,
                         out_hw)
+
+# the max pool's routes on a mesh: the kernels on each rank's batch
+# shard, or the reduce_window equivalent over gathered h and w
+POOL_ROUTES = {"kernel_per_shard": 0, "spatial_gathered": 0}
 
 
 class Conv2D(Op):
@@ -58,15 +75,29 @@ class Conv2D(Op):
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
         k = cast_compute(params[self.w_kernel.name], ctx)
+        b = params[self.w_bias.name] if self.use_bias else None
+        if not is_dtensor(x):
+            return [cast_compute(self._conv(x, k, b, ctx), ctx)]
+        # each rank convolves its batch shard (h, w and c gathered) with
+        # the whole kernel; DTensor's own convolution rule shards the
+        # batch only, and in some releases refuses a strided, padded
+        # convolution outright
+        pl = keep_shards(x.placements, (0,))
+        rep = ctx.mesh.replicated()
+        y = shard_map(lambda xl, kl, bl: self._conv(xl, kl, bl, ctx),
+                      [x, k, b], [pl, rep, rep], pl)
+        return [cast_compute(y, ctx)]
+
+    def _conv(self, x, k, b, ctx: OpContext) -> torch.Tensor:
+        """The convolution and its activation on one device's (or one
+        rank's) tensors."""
         if ctx.conv_layout == "nhwc":
             x = x.contiguous(memory_format=torch.channels_last)
             k = k.contiguous(memory_format=torch.channels_last)
-        b = (params[self.w_bias.name].to(x.dtype) if self.use_bias
-             else None)
+        b = b.to(x.dtype) if b is not None else None
         y = F.conv2d(x, k, b, stride=self.stride, padding=self.padding,
                      groups=self.groups)
-        y = apply_activation(y, self.activation)
-        return [cast_compute(y, ctx)]
+        return apply_activation(y, self.activation)
 
 
 class Pool2D(Op):
@@ -90,16 +121,53 @@ class Pool2D(Op):
     def parallel_dims(self):
         return (True, False, True, True)
 
+    def _splits_spatial(self) -> bool:
+        """Does this op's strategy split h or w?"""
+        dims = getattr(self.parallel_config, "dims", None)
+        return dims is not None and len(dims) >= 4 and (
+            dims[2] > 1 or dims[3] > 1)
+
+    def _max_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The max pool of one device (or of one rank's shard): the
+        kernels for a floating tensor, forward and, under autograd,
+        backward."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        if x.is_floating_point():
+            return max_pool_nhwc_autograd(x, self.kernel, self.stride,
+                                          self.padding)
+        return max_pool_nhwc_reference(x, self.kernel, self.stride,
+                                       self.padding)
+
+    def _reduce_window_max(self, x: torch.Tensor) -> torch.Tensor:
+        """XLA's ``reduce_window`` max, the JAX package's route for a
+        spatially split pool: padding is ``-inf`` for a floating tensor
+        (the kernels pad with ``finfo.min``)."""
+        if not x.is_floating_point():
+            return max_pool_nhwc_reference(x, self.kernel, self.stride,
+                                           self.padding)
+        (ph, pw) = self.padding
+        xp = F.pad(x, (pw, pw, ph, ph), value=float("-inf"))
+        return F.max_pool2d(xp, self.kernel, self.stride)
+
+    def _sharded_max_pool(self, x, mesh) -> torch.Tensor:
+        """The max pool of a DTensor: each rank pools its batch shard
+        (h, w and c gathered), through the kernels, or through the
+        ``reduce_window`` equivalent when the strategy splits h or w."""
+        pl = keep_shards(x.placements, (0,))
+        if self._splits_spatial():
+            POOL_ROUTES["spatial_gathered"] += 1
+            return shard_map(self._reduce_window_max, [x], [pl], pl)
+        POOL_ROUTES["kernel_per_shard"] += 1
+        return shard_map(self._max_pool, [x], [pl], pl)
+
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
         if self.pool_type == "max":
-            x = x.contiguous(memory_format=torch.channels_last)
-            if x.is_floating_point():
-                y = max_pool_nhwc_autograd(x, self.kernel, self.stride,
-                                           self.padding)
-            else:
-                y = max_pool_nhwc_reference(x, self.kernel, self.stride,
-                                            self.padding)
+            y = (self._sharded_max_pool(x, ctx.mesh) if is_dtensor(x)
+                 else self._max_pool(x))
+        elif is_dtensor(x):
+            pl = keep_shards(x.placements, (0,))
+            y = shard_map(self._avg_pool, [x], [pl], pl)
         else:
             y = self._avg_pool(x)
         y = apply_activation(y, self.activation)

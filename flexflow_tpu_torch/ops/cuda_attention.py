@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
+from ..parallel.sharding import refuse_dtensor
 
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30   # the finite mask value of the JAX package's attention
@@ -152,6 +153,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     raise; CPU tensors take the plain versions.
     ``flash_attention_forward.launches`` counts the kernel launches, and
     ``launches_by_dtype`` counts them by the operands' dtype."""
+    refuse_dtensor("flash_attention_forward", q, k, v)
     if q.device.type == "cpu":
         o = flash_attention_reference(q, k, v, causal, scale)
         return (o.to(q.dtype),
@@ -188,6 +190,7 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool,
     :func:`flash_attention_backward_reference`.
     ``flash_attention_backward.launches`` counts the C calls, and
     ``launches_by_dtype`` counts them by the operands' dtype."""
+    refuse_dtensor("flash_attention_backward", q, k, v, o, lse, do)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, lse, do,
                                                   causal, scale)

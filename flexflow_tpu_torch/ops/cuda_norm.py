@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import kernels
+from ..parallel.sharding import refuse_dtensor
 
 MAX_D = 14336        # rows up to this width fit MAX_THREADS x MAX_VALUES
 MAX_VALUES = 32      # float32 values of a row one thread holds (registers)
@@ -147,6 +148,7 @@ def fused_layernorm(x: torch.Tensor, res: Optional[torch.Tensor],
     if out_dtype != torch.float32 and out_dtype != x.dtype:
         raise TypeError(f"fused_layernorm writes float32 or x's dtype "
                         f"{x.dtype}, not {out_dtype}")
+    refuse_dtensor("fused_layernorm", x, res, scale, bias)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return fused_layernorm_reference(x, res, scale, bias, eps,

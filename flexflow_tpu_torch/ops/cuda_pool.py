@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.sharding import refuse_dtensor
 
 # the widest access of the kernels: 16 bytes of channels
 VECTOR_BYTES = 16
@@ -322,6 +323,7 @@ def max_pool_nhwc(x: torch.Tensor, kernel, stride,
     A CUDA tensor launches the kernel (f32, bf16 or f16, channels-last)
     or raises; a CPU tensor takes :func:`max_pool_nhwc_reference`.
     ``max_pool_nhwc.launches`` counts the kernel launches."""
+    refuse_dtensor("max_pool_nhwc", x)
     if x.device.type == "cpu":
         return max_pool_nhwc_reference(x, kernel, stride, padding)
     if x.device.type != "cuda":
@@ -365,6 +367,7 @@ def max_pool_nhwc_backward(x: torch.Tensor, g: torch.Tensor, kernel,
     the calls that launched, ``tile_launches`` and ``window_launches``
     those of each route, and ``last_plan`` holds the last call's route
     (a BackwardPlan or a WindowPlan)."""
+    refuse_dtensor("max_pool_nhwc_backward", x, g)
     if x.device.type == "cpu" and g.device.type == "cpu":
         return max_pool_nhwc_backward_reference(x, g, kernel, stride,
                                                 padding)

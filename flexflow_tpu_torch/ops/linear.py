@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from ..config import DeviceType, MemoryType
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
+from ..parallel.sharding import linear
 from .common import (apply_activation, cast_compute, dequant_matmul,
                      scale_param_name)
 
@@ -66,8 +67,13 @@ class Linear(Op):
             # accumulation and a float32 result (preferred_element_type);
             # products of bf16 or f16 values are exact in float32, so a
             # float32 product of the cast operands is that contract
-            y = F.linear(x.to(torch.float32),
-                         cast_compute(k, ctx).to(torch.float32))
+            # (on a mesh, on each rank's blocks: parallel.sharding.linear)
+            b = (params[self.w_bias.name].to(torch.float32)
+                 if self.use_bias else None)
+            return [linear(x.to(torch.float32),
+                           cast_compute(k, ctx).to(torch.float32), b,
+                           lambda y: cast_compute(
+                               apply_activation(y, self.activation), ctx))]
         if self.use_bias:
             y = y + params[self.w_bias.name].to(torch.float32)
         y = apply_activation(y, self.activation)

@@ -19,6 +19,13 @@ Statistics are float32 either way.
 
 RMSNorm is plain torch, as the JAX op is XLA: the float32 mean of
 squares, ``rsqrt``, the scale, then a cast to the compute dtype.
+
+On a mesh (DTensor values) BatchNorm and RMSNorm run on DTensors, and
+the fused LayerNorm runs on each rank's local rows
+(``parallel.sharding.shard_map``): the batch split over ``n`` and the
+sequence over ``s`` stay split, a split of the normalized dim is
+gathered first, and under ``c`` the replicated residual stream is
+normalized whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from ..initializers import ConstantInitializer, ZeroInitializer
 from ..op import Op, OpContext, OpType
+from ..parallel.sharding import is_dtensor, keep_shards, shard_map
 from .common import cast_compute, relu, torch_dtype
 from .cuda_norm import fused_layernorm_autograd
 
@@ -97,10 +105,21 @@ class LayerNorm(Op):
         if self.w_scale is not None and self.w_bias is not None:
             # the kernel stores the compute dtype itself where it can
             dt = torch_dtype(ctx.compute_dtype)
-            y = fused_layernorm_autograd(
-                x, None, params[self.w_scale.name], params[self.w_bias.name],
-                self.eps, dt if dt in (torch.float32, x.dtype)
-                else torch.float32)
+            out_dtype = (dt if dt in (torch.float32, x.dtype)
+                         else torch.float32)
+
+            def norm(xl, scale, bias):
+                return fused_layernorm_autograd(xl, None, scale, bias,
+                                                self.eps, out_dtype)
+
+            scale, bias = params[self.w_scale.name], params[self.w_bias.name]
+            if is_dtensor(x):
+                pl = keep_shards(x.placements, range(x.dim() - 1))
+                rep = ctx.mesh.replicated()
+                y = shard_map(norm, [x, scale, bias],
+                              [pl, rep, rep], pl)
+            else:
+                y = norm(x, scale, bias)
             return [cast_compute(y, ctx)]
         xf = x.to(torch.float32)
         mean = xf.mean(dim=-1, keepdim=True)

@@ -9,6 +9,7 @@ import functools
 import torch
 
 from ..op import Op, OpType
+from ..parallel.sharding import is_dtensor, keep_shards, redistribute
 from .common import cast_compute
 
 
@@ -25,6 +26,10 @@ class Flat(Op):
 
     def forward(self, params, inputs, ctx):
         x = inputs[0]
+        if is_dtensor(x):
+            # DTensor folds no split dim: the channels and h and w are
+            # gathered, the batch stays split
+            x = redistribute(x, keep_shards(x.placements, (0,)))
         return [x.reshape(x.shape[0], -1)]
 
 

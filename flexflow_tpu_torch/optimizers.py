@@ -13,7 +13,11 @@ The update rules are the reference kernels' (optimizer_kernel.cu):
 ``update(params, grads, state)`` is functional on dicts of tensors, as
 the JAX optimizers are on pytrees: it returns new parameter and state
 dicts and leaves its arguments untouched.  It runs under
-``torch.no_grad()`` on the parameters' device.
+``torch.no_grad()`` on the parameters' device.  A DTensor parameter (a
+model on a mesh), its gradient and its state update shard by shard: the
+rule runs on each rank's local shards, which hold the same numbers as
+the matching blocks of the one-device update, and the results keep the
+parameter's placements.
 """
 
 from __future__ import annotations
@@ -23,6 +27,58 @@ from typing import Any, Dict, Tuple
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def _local(t):
+    """A DTensor's local shard; anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(local, ref):
+    """``local`` as a DTensor placed as ``ref`` is, when ``ref`` is one."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
+def _tree(fn, state, params):
+    """``fn(leaf, params[name])`` over the tensor leaves of a state dict,
+    each keyed by its parameter's name (``state["v"][name]``); other
+    leaves (Adam's step count) as they are."""
+    if not isinstance(state, dict):
+        return state
+    return {k: fn(v, params[k]) if isinstance(v, torch.Tensor)
+            and k in params else _tree(fn, v, params)
+            for k, v in state.items()}
+
+
+def shardwise(update):
+    """Wrap an ``update(params, grads, state)`` written for plain tensors
+    so that DTensor arguments update shard by shard (each gradient
+    first brought to its parameter's placements)."""
+    def wrapped(self, params, grads, state):
+        from torch.distributed.tensor import DTensor
+        if not any(isinstance(v, DTensor) for v in params.values()):
+            return update(self, params, grads, state)
+        g_loc = {}
+        for k, g in grads.items():
+            p = params[k]
+            if isinstance(p, DTensor) and tuple(g.placements) != tuple(
+                    p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            g_loc[k] = _local(g)
+        new_p, new_s = update(
+            self, {k: _local(v) for k, v in params.items()}, g_loc,
+            _tree(lambda leaf, ref: _local(leaf), state, params))
+        return ({k: _like(v, params[k]) for k, v in new_p.items()},
+                _tree(lambda leaf, ref: _like(leaf, ref), new_s, params))
+    wrapped.__doc__ = update.__doc__
+    wrapped.__name__ = update.__name__
+    return wrapped
 
 
 class Optimizer:
@@ -56,6 +112,7 @@ class SGDOptimizer(Optimizer):
         return {}
 
     @torch.no_grad()
+    @shardwise
     def update(self, params, grads, state):
         lr, m, wd = self.lr, self.momentum, self.weight_decay
         if m > 0.0:
@@ -96,6 +153,7 @@ class AdamOptimizer(Optimizer):
                      / (1.0 - b1 ** tf))
 
     @torch.no_grad()
+    @shardwise
     def update(self, params, grads, state):
         b1, b2 = self.beta1, self.beta2
         wd, eps = self.weight_decay, self.epsilon

@@ -17,14 +17,23 @@ p     pipeline stages
 
 Each axis is factored into prime sub-axes, so any divisor of an axis
 size is a realizable degree.  :class:`AbstractMesh` answers every axis
-question the static verifier asks; the mesh over real devices and its
-mapping onto ``torch.distributed`` come with the multi-device layer.
+question the static verifier asks; :class:`MachineMesh` lays the same
+axes over the ranks of a ``torch.distributed`` process group as a
+``DeviceMesh`` whose dimensions are the prime sub-axes (``n0, n1, c0,
+...``), in the JAX package's order.
+
+The JAX package's mesh holds the devices of one process (or of every
+host, one process each).  The port runs one process per device (see
+``parallel/distributed.py``), so a MachineMesh spans every rank of the
+world: its product equals the world size.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 AXES: Tuple[str, ...] = ("n", "c", "h", "w", "s", "e", "p")
 
@@ -147,6 +156,22 @@ class _MeshAxes:
         return tuple(self._subaxes[a][i] for i in idx)
 
 
+def _canonical_sizes(shape: Optional[Dict[str, int]]) -> Dict[str, int]:
+    """Every canonical axis's size from a shape that may use aliases; an
+    unknown axis raises (a typo'd axis must not give a confidently wrong
+    mesh with every canonical axis silently of size 1)."""
+    sizes = {a: 1 for a in AXES}
+    for k, v in (shape or {}).items():
+        a = _ALIAS.get(k, k)
+        if a not in sizes:
+            raise ValueError(
+                f"unknown mesh axis {k!r} (canonical axes: "
+                f"{', '.join(AXES)}; aliases: "
+                f"{', '.join(sorted(_ALIAS))})")
+        sizes[a] = int(v)
+    return sizes
+
+
 class AbstractMesh(_MeshAxes):
     """A mesh SHAPE without devices: the static verifier's machine view
     and, on one device, the port's own mesh.  A 64-device mesh can be
@@ -155,18 +180,7 @@ class AbstractMesh(_MeshAxes):
 
     def __init__(self, shape: Optional[Dict[str, int]] = None,
                  num_devices: Optional[int] = None):
-        sizes = {a: 1 for a in AXES}
-        for k, v in (shape or {}).items():
-            a = _ALIAS.get(k, k)
-            if a not in sizes:
-                # fail like the runtime would, with a better message: a
-                # typo'd axis must not produce a confidently wrong
-                # static report (every canonical axis silently size 1)
-                raise ValueError(
-                    f"unknown mesh axis {k!r} (canonical axes: "
-                    f"{', '.join(AXES)}; aliases: "
-                    f"{', '.join(sorted(_ALIAS))})")
-            sizes[a] = int(v)
+        sizes = _canonical_sizes(shape)
         self._init_axes(sizes)
         if num_devices is not None:
             if num_devices < self.num_devices:
@@ -179,6 +193,122 @@ class AbstractMesh(_MeshAxes):
         live = {a: s for a, s in self.sizes.items() if s > 1}
         return (f"AbstractMesh({live or {'n': 1}}, "
                 f"devices={self.num_devices})")
+
+
+class MachineMesh(_MeshAxes):
+    """A ``torch.distributed`` DeviceMesh over the world's ranks.
+
+    Each canonical axis is materialized as its prime-factor sub-axes
+    (axis "n" of size 4 -> mesh dims n0, n1 of size 2 each), so an op may
+    shard a dim with any divisor degree of the axis size: a degree maps
+    onto a subset of the sub-axes.  A spec entry that names a canonical
+    axis expands to all its sub-axes (:meth:`sharding`), and a dim split
+    over several sub-axes is split over them major to minor, the block
+    order of jax's ``PartitionSpec(("n0", "n1"))``.
+
+    With no shape the mesh is pure data parallelism over every rank.
+    ``device`` is the rank's device: the card by default
+    (``cuda:{local_rank % device_count()}``; raises where there is none),
+    ``"cpu"`` when the caller asks.  A one-process program without a
+    process group gets a one-device mesh with no DeviceMesh
+    (``device_mesh`` None); any larger mesh needs the process group
+    (``parallel.distributed.initialize_distributed``) and a product equal
+    to its world size."""
+
+    def __init__(self, shape: Optional[Dict[str, int]] = None,
+                 device=None):
+        from . import distributed
+        sizes = _canonical_sizes(shape)
+        world = distributed.world_size()
+        used = math.prod(sizes.values())
+        if used == 1 and world > 1 and not shape:
+            sizes["n"] = world  # default: pure data parallel
+            used = world
+        if used > world:
+            raise ValueError(f"mesh {sizes} needs {used} devices, have "
+                             f"{world}")
+        if used < world:
+            raise ValueError(
+                f"mesh {sizes} uses {used} of the {world} ranks; a "
+                f"MachineMesh spans every rank of the process group")
+        self._init_axes(sizes)
+        self.device = (distributed.rank_device() if device is None
+                       else torch.device(device))
+        names: List[str] = []
+        dims: List[int] = []
+        for a in AXES:
+            names.extend(self._subaxes[a])
+            dims.extend(self._subfactors[a])
+        if not names:  # a one-device mesh still has one dim
+            names, dims = ["n0"], [1]
+            self._subaxes["n"] = ("n0",)
+            self._subfactors["n"] = (1,)
+        self.dim_names: Tuple[str, ...] = tuple(names)
+        self.device_mesh = None
+        if _group_up():
+            from torch.distributed.device_mesh import DeviceMesh
+            self.device_mesh = DeviceMesh(
+                self.device.type, torch.arange(used).reshape(dims),
+                mesh_dim_names=self.dim_names)
+
+    def _expand(self, entry) -> Tuple[str, ...]:
+        """A spec entry as the sub-axis names it shards over."""
+        if entry is None:
+            return ()
+        if isinstance(entry, str):
+            subs = self._subaxes.get(_ALIAS.get(entry, entry))
+            return tuple(subs) if subs is not None else (entry,)
+        return tuple(entry)
+
+    def sharding(self, spec) -> list:
+        """DTensor placements of a spec tuple: ``Shard(d)`` on each mesh
+        dim that dim ``d``'s entry names, ``Replicate()`` elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+        out: list = [Replicate() for _ in self.dim_names]
+        for d, entry in enumerate(spec):
+            for name in self._expand(entry):
+                out[self.dim_names.index(name)] = Shard(d)
+        return out
+
+    def replicated(self) -> list:
+        from torch.distributed.tensor import Replicate
+        return [Replicate() for _ in self.dim_names]
+
+    def coordinate(self) -> Tuple[int, ...]:
+        """This rank's index along each mesh dim."""
+        if self.device_mesh is None:
+            return (0,) * len(self.dim_names)
+        return tuple(self.device_mesh.get_coordinate())
+
+    def axis_ring(self, axis: str) -> Tuple[List[int], int]:
+        """The global ranks that share this rank's coordinates on every
+        mesh dim but ``axis``'s sub-axes, in the order of ``axis``'s
+        index (its sub-axes major to minor), and this rank's place in
+        that list: the ring of a ring collective over ``axis``."""
+        subs = self.subaxes(axis)
+        dims = [self.dim_names.index(s) for s in subs]
+        coord = list(self.coordinate())
+        grid = self.device_mesh.mesh
+        ranks = []
+        for j in range(math.prod(self._subfactors[_ALIAS.get(axis, axis)])):
+            rem = j
+            c = list(coord)
+            for d in reversed(dims):
+                c[d] = rem % grid.shape[d]
+                rem //= grid.shape[d]
+            ranks.append(int(grid[tuple(c)]))
+        me = int(grid[tuple(coord)])
+        return ranks, ranks.index(me)
+
+    def __repr__(self) -> str:
+        live = {a: s for a, s in self.sizes.items() if s > 1}
+        return (f"MachineMesh({live or {'n': 1}}, "
+                f"devices={self.num_devices})")
+
+
+def _group_up() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
 
 
 def scaled_shape(sizes: Dict[str, int], num_devices: int) -> Dict[str, int]:

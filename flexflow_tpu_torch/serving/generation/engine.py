@@ -658,7 +658,7 @@ class GenerationEngine:
     @classmethod
     def from_strategy(cls, model, strategy_file: str, mesh=None, **kw):
         raise _not_ported("GenerationEngine.from_strategy (a sharded "
-                          "engine)", "A.8")
+                          "engine)", "A.8b")
 
     # ---- lifecycle -----------------------------------------------------
     def _warmup(self) -> None:
