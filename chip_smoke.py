@@ -141,6 +141,13 @@
 17. MoE phase: one MoE layer at BERT-base's width (8 experts, d_ff 3072,
    k 2, capacity 1.25, 4 x 512 tokens): forward, aux loss and gradients
    on the card against the CPU in float32, and its device times;
+17a. pipeline phase: a ``pipeline_transformer_block`` of 12 stages at
+   BERT-base's widths (batch 16, s 512, bf16, 4 microbatches) on one
+   card: predict and a step, 24 LayerNorm launches each (the two
+   ``ln(x + attn)`` sites a stage, on the kernel with its residual
+   operand), the step's wall and busy time; one launch at the block's
+   operands against the plain version; a float32 twin of 2 stages
+   against the CPU;
 17b. disaggregated serving phase (the two serving-fleet phases run
    last: see ``main``): the generation phase's LM behind the
    port's ``build_disagg`` (a prefill-role and a decode-role
@@ -182,15 +189,23 @@
    step each; full-width AlexNet (229 px, batch 64, bf16, conv on n,
    dense on n x c, 2 SGD steps) at {"n": 2, "c": 2}; BERT-base (bf16,
    batch 16, Adam 1e-4) one step at {"n": 2, "c": 2} and one at {"s": 2,
-   "c": 2}.  Each rank counts each step's kernel launches (3 + 3 pool
-   launches an AlexNet step; 12 + 12 flash and 24 LayerNorm a BERT step
-   on 6 local heads; 24 LayerNorm and no flash under the ring), its
+   "c": 2}; the pipeline block (bf16, 12 stages) at {"p": 4} (GPipe)
+   and at {"n": 2, "p": 2} (interleaved, 6 chunks a rank) and their
+   float32 twins (4 stages); the MoE of 17 at {"e": 4} and {"n": 2,
+   "e": 2} and the dryrun's composed program (2 stages of a dense pair
+   and an 8-expert MoE) at {"e": 2, "p": 2} with a smaller twin,
+   float32.  Each rank counts
+   each step's kernel launches (3 + 3 pool launches an AlexNet step; 12
+   + 12 flash and 24 LayerNorm a BERT step on 6 local heads; 24
+   LayerNorm and no flash under the ring; 2 LayerNorm a stage a
+   microbatch in a pipeline, whose ranks run nothing in a bubble), its
    step's wall and busy ms and its collectives (calls, bytes, and which
    were staged through pinned host memory); each rank's pools are
    bit-equal to the plain version on its shard.  Then this process runs
    each on one rank: the float32 mesh steps equal it within rtol 1e-4,
-   the bf16 ones within 15% by the L2 norm of the change (the first
-   moment under Adam).  Then a one-rank group on the default backend
+   the bf16 ones and the composed program (whose microbatches route
+   otherwise than one rank's whole batch) within 15% by the L2 norm of
+   the change (the first moment under Adam).  Then a one-rank group on the default backend
    (NCCL): a {"n": 1} mesh step bit-equal to the step without a mesh;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
@@ -3021,7 +3036,7 @@ def dlrm_hetero_phase(ft, card: str, counters) -> None:
     same weights, each step's peak memory beside the device-placed one,
     serving and training through the usual entry points with the tables
     pinned on the host throughout, the host's gather and row-update
-    times, a dense host update (momentum) timed, and a small float32
+    times, a dense update (momentum, on the card) timed, and a small float32
     version's 3 steps on the card against the CPU."""
     import numpy as np
     import torch
@@ -3106,7 +3121,8 @@ def dlrm_hetero_phase(ft, card: str, counters) -> None:
     torch.cuda.empty_cache()
 
     # SGD with momentum moves every row the velocity holds: the dense
-    # path, the whole tables' gradient and update on the host
+    # path, the whole tables' gradient built on the host and the update
+    # on the card, which each table visits for it
     dense = build_zoo(ft, "dlrm", batch, import_strategy_file=path,
                       momentum=0.9)
     assert not dense._host_rows
@@ -3118,8 +3134,9 @@ def dlrm_hetero_phase(ft, card: str, counters) -> None:
     dense_ms = (time.perf_counter() - t0) * 1e3 / HETERO_DENSE_STEPS
     pinned_tables(dense, "after dense steps")
     print(f"dlrm hetero dense update (SGD momentum 0.9: each table's whole "
-          f"gradient built and applied on the host): {dense_ms:.1f} ms "
-          f"wall a step over {HETERO_DENSE_STEPS} steps [{card}]")
+          f"gradient built on the host, the update on the card): "
+          f"{dense_ms:.1f} ms wall a step over {HETERO_DENSE_STEPS} steps "
+          f"[{card}]")
     del dense
 
     kw = ZOO_SMALL["dlrm"]
@@ -5026,6 +5043,146 @@ def fleet_phase(ft, counters, card) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the pipeline phase: pipeline stages on one card
+# ----------------------------------------------------------------------
+# a pipeline_transformer_block at BERT-base's widths: 12 encoder stages
+# of d 768, 12 heads, d_ff 3072, between a 30522-token embedding and a
+# 2-class head on the first position; batch 16, s 512, bf16, 4
+# microbatches.  Its float32 twin has 2 stages at the same widths
+PIPE = dict(num_stages=12, num_heads=12, d_ff=3072, num_microbatches=4)
+PIPE_TWIN = dict(num_stages=2, batch=4, seq=128)
+# the mesh runs' float32 twins of the block (MESH_RUNS "pipe_f32_*")
+MESH_PIPE_TWIN = dict(num_stages=4, batch=8, seq=64)
+
+
+def pipe_model(ft, device=None, dtype="bfloat16", batch=BERT_BATCH,
+               seq=BERT["seq_len"], mesh=None, **block):
+    """The pipeline model (``PIPE`` updated by ``block``), compiled with
+    SGD (lr 0.01) on ``mesh`` or one device, its parameters from SEED,
+    and its batch."""
+    import numpy as np
+
+    kw = dict(PIPE, **block)
+    cfg = ft.FFConfig(batch_size=batch, compute_dtype=dtype, seed=SEED)
+    m = ft.FFModel(cfg, device=device)
+    tok = m.create_tensor((batch, seq), dtype="int32", name="tokens")
+    t = m.embedding(tok, BERT["vocab_size"], BERT["d_model"], aggr="none")
+    t = m.pipeline_transformer_block(t, **kw)
+    t = m.reshape(m.split(t, [1, seq - 1], axis=1)[0],
+                  (batch, BERT["d_model"]))
+    logits = m.dense(t, BERT["num_classes"])
+    m.compile(ft.SGDOptimizer(lr=0.01), metrics=["accuracy"],
+              final_tensor=logits, mesh=mesh)
+    m.init_layers(seed=SEED)
+    rng = np.random.default_rng(SEED)
+    return m, (rng.integers(0, BERT["vocab_size"], (batch, seq)).astype(
+        np.int32), rng.integers(0, BERT["num_classes"], (batch, 1)).astype(
+        np.int32))
+
+
+def pipe_ln_shapes() -> list:
+    """The (rows, s, d) operands the block's residual LayerNorm sites
+    get: the whole batch on one card (the p == 1 path, and its float32
+    twin), and each mesh run's microbatch on a rank (its share of the
+    batch over n, cut into M)."""
+    d = BERT["d_model"]
+    out = [(BERT_BATCH, BERT["seq_len"], d),
+           (PIPE_TWIN["batch"], PIPE_TWIN["seq"], d)]
+    for name, (shape, _, _) in MESH_RUNS.items():
+        if name.startswith("pipe"):
+            batch, seq = ((MESH_PIPE_TWIN["batch"], MESH_PIPE_TWIN["seq"])
+                          if "f32" in name else (BERT_BATCH, BERT["seq_len"]))
+            rows = batch // shape.get("n", 1) // PIPE["num_microbatches"]
+            out.append((rows, seq, d))
+    return list(dict.fromkeys(out))
+
+
+def pipeline_phase(ft, cuda_norm, counters, card: str) -> dict:
+    """The pipeline block on one card (the p == 1 path: the stages in
+    order over the whole batch): predict, then one train_batch, bf16,
+    with the LayerNorm kernel's launches counted (its two ln(x + attn)
+    sites a stage a forward); a residual launch at each shape a site
+    gets here and on a mesh rank (``pipe_ln_shapes``) held against the
+    plain version; a float32 twin of 2 stages, predict and a step,
+    against the port's own CPU run from the same weights."""
+    import numpy as np
+    import torch
+
+    stages = PIPE["num_stages"]
+    model, (x, y) = pipe_model(ft)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    out = model.predict(x)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    ln_fwd = counters[2].launches
+    assert out.shape == (BERT_BATCH, 2) and np.all(np.isfinite(out)), out
+    assert ln_fwd == 2 * stages, ln_fwd
+    reset_counts(*counters)
+    xb = model._to_device((x, y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(model.train_batch(*xb))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    ln_step = counters[2].launches
+    assert ln_step == 2 * stages and np.isfinite(loss), (ln_step, loss)
+    assert counters[0].launches == counters[1].launches == 0
+    busy = busy_ms(lambda: model.train_batch(*xb))
+    print(f"pipeline block on one card ({stages} stages, d "
+          f"{BERT['d_model']}, {PIPE['num_heads']} heads, d_ff "
+          f"{PIPE['d_ff']}, batch {BERT_BATCH}, s {BERT['seq_len']}, bf16, "
+          f"M {PIPE['num_microbatches']}): predict {pred_s:.3f} s wall, "
+          f"layernorm launches a forward {ln_fwd} (= 2 x {stages} stages), "
+          f"a step {ln_step}; step loss {loss:.4f}, step wall "
+          f"{step_ms:.3f} ms, a step's busy {busy:.3f} ms [{card}]")
+    del model
+    free_garbage()
+    torch.cuda.empty_cache()
+
+    # the residual launch at every shape a site gets, on one card and on
+    # a rank of each mesh run (each picks its own launch plan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    d = BERT["d_model"]
+    scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(d, generator=gen, device="cuda")
+    err = 0.0
+    for rows in pipe_ln_shapes():
+        xa, res = (torch.randn(rows, generator=gen, device="cuda")
+                   for _ in range(2))
+        err = max(err, ln_check(cuda_norm, xa, res, scale, bias,
+                                " (the pipeline block's ln(x + attn))"))
+
+    twin = dict(PIPE_TWIN)
+    batch, seq = twin.pop("batch"), twin.pop("seq")
+    got = []
+    for device in ("cuda", "cpu"):
+        m, (tx, ty) = pipe_model(ft, device, "float32", batch, seq,
+                                 num_microbatches=2, **twin)
+        reset_counts(*counters)
+        pred = m.predict(tx)
+        loss_t = float(m.train_batch(tx, ty))
+        if device == "cuda":
+            assert counters[2].launches == 2 * 2 * twin["num_stages"], \
+                counters[2].launches
+        got.append((pred, loss_t, {p.name: m.get_weights(p.name)
+                                   for p in m.parameters}))
+        del m
+    (pc, lc, wc), (ph, lh, wh) = got
+    pred_err = float(np.abs(pc - ph).max())
+    loss_err = abs(lc - lh)
+    param_err = max(float(np.abs(wc[k] - wh[k]).max()) for k in wh)
+    print(f"f32 pipeline block ({twin['num_stages']} stages, batch {batch}, "
+          f"s {seq}) cuda (kernels) vs cpu (plain): predict max abs err "
+          f"{pred_err:.3g}, step loss {lc:.6f} vs {lh:.6f}, max abs err "
+          f"over the updated parameters {param_err:.3g} (tolerance "
+          f"{F32_STEP_TOL}) [{card}]")
+    assert max(pred_err, loss_err, param_err) <= F32_STEP_TOL, (
+        pred_err, loss_err, param_err)
+    return {"ln": ln_fwd + ln_step, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
 # the mesh phase: MESH_WORLD ranks on the one card
 # ----------------------------------------------------------------------
 # four ranks share the card: NCCL refuses two ranks on one GPU, so the
@@ -5071,7 +5228,39 @@ MESH_RUNS = {
     "alexnet": ({"n": 2, "c": 2}, (3, 3, 0, 0, 0), 2),
     "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 12, 12, 24), 1),
     "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 24), 1),
+    # the pipeline block (PIPE, bf16) over p, GPipe, and
+    # interleaved at {"n": 2, "p": 2} with 6 chunks a rank; their float32
+    # twins (4 stages); the smoke's MoE (MOE, float32) over e; and the
+    # dryrun's composed program at {"e": 2, "p": 2} (float32) and its
+    # twin (COMPOSED_TWIN_*).  A rank
+    # runs no bubble tick, so its LayerNorm launches a step are 2 x its
+    # stages x M: (12 / 4) x 4 x 2 = 24 at p 4, 6 x 4 x 2 = 48
+    # interleaved, 1 x 4 x 2 = 8 and 2 x 4 x 2 = 16 in the twins (the
+    # backward recomputes the plain version: no launch)
+    "pipe_p4": ({"p": 4}, (0, 0, 0, 0, 24), 1),
+    "pipe_n2p2": ({"n": 2, "p": 2}, (0, 0, 0, 0, 48), 1),
+    "pipe_f32_p4": ({"p": 4}, (0, 0, 0, 0, 8), 1),
+    "pipe_f32_n2p2": ({"n": 2, "p": 2}, (0, 0, 0, 0, 16), 1),
+    "moe_e4": ({"e": 4}, (0, 0, 0, 0, 0), 1),
+    "moe_n2e2": ({"n": 2, "e": 2}, (0, 0, 0, 0, 0), 1),
+    "composed_e2p2": ({"e": 2, "p": 2}, (0, 0, 0, 0, 0), 1),
+    "composed_f32_e2p2": ({"e": 2, "p": 2}, (0, 0, 0, 0, 0), 1),
 }
+# the composed program's input (batch, s, d) and its stage's MoE (the
+# dryrun's: k 1, capacity factor 4.0).  A MoE routes over the tokens it
+# is given under a capacity fixed by the whole batch, and its
+# load-balance loss is a mean over them, so the one-rank run it is held
+# against computes the pipeline's function: the stages over each
+# microbatch (``pipelined``).  At these widths no microbatch fills an
+# expert (its capacity, 1024, is a microbatch's tokens); the float32
+# twin routes a smaller batch under capacity factor 1.0, 32 tokens an
+# expert against a microbatch's 128, which binds.
+# tests/test_torch_mesh_pipeline.py holds the composed program, and a
+# binding 8-expert stage, against the JAX package's pipeline
+COMPOSED_SHAPE = (4, 512, 768)
+COMPOSED_MOE = dict(num_experts=8, d_ff=3072, k=1, capacity_factor=4.0)
+COMPOSED_TWIN_SHAPE = (4, 64, 768)
+COMPOSED_TWIN_MOE = dict(COMPOSED_MOE, capacity_factor=1.0)
 MESH_TF_F32 = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128,
                    seq_len=32, vocab_size=128, num_classes=4)
 
@@ -5084,6 +5273,40 @@ def mesh_model(ft, name: str, mesh=None, strategies: bool = True):
     from flexflow_tpu_torch.models import build_alexnet, build_transformer
 
     rng = np.random.default_rng(SEED)
+    if name.startswith("pipe"):
+        twin = "f32" in name
+        block = dict(schedule="interleaved",
+                     virtual_stages=2 if twin else 6) \
+            if name.endswith("n2p2") else {}
+        if twin:
+            return pipe_model(ft, dtype="float32", mesh=mesh,
+                              **MESH_PIPE_TWIN, **block)
+        return pipe_model(ft, mesh=mesh, **block)
+    if name.startswith("moe") or name.startswith("composed"):
+        composed = name.startswith("composed")
+        twin = "f32" in name
+        shape = (COMPOSED_TWIN_SHAPE if twin else COMPOSED_SHAPE) \
+            if composed else MOE_SHAPE
+        moe = COMPOSED_TWIN_MOE if twin else COMPOSED_MOE
+        cfg = ft.FFConfig(batch_size=shape[0], compute_dtype="float32",
+                          seed=SEED)
+        model = ft.FFModel(cfg)
+        t = model.create_tensor(shape, name="x")
+        if composed:
+            def stage(seg, h):
+                h = seg.dense(h, 3072, activation="relu")
+                return seg.moe(seg.dense(h, shape[-1]), **moe)
+            t = model.pipeline(t, num_stages=2, stage_builder=stage,
+                               num_microbatches=2)
+        else:
+            t = model.moe(t, name="moe0", **MOE)
+        logits = model.dense(model.reshape(t, (shape[0], shape[1] * shape[2])),
+                             4)
+        model.compile(ft.SGDOptimizer(lr=0.01), metrics=["accuracy"],
+                      final_tensor=logits, mesh=mesh)
+        model.init_layers(seed=SEED)
+        return model, (rng.standard_normal(shape, dtype=np.float32),
+                       rng.integers(0, 4, (shape[0], 1)).astype(np.int32))
     if name == "cnn_f32":
         cfg = ft.FFConfig(batch_size=8, compute_dtype="float32", seed=SEED)
         cfg.strategies = {"conv2d": mesh_pc(ft, (2, 1, 1, 1)),
@@ -5133,6 +5356,36 @@ def mesh_model(ft, name: str, mesh=None, strategies: bool = True):
     model.compile(opt, metrics=["accuracy"], final_tensor=logits, mesh=mesh)
     model.init_layers(seed=SEED)
     return model, batch
+
+
+@contextlib.contextmanager
+def pipelined(p: int):
+    """On one rank, the pipeline ops compute what a pipeline of ``p``
+    ranks computes: the stages (the p == 1 path) over each of the M
+    microbatches, rows [m B / M, (m + 1) B / M) of the batch, and their
+    auxiliary loss summed and divided by M (``_run_ticks`` in
+    ``flexflow_tpu_torch/parallel/pipeline.py``).  Where a stage mixes
+    rows (a MoE routes over its microbatch, under a capacity fixed by
+    the whole batch) that differs from the stages over the whole
+    batch."""
+    import torch
+    from flexflow_tpu_torch.ops import pipeline as ops_pipeline
+
+    whole = ops_pipeline.pipeline_apply
+
+    def apply(stage_fn, stacked, x, num_stages, line=None,
+              num_microbatches=None, **kw):
+        M = num_microbatches or p
+        parts = [whole(stage_fn, stacked, xm, num_stages, None, **kw)
+                 for xm in x.chunk(M)]
+        return (torch.cat([y for y, _ in parts]),
+                sum(a for _, a in parts) / M)
+
+    ops_pipeline.pipeline_apply = apply
+    try:
+        yield
+    finally:
+        ops_pipeline.pipeline_apply = whole
 
 
 def mesh_state(model, bf16: bool) -> dict:
@@ -5365,14 +5618,18 @@ def mesh_phase(ft, card: str) -> dict:
         launches[name] = [sum(sum(r[name]["launches"][s][i]
                                   for s in range(steps)) for r in ranks)
                           for i in range(len(names))]
-        model, batch = mesh_model(ft, name, None, strategies=False)
-        bf16 = model.config.compute_dtype == "bfloat16"
         with np.load(os.path.join(workdir, f"{name}-init.npz")) as z:
             init = {k: z[k] for k in z.files}
-        mine = mesh_state(model, False)
-        for k, v in init.items():   # both drew their parameters from SEED
-            np.testing.assert_array_equal(v, mine[k], err_msg=k)
-        losses = [float(model.train_batch(*batch)) for _ in range(steps)]
+        # the one rank computes the pipeline's function
+        with pipelined(shape.get("p", 1)):
+            model, batch = mesh_model(ft, name, None, strategies=False)
+            mine = mesh_state(model, False)
+            for k, v in init.items():   # both drew them from SEED
+                np.testing.assert_array_equal(v, mine[k], err_msg=k)
+            losses = [float(model.train_batch(*batch))
+                      for _ in range(steps)]
+        model_dtype = model.config.compute_dtype
+        bf16 = model_dtype == "bfloat16"
         one = mesh_state(model, bf16)
         del model
         torch.cuda.empty_cache()
@@ -5403,9 +5660,9 @@ def mesh_phase(ft, card: str) -> dict:
             d_gap = sum(float(np.sum((got[k] - one[k]) ** 2)) for k in keys)
             shares[prefix[:-1]] = math.sqrt(d_gap / max(d_one, 1e-30))
         share = shares[held[:-1]]
-        print(f"mesh {name} {shape} bf16: losses {mesh_losses} against one "
-              f"rank's {losses}; L2 of the difference over L2 of the "
-              f"one-rank change: {shares} (held: {held[:-1]} <= "
+        print(f"mesh {name} {shape} {model_dtype}: losses {mesh_losses} "
+              f"against one rank's {losses}; L2 of the difference over L2 "
+              f"of the one-rank change: {shares} (held: {held[:-1]} <= "
               f"{MESH_L2_SHARE}) [{card}]")
         assert share <= MESH_L2_SHARE, (name, shares)
         assert np.all(np.isfinite(mesh_losses)), mesh_losses
@@ -5530,6 +5787,7 @@ def main() -> int:
                    card)
     ckpt = phase("checkpoint", checkpoint_phase, ft, cuda_pool, card)
     phase("moe", moe_phase, ft, card)
+    tpipe = phase("pipeline", pipeline_phase, ft, cuda_norm, counters, card)
     for name in ZOO:
         phase(name, zoo_phase, ft, name, card, kernel_counters)
     phase("zoo f32 steps", zoo_f32_step_checks, ft)
@@ -5626,7 +5884,9 @@ def main() -> int:
     mesh_flash = {f"mesh_{run}": ml[run] for run in ("bert_n2c2",
                                                      "tf_f32_n2c2")}
     mesh_ln = {f"mesh_{run}": ml[run][4] for run in (
-        "bert_n2c2", "bert_s2c2", "tf_f32_n2c2", "tf_f32_s2c2")}
+        "bert_n2c2", "bert_s2c2", "tf_f32_n2c2", "tf_f32_s2c2", "pipe_p4",
+        "pipe_n2p2", "pipe_f32_p4", "pipe_f32_n2p2")}
+    lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
               fwd_paths, kp),
@@ -5665,7 +5925,8 @@ def main() -> int:
                     "generation": tgen["ln"],
                     "bert_int8_serve": tquant["ln"],
                     **tspec["ln"], **tdis["ln"],
-                    "fleet": tfleet["ln"], **mesh_ln}, lp),
+                    "fleet": tfleet["ln"], "pipeline": tpipe["ln"],
+                    **mesh_ln}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,10 @@ other's file.
 ``compile`` resolves a parallelization strategy (``FFConfig.strategies``
 and ``import_strategy_file``; ``export_strategy_file`` writes it) and runs
 the static verifier over it (``verify=``).  A per-op ``precision`` sets
-that op's compute dtype, and on one device a host-placed Embedding keeps
-its table in pinned host memory, gathers there and updates there.
+that op's compute dtype, and a host-placed op keeps its parameters in
+pinned host memory: an Embedding gathers there, any other op copies its
+parameters to the device for its forward, and the update runs on the
+device, the values going back to their pinned buffers.
 
 Under a :class:`~flexflow_tpu_torch.parallel.mesh.MachineMesh` (one
 process per device, ``parallel/distributed.py``) the degrees of the axes
@@ -37,12 +39,12 @@ input batch by its ``batch_spec``, and each output of an op with a
 strategy is redistributed to its ``output_spec`` (the JAX package's
 ``with_sharding_constraint``).  The hand-written kernels run on each
 rank's local shard (``parallel.sharding.shard_map``), ring attention
-runs over ``s``, the loss and metrics reduce over the global batch, and
-``predict``/``evaluate``/``get_weights`` return full arrays on every
-rank.  Every rank feeds the same full arrays, the JAX package's
-multi-controller contract.  The axes ``p`` and ``e``, host placement on
-a mesh of more than one device, ``reshard`` and strategy search are
-refused, each naming its roadmap item.
+runs over ``s``, pipeline stages over ``p`` (``ops/pipeline.py``) and a
+MoE's experts over ``e``, the loss and metrics reduce over the global
+batch, and ``predict``/``evaluate``/``get_weights`` return full arrays
+on every rank.  Every rank feeds the same full arrays, the JAX
+package's multi-controller contract.  ``reshard`` and strategy search
+are refused, each naming its roadmap item.
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
@@ -78,6 +80,7 @@ from .ops.linear import (Embedding, Linear, host_gather, host_placed,
 from .ops.loss_ops import MSELoss
 from .ops.moe import MoE
 from .ops.norm import BatchNorm, LayerNorm, RMSNorm
+from .ops.pipeline import PipelineSegment, PipelineTransformerBlock
 from .ops.rnn import LSTM
 from .ops.tensor_ops import (Concat, Dropout, Flat, Reshape, Softmax, Split,
                              Transpose)
@@ -171,9 +174,11 @@ class FFModel:
         self._params: Dict[str, torch.Tensor] = {}
         self._fwd_compiled: Dict[int, Callable] = {}
         self._sparse_specs: List[tuple] = []
-        # host-placed tables: their parameter names, and those that take
-        # the row update on the host (_host_row_specs)
+        # host-placed parameters: their names, those of ops that run on
+        # the device (copied there for the forward), and the tables that
+        # take the row update on the host (_host_row_specs)
         self._host_params: set = set()
+        self._host_stream: List[str] = []
         self._host_rows: List[tuple] = []
         self.mesh = mesh
         # on a MachineMesh with a DeviceMesh: the DTensor placements of
@@ -338,11 +343,40 @@ class FFModel:
             activation="gelu", aux_loss_weight=1e-2, kernel_initializer=None,
             name=None) -> Tensor:
         """Mixture-of-Experts FFN with top-k routing and capacity-factor
-        dispatch, on one device (``ops/moe.py``); its load-balance loss
-        joins the training objective."""
+        dispatch, its experts split over the 'e' mesh axis
+        (``ops/moe.py``); its load-balance loss joins the training
+        objective."""
         op = MoE(self._uname("moe", name), input_tensor, num_experts, d_ff,
                  k, capacity_factor, activation, aux_loss_weight,
                  kernel_initializer)
+        return self._register(op).outputs[0]
+
+    def pipeline_transformer_block(self, input_tensor, num_stages, num_heads,
+                                   d_ff, num_microbatches=None,
+                                   schedule="gpipe", virtual_stages=None,
+                                   name=None) -> Tensor:
+        """A stack of identical encoder blocks run as a pipeline over the
+        'p' mesh axis (``ops/pipeline.py``).  ``schedule``: "gpipe" or
+        "interleaved" (requires ``virtual_stages`` chunks per rank)."""
+        op = PipelineTransformerBlock(
+            self._uname("pipeline_block", name), input_tensor, num_stages,
+            num_heads, d_ff, num_microbatches, schedule=schedule,
+            virtual_stages=virtual_stages)
+        return self._register(op).outputs[0]
+
+    def pipeline(self, input_tensor, num_stages, stage_builder,
+                 num_microbatches=None, schedule="gpipe",
+                 virtual_stages=None, name=None) -> Tensor:
+        """Pipeline ``num_stages`` instances of any FFModel subgraph over
+        the 'p' mesh axis.  ``stage_builder(seg, t)`` builds one stage
+        against a fresh model ``seg`` and a probe tensor ``t`` (same
+        shape in and out); the subgraph may hold dense layers and
+        ``moe``, whose experts split over 'e' inside the stage."""
+        op = PipelineSegment(self._uname("pipeline", name), input_tensor,
+                             num_stages, stage_builder, self.config,
+                             num_microbatches, schedule=schedule,
+                             virtual_stages=virtual_stages,
+                             device=self.device)
         return self._register(op).outputs[0]
 
     # element unary builders (reference model.h: exp/relu/... adders)
@@ -436,10 +470,8 @@ class FFModel:
         ``steps_per_dispatch`` below 1 and for a batch size that does not
         divide into the microbatches, and NotImplementedError for what
         the port cannot run yet (strategy search, a multi-device mesh in
-        a process without a process group, the mesh axes ``p`` and
-        ``e``, host placement on a mesh of more than one device or of an
-        op other than an Embedding, profiling, a trace directory), each
-        naming the roadmap item that lifts it."""
+        a process without a process group, profiling, a trace
+        directory), each naming the roadmap item that lifts it."""
         cfg = self.config
         if cfg.search_budget > 0:
             raise NotImplementedError(
@@ -579,12 +611,6 @@ class FFModel:
         the first dispatch), as the JAX package records them at trace
         time."""
         mesh = self.mesh
-        for axis in ("p", "e"):
-            if mesh.axis_size(axis) > 1:
-                what = "pipeline stages" if axis == "p" else "experts"
-                raise NotImplementedError(
-                    f"mesh axis {axis!r} ({what}) is not ported yet "
-                    f"(ROADMAP A.8b)")
         self._on_mesh = (isinstance(mesh, MachineMesh)
                          and mesh.device_mesh is not None)
         self._param_pl, self._out_pl = {}, {}
@@ -594,6 +620,10 @@ class FFModel:
             raise ValueError(f"the model runs on {self.device} and its mesh "
                              f"on {mesh.device}")
         self.device = mesh.device
+        # the lines the ops' own collectives run over (new_group is
+        # collective: every rank compiles here)
+        mesh.make_axis_groups(sorted({a for op in self.layers
+                                      for a in op.collective_axes}))
         for op in self.layers:
             for w in op.weights:
                 self._param_pl[w.name] = mesh.sharding(
@@ -605,23 +635,22 @@ class FFModel:
 
     def _resolve_host_placements(self) -> set:
         """The parameters of host-placed ops (device type CPU or ZCM
-        memory): they live in pinned host memory.  The port places
-        Embedding tables so; a host-placed op of another kind with
-        parameters raises rather than run on the device."""
-        names = set()
+        memory): they live in pinned host memory, on a mesh as a plain
+        tensor on every rank (a DTensor lives on the mesh's device
+        type).  An Embedding gathers its rows on the host; any other
+        op's parameters are copied to the device for its forward
+        (``_host_stream``).  Every host parameter visits the device for
+        the optimizer's update, whose state lives there, and goes back
+        to its pinned buffer after the step, as in the JAX package."""
+        names, self._host_stream = set(), []
         for op in self.layers:
             if not host_placed(op.parallel_config) or not op.weights:
                 continue
-            if not isinstance(op, Embedding):
-                raise NotImplementedError(
-                    f"{op.name}: host placement of a {op.op_type.value} "
-                    f"op is not ported yet (ROADMAP A.8b); the port places "
-                    f"Embedding tables on the host")
-            if self.mesh.mesh_product > 1:
-                raise NotImplementedError(
-                    f"{op.name}: host-placed tables on a mesh of more than "
-                    f"one device are not ported yet (ROADMAP A.8b)")
             names.update(w.name for w in op.weights)
+            if not isinstance(op, Embedding):
+                # a list, in the layers' order: every rank copies them
+                # to the device, and reduces their gradients, in one order
+                self._host_stream.extend(w.name for w in op.weights)
         return names
 
     def _run_verifier(self, verify: str) -> None:
@@ -719,9 +748,29 @@ class FFModel:
                               else self._place_param(p.name, value))
         self._params = params
         self._opt_state = self.optimizer.init_state(
-            {k: v for k, v in params.items()
+            {k: self._on_device(k, v) for k, v in params.items()
              if k in self._trainable_names()})
         self._step = 0
+
+    def _on_device(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A host-placed parameter's value (or gradient) copied to the
+        device; any other value as it is."""
+        if name not in self._host_params:
+            return value
+        return value.to(self.device, non_blocking=True)
+
+    def _stream_in(self, value: torch.Tensor) -> torch.Tensor:
+        """A host-placed parameter of an op that runs on the device: its
+        copy there (differentiable, its gradient goes back to the host),
+        on a mesh a replicated DTensor, whose gradient comes back whole
+        on every rank, reduced over the data ranks as every replicated
+        parameter's is."""
+        value = value.to(self.device, non_blocking=True)
+        if not self._on_mesh:
+            return value
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(value, self.mesh.device_mesh,
+                                  self.mesh.replicated(), run_check=False)
 
     def _pin(self, value: torch.Tensor) -> torch.Tensor:
         """A host-placed parameter's home: pinned host memory when the
@@ -1072,6 +1121,9 @@ class FFModel:
                         out_placements=self._out_pl)
         if self._on_mesh:
             inputs = self._place_batch(inputs, infer=not training)
+        if self._host_stream:
+            params = {**params, **{k: self._stream_in(params[k])
+                                   for k in self._host_stream}}
         values = {t.uid: v for t, v in zip(self.input_tensors, inputs)}
         if (self.config.remat and keep_uids is not None
                 and len(self.layers) > 3):
@@ -1115,7 +1167,10 @@ class FFModel:
         tensors that cross a segment boundary, and ``keep_uids``, live
         from the forward to the backward, and a segment's interior is
         recomputed when its backward runs.  The last segment runs plain:
-        its activations feed the first backward step at once.  Each
+        its activations feed the first backward step at once.  So does a
+        segment that holds a pipeline over more than one rank: a
+        recomputation would rerun its stages' hops at a point of the
+        backward where the neighbouring ranks wait in theirs.  Each
         segment runs on a context of its own, and its ``updates`` and
         ``aux_losses`` come out with its outputs (a recomputation's are
         dropped).  No op draws from torch's global random state — each
@@ -1145,7 +1200,9 @@ class FFModel:
                         ictx.aux_losses)
 
             carry = tuple(values[u] for u in in_uids)
-            if i == len(segments) - 1:
+            if i == len(segments) - 1 or (
+                    self._on_mesh and self.mesh.axis_size("p") > 1
+                    and any("p" in op.collective_axes for op in seg)):
                 outs, upd, aux = seg_fn(*carry)
             else:
                 outs, upd, aux = torch.utils.checkpoint.checkpoint(
@@ -1371,7 +1428,8 @@ class FFModel:
         row_grads = dict(zip(rows, grads[len(trainable):]))
         grads = dict(zip(trainable, grads[:len(trainable)]))
         if self._on_mesh:
-            grads = {k: redistribute(g, self._param_pl[k])
+            grads = {k: g if k in self._host_params
+                     else redistribute(g, self._param_pl[k])
                      for k, g in grads.items()}
         return (gather(loss.detach()), sums, grads,
                 {k: v.detach() for k, v in updates.items()}, row_grads)
@@ -1446,7 +1504,9 @@ class FFModel:
             f"requested splits; see model.verify_report")
 
     def _apply_update(self, grads: Dict[str, torch.Tensor]) -> None:
-        trainable = {k: self._params[k] for k in grads}
+        # host-placed parameters visit the device for the update
+        trainable = {k: self._on_device(k, self._params[k]) for k in grads}
+        grads = {k: self._on_device(k, g) for k, g in grads.items()}
         new, self._opt_state = self.optimizer.update(trainable, grads,
                                                      self._opt_state)
         self._store(new)

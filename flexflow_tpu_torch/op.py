@@ -95,6 +95,10 @@ class OpContext:
     mesh: Optional[object] = None
     out_placements: Dict[int, list] = dataclasses.field(
         default_factory=dict)
+    # ops run on one rank's local tensors inside a pipeline stage: the
+    # lines (``parallel.distributed.AxisGroup``) their values are split
+    # over, {"n": the batch's line or None, "e": the experts' or None}
+    groups: Optional[Dict[str, object]] = None
 
     def op_generator(self, uid: int) -> Optional[torch.Generator]:
         """The random stream of the op whose output has ``uid`` in this
@@ -135,6 +139,11 @@ class Op:
     ``forward``."""
 
     op_type: OpType = OpType.INPUT
+    # the mesh axes whose lines this op's forward runs collectives over
+    # on its own (``FFModel.compile`` makes their process groups); an op
+    # with ``"p"`` among them talks to other ranks inside its forward and
+    # is never recomputed by rematerialisation
+    collective_axes: Tuple[str, ...] = ()
 
     def __init__(self, name: str, inputs: Sequence[Tensor]):
         self.name = name

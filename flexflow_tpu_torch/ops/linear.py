@@ -6,7 +6,8 @@ for serving (``FFModel.quantize_weights``) multiplies through
 A host-placed Embedding (a strategy's device type CPU or ZCM memory:
 :func:`host_placed`, the reference's hetero DLRM placement) keeps its
 table in pinned host memory and gathers there (:func:`host_gather`):
-only the looked-up rows cross to the device."""
+only the looked-up rows cross to the device.  On a mesh every rank
+holds the table and gathers the whole batch's rows."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 from ..config import DeviceType, MemoryType
 from ..initializers import GlorotUniform, ZeroInitializer
 from ..op import Op, OpContext, OpType
-from ..parallel.sharding import linear
+from ..parallel.sharding import gather, linear
 from .common import (apply_activation, cast_compute, dequant_matmul,
                      scale_param_name)
 
@@ -171,8 +172,16 @@ class Embedding(Op):
             # respect to them; the table is not in the autograd graph
             y = ctx.embedding_rows[self.name]
         elif host_placed(self.parallel_config):
-            y = host_gather(params[self.w_table.name], inputs[0],
+            y = host_gather(params[self.w_table.name], gather(inputs[0]),
                             ctx.device)
+            if ctx.mesh is not None:
+                # every rank gathers the whole batch's rows, replicated
+                # as the JAX package's host gather returns them; their
+                # gradient comes back whole on every rank
+                from torch.distributed.tensor import DTensor
+                y = DTensor.from_local(y, ctx.mesh.device_mesh,
+                                       ctx.mesh.replicated(),
+                                       run_check=False)
         else:
             y = take_rows(params[self.w_table.name].to(torch.float32),
                           inputs[0])   # (n, [s,] d)

@@ -20,15 +20,22 @@ Under gloo on CUDA tensors the runtime runs DTensor's collectives
 itself, through c10d on the device tensors, and counts them
 (``collectives``).  Gloo runs every collective on CUDA tensors but the
 point to point exchange (torch 2.11: "writev ... Bad address"), so the
-ring attention's shift (:func:`ring_shift`), and it alone, is staged
-through pinned host memory.  Nothing of an op's compute leaves the
-device.
+ring attention's shift (:func:`ring_shift`) and the pipeline's hops
+between stages (:func:`stage_shift`) are staged through pinned host
+memory.  Nothing of an op's compute leaves the device.
+
+The pipeline's and the experts' collectives run over one mesh axis's
+line (:class:`AxisGroup`, ``MachineMesh.axis_group``) as
+``autograd.Function``s, each with the backward its use needs: the
+stages' hop and its reverse, the last stage's output to every rank of
+the line (its cotangent handed back once), and the sum, gather and copy
+whose gradients either sum over the line or stay the rank's own.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -251,6 +258,35 @@ def _count(name: str, nbytes: int, host: bool) -> None:
     c["bytes"] += int(nbytes)
 
 
+def _exchange(sends, recvs):
+    """One round of point to point messages: ``sends`` is a list of
+    (tensor, global rank), ``recvs`` a list of (template tensor, global
+    rank); returns the received tensors, shaped and typed as their
+    templates, on the templates' device.  Gloo takes no point to point
+    exchange of CUDA tensors, so there each message is staged through
+    pinned host memory; returns (received, staged)."""
+    first = (sends or recvs)[0][0]
+    staged = (first.device.type == "cuda"
+              and not _uses_nccl(str(dist.get_backend()), "cuda"))
+    ops, bufs = [], []
+    for t, peer in sends:
+        t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend,
+                              t.to("cpu").pin_memory() if staged else t,
+                              peer))
+    for like, peer in recvs:
+        buf = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+               if staged else torch.empty_like(like))
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, peer))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        bufs = [b.to(like.device, non_blocking=True)
+                for b, (like, _) in zip(bufs, recvs)]
+    return bufs, staged
+
+
 def ring_shift(tensors, send_to: int, recv_from: int):
     """Send each of ``tensors`` to global rank ``send_to`` and return the
     tensors of the same shapes received from ``recv_from``: one step of
@@ -259,20 +295,212 @@ def ring_shift(tensors, send_to: int, recv_from: int):
     tensors, so there each tensor is staged through pinned host memory
     (counted in ``collectives["ring_shift"]``)."""
     tensors = [t.contiguous() for t in tensors]
-    staged = (tensors[0].device.type == "cuda"
-              and not _uses_nccl(str(dist.get_backend()), "cuda"))
-    sends = [t.to("cpu").pin_memory() if staged else t for t in tensors]
-    recvs = [torch.empty_like(t, pin_memory=True) if staged
-             else torch.empty_like(t) for t in sends]
-    ops = []
-    for s, r in zip(sends, recvs):
-        ops.append(dist.P2POp(dist.isend, s, send_to))
-        ops.append(dist.P2POp(dist.irecv, r, recv_from))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
+    recvs, staged = _exchange([(t, send_to) for t in tensors],
+                              [(t, recv_from) for t in tensors])
     _count("ring_shift", sum(t.numel() * t.element_size()
                              for t in tensors), staged)
-    if not staged:
-        return recvs
-    dev = tensors[0].device
-    return [r.to(dev, non_blocking=True) for r in recvs]
+    return recvs
+
+
+# ----------------------------------------------------------------------
+# collectives over one mesh axis, with their gradients
+# ----------------------------------------------------------------------
+class AxisGroup(NamedTuple):
+    """This rank's line along one mesh axis: the process group of the
+    line, its global ranks in the axis's order (sub-axes major to
+    minor, the order of ``MachineMesh.axis_ring``) and this rank's
+    place in it."""
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _StageShift(torch.autograd.Function):
+    """One tick's activation hop between pipeline stages: send ``y`` to
+    ``send_to`` and receive an activation like ``like`` from
+    ``recv_from`` (either may be None).  The backward runs the hop in
+    reverse: the gradient of what was received goes back to its sender,
+    and the gradient of what was sent comes from its receiver.
+
+    ``token`` chains the hops of one rank (each hop returns the next
+    token), so that every hop's backward runs on every rank that took
+    part, in the reverse of the forward's order, even where its rank
+    only sent (its received output is unused) or only received (its
+    sent input is None): the first token is cut from a parameter, so
+    the chain reaches the leaves autograd is asked for, and the last
+    feeds the stages' output collective."""
+
+    @staticmethod
+    def forward(ctx, y, token, send_to, recv_from, like):
+        ctx.send_to, ctx.recv_from = send_to, recv_from
+        ctx.like = (tuple(like.shape), like.dtype, like.device)
+        sends = [(y, send_to)] if send_to is not None else []
+        recvs = [(like, recv_from)] if recv_from is not None else []
+        got, staged = _exchange(sends, recvs)
+        _count("stage_shift", _nbytes(y) if sends else 0, staged)
+        recv = got[0] if recvs else like.new_empty(0)
+        return recv, token.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, g_recv, g_token):
+        shape, dtype, device = ctx.like
+        sends = [(g_recv, ctx.recv_from)] if ctx.recv_from is not None \
+            else []
+        like = torch.empty(shape, dtype=dtype, device=device)
+        recvs = [(like, ctx.send_to)] if ctx.send_to is not None else []
+        g_y = None
+        if sends or recvs:
+            got, staged = _exchange(sends, recvs)
+            _count("stage_shift", _nbytes(g_recv) if sends else 0, staged)
+            g_y = got[0] if recvs else None
+        return g_y, g_token.new_zeros(0), None, None, None
+
+
+def stage_shift(y: Optional[torch.Tensor], token: torch.Tensor,
+                send_to: Optional[int], recv_from: Optional[int],
+                like: torch.Tensor):
+    """Send the stage output ``y`` to global rank ``send_to`` and receive
+    an activation shaped as ``like`` from ``recv_from`` (None for no
+    message either way): the open chain s -> s+1 of the GPipe schedule,
+    or with the last rank sending to the first the closed ring of the
+    interleaved one.  Returns (received or None, next token); see
+    :class:`_StageShift` for the token.  Under gloo on CUDA tensors the
+    message is staged through pinned host memory, counted in
+    ``collectives["stage_shift"]``."""
+    recv, token = _StageShift.apply(y, token, send_to, recv_from, like)
+    return (recv if recv_from is not None else None), token
+
+
+class _LastStageToAll(torch.autograd.Function):
+    """The last pipeline stage's outputs to every rank of the line: the
+    sum over the line of ``out`` masked to the last rank (the JAX
+    package's ``psum`` of the masked output).  Downstream of the
+    pipeline every rank holds the same loss, so every rank receives the
+    same cotangent of the result; the backward hands it to the last
+    stage once (summing it over the line would scale every stage's
+    gradient by the line's size)."""
+
+    @staticmethod
+    def forward(ctx, out, token, group, is_last):
+        ctx.is_last = is_last
+        res = out.clone() if is_last else torch.zeros_like(out)
+        dist.all_reduce(res, group=group)
+        _count("all_reduce", _nbytes(res), False)
+        return res
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.is_last else None), g.new_zeros(0), None, None
+
+
+def last_stage_to_all(out: torch.Tensor, token: torch.Tensor,
+                      line: AxisGroup) -> torch.Tensor:
+    """``out`` of the line's last rank on every rank of ``line``
+    (:class:`_LastStageToAll`); the other ranks pass a tensor of the
+    same shape, whose values are not read."""
+    return _LastStageToAll.apply(out, token, line.group,
+                                 line.index == line.size - 1)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, grad_sum):
+        ctx.group, ctx.grad_sum = group, grad_sum
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        _count("all_reduce", _nbytes(out), False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.grad_sum:
+            return g, None, None
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        _count("all_reduce", _nbytes(g), False)
+        return g, None, None
+
+
+def all_reduce(x: torch.Tensor, line: AxisGroup,
+               grad: str = "sum") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``line``, on every one of them.
+    ``grad`` says how the ranks use the sum: ``"sum"`` where each uses
+    it for its own share of the work (its rows), so the cotangents are
+    partial and their sum is the gradient (an all-reduce again);
+    ``"same"`` where every rank computes the same thing from it (a
+    replicated loss term), so each rank's cotangent is already the
+    gradient."""
+    return _AllReduce.apply(x, line.group, grad == "sum")
+
+
+class _CopyToLine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        _count("all_reduce", _nbytes(g), False)
+        return g, None
+
+
+def copy_to_line(x: torch.Tensor, line: AxisGroup) -> torch.Tensor:
+    """``x`` as it is, where every rank of ``line`` holds the same ``x``
+    and each uses it for a share of the work (its experts): the forward
+    moves nothing and the backward sums the partial gradients over the
+    line."""
+    return _CopyToLine.apply(x, line.group)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index, grad_sum):
+        ctx.group, ctx.size, ctx.index = group, size, index
+        ctx.grad_sum = grad_sum
+        x = x.contiguous()
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        _count("all_gather_into_tensor", _nbytes(x), False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.grad_sum:
+            return g.chunk(ctx.size)[ctx.index].contiguous(), None, None, \
+                None, None
+        g = g.contiguous()
+        out = g.new_empty((g.shape[0] // ctx.size,) + tuple(g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g, group=ctx.group)
+        _count("reduce_scatter_tensor", _nbytes(g), False)
+        return out, None, None, None, None
+
+
+def all_gather(x: torch.Tensor, line: AxisGroup,
+               grad: str = "sum") -> torch.Tensor:
+    """The ranks' ``x`` of ``line`` concatenated along dim 0, in the
+    line's order, on every rank.  ``grad`` as in :func:`all_reduce`:
+    ``"sum"`` where each rank uses its own part of the result (the
+    backward is a reduce-scatter), ``"own"`` where every rank computes
+    the same thing from all of it (the backward takes this rank's
+    part)."""
+    return _AllGather.apply(x, line.group, line.size, line.index,
+                            grad == "sum")
+
+
+def gather_counts(x: torch.Tensor, line: AxisGroup) -> torch.Tensor:
+    """Every rank's ``x`` of ``line`` stacked on a new leading dim, in the
+    line's order (no gradient)."""
+    with torch.no_grad():
+        out = all_gather(x, line)
+    return out.reshape((line.size,) + tuple(x.shape))

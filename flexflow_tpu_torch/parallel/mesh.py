@@ -244,6 +244,7 @@ class MachineMesh(_MeshAxes):
             self._subaxes["n"] = ("n0",)
             self._subfactors["n"] = (1,)
         self.dim_names: Tuple[str, ...] = tuple(names)
+        self._groups: Dict[str, object] = {}
         self.device_mesh = None
         if _group_up():
             from torch.distributed.device_mesh import DeviceMesh
@@ -280,25 +281,64 @@ class MachineMesh(_MeshAxes):
             return (0,) * len(self.dim_names)
         return tuple(self.device_mesh.get_coordinate())
 
-    def axis_ring(self, axis: str) -> Tuple[List[int], int]:
-        """The global ranks that share this rank's coordinates on every
-        mesh dim but ``axis``'s sub-axes, in the order of ``axis``'s
-        index (its sub-axes major to minor), and this rank's place in
-        that list: the ring of a ring collective over ``axis``."""
-        subs = self.subaxes(axis)
-        dims = [self.dim_names.index(s) for s in subs]
-        coord = list(self.coordinate())
+    @property
+    def dim_axes(self) -> Tuple[str, ...]:
+        """The canonical axis of each mesh dim (dim ``n1`` is axis ``n``)."""
+        return tuple(name[0] for name in self.dim_names)
+
+    def _lines(self, axis: str) -> List[List[int]]:
+        """Every line along ``axis``: the global ranks that share their
+        coordinates on every mesh dim but ``axis``'s sub-axes, each line
+        in the order of ``axis``'s index (its sub-axes major to minor)."""
+        a = _ALIAS.get(axis, axis)
         grid = self.device_mesh.mesh
-        ranks = []
-        for j in range(math.prod(self._subfactors[_ALIAS.get(axis, axis)])):
-            rem = j
-            c = list(coord)
-            for d in reversed(dims):
-                c[d] = rem % grid.shape[d]
-                rem //= grid.shape[d]
-            ranks.append(int(grid[tuple(c)]))
-        me = int(grid[tuple(coord)])
+        dims = [self.dim_names.index(s) for s in self._subaxes[a]]
+        others = [d for d in range(grid.dim()) if d not in dims]
+        return grid.permute(*others, *dims).reshape(
+            -1, math.prod(self._subfactors[a])).tolist()
+
+    def axis_ring(self, axis: str) -> Tuple[List[int], int]:
+        """This rank's line along ``axis`` (:meth:`_lines`) and its place
+        in it: the ring of a ring collective over ``axis``."""
+        me = int(self.device_mesh.mesh[tuple(self.coordinate())])
+        ranks = next(row for row in self._lines(axis) if me in row)
         return ranks, ranks.index(me)
+
+    def make_axis_groups(self, axes: Sequence[str]) -> None:
+        """Create the process group of every line along each of ``axes``
+        (those of size > 1 without one yet), for :meth:`axis_group`.
+        ``new_group`` is collective over the world, so every rank calls
+        this at the same point with the same axes (``FFModel.compile``
+        does)."""
+        import torch.distributed as dist
+
+        from .distributed import AxisGroup
+        for axis in axes:
+            a = _ALIAS.get(axis, axis)
+            if (a in self._groups or self.sizes[a] <= 1
+                    or self.device_mesh is None):
+                continue
+            me = dist.get_rank()
+            for row in self._lines(a):
+                group = dist.new_group(row)
+                if me in row:
+                    self._groups[a] = AxisGroup(group, tuple(row),
+                                                row.index(me))
+
+    def axis_group(self, axis: str):
+        """This rank's line along ``axis`` as a
+        :class:`~flexflow_tpu_torch.parallel.distributed.AxisGroup`
+        (its process group, global ranks in the axis's order and this
+        rank's place), or None for an axis of size 1.  The groups come
+        from :meth:`make_axis_groups`."""
+        a = _ALIAS.get(axis, axis)
+        if self.sizes[a] <= 1:
+            return None
+        if a not in self._groups:
+            raise RuntimeError(
+                f"no process groups along mesh axis {a!r}: "
+                f"make_axis_groups must run on every rank first")
+        return self._groups[a]
 
     def __repr__(self) -> str:
         live = {a: s for a, s in self.sizes.items() if s > 1}

@@ -26,7 +26,8 @@ import _torch_mesh_cases as cases  # noqa: E402
 import flexflow_tpu_torch as ft  # noqa: E402
 from flexflow_tpu_torch.interop import params_from_jax_numpy  # noqa: E402
 from flexflow_tpu_torch.ops import conv as conv_ops  # noqa: E402
-from flexflow_tpu_torch.parallel.sharding import distribute  # noqa: E402
+from flexflow_tpu_torch.parallel.sharding import (  # noqa: E402
+    distribute, is_dtensor)
 
 ARRAYS: dict = {}
 RECORD: dict = {}
@@ -92,7 +93,8 @@ def shard_layouts():
 
 
 def refusals(workdir: str):
-    """What the slice leaves to A.8b: each raises NotImplementedError."""
+    """A.8b's items on the mesh: "no error" where one compiles, else the
+    NotImplementedError's text."""
     out = {}
 
     def attempt(what, fn):
@@ -197,6 +199,68 @@ def one_rank(workdir: str):
         RECORD[tag] = model._on_mesh
 
 
+def pipe_cases(suite: str, workdir: str):
+    """The suite's PIPE_CASES on their meshes, from the JAX package's
+    initial parameters: predict, the steps' losses and every parameter,
+    each parameter's local shape and the host-placed ones' homes."""
+    import gc
+
+    from flexflow_tpu_torch.parallel.distributed import coordination_barrier
+    for name in cases.PIPE_SUITES[suite][1]:
+        # every rank has let go of the last case's tensors, and waited
+        # for the others, before the next case's collectives start
+        gc.collect()
+        coordination_barrier()
+        case = cases.PIPE_CASES[name]
+        model = cases.build_pipe(ft, case, device="cpu", mesh=ft.MachineMesh(
+            case["mesh"], device="cpu"))
+        params_from_jax_numpy(model, init_params(workdir, name))
+        for k, v in cases.pipe_run(model, case).items():
+            ARRAYS[f"{name}|{k}"] = v
+        vals = model._params
+        RECORD[name] = {
+            "local": {k: list((v.to_local() if is_dtensor(v) else v).shape)
+                      for k, v in vals.items()},
+            "host": {k: [vals[k].device.type, type(vals[k]).__name__]
+                     for k in sorted(model._host_params)},
+        }
+    if suite == "pipe4":
+        trap()
+        for knob in cases.PIPE_KNOBS:
+            gc.collect()
+            coordination_barrier()
+            mesh = ft.MachineMesh({"n": 2, "p": 2}, device="cpu")
+            for k, v in cases.pipe_knob_run(ft, knob, mesh, workdir).items():
+                ARRAYS[f"knob|{knob}|{k}"] = v
+
+
+def trap():
+    """``pipeline_apply`` alone at {"p": 4}, GPipe over 4 stages and
+    interleaved over 8 (2 chunks a rank): the output of the stages and,
+    for sum(y**2), this rank's gradients (its stage block's and its
+    share of the input's)."""
+    from flexflow_tpu_torch.parallel.pipeline import pipeline_apply
+    mesh = ft.MachineMesh({"p": 4}, device="cpu")
+    mesh.make_axis_groups(("p",))
+    line = mesh.axis_group("p")
+    RECORD["trap_line"] = [list(line.ranks), line.index]
+    for sched, stages, v in (("gpipe", 4, None), ("interleaved", 8, 2)):
+        w, b, x = cases.trap_data(stages)
+        wl = torch.from_numpy(w).chunk(4)[line.index].clone()
+        bl = torch.from_numpy(b).chunk(4)[line.index].clone()
+        wl.requires_grad_()
+        bl.requires_grad_()
+        xt = torch.from_numpy(x).requires_grad_()
+        y, _ = pipeline_apply(lambda p, h: cases.trap_stage(torch, p, h),
+                              {"w": wl, "b": bl}, xt, stages, line, 4, sched,
+                              v)
+        (y ** 2).sum().backward()
+        ARRAYS[f"trap|{sched}|y"] = y.detach().numpy()
+        ARRAYS[f"trap|{sched}|dw"] = wl.grad.numpy()
+        ARRAYS[f"trap|{sched}|db"] = bl.grad.numpy()
+        ARRAYS[f"trap|{sched}|dx"] = xt.grad.numpy()
+
+
 SUITES = {
     "cnn": lambda w: ([run_case(c, w) for c in (
         "mlp_dp4", "mlp_n2c2", "mlp_mixed", "mlp_fallback", "cnn_n2c2",
@@ -205,6 +269,8 @@ SUITES = {
         "tf_s2c2", "tf_n2c2", "tf_nondiv", "tf_dropout")], ring_alone()),
     "checkpoint": checkpoints,
     "one_rank": one_rank,
+    **{name: (lambda w, name=name: pipe_cases(name, w))
+       for name in cases.PIPE_SUITES},
 }
 
 

@@ -3,9 +3,11 @@
 that pairs them, the flash-attention forward and backward kernels, and
 the fused LayerNorm kernel); and the zoo's ops on the card against the
 CPU: the Embedding's id rules, the sparse embedding update against the
-dense one, and the LSTM; host-placed embedding tables and a bf16-pinned
-attention under a strategy; KV page migration (one device-to-host copy
-an export) and the disaggregated pair's tokens against the CPU's.  The bf16/f16 flash kernels load by TMA, so
+dense one, and the LSTM; host-placed embedding tables, a host-placed
+Linear and a bf16-pinned attention under a strategy; KV page migration
+(one device-to-host copy an export) and the disaggregated pair's tokens
+against the CPU's; the pipeline block's residual LayerNorms on the
+kernel.  The bf16/f16 flash kernels load by TMA, so
 the flash cases include head dims that are not a multiple of 8 and
 unaligned storage, which the wrapper pads and copies.
 
@@ -916,8 +918,9 @@ def _hetero_model(device, momentum):
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
 def test_host_table_stays_pinned_across_train_batch(no_tf32, momentum):
     """Host-placed tables are pinned host tensors after init and after
-    every train_batch (the row update under plain SGD, the dense host
-    update under momentum), in the same buffers; three steps on the card
+    every train_batch (the row update on the host under plain SGD, the
+    dense update, which the tables visit the card for, under momentum),
+    in the same buffers; three steps on the card
     equal the CPU's within 1e-5."""
     g = torch.Generator().manual_seed(4)
     batches = [(torch.randint(0, 5000, (64, 3), generator=g,
@@ -1393,3 +1396,101 @@ def test_export_pages_makes_one_device_to_host_copy(gen):
     for n in src:
         for k in src[n]:
             assert torch.equal(dst[n][k][[0, 1, 4]], src[n][k][[7, 2, 9]])
+
+
+def _pipeline_model(device, stages=2):
+    """A small pipeline block model in float32 (tokens, an embedding, the
+    block, its first position, a dense head)."""
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=4, compute_dtype="float32", seed=0)
+    m = ft.FFModel(cfg, device=device)
+    tok = m.create_tensor((4, 64), dtype="int32", name="tokens")
+    t = m.embedding(tok, 100, 128, aggr="none")
+    t = m.pipeline_transformer_block(t, num_stages=stages, num_heads=4,
+                                     d_ff=256, num_microbatches=2)
+    t = m.reshape(m.split(t, [1, 63], axis=1)[0], (4, 128))
+    m.compile(ft.SGDOptimizer(lr=0.05), "sparse_categorical_crossentropy",
+              [], final_tensor=m.dense(t, 4))
+    m.init_layers(seed=0)
+    return m
+
+
+def test_pipeline_block_residual_layernorms_launch_the_kernel(no_tf32):
+    """On the card the block's two ln(x + attn) sites of every stage
+    launch the fused LayerNorm kernel with its residual operand (2 a
+    stage a forward; the backward recomputes the plain version), never
+    the plain version; predict and a step equal the CPU's within 1e-4."""
+    from unittest import mock
+
+    card, cpu = _pipeline_model("cuda"), _pipeline_model("cpu")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 100, (4, 64), generator=g, dtype=torch.int32)
+    y = torch.randint(0, 4, (4, 1), generator=g, dtype=torch.int32)
+    plain = mock.patch.object(cuda_norm, "fused_layernorm_reference",
+                              wraps=cuda_norm.fused_layernorm_reference)
+    cuda_norm.fused_layernorm.launches = 0
+    with plain as ref:
+        out = card.predict(x.numpy())
+        assert cuda_norm.fused_layernorm.launches == 2 * 2
+        assert ref.call_count == 0
+    torch.testing.assert_close(torch.from_numpy(out),
+                               torch.from_numpy(cpu.predict(x.numpy())),
+                               rtol=1e-4, atol=1e-4)
+    cuda_norm.fused_layernorm.launches = 0
+    lc, lh = float(card.train_batch(x, y)), float(cpu.train_batch(x, y))
+    assert cuda_norm.fused_layernorm.launches == 2 * 2
+    assert abs(lc - lh) <= 1e-4 * max(1.0, abs(lh)), (lc, lh)
+    for k in cpu._params:
+        torch.testing.assert_close(card._params[k].cpu(), cpu._params[k],
+                                   rtol=1e-4, atol=1e-4, msg=k)
+
+
+def test_pipeline_residual_layernorm_kernel_equals_the_plain_version(gen):
+    """The block's call of the kernel, at a stage's rows: float32 x and
+    residual, float32 out, within the 4 ulp the smoke's check allows."""
+    x = torch.randn(4, 64, 128, generator=gen, device="cuda")
+    res = torch.randn(4, 64, 128, generator=gen, device="cuda")
+    scale = torch.rand(128, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(128, generator=gen, device="cuda")
+    y = cuda_norm.fused_layernorm_autograd(x, res, scale, bias, 1e-5,
+                                           torch.float32)
+    ref = cuda_norm.fused_layernorm_reference(x, res, scale, bias, 1e-5)
+    assert cuda_norm.ulp_distance(y, ref) <= 4
+
+
+def test_host_placed_linear_stays_pinned_on_the_card(no_tf32):
+    """A host-placed Linear's kernel and bias are pinned host tensors
+    after init and after every step, in the same buffers; they visit
+    the card for the forward and the update (the optimizer's state
+    lives there); three steps equal the CPU's within 1e-5."""
+    import flexflow_tpu_torch as ft
+
+    def model(device):
+        cfg = ft.FFConfig(batch_size=16, compute_dtype="float32", seed=0)
+        cfg.strategies = {"dense": ft.ParallelConfig(
+            device_type=ft.DeviceType.HOST, dims=(1, 1), device_ids=(0,),
+            memory_types=(ft.MemoryType.ZCM,) * 3)}
+        m = ft.FFModel(cfg, device=device)
+        x = m.create_tensor((16, 32), name="x")
+        t = m.dense(m.dense(x, 64, activation="relu"), 8)
+        m.compile(ft.SGDOptimizer(lr=0.05, momentum=0.9),
+                  "sparse_categorical_crossentropy", [], final_tensor=t)
+        m.init_layers(seed=0)
+        return m
+
+    card, cpu = model("cuda"), model("cpu")
+    bufs = {k: card._params[k] for k in card._host_stream}
+    assert sorted(bufs) == ["dense/bias", "dense/kernel"]
+    g = torch.Generator().manual_seed(6)
+    for _ in range(3):
+        x = torch.randn(16, 32, generator=g)
+        y = torch.randint(0, 8, (16, 1), generator=g, dtype=torch.int32)
+        lc, lh = float(card.train_batch(x, y)), float(cpu.train_batch(x, y))
+        assert abs(lc - lh) <= 1e-5 * max(1.0, abs(lh)), (lc, lh)
+        for k, t in bufs.items():
+            assert card._params[k] is t and t.is_pinned(), k
+    assert all(v.is_cuda for v in card._opt_state["v"].values())
+    for k in cpu._params:
+        torch.testing.assert_close(card._params[k].cpu(), cpu._params[k],
+                                   rtol=1e-5, atol=1e-5, msg=k)

@@ -2,8 +2,8 @@
 against the JAX package on the same mesh (its virtual CPU devices) and
 against the port's own one-device run: MLPs at dp4, n2 x c2 and a
 mixed degree, the multichip dryrun's CNN at n2 x c2 and with h split,
-the training-loop knobs, the shard layouts, the FF106 record and what
-stays refused until A.8b.
+the training-loop knobs, the shard layouts, the FF106 record, A.8b's
+items that compile (1-3) and the one that still refuses (4).
 
 The ranks are spawned once for the module; each case reads their
 results.  Tolerances are the JAX package's parallel tests'
@@ -180,8 +180,19 @@ def test_training_loop_knobs_on_the_mesh(runs, knob):
                                        rtol=RTOL, atol=ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("what", ["p", "e", "host", "reshard"])
+@pytest.mark.parametrize("what", ["p", "e", "host"])
+def test_a8b_items_1_3_compile_on_the_mesh(runs, what):
+    """The p and e axes and host-placed tables on a mesh compile since
+    A.8b's items 1-3 were ported (``tests/test_torch_mesh_pipeline.py``
+    holds them against the JAX package)."""
+    for res in runs["ranks"]:
+        msg = res["json"]["refusals"][what]
+        assert msg == "no error", msg
+
+
+@pytest.mark.parametrize("what", ["reshard"])
 def test_a8b_items_refuse_on_the_mesh(runs, what):
+    """``reshard`` (A.8b's item 4) still refuses, naming A.8b."""
     for res in runs["ranks"]:
         msg = res["json"]["refusals"][what]
         assert msg.startswith("NotImplementedError") and "A.8b" in msg

@@ -184,12 +184,19 @@ def test_host_table_serves_and_evaluates_like_jax():
                                rtol=TOL, atol=TOL)
 
 
-def test_host_placement_of_other_ops_is_refused():
+def test_host_placed_linear_serves_like_device_placed():
+    """A host-placed Linear keeps its parameters in host memory, streams
+    them to the device for its forward, and serves the same values as
+    the device-placed model from the same weights."""
     s = {"bot_dense_0": ft.ParallelConfig(
         device_type=ft.DeviceType.HOST, dims=(1, 1),
         memory_types=(ft.MemoryType.ZCM,))}
-    with pytest.raises(NotImplementedError, match="A.8"):
-        _dlrm(ft, s)
+    host, dev = _dlrm(ft, s), _dlrm(ft)
+    assert host._host_stream == ["bot_dense_0/kernel", "bot_dense_0/bias"]
+    interop.params_from_jax_numpy(host, _weights(dev))
+    xs, _ = _dlrm_batches(1, seed=9)[0]
+    np.testing.assert_array_equal(host.predict(xs, batch_size=BS),
+                                  dev.predict(xs, batch_size=BS))
 
 
 def _tf(pkg, pin="", **cfg_kw):
