@@ -5200,6 +5200,7 @@ MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
 # gradient after one step, and the parameters' share is printed
 MESH_L2_SHARE = 0.15
 MESH_TIMEOUT = 600
+MESH_BERT_LAYERS = 6
 
 
 def mesh_pc(ft, dims):
@@ -5220,14 +5221,16 @@ def mesh_tf_strategies(ft, layers: int, attention, ffn_up) -> dict:
 # LayerNorm) and the steps.  "cnn_f32" is the multichip dryrun's CNN
 # (__graft_entry__.py), "tf_f32_*" a 2-layer transformer with the
 # dryrun's strategies; both float32, held at MESH_RTOL.  AlexNet (229 px,
-# batch 64) and BERT-base (batch 16, s 512) run bf16 at full width
+# batch 64) and BERT-base (batch 16, s 512; MESH_BERT_LAYERS of its 12
+# layers, cut to make room for RESHARD_RUNS, whose BERT-base is whole)
+# run bf16 at full width
 MESH_RUNS = {
     "cnn_f32": ({"n": 2, "c": 2}, (1, 1, 0, 0, 0), 1),
     "tf_f32_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 4), 1),
     "tf_f32_n2c2": ({"n": 2, "c": 2}, (0, 0, 2, 2, 4), 1),
     "alexnet": ({"n": 2, "c": 2}, (3, 3, 0, 0, 0), 2),
-    "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 12, 12, 24), 1),
-    "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 24), 1),
+    "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 6, 6, 12), 1),
+    "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 12), 1),
     # the pipeline block (PIPE, bf16) over p, GPipe, and
     # interleaved at {"n": 2, "p": 2} with 6 chunks a rank; their float32
     # twins (4 stages); the smoke's MoE (MOE, float32) over e; and the
@@ -5337,7 +5340,8 @@ def mesh_model(ft, name: str, mesh=None, strategies: bool = True):
                  rng.integers(0, 10, (BATCH, 1)).astype(np.int32))
     else:
         bert = name.startswith("bert")
-        arch = BERT if bert else MESH_TF_F32
+        arch = (dict(BERT, num_layers=MESH_BERT_LAYERS) if bert
+                else MESH_TF_F32)
         batch_size = BERT_BATCH if bert else 4
         cfg = ft.FFConfig(batch_size=batch_size, seed=SEED,
                           compute_dtype="bfloat16" if bert else "float32")
@@ -5516,6 +5520,13 @@ def mesh_rank_main(argv) -> int:
                         "collectives": colls, "pools_checked": pools}
         del model
         torch.cuda.empty_cache()
+    # A.8b items 4-5: the in-process reshard and the sharded engine
+    for name in RESHARD_RUNS:
+        record[name] = mesh_reshard_rank(ft, name, rank, workdir, counters,
+                                         card)
+    for name in GEN_MESH_RUNS:
+        record[name] = mesh_gen_rank(ft, name, rank, workdir, counters,
+                                     card)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
     ft.finalize_distributed()
@@ -5666,6 +5677,14 @@ def mesh_phase(ft, card: str) -> dict:
               f"{MESH_L2_SHARE}) [{card}]")
         assert share <= MESH_L2_SHARE, (name, shares)
         assert np.all(np.isfinite(mesh_losses)), mesh_losses
+    for name in RESHARD_RUNS:
+        launches[name] = [sum(sum(step[i] for step in r[name]["launches"])
+                              for r in ranks) for i in range(len(names))]
+        mesh_reshard_check(name, workdir, ranks, card)
+    for name in GEN_MESH_RUNS:
+        launches[name] = [sum(r[name]["launches"][i] for r in ranks)
+                          for i in range(len(names))]
+        mesh_gen_check(ft, name, ranks, card, {"ref": 0})
     for name, counts in launches.items():
         print(f"mesh launches over the {MESH_WORLD} ranks, {name}: "
               + ", ".join(f"{n} {c}" for n, c in zip(names, counts))
@@ -5673,7 +5692,7 @@ def mesh_phase(ft, card: str) -> dict:
     colls = {}
     for r in ranks:
         for run in r.values():
-            for k, v in run["collectives"].items():
+            for k, v in run.get("collectives", {}).items():
                 c = colls.setdefault(k, {"calls": 0, "bytes": 0,
                                          "host": v["host"]})
                 c["calls"] += v["calls"]
@@ -5682,6 +5701,522 @@ def mesh_phase(ft, card: str) -> dict:
           f"pinned host memory) [{card}]: " + json.dumps(colls))
     mesh_children(["--mesh-nccl"], 1, workdir)
     return {"launches": launches, "collectives": colls}
+
+
+# ----------------------------------------------------------------------
+# A.8b items 4-5 on the mesh's ranks: an in-process reshard of BERT-base
+# and the strategy-sharded generation engine
+# ----------------------------------------------------------------------
+# bert_reshard: BERT-base (bf16, batch 16, s 512, Adam) with the
+# bert_n2c2 strategies, 2 steps at {"n": 2, "c": 2}, the step-2
+# checkpoint, FFModel.reshard in process to {"n": 4}, 2 more steps; the
+# reference is a model fixed at {"n": 4} that loads the checkpoint and
+# takes the same 2 steps.  Predicted launches a step on each rank (pool
+# fwd, pool bwd, flash fwd, flash bwd, layernorm), the same on both
+# sides of the move: the attention's local batch and heads in one
+# launch a layer, the LayerNorms on the local rows.  The float32 twin
+# (BERT-base's widths at RESHARD_TWIN_LAYERS layers) must match its
+# reference bit for bit; bf16 is held by the L2 share (MESH_L2_SHARE)
+RESHARD_RUNS = {
+    "bert_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 12, 12, 24), 2),
+    "bert_f32_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 2, 2, 4), 2),
+}
+RESHARD_TWIN_LAYERS = 2
+# gen_n2c2: the generation LM (GPT2 above) through
+# GenerationEngine.from_strategy at {"n": 2, "c": 2} (attention, FFN and
+# token embedding (2, 1, 2), tests/test_generation.py's strategy), 8
+# greedy prompts x 32 tokens on 8 slots; its float32 twin at 2 layers.
+# Predicted on each rank: 2 LayerNorm launches a layer a dispatch (24 at
+# 12 layers, 4 in the twin), warm-up dispatches included, no flash
+# launch (the paged attention is plain torch), a KV pool half of one
+# device's
+GEN_MESH_RUNS = {"gen_n2c2": ("bfloat16", GPT2["num_layers"]),
+                 "gen_f32_n2c2": ("float32", 2)}
+GEN_MESH_SLOTS = 8
+GEN_MESH_PROMPTS = 8
+GEN_MESH_NEW = 32
+GEN_MESH_PROMPT = (32, 96)
+GEN_MESH_OPS = ("tok_embedding",) + tuple(
+    f"{op}_{i}" for i in range(GPT2["num_layers"])
+    for op in ("attention", "ffn_up", "ffn_down"))
+
+
+def reshard_model(ft, name: str, mesh):
+    """The reshard run's model on ``mesh`` and its batch: BERT-base
+    (bf16, Adam 1e-4) with the bert_n2c2 strategies, or its float32 twin
+    at RESHARD_TWIN_LAYERS layers; parameters from SEED."""
+    import numpy as np
+    from flexflow_tpu_torch.models import build_transformer
+
+    twin = "f32" in name
+    arch = dict(BERT, num_layers=RESHARD_TWIN_LAYERS) if twin else BERT
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, seed=SEED,
+                      compute_dtype="float32" if twin else "bfloat16")
+    cfg.strategies = mesh_tf_strategies(ft, arch["num_layers"], (2, 1, 2),
+                                        (2, 1, 2))
+    model, _, logits = build_transformer(cfg, **arch)
+    model.compile(ft.AdamOptimizer(alpha=1e-4), metrics=["accuracy"],
+                  final_tensor=logits, mesh=mesh)
+    model.init_layers(seed=SEED)
+    rng = np.random.default_rng(SEED)
+    batch = (rng.integers(0, arch["vocab_size"],
+                          (BERT_BATCH, arch["seq_len"])).astype(np.int32),
+             rng.integers(0, arch["num_classes"],
+                          (BERT_BATCH, 1)).astype(np.int32))
+    return model, batch
+
+
+def mesh_reshard_rank(ft, name: str, rank: int, workdir: str, counters,
+                      card: str) -> dict:
+    """One rank's reshard run (RESHARD_RUNS): the launches of every step
+    of the resharded model (the counts set to 0 just before each step),
+    the reshard's wall ms and the bytes it gathered, then the fixed
+    reference; rank 0 saves both final states."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.model import _flatten_state
+
+    src, dst, want, steps = RESHARD_RUNS[name]
+    model, batch = reshard_model(ft, name, ft.MachineMesh(src))
+    bf16 = model.config.compute_dtype == "bfloat16"
+    losses, launches = [], []
+
+    def step():
+        reset_counts(*counters)
+        losses.append(float(model.train_batch(*batch)))
+        torch.cuda.synchronize()
+        launches.append([f.launches for f in counters])
+        assert tuple(launches[-1]) == want, (
+            f"{name} rank {rank} step {len(losses)}: launches "
+            f"{launches[-1]}, want {want}")
+
+    for _ in range(steps):
+        step()
+    ckpt = os.path.join(workdir, f"{name}_step{steps}.npz")
+    t0 = time.perf_counter()
+    model.save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t0
+    gathered = sum(v.numel() * v.element_size()
+                   for v in model._params.values())
+    gathered += sum(v.numel() * v.element_size()
+                    for v in _flatten_state(model._opt_state)
+                    if torch.is_tensor(v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = model.reshard(new_mesh=dst)
+    torch.cuda.synchronize()
+    reshard_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(steps):
+        step()
+    state = mesh_state(model, bf16)
+    local = {k: list(v.to_local().shape) for k, v in
+             list(model._params.items())[2:5]}
+    del model
+    free_garbage()
+    torch.cuda.empty_cache()
+    ref, _ = reshard_model(ft, name, ft.MachineMesh(dst))
+    ref.load_checkpoint(ckpt)
+    ref_losses = [float(ref.train_batch(*batch)) for _ in range(steps)]
+    ref_state = mesh_state(ref, bf16)
+    del ref
+    free_garbage()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        np.savez(os.path.join(workdir, f"{name}-resharded.npz"), **state)
+        np.savez(os.path.join(workdir, f"{name}-fixed.npz"), **ref_state)
+    print(f"mesh {name} rank {rank}: {src} -> {dst} in process after "
+          f"step {steps}: reshard {reshard_ms:.3f} ms wall, "
+          f"{gathered} bytes gathered (parameters and optimizer state), "
+          f"checkpoint save {save_s:.3f} s; losses {losses}, the fixed "
+          f"{dst} run from the step-{steps} checkpoint {ref_losses}; "
+          f"launches a step {launches} (pool fwd, pool bwd, flash fwd, "
+          f"flash bwd, layernorm); local shards after {local}; report "
+          f"{report} [{card}]", flush=True)
+    return {"losses": losses, "ref_losses": ref_losses,
+            "launches": launches, "reshard_ms": reshard_ms,
+            "gathered_bytes": gathered, "save_s": save_s}
+
+
+def gen_mesh_prompts() -> list:
+    import numpy as np
+    rng = np.random.default_rng(SEED + 16)
+    return [rng.integers(1, GPT2["vocab_size"],
+                         int(rng.integers(*GEN_MESH_PROMPT))).astype(np.int32)
+            for _ in range(GEN_MESH_PROMPTS)]
+
+
+def gen_mesh_model(ft, name: str):
+    dtype, layers = GEN_MESH_RUNS[name]
+    cfg = ft.FFConfig(batch_size=GEN_CHECKED[0], compute_dtype=dtype,
+                      seed=SEED)
+    cfg.serve_kv_page = GEN_PAGE
+    model, _, logits = ft.build_transformer_lm(
+        cfg, **dict(GPT2, num_layers=layers))
+    return model, logits
+
+
+def mesh_gen_rank(ft, name: str, rank: int, workdir: str, counters,
+                  card: str) -> dict:
+    """One rank of a sharded generation run (GEN_MESH_RUNS): a fresh LM
+    through GenerationEngine.from_strategy, rank 0 submitting the
+    prompts; the launches (counts set to 0 just before the engine
+    starts, read after it stopped), dispatches, plan bytes and KV
+    bytes."""
+    import torch
+    from flexflow_tpu_torch.strategy.proto import save_strategy_file
+
+    model, _ = gen_mesh_model(ft, name)
+    layers = GEN_MESH_RUNS[name][1]
+    pb = os.path.join(workdir, f"{name}-rank{rank}.pb")
+    save_strategy_file(pb, {op: mesh_pc(ft, (2, 1, 2))
+                            for op in GEN_MESH_OPS
+                            if op == "tok_embedding"
+                            or int(op.rsplit("_", 1)[1]) < layers})
+    eng = ft.GenerationEngine.from_strategy(
+        model, pb, slots=GEN_MESH_SLOTS, max_new_tokens=GEN_MESH_NEW)
+    pool = sum(t.numel() * t.element_size()
+               for sub in eng._raw_decoder.init_cache().values()
+               for t in sub.values())
+    reset_counts(*counters)
+    outs = []
+    t0 = time.perf_counter()
+    with eng:
+        if rank == 0:
+            streams = [eng.submit(p) for p in gen_mesh_prompts()]
+            outs = [[int(t) for t in s.result(timeout=600)]
+                    for s in streams]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [f.launches for f in counters]
+    snap = eng.stats()
+    n = snap["plan_dispatches"]
+    want = (0, 0, 0, 0, 2 * layers * n)
+    assert tuple(launches) == want, (name, rank, launches, want)
+    rec = {"outs": outs, "launches": launches, "dispatches": n,
+           "plan_bytes": snap["plan_bytes"], "kv_cache_bytes":
+           eng.kv_cache_bytes, "pool_bytes": pool, "wall_s": wall,
+           "mesh": {a: s for a, s in model.mesh.sizes.items() if s > 1}}
+    print(f"mesh {name} rank {rank} {model.mesh}: {n} dispatches "
+          f"({snap['plan_bytes']} plan bytes, "
+          f"{snap['plan_bytes'] / max(n, 1):.1f} a dispatch), launches "
+          f"{launches} (pool fwd, pool bwd, flash fwd, flash bwd, "
+          f"layernorm: {2 * layers} a dispatch), KV pool {pool} bytes "
+          f"(kv_cache_bytes {eng.kv_cache_bytes}), {wall:.3f} s wall"
+          + (f", {sum(len(o) for o in outs) / wall:.1f} tokens/s"
+             if outs else "") + f" [{card}]", flush=True)
+    del eng, model
+    free_garbage()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_reshard_check(name: str, workdir: str, ranks, card: str) -> None:
+    """The resharded run against the fixed one: the float32 twin bit for
+    bit, bf16 by the L2 share (and whether it is bit-equal too)."""
+    import numpy as np
+
+    recs = [r[name] for r in ranks]
+    with np.load(os.path.join(workdir, f"{name}-resharded.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    with np.load(os.path.join(workdir, f"{name}-fixed.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    steps = RESHARD_RUNS[name][3]
+    post, fixed = recs[0]["losses"][steps:], recs[0]["ref_losses"]
+    same = post == fixed and all(np.array_equal(got[k], ref[k])
+                                 for k in ref)
+    d_gap = sum(float(np.sum((got[k].astype(np.float64) - ref[k]) ** 2))
+                for k in ref if k.startswith("param/"))
+    d_ref = sum(float(np.sum(ref[k].astype(np.float64) ** 2))
+                for k in ref if k.startswith("param/"))
+    share = math.sqrt(d_gap / max(d_ref, 1e-30))
+    print(f"mesh {name}: the resharded run against the fixed run from the "
+          f"checkpoint: losses {post} / {fixed}, bit-equal {same}, L2 of "
+          f"the parameters' difference over their L2 {share:.3g}; reshard "
+          f"{[round(r['reshard_ms'], 3) for r in recs]} ms wall by rank, "
+          f"{recs[0]['gathered_bytes']} bytes gathered a rank [{card}]")
+    if "f32" in name:
+        assert same, (name, post, fixed)
+    else:
+        assert share <= MESH_L2_SHARE, (name, share)
+        assert np.all(np.isfinite(post)), post
+
+
+def mesh_gen_check(ft, name: str, ranks, card: str, counted) -> None:
+    """The sharded engine's tokens against the one-device engine's on
+    the same seed's weights: equal in float32; in bf16 equal wherever
+    the full forward's top-2 gap exceeds GEN_LOGIT_TOL (gen_decided).
+    Every follower ran rank 0's dispatches; each rank's pool is half of
+    one device's."""
+    import torch
+
+    recs = [r[name] for r in ranks]
+    assert len({r["dispatches"] for r in recs}) == 1, recs
+    assert all(r["outs"] == [] for r in recs[1:])
+    model, logits = gen_mesh_model(ft, name)
+    model.compile(final_tensor=logits)
+    model.init_layers(seed=SEED)
+    prompts = gen_mesh_prompts()
+    with ft.GenerationEngine(model, slots=GEN_MESH_SLOTS,
+                             max_new_tokens=GEN_MESH_NEW) as eng:
+        one = [[int(t) for t in eng.submit(p).result(timeout=600)]
+               for p in prompts]
+        one_bytes = eng.kv_cache_bytes
+    outs = recs[0]["outs"]
+    equal = sum(a == b for a, b in zip(outs, one))
+    for r in recs:
+        assert r["pool_bytes"] == r["kv_cache_bytes"] == one_bytes / 2, (
+            r["pool_bytes"], r["kv_cache_bytes"], one_bytes)
+    if "f32" in name:
+        assert outs == one, (outs, one)
+        print(f"mesh {name}: tokens of the sharded engine == the one-device "
+              f"engine's ({len(outs)} prompts x {GEN_MESH_NEW}); KV pool "
+              f"{recs[0]['pool_bytes']} bytes a rank, one device "
+              f"{one_bytes} [{card}]")
+    else:
+        decided_all, agree_all = 0, True
+        for lo in range(0, len(prompts), GEN_CHECKED[0]):
+            ref = gen_reference(model, prompts[lo:lo + GEN_CHECKED[0]],
+                                outs[lo:lo + GEN_CHECKED[0]], counted)
+            decided, agree = gen_decided(
+                ref, outs[lo:lo + GEN_CHECKED[0]], GEN_LOGIT_TOL)
+            decided_all += int(decided.sum())
+            agree_all = agree_all and agree
+        print(f"mesh {name}: {equal} of {len(outs)} streams equal to the "
+              f"one-device engine's; every token decided by the full "
+              f"forward (top-2 gap > {GEN_LOGIT_TOL}, {decided_all} of "
+              f"{len(outs) * GEN_MESH_NEW}) equal: {agree_all}; KV pool "
+              f"{recs[0]['pool_bytes']} bytes a rank, one device "
+              f"{one_bytes} [{card}]")
+        assert agree_all, name
+    del eng, model
+    free_garbage()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# the elastic phase: run_elastic supervising MESH_WORLD ranks on the card
+# ----------------------------------------------------------------------
+ELASTIC_STEPS = 6
+ELASTIC_EVERY = 2
+ELASTIC_TIMEOUT = 180
+ELASTIC_MLP = dict(batch=64, features=256, hidden=512, classes=16)
+
+
+def elastic_model(ft, device: str):
+    """The elastic ranks' small model: a 2-layer MLP, SGD with momentum,
+    data parallel over the world (the mesh compile infers)."""
+    e = ELASTIC_MLP
+    cfg = ft.FFConfig(batch_size=e["batch"], compute_dtype="float32",
+                      seed=SEED)
+    model = ft.FFModel(cfg, device=device)
+    x = model.create_tensor((e["batch"], e["features"]), name="x")
+    t = model.dense(x, e["hidden"], activation="relu")
+    t = model.dense(t, e["classes"])
+    model.compile(ft.SGDOptimizer(lr=0.05, momentum=0.9),
+                  "sparse_categorical_crossentropy", [], final_tensor=t)
+    model.init_layers(seed=SEED)
+    return model
+
+
+def elastic_batch(step: int):
+    import numpy as np
+    e = ELASTIC_MLP
+    rng = np.random.default_rng(1000 + step)
+    return (rng.standard_normal((e["batch"], e["features"]),
+                                dtype=np.float32),
+            rng.integers(0, e["classes"], (e["batch"], 1)).astype(np.int32))
+
+
+def elastic_rank_main(argv) -> int:
+    """``chip_smoke.py --elastic-rank <workdir>``: one rank under
+    run_elastic (torchrun's variables from the supervisor), on the card
+    over gloo: resume from the newest valid checkpoint, train to
+    ELASTIC_STEPS with a heartbeat a step and a checkpoint every
+    ELASTIC_EVERY; FF_FAULT fires inside train_batch and
+    save_checkpoint.  Rank 0 rewrites ``attempt<A>.json`` after every
+    step (its losses, the resume, the times from this function's entry)
+    and writes final.json at the end."""
+    t_entry = time.time()
+    workdir = argv[0]
+    import torch
+    sys.path.insert(0, HERE)
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.resilience import Heartbeat, elastic_resume
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    rank = int(os.environ["RANK"])
+    attempt = int(os.environ.get("FF_ELASTIC_ATTEMPT", "0"))
+    ft.initialize_distributed(backend=MESH_BACKEND)
+    hb = Heartbeat(rank=rank)
+    ckpt = os.path.join(workdir, "ckpt")
+    model = elastic_model(ft, "cuda")
+    with ft.fflogger.capture_events("elastic") as events:
+        resumed = elastic_resume(model, ckpt)
+    rec = {"resumed": os.path.basename(resumed) if resumed else "fresh",
+           "step0": model._step, "losses": [],
+           "ready_s": time.time() - t_entry,
+           "events": [e["event"] for e in events]}
+    hb.beat(model._step)
+    while model._step < ELASTIC_STEPS:
+        rec["losses"].append(float(model.train_batch(
+            *elastic_batch(model._step))))
+        rec.setdefault("first_step_s", time.time() - t_entry)
+        if rank == 0:
+            with open(os.path.join(workdir, f"attempt{attempt}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+        hb.beat(model._step)
+        if model._step % ELASTIC_EVERY == 0 and model._step < ELASTIC_STEPS:
+            model.save_checkpoint(os.path.join(
+                ckpt, f"elastic_step{model._step}.npz"))
+    if rank == 0:
+        rec["world"] = torch.distributed.get_world_size()
+        with open(os.path.join(workdir, "final.json"), "w") as f:
+            json.dump(rec, f)
+    ft.finalize_distributed()
+    return 0
+
+
+def elastic_run(workdir: str, nprocs: int, fault: str, max_restarts=2):
+    """One supervised run of ``nprocs`` elastic ranks: the report, rank
+    0's record of each attempt (None where it trained no step) and the
+    run's wall seconds."""
+    from flexflow_tpu_torch.parallel.elastic import run_elastic
+
+    os.makedirs(os.path.join(workdir, "ckpt"), exist_ok=True)
+
+    def argv(attempt, port, rank):
+        return [sys.executable, os.path.abspath(__file__), "--elastic-rank",
+                workdir]
+
+    t0 = time.perf_counter()
+    report = run_elastic(argv, nprocs, max_restarts=max_restarts,
+                         attempt_timeout_s=ELASTIC_TIMEOUT,
+                         poll_interval_s=0.2, backoff_base_s=0.05,
+                         env={"FF_FAULT": fault},
+                         checkpoint_dir=os.path.join(workdir, "ckpt"))
+    wall = time.perf_counter() - t0
+    assert report.success, [(a.cause, a.returncodes, a.tails)
+                            for a in report.attempts]
+    recs = []
+    for i in range(len(report.attempts)):
+        path = os.path.join(workdir, f"attempt{i}.json")
+        recs.append(json.load(open(path)) if os.path.exists(path)
+                    else None)
+    return report, recs, wall
+
+
+# the elastic phase's runs: two chains that run side by side (each a
+# supervisor with its four ranks): the uninterrupted run then the
+# recovery run, and the shrink then the fixed two-rank run that resumes
+# from the shrink's step-4 checkpoint.  The recovery run's plan: rank 3
+# killed at step 3 (attempt 0); attempt 1 resumes from step 2 and every
+# checkpoint it publishes is truncated (corrupt_ckpt:latest), rank 3
+# killed again at step 5; attempt 2 skips the corrupt step-4 file and
+# falls back to step 2
+ELASTIC_CHAINS = (
+    (("clean", MESH_WORLD, ""),
+     ("recover", MESH_WORLD, "kill_at_step:3,rank=3;corrupt_ckpt:latest,"
+                             "attempt=1;kill_at_step:5,rank=3,attempt=1")),
+    (("shrink", MESH_WORLD, "shrink_at_step:4"),
+     ("fixed2", MESH_WORLD // 2, "")),
+)
+
+
+def elastic_phase(card: str) -> dict:
+    """run_elastic supervising MESH_WORLD ranks on the card
+    (ELASTIC_CHAINS): the recovered run's losses and final loss
+    bit-equal to the uninterrupted run's after a kill
+    (kill_at_step:3,rank=3) and after a fallback past a corrupt
+    checkpoint (corrupt_ckpt:latest); the shrink_at_step:4 run a planned
+    resize to 2 ranks through the supervisor, bit-equal to the fixed
+    2-rank run from the same checkpoint.  Returns each run's wall
+    seconds."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flexflow_tpu_torch.fflogger import capture_events
+
+    root = tempfile.mkdtemp(prefix="ff-elastic-")
+    runs, errors = {}, []
+
+    def chain(steps):
+        try:
+            for tag, nprocs, fault in steps:
+                wd = os.path.join(root, tag)
+                os.makedirs(os.path.join(wd, "ckpt"))
+                if tag == "fixed2":
+                    shutil.copy(os.path.join(root, "shrink", "ckpt",
+                                             "elastic_step4.npz"),
+                                os.path.join(wd, "ckpt"))
+                runs[tag] = elastic_run(wd, nprocs, fault,
+                                        max_restarts=0 if tag == "shrink"
+                                        else 2)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    with capture_events("elastic") as events:
+        threads = [threading.Thread(target=chain, args=(c,))
+                   for c in ELASTIC_CHAINS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for tag, nprocs, fault in sum(ELASTIC_CHAINS, ()):
+        report, recs, run_wall = runs[tag]
+        print(f"elastic {tag} ({fault or 'no fault'}): attempts "
+              + "; ".join(
+                  f"{a.cause} {a.returncodes} on {a.num_processes} ranks "
+                  f"in {a.elapsed_s} s" + (
+                      f", resumed {r['resumed']} at step {r['step0']}, "
+                      f"losses {r['losses']}, first step "
+                      f"{r['first_step_s']:.3f} s after the rank's start "
+                      f"(ready {r['ready_s']:.3f} s)" if r else "")
+                  for a, r in zip(report.attempts, recs))
+              + f"; {run_wall:.1f} s [{card}]", flush=True)
+    clean = runs["clean"][1][0]["losses"]
+    rep, recs, _ = runs["recover"]
+    assert [a.cause for a in rep.attempts] == ["crash"] * 2 + ["ok"], \
+        rep.attempts
+    assert all(a.returncodes[3] == 17 for a in rep.attempts[:2])
+    assert [r["resumed"] for r in recs] == ["fresh", "elastic_step2.npz",
+                                            "elastic_step2.npz"], recs
+    assert "checkpoint_skipped" in recs[2]["events"], recs[2]
+    # a killed attempt's rank 0 may finish the step rank 3 died after
+    for r, first, upto in ((recs[0], 0, 2), (recs[1], 2, 4)):
+        got = r["losses"]
+        assert len(got) >= upto - first, r
+        assert got == clean[first:first + len(got)], (r, clean)
+    assert recs[2]["losses"] == clean[2:], (recs[2], clean)
+    rep, recs, _ = runs["shrink"]
+    assert [a.cause for a in rep.attempts] == ["resize", "ok"], rep.attempts
+    assert [a.num_processes for a in rep.attempts] == [MESH_WORLD,
+                                                       MESH_WORLD // 2]
+    assert rep.attempts[0].resize == {"processes": MESH_WORLD // 2,
+                                      "step": 4}
+    # step 4's loss is not recorded: the resize exits inside its step
+    assert recs[0]["losses"] == clean[:3], (recs[0], clean)
+    assert "reshard_on_resume" in recs[1]["events"], recs[1]
+    fixed = runs["fixed2"][1][0]
+    assert recs[1]["losses"] == fixed["losses"], (recs[1], fixed)
+    resizes = [e for e in events if e["event"] == "reshard"]
+    assert [(e["old_devices"], e["new_devices"], e["step"])
+            for e in resizes] == [(MESH_WORLD, MESH_WORLD // 2, 4)], resizes
+    print(f"elastic: the kill (rank 3 at step 3) and the fallback past the "
+          f"corrupt step-4 checkpoint recovered bit-equal to the "
+          f"uninterrupted run (losses {clean}); the shrink to "
+          f"{MESH_WORLD // 2} ranks through the supervisor bit-equal to "
+          f"the fixed {MESH_WORLD // 2}-rank run from the step-4 "
+          f"checkpoint ({fixed['losses']}); {wall:.1f} s for the two "
+          f"chains side by side [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return {tag: round(r[2], 3) for tag, r in runs.items()}
 
 
 def build_all(kernels) -> None:
@@ -5800,6 +6335,7 @@ def main() -> int:
     tmesh = phase("mesh", mesh_phase, ft, card)
     tdis = phase("disaggregated serving", disagg_phase, ft, counters, card)
     tfleet = phase("fleet", fleet_phase, ft, counters, card)
+    phase("elastic", elastic_phase, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -5881,11 +6417,12 @@ def main() -> int:
     for run in ("alexnet", "cnn_f32"):
         fwd_paths[f"mesh_{run}"] = ml[run][0]
         bwd_paths[f"mesh_{run}"] = ml[run][1]
-    mesh_flash = {f"mesh_{run}": ml[run] for run in ("bert_n2c2",
-                                                     "tf_f32_n2c2")}
+    mesh_flash = {f"mesh_{run}": ml[run] for run in (
+        "bert_n2c2", "tf_f32_n2c2", "bert_reshard", "bert_f32_reshard")}
     mesh_ln = {f"mesh_{run}": ml[run][4] for run in (
         "bert_n2c2", "bert_s2c2", "tf_f32_n2c2", "tf_f32_s2c2", "pipe_p4",
-        "pipe_n2p2", "pipe_f32_p4", "pipe_f32_n2p2")}
+        "pipe_n2p2", "pipe_f32_p4", "pipe_f32_n2p2", "bert_reshard",
+        "bert_f32_reshard", "gen_n2c2", "gen_f32_n2c2")}
     lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
@@ -5939,4 +6476,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-nccl"]:
         sys.exit(mesh_nccl_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.exit(elastic_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -1,5 +1,5 @@
 """KV-cache memory accounting for paged token generation, the JAX
-package's ``analysis/kv_memory.py`` without its device-sharded cases.
+package's ``analysis/kv_memory.py``.
 
 The decode state is a paged pool: each causal attention op holds a K
 and a V pool of ``(num_pages, page_size, heads, head_dim)`` in the
@@ -11,10 +11,12 @@ One layout decides both what ``serving/generation/pages.py`` allocates
 (:func:`kv_cache_layout`) and what the static memory gate charges
 (:func:`kv_page_plan`, :func:`kv_cache_bytes`, the ``extra_state_bytes``
 of ``analysis/strategy_passes.memory_diagnostics``), so the two cannot
-disagree.  The port runs on one device: ``mesh_sizes`` is None or a
-``{axis: size}`` dict, and the sharding rules of the JAX module (heads
-over ``c``, the LSTM state over ``n``) are kept so the byte counts of a
-device-free plan match the JAX package's for the same mesh.
+disagree.  ``mesh_sizes`` is None (one device) or a ``{axis: size}``
+dict; the sharding rules are the JAX module's (heads over ``c``, the
+LSTM state over ``n``, the page dim replicated), so the byte counts
+match the JAX package's for the same mesh, and the sharded generation
+engine (``GenerationEngine.from_strategy``) allocates each rank's shard
+by these entries.
 
 Device-free: nothing here imports torch.
 """

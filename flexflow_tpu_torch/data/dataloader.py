@@ -10,7 +10,6 @@ the steps that run on batch i.
 
 from __future__ import annotations
 
-import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,7 +70,7 @@ class PrefetchLoader:
     the last batch is zero-padded to ``batch_size`` and its valid-row
     count rides along so the masked train step leaves the padding out
     of the loss, metrics and gradients.  Off (default), the tail is
-    dropped with a warning.  ``num_steps`` counts the steps a pass
+    dropped, logged on the ``ff`` logger.  ``num_steps`` counts the steps a pass
     trains, ``tail_valid`` the padded tail's valid rows and
     ``num_samples_used`` the samples a pass consumes (the THROUGHPUT
     line's numerator)."""
@@ -95,13 +94,15 @@ class PrefetchLoader:
         self.num_samples_used = (self.num_batches * self.batch_size
                                  + self.tail_valid)
         if self.num_steps == 0:
-            warnings.warn(f"dataset ({n} samples) is smaller than "
-                          f"batch_size={self.batch_size}: fit() will run "
-                          f"ZERO steps")
+            from ..fflogger import get_logger
+            get_logger("ff").warning(
+                f"dataset ({n} samples) is smaller than "
+                f"batch_size={self.batch_size}: fit() will run ZERO steps")
         elif dropped and not self.pad_tail:
-            warnings.warn(f"dropping {dropped} tail samples not filling a "
-                          f"batch of {self.batch_size} (pad_tail trains "
-                          f"them)")
+            from ..fflogger import get_logger
+            get_logger("ff").info(
+                f"dropping {dropped} tail samples not filling a "
+                f"batch of {self.batch_size} (pad_tail trains them)")
 
     def __iter__(self):
         """Per-batch iteration over the full batches: one-step windows

@@ -1,13 +1,19 @@
 """Deterministic fault injection, the port of ``flexflow_tpu/faults.py``.
 
 A fault plan is described in the ``FF_FAULT`` environment variable; the
-serving engines, the generation engine, the model fleet and the cluster
-router each consult it at well-defined points.  With ``FF_FAULT`` unset
-every hook is a cached ``None``-check.  The whole grammar parses here
-(training kinds included), but only the serving, generation, fleet and
-router kinds have fire points in the port so far; the training hooks
-(``on_step``, ``on_window``, checkpoint corruption, the elastic
-supervisor's kinds) come with the training tooling.
+train loop (``FFModel.train_batch``/``train_window``/``fit``), the
+checkpoint writer (``FFModel.save_checkpoint``), the elastic supervisor
+(``parallel.elastic.run_elastic``), the serving engines, the generation
+engine, the model fleet and the cluster router each consult it at
+well-defined points.  With ``FF_FAULT`` unset every hook is a cached
+``None``-check.
+
+``grow_at_step``/``shrink_at_step`` are consumed at the window edge by
+``FFModel``: a target equal to the world size reshards in process; any
+other size goes through the supervisor (the ranks save the step's
+elastic checkpoint and exit with ``parallel.elastic.RESIZE_EXIT_CODE``,
+and ``run_elastic`` relaunches the requested world, which reshards on
+resume), since the port's process group has one size for its life.
 
 Grammar (specs joined by ``;``, qualifiers by ``,``)::
 
@@ -123,7 +129,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import Dict, List, Optional
+
+# exit code for an injected kill — distinguishable from real crashes in
+# AttemptResult.returncodes
+KILL_EXIT_CODE = 17
 
 KINDS = ("kill_at_step", "hang_at_step", "corrupt_ckpt",
          "spawn_fail_attempt", "slow_rank", "grow_at_step",
@@ -293,6 +304,126 @@ def _matches(spec: FaultSpec) -> bool:
         if r is None or r != spec.rank:
             return False
     return True
+
+
+def _note(msg: str) -> None:
+    # stderr lands in the supervisor's per-rank log tail
+    print(f"FF_FAULT: {msg}", file=sys.stderr, flush=True)
+
+
+# ----------------------------------------------------------------------
+# fire points of the train loop and the supervisor
+# ----------------------------------------------------------------------
+def on_step(step: int) -> None:
+    """Train-loop hook: call after step ``step`` completes.  May sleep
+    (slow_rank), stop progressing (hang_at_step) or kill the process
+    (kill_at_step).  No-op without an active plan."""
+    on_window(step - 1, step)
+
+
+def on_window(start: int, end: int) -> None:
+    """Window-granularity train-loop hook: call after the window of
+    steps ``(start, end]`` completes (``FFConfig.steps_per_dispatch``).
+
+    * ``kill_at_step:N`` / ``hang_at_step:N`` with ``start < N <= end``
+      fire at the WINDOW EDGE — the step index rounds up to ``end``;
+    * ``slow_rank`` sleeps ``delay`` once per covered step (``end -
+      start`` times), preserving the per-step straggler budget.
+
+    ``on_step(step)`` is exactly ``on_window(step - 1, step)``.
+    No-op without an active plan."""
+    p = plan()
+    if not p:
+        return
+    for spec in p:
+        if not _matches(spec):
+            continue
+        if spec.kind == "slow_rank":
+            r = current_rank()
+            if r is not None and r == int(spec.arg):
+                time.sleep(float(spec.extras.get("delay", "0.25"))
+                           * max(1, end - start))
+        elif spec.kind == "hang_at_step" and start < int(spec.arg) <= end:
+            _note(_edge_note("hang", spec, end))
+            while True:  # no progress, no exit: only heartbeat monitoring
+                time.sleep(3600)  # (or the attempt timeout) can end this
+        elif spec.kind == "kill_at_step" and start < int(spec.arg) <= end:
+            code = int(spec.extras.get("exit", str(KILL_EXIT_CODE)))
+            _note(_edge_note("kill", spec, end, f"exit {code}"))
+            os._exit(code)  # hard crash: no cleanup, no excepthook
+
+
+def _edge_note(what: str, spec, end: int, extra: str = "") -> str:
+    """One message format for every window-edge fire point (kill / hang
+    / grow / shrink): what fired, where it rounded from, and the
+    rank/attempt scope."""
+    rounded = (f" (requested step {spec.arg} rounded up to the "
+               f"window edge)" if int(spec.arg) != end else "")
+    scope = f"rank {current_rank()}, attempt {current_attempt()}"
+    if extra:
+        scope += f", {extra}"
+    return f"injected {what} at step {end}{rounded} ({scope})"
+
+
+def reshard_at_window(start: int, end: int):
+    """Which ``grow_at_step:N`` / ``shrink_at_step:N`` specs fall inside
+    the just-completed window ``(start, end]``: a list of ``(kind,
+    devices)`` requests in spec order, ``devices`` the ``devices=D``
+    qualifier as an int or None for the default scaling (grow doubles,
+    shrink halves the mesh).  Same window-edge rounding as kill/hang,
+    and each spec fires at most once.  The consumer is
+    ``FFModel.train_batch``/``train_window``/``fit``."""
+    p = plan()
+    if not p:
+        return []
+    out = []
+    for spec in p:
+        if spec.kind not in ("grow_at_step", "shrink_at_step"):
+            continue
+        if not _matches(spec):
+            continue
+        if start < int(spec.arg) <= end:
+            devices = spec.extras.get("devices")
+            _note(_edge_note(f"{spec.kind.split('_')[0]} reshard", spec,
+                             end, f"devices={devices if devices else 'auto'}"))
+            out.append((spec.kind, int(devices) if devices else None))
+    return out
+
+
+def corrupt_file(path: str) -> None:
+    """The corruption primitive: truncate to half size, simulating a
+    writer killed mid-write.  The result is not a valid zip, so both
+    ``np.load`` and the manifest verification reject it."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as fh:
+        fh.truncate(max(1, size // 2))
+
+
+def maybe_corrupt_checkpoint(path: str, step: int) -> None:
+    """Checkpoint-writer hook: call after publishing ``path`` for
+    ``step``.  ``corrupt_ckpt:N`` corrupts the step-N file only;
+    ``corrupt_ckpt:latest`` corrupts every file this process writes."""
+    p = plan()
+    if not p:
+        return
+    for spec in p:
+        if spec.kind != "corrupt_ckpt" or not _matches(spec):
+            continue
+        if spec.arg == "latest" or (spec.arg.isdigit()
+                                    and int(spec.arg) == step):
+            corrupt_file(path)
+            _note(f"injected checkpoint corruption: {path} (step {step})")
+
+
+def spawn_fail_requested(env: Dict[str, str], attempt: int) -> bool:
+    """Supervisor-side hook: should ``attempt`` fail at spawn time?
+    Parses the worker environment (not this process's cached plan — the
+    supervisor's own FF_FAULT may differ from what it exports)."""
+    text = env.get("FF_FAULT")
+    if not text:
+        return False
+    return any(s.kind == "spawn_fail_attempt" and s.attempt == attempt
+               for s in parse_faults(text))
 
 
 # ----------------------------------------------------------------------

@@ -43,8 +43,10 @@ runs over ``s``, pipeline stages over ``p`` (``ops/pipeline.py``) and a
 MoE's experts over ``e``, the loss and metrics reduce over the global
 batch, and ``predict``/``evaluate``/``get_weights`` return full arrays
 on every rank.  Every rank feeds the same full arrays, the JAX
-package's multi-controller contract.  ``reshard`` and strategy search
-are refused, each naming its roadmap item.
+package's multi-controller contract.  ``reshard`` moves live state onto
+another factorization of the same world in process; another device
+count goes through the supervisor (``parallel/elastic.py``).  Strategy
+search is refused (ROADMAP A.9).
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from . import losses
+from . import faults, losses
 from . import metrics as metrics_mod
 from .config import FFConfig
 from .data.dataloader import PrefetchLoader, upload
@@ -86,7 +88,8 @@ from .ops.tensor_ops import (Concat, Dropout, Flat, Reshape, Softmax, Split,
                              Transpose)
 from .optimizers import SGDOptimizer
 from .parallel import distributed
-from .parallel.mesh import AbstractMesh, MachineMesh, dim_axis_names
+from .parallel.mesh import (AbstractMesh, MachineMesh, dim_axis_names,
+                            scaled_shape)
 from .parallel.sharding import (batch_spec, distribute, gather, is_dtensor,
                                 keep_shards, output_spec, param_spec,
                                 redistribute)
@@ -833,16 +836,267 @@ class FFModel:
         self._store({key: val.to(device=dev,
                                  dtype=cur.dtype).reshape(cur.shape)})
 
+    # ------------------------------------------------------------------
+    # live resharding: a change of mesh factorization in process; another
+    # device count goes through the supervisor (parallel/elastic.py)
+    # ------------------------------------------------------------------
+    def _live_mesh_shape(self) -> Dict[str, int]:
+        """Axis sizes > 1 of the current mesh (the spelling manifests and
+        reshard events record; {} for one device)."""
+        return {a: s for a, s in self.mesh.sizes.items() if s > 1}
+
+    def _reshard_budget(self) -> int:
+        """The search budget a reshard point may spend: the dedicated
+        ``reshard_search_budget`` when set, else ``search_budget``."""
+        cfg = self.config
+        return (cfg.reshard_search_budget
+                if cfg.reshard_search_budget is not None
+                else cfg.search_budget)
+
     def reshard(self, new_mesh=None, num_devices: Optional[int] = None,
-                **kw) -> None:
-        """Moving live training state onto another mesh, the JAX
-        package's ``FFModel.reshard``, is not ported yet (ROADMAP A.8b).
-        A checkpoint moves between meshes: save on one, compile on the
-        other, load."""
-        raise NotImplementedError(
-            "FFModel.reshard (live state onto another mesh) is not ported "
-            "yet (ROADMAP A.8b); save_checkpoint on this mesh and "
-            "load_checkpoint on the other")
+                research: Optional[bool] = None, verify: str = "warn",
+                redistribute: bool = True) -> Dict:
+        """Move live training state onto another mesh of the same world,
+        in process, between steps: the JAX package's ``FFModel.reshard``.
+
+        Pass exactly one of ``new_mesh`` (a :class:`MachineMesh` or a
+        mesh-shape dict) or ``num_devices`` (pure data parallel
+        ``{"n": num_devices}``).  The port runs one process per device
+        and a process group keeps its size for life, so the target must
+        use every rank of the world (``{"n": 4}`` -> ``{"n": 2, "c":
+        2}``, ``{"c": 4}`` or ``{"n": 2, "p": 2}`` on four ranks); another
+        device count raises ValueError: it goes through the supervisor
+        (``parallel.elastic.run_elastic`` relaunches the world at that
+        size, and the new ranks reshard on resume from the checkpoint).
+        A re-search of the strategies (``research=True``, or a
+        ``reshard_search_budget``/``search_budget`` above 0) raises
+        NotImplementedError until the search is ported (ROADMAP A.9).
+
+        Steps, in the JAX order: **verify** the strategies against the
+        new mesh (``verify="error"`` aborts with the model unchanged),
+        **rebuild** the placements (a failure there rolls the model back
+        whole: mesh, per-op configs, host placements), then
+        **redistribute**: every parameter and optimizer slot is gathered
+        to its full value and placed under the new placements
+        (value-lossless: the steps after it equal a run that was always
+        on the new mesh from this state).  ``redistribute=False`` gives
+        zero-filled state under the new placements, for a caller about
+        to restore every value.  On a mesh every rank calls it.  Emits
+        the ``reshard`` event on the ``elastic`` logger and returns its
+        report (old and new mesh and device counts, ``researched``, the
+        step and the strategy digest)."""
+        self._check_not_quantized("reshard")
+        if not self._compiled or self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        if (new_mesh is None) == (num_devices is None):
+            raise ValueError("pass exactly one of new_mesh / num_devices")
+        if research is None:
+            research = self._reshard_budget() > 0
+        if research:
+            raise NotImplementedError(
+                "reshard with a strategy re-search (research=True, or "
+                "reshard_search_budget/search_budget > 0) needs the "
+                "strategy search, not ported yet (ROADMAP A.9); reshard "
+                "to an explicit mesh instead")
+        if verify not in ("warn", "error", "off"):
+            raise ValueError(
+                f"verify must be 'warn', 'error' or 'off', got {verify!r}")
+        if new_mesh is not None:
+            shape = dict(new_mesh.sizes if isinstance(new_mesh, MachineMesh)
+                         else new_mesh)
+            ndev = math.prod(int(v) for v in shape.values())
+        else:
+            ndev = int(num_devices)
+            if ndev < 1:
+                raise ValueError(f"num_devices must be >= 1, got {ndev}")
+            shape = {"n": ndev}
+        world = distributed.world_size()
+        if ndev != world:
+            raise ValueError(
+                f"reshard to {ndev} device(s) (new_mesh or num_devices) "
+                f"in a world of {world} "
+                f"rank(s): the port runs one process per device and a "
+                f"process group keeps its size, so an in-process reshard "
+                f"takes a mesh of {world} device(s); another device "
+                f"count goes through the supervisor "
+                f"(parallel.elastic.run_elastic relaunches the world at "
+                f"that size and the new ranks reshard on resume from the "
+                f"checkpoint)")
+        self.wait_for_checkpoint()  # the pending writer reads _params
+        old_shape = self._live_mesh_shape()
+        old_ndev = self.mesh.mesh_product
+        mesh = (MachineMesh(shape, device=self.device) if world > 1
+                else AbstractMesh(shape, num_devices=1))
+        saved = {k: getattr(self, k) for k in (
+            "mesh", "device", "_on_mesh", "_param_pl", "_out_pl",
+            "_host_params", "_host_stream", "_host_rows", "_sparse_specs",
+            "verify_report")}
+        configs = [op.parallel_config for op in self.layers]
+
+        def rollback():
+            for k, v in saved.items():
+                setattr(self, k, v)
+            for op, pc in zip(self.layers, configs):
+                op.parallel_config = pc
+
+        self.mesh = mesh
+        try:
+            self._bind_mesh()
+            self._host_params = self._resolve_host_placements()
+            self._sparse_specs = self._sparse_embedding_specs()
+            self._host_rows = self._host_row_specs()
+            self._run_verifier(verify)
+        except Exception:
+            rollback()
+            raise
+        try:
+            new_params = {}
+            for name, cur in self._params.items():
+                if name in self._host_params:
+                    # host-placed: a plain pinned tensor on every rank
+                    new_params[name] = (cur if redistribute
+                                        else self._pin(torch.zeros_like(cur)))
+                    continue
+                full = (gather(cur) if redistribute
+                        else torch.zeros(cur.shape, dtype=cur.dtype,
+                                         device=self.device))
+                new_params[name] = self._place_param(name, full)
+            proto = self.optimizer.init_state(
+                {k: self._on_device(k, v) for k, v in new_params.items()
+                 if k in self._trainable_names()})
+            old_leaves = _flatten_state(self._opt_state)
+            proto_leaves = _flatten_state(proto)
+            if len(old_leaves) != len(proto_leaves):
+                raise RuntimeError(
+                    f"optimizer state has {len(old_leaves)} slots, the "
+                    f"rebuilt one {len(proto_leaves)}")
+            new_leaves = []
+            for old, pv in zip(old_leaves, proto_leaves):
+                if not redistribute or not isinstance(pv, torch.Tensor):
+                    new_leaves.append(old if not isinstance(
+                        pv, torch.Tensor) else pv)
+                    continue
+                full = gather(old).to(device=self.device, dtype=pv.dtype)
+                new_leaves.append(
+                    distribute(full, self.mesh, pv.placements)
+                    if is_dtensor(pv) else full.to(pv.device))
+            new_opt = _unflatten_state(proto, iter(new_leaves))
+        except Exception:
+            rollback()
+            raise
+        self._params = new_params
+        self._opt_state = new_opt
+        self._fwd_compiled = {}
+        self.__dict__.pop("_gen_decoders", None)
+        self._batch = None
+        self._cached_grads = None
+        self.config.mesh_shape = self._live_mesh_shape() or {"n": 1}
+        report = {"old_mesh": old_shape,
+                  "new_mesh": self._live_mesh_shape(),
+                  "old_devices": old_ndev,
+                  "new_devices": self.mesh.mesh_product,
+                  "researched": False, "step": self._step,
+                  "strategy_digest": self._strategy_digest()}
+        from .fflogger import get_logger
+        get_logger("elastic").event("reshard", **report)
+        return report
+
+    def _reshard_if_mesh_changed(self, data: Dict[str, np.ndarray],
+                                 path: str = "<checkpoint>") -> bool:
+        """Reshard-on-resume detection: compare an already-read
+        checkpoint's manifest topology with the mesh this model runs on.
+        On a change, emit one ``reshard_on_resume`` event on the
+        ``elastic`` logger (the saved and current mesh, devices and
+        strategy digests).  The arrays are whole, so they load under
+        the current placements as they are; a configured re-search
+        (``reshard_search_budget``/``search_budget`` > 0) would re-run
+        the search for the current devices (ROADMAP A.9: raises).
+        Returns True when the topology differed."""
+        from .resilience import manifest_meta
+        meta = manifest_meta(data)
+        if meta is None:
+            return False
+        cur_shape = self._live_mesh_shape()
+        cur_ndev = self.mesh.mesh_product
+        saved_shape = meta.get("mesh_shape")
+        saved_ndev = meta.get("num_devices")
+        mesh_changed = (
+            (saved_ndev is not None and saved_ndev != cur_ndev)
+            or (saved_shape is not None and saved_shape != cur_shape))
+        cur_digest = self._strategy_digest()
+        saved_digest = meta.get("strategy_digest")
+        if not (mesh_changed or saved_digest not in (None, cur_digest)):
+            return False
+        research = mesh_changed and self._reshard_budget() > 0
+        from .fflogger import get_logger
+        get_logger("elastic").event(
+            "reshard_on_resume", path=path,
+            saved_mesh=saved_shape, saved_devices=saved_ndev,
+            mesh=cur_shape, devices=cur_ndev,
+            saved_digest=saved_digest, digest=cur_digest,
+            research=bool(research))
+        if research:
+            self.reshard(num_devices=cur_ndev, redistribute=False)
+        return True
+
+    def _apply_fault_reshard(self, kind: str,
+                             devices: Optional[int] = None) -> None:
+        """Consume a ``grow_at_step``/``shrink_at_step`` request
+        (``faults.reshard_at_window``): by default double or halve the
+        device count, landing on the data axis (``mesh.scaled_shape``).
+        A target equal to the world reshards in process; any other size
+        goes through the supervisor: every rank saves the step's
+        ``elastic_step<N>.npz`` in ``FF_ELASTIC_CKPT_DIR``, rank 0
+        records the size asked for, and every rank exits with
+        ``parallel.elastic.RESIZE_EXIT_CODE``; ``run_elastic`` relaunches
+        that world, which reshards on resume."""
+        cur = self.mesh.mesh_product
+        if devices is None:
+            devices = cur * 2 if kind == "grow_at_step" else max(1, cur // 2)
+        devices = max(1, int(devices))
+        if devices == cur:
+            return
+        if self._reshard_budget() > 0:
+            self.reshard(num_devices=devices)   # re-search: A.9 raises
+            return
+        shape = scaled_shape(self.mesh.sizes, devices)
+        if devices == distributed.world_size():
+            self.reshard(new_mesh=shape)
+            return
+        import os
+        import sys
+
+        from .parallel import elastic
+        ckpt_dir = os.environ.get("FF_ELASTIC_CKPT_DIR")
+        if not ckpt_dir or not os.environ.get("FF_HEARTBEAT_DIR"):
+            raise ValueError(
+                f"{kind} to {devices} device(s) from a world of "
+                f"{distributed.world_size()}: another world size goes "
+                f"through the supervisor (run the ranks under "
+                f"parallel.elastic.run_elastic with a checkpoint_dir)")
+        self.save_checkpoint(os.path.join(ckpt_dir,
+                                          f"elastic_step{self._step}.npz"))
+        if distributed.world_size() == 1 or \
+                torch.distributed.get_rank() == 0:
+            elastic.request_resize(devices, self._step)
+        distributed.coordination_barrier("resize")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(elastic.RESIZE_EXIT_CODE)
+
+    def _maybe_reshard_fault(self, start: int, end: int) -> None:
+        """Consume every ``grow_at_step``/``shrink_at_step`` fault of the
+        just-completed window ``(start, end]``, between steps."""
+        for req in faults.reshard_at_window(start, end):
+            self._apply_fault_reshard(*req)
+
+    def _window_faults(self, start: int, end: int) -> None:
+        """The train loop's fault hooks after steps ``(start, end]``:
+        kill, hang and slow rank, then the reshards.  Without
+        ``FF_FAULT`` this is the one cached ``plan()`` check."""
+        if faults.plan():
+            faults.on_window(start, end)
+            self._maybe_reshard_fault(start, end)
 
     @property
     def num_parameters(self) -> int:
@@ -953,7 +1207,7 @@ class FFModel:
         final = self._ckpt_path(path)
         step = self._step
         digest = self._strategy_digest()
-        mesh_shape = {a: s for a, s in self.mesh.sizes.items() if s > 1}
+        mesh_shape = self._live_mesh_shape()
         world = distributed.world_size()
 
         def write():
@@ -963,6 +1217,7 @@ class FFModel:
                                process_count=world,
                                strategy_digest=digest))
             _atomic_savez(final, flat)
+            faults.maybe_corrupt_checkpoint(final, step)
             if keep_last is not None:
                 _prune_step_family(final, keep_last)
 
@@ -1015,14 +1270,16 @@ class FFModel:
         parameter and optimizer-state sets and shapes are checked
         against this model, all before any state changes.  The arrays
         are whole whatever mesh wrote them, so a checkpoint loads on any
-        mesh: each rank reads the file and keeps its shards, and the
-        manifest's topology is not compared."""
+        mesh: each rank reads the file and keeps its shards.  A file
+        saved on another mesh (the manifest's topology) emits the
+        ``reshard_on_resume`` event first (``_reshard_if_mesh_changed``)."""
         if self._opt_state is None:
             raise RuntimeError("call compile() and init_layers() first")
         self.wait_for_checkpoint()  # never read under a pending writer
         path = self._ckpt_path(path)
         data = read_npz_verified(path, what="checkpoint")
         self._validate_restore(data)
+        self._reshard_if_mesh_changed(data, path)
         self._restore_from_host(data)
 
     def _validate_restore(self, data: Dict[str, np.ndarray]) -> None:
@@ -1563,6 +1820,7 @@ class FFModel:
             self._check_accum_divisible(len(arrays[0]), "batch of")
         loss, sums = self._train_step(self._device_batch(arrays))
         self._last_metric_sums = sums
+        self._window_faults(self._step - 1, self._step)
         return loss
 
     def _run_window(self, window, nvalid=None) -> tuple:
@@ -1590,10 +1848,12 @@ class FFModel:
             raise RuntimeError("call compile() and init_layers() first")
         self._check_accum_divisible(int(window[0].shape[1]),
                                     "window batch of")
+        start = self._step
         losses_, sums_ = self._run_window(self._device_batch(window),
                                           nvalid)
         sums = {k: torch.stack([s[k] for s in sums_]) for k in sums_[0]}
         self._last_metric_sums = sums
+        self._window_faults(start, self._step)
         return torch.stack(losses_), sums
 
     # the reference's imperative loop: set_batch, forward,
@@ -1666,8 +1926,10 @@ class FFModel:
         tail samples that do not fill a batch through the masked padded
         step instead of dropping them.
         ``validation_data=(x_val, y_val)`` runs ``evaluate`` after every
-        epoch.  The per-epoch JSON event, the metrics registry, span
-        tracing and fault hooks come with the tooling slice."""
+        epoch.  The ``FF_FAULT`` training hooks fire after every window
+        (kill, hang, slow rank, then the grow/shrink reshards).  The
+        per-epoch JSON event, the metrics registry and span tracing come
+        with the tooling slice (ROADMAP A.11)."""
         self._check_not_quantized("fit")
         cfg = self.config
         epochs = epochs or cfg.epochs
@@ -1695,7 +1957,9 @@ class FFModel:
             self.perf_metrics = metrics_mod.PerfMetrics()
             epoch_losses, epoch_sums = [], []
             for window, nvalid in loader.iter_windows():
+                start = self._step
                 losses_, sums_ = self._run_window(window, nvalid)
+                self._window_faults(start, self._step)
                 epoch_losses.extend(losses_)
                 epoch_sums.extend(sums_)
             total_samples += loader.num_samples_used

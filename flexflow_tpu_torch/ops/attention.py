@@ -34,6 +34,11 @@ There is no length threshold and no alignment rule: the kernel masks
 its ragged tiles.  A kernel that fails to build or launch raises; there
 is no fallback to the dense path.
 
+In sharded generation (``GenerationEngine.from_strategy``) the paged
+prefill, decode and verify walks run on each rank's local heads, whose
+K/V its pools hold, and the output projection's partial products are
+summed over the ``c`` line.
+
 The decode, verify-window and paged-prefill attention is plain torch,
 as the JAX package computes it outside any kernel (einsums): float32 scores, the finite
 ``NEG_INF`` mask keyed on global positions, probabilities rounded to v's
@@ -320,26 +325,37 @@ class MultiHeadAttention(Op):
     def _qkv(self, params, xq, xk, xv, ctx):
         """The q/k/v projections: float32 products of compute-dtype
         operands (Linear's contract), cast back to the compute dtype and
-        split into heads."""
+        split into heads (those whose rows ``params`` holds: all of
+        them, or a rank's local heads in sharded generation)."""
         n = xq.shape[0]
-        h, hd = self.num_heads, self.head_dim
+        hd = self.head_dim
 
         def proj(x, w):
             y = linear(x.to(torch.float32),
                        cast_compute(params[w.name], ctx).to(torch.float32),
                        None, lambda y: cast_compute(y, ctx))
-            return y.reshape(n, x.shape[1], h, hd)
+            return y.reshape(n, x.shape[1], -1, hd)
 
         return proj(xq, self.w_q), proj(xk, self.w_k), proj(xv, self.w_v)
 
-    def _out_proj(self, params, attn, n, sq, ctx):
-        """The context -> embed output projection (+bias)."""
-        attn = cast_compute(attn, ctx).reshape(n, sq, self.embed_dim)
+    def _out_proj(self, params, attn, n, sq, ctx, line=None):
+        """The context -> embed output projection (+bias).  With
+        ``line`` (a ``parallel.distributed.AxisGroup`` over ``c``) the
+        context holds this rank's local heads and ``params`` the columns
+        of ``wo`` they meet: the partial products are summed over the
+        line before the bias, as GSPMD's row-parallel product."""
+        attn = cast_compute(attn, ctx).reshape(n, sq, -1)
         bias = params[self.w_bias.name] if self.use_bias else None
-        return linear(attn.to(torch.float32),
-                      cast_compute(params[self.w_o.name],
-                                   ctx).to(torch.float32),
-                      bias, lambda y: cast_compute(y, ctx))
+        wo = cast_compute(params[self.w_o.name], ctx).to(torch.float32)
+        if line is None:
+            return linear(attn.to(torch.float32), wo, bias,
+                          lambda y: cast_compute(y, ctx))
+        import torch.distributed as dist
+        y = F.linear(attn.to(torch.float32), wo)
+        dist.all_reduce(y, group=line.group)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return cast_compute(y, ctx)
 
     def parallel_dims(self):
         # (n, s, c): samples, sequence and heads
@@ -429,7 +445,7 @@ class MultiHeadAttention(Op):
         return [self._out_proj(params, attn, n, sq, ctx)], k, v
 
     def forward_paged(self, params, x, k_pool, v_pool, table_row, start,
-                      length, ctx: OpContext):
+                      length, ctx: OpContext, line=None):
         """One prefill chunk against the paged cache: project the chunk,
         write its K/V rows into the slot's pages, attend each query over
         the slot's whole gathered table (history pages and the chunk),
@@ -439,7 +455,8 @@ class MultiHeadAttention(Op):
         ``k_pool``/``v_pool`` (num_pages, page, h, hd) are updated in
         place and returned; ``table_row`` (pages_per_slot,) int page ids,
         real at the chunk's real positions, the sentinel at unallocated
-        entries."""
+        entries.  With ``line`` the walk runs on this rank's local heads
+        (``params`` and the pools hold them; see :meth:`_out_proj`)."""
         self._check_decodable("paged prefill")
         xq = cast_compute(x, ctx)
         n, b, _ = xq.shape
@@ -453,11 +470,12 @@ class MultiHeadAttention(Op):
             q, _gather_pages(k_pool, table_row)[None],
             _gather_pages(v_pool, table_row)[None], qpos,
             1.0 / math.sqrt(self.head_dim))
-        return [self._out_proj(params, attn, n, b, ctx)], k_pool, v_pool
+        return [self._out_proj(params, attn, n, b, ctx, line)], k_pool, \
+            v_pool
 
     def decode_paged(self, params, x, k_pool, v_pool, table, pos,
                      write_slots, write_pages, write_rows,
-                     ctx: OpContext):
+                     ctx: OpContext, line=None):
         """One decode step against the paged cache: project each slot's
         current token, write the K/V of slot ``write_slots[i]`` at
         ``(write_pages[i], write_rows[i])``, gather each slot's table and
@@ -466,7 +484,8 @@ class MultiHeadAttention(Op):
         lists only the slots that write (``decoder.kept_writes``).
         ``x`` (slots, 1, d); ``table`` (slots, pages_per_slot); ``pos``
         (slots,) the current positions; the write triple (m,) for
-        m <= slots.  The pools are updated in place and returned."""
+        m <= slots.  The pools are updated in place and returned; with
+        ``line``, as :meth:`forward_paged`, on the local heads."""
         n = x.shape[0]
         xq = cast_compute(x, ctx)
         q, k, v = self._qkv(params, xq, xq, xq, ctx)
@@ -475,11 +494,12 @@ class MultiHeadAttention(Op):
         attn = _decode_attention(q, _gather_pages(k_pool, table),
                                  _gather_pages(v_pool, table), pos,
                                  1.0 / math.sqrt(self.head_dim))
-        return [self._out_proj(params, attn, n, 1, ctx)], k_pool, v_pool
+        return [self._out_proj(params, attn, n, 1, ctx, line)], k_pool, \
+            v_pool
 
     def verify_paged(self, params, x, k_pool, v_pool, table, pos,
                      write_slots, write_cols, write_pages, write_rows,
-                     ctx: OpContext):
+                     ctx: OpContext, line=None):
         """A speculative verify window against the paged cache: project
         W tokens a slot, write the K/V of window entry ``(write_slots[i],
         write_cols[i])`` at ``(write_pages[i], write_rows[i])``, gather
@@ -494,7 +514,8 @@ class MultiHeadAttention(Op):
         on each slot's global positions, so a window's later rows and the
         rows a rejected round left behind stay invisible until a later
         round overwrites them: they need no cleanup.  The pools are
-        updated in place and returned."""
+        updated in place and returned; with ``line``, as
+        :meth:`forward_paged`, on the local heads."""
         n, w, _ = x.shape
         xq = cast_compute(x, ctx)
         q, k, v = self._qkv(params, xq, xq, xq, ctx)
@@ -504,7 +525,8 @@ class MultiHeadAttention(Op):
         attn = _position_attention(
             q, _gather_pages(k_pool, table), _gather_pages(v_pool, table),
             qpos, 1.0 / math.sqrt(self.head_dim))
-        return [self._out_proj(params, attn, n, w, ctx)], k_pool, v_pool
+        return [self._out_proj(params, attn, n, w, ctx, line)], k_pool, \
+            v_pool
 
     def decode(self, params, x, k_cache, v_cache, pos, ctx: OpContext):
         """One decode step against the dense per-slot cache: write the

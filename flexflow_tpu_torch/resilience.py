@@ -1,7 +1,7 @@
-"""Checkpoint integrity and atomic publish, the port's copy of the
-device-free half of ``flexflow_tpu/resilience.py`` (with the two file
-helpers ``flexflow_tpu/model.py`` keeps beside it and
-``parallel/elastic.py``'s ``_step_checkpoints``).
+"""Worker-side resilience for elastic training, the port of
+``flexflow_tpu/resilience.py`` (with the two file helpers
+``flexflow_tpu/model.py`` keeps beside it and ``parallel/elastic.py``'s
+``_step_checkpoints``, whose one copy lives here).
 
 * **Checkpoint manifest + verification** — ``build_manifest`` embeds a
   per-array CRC32 table (plus step, format version and the topology the
@@ -14,11 +14,17 @@ helpers ``flexflow_tpu/model.py`` keeps beside it and
   the orphans such a kill leaves, and ``_prune_step_family`` keeps the
   newest ``keep_last`` files of a ``<name>_step<N>.npz`` family.
 
+* **Heartbeats** — each rank stamps ``<dir>/rank<r>.hb`` with its step
+  once per step (atomic tmp+rename); the supervisor
+  (``parallel.elastic.run_elastic``) compares successive reads with its
+  own clock to detect a hang.
+* **Elastic resume** — :func:`elastic_resume` restores the newest
+  checkpoint that verifies, skipping corrupt ones with a structured
+  ``checkpoint_skipped`` event on the ``elastic`` logger, and reshards
+  on resume when the file was saved on another mesh.
+
 The file format is the JAX package's, so either package verifies and
 loads the other's checkpoints.  numpy and the standard library only.
-Heartbeats and the elastic resume come with the multi-device layer, and
-the fault hooks with the tooling; until then a skipped checkpoint is
-reported through ``warnings.warn``.
 """
 
 from __future__ import annotations
@@ -26,12 +32,14 @@ from __future__ import annotations
 import json
 import os
 import re
-import warnings
+import time
 import zipfile
 import zlib
 from typing import Dict, Optional
 
 import numpy as np
+
+from . import faults
 
 #: npz key holding the JSON manifest (kept in ``meta:`` space alongside
 #: ``meta:step`` so param/opt key enumeration is unaffected)
@@ -251,15 +259,19 @@ def read_npz_verified(path: str, what: str = "checkpoint"
 
 def iter_valid_checkpoints(directory: str, prefix: str = "elastic"):
     """Yield ``(step, path, data)`` for every verified checkpoint in
-    ``directory`` newest-first (one full read + CRC pass each), warning
-    with the path, step and reason for every corrupt or truncated
-    candidate it skips."""
+    ``directory`` newest-first (one full read + CRC pass each), emitting
+    a structured ``checkpoint_skipped`` event (path, step, reason) on
+    the ``elastic`` logger for every corrupt or truncated candidate.
+    The one scan under both resume paths (:func:`latest_valid_checkpoint`
+    and :func:`elastic_resume`)."""
     for step, path in _step_checkpoints(directory, prefix):
         try:
             data = read_npz_verified(path, what="checkpoint")
         except CorruptNpzError as e:
-            warnings.warn(f"checkpoint_skipped: {path} (step {step}): "
-                          f"{type(e).__name__}: {e}")
+            from .fflogger import get_logger
+            get_logger("elastic").event(
+                "checkpoint_skipped", path=path, step=step,
+                reason=f"{type(e).__name__}: {e}")
             continue
         yield step, path, data
 
@@ -267,7 +279,8 @@ def iter_valid_checkpoints(directory: str, prefix: str = "elastic"):
 def latest_valid_checkpoint(directory: str, prefix: str = "elastic"
                             ) -> Optional[str]:
     """The newest ``<prefix>_step<N>.npz`` in ``directory`` that
-    verifies, or None; corrupt newer files are skipped with a warning."""
+    verifies, or None; corrupt newer files are skipped, each with a
+    ``checkpoint_skipped`` event."""
     for _, path, _data in iter_valid_checkpoints(directory, prefix):
         return path
     return None
@@ -282,3 +295,91 @@ def verify_checkpoint(path: str) -> bool:
         return True
     except CorruptNpzError:
         return False
+
+
+# ----------------------------------------------------------------------
+# heartbeats
+# ----------------------------------------------------------------------
+class Heartbeat:
+    """Per-rank progress stamp.  Workers call :meth:`beat` once per
+    completed step; the supervisor's hang monitor reads the directory and
+    kills the attempt when no rank's step advances for
+    ``hang_timeout_s``.  Disabled (every call a no-op) when no directory
+    is configured (``FF_HEARTBEAT_DIR``, which ``run_elastic`` exports),
+    so worker code can call it unconditionally.
+
+    File protocol: ``<dir>/rank<r>.hb`` holding one line ``"<step>
+    <monotonic> <wall>"``, published atomically.  Giving ``rank``
+    registers it with :func:`faults.set_rank`."""
+
+    def __init__(self, directory: Optional[str] = None,
+                 rank: Optional[int] = None):
+        self.dir = directory if directory is not None \
+            else os.environ.get("FF_HEARTBEAT_DIR")
+        self.rank = int(rank) if rank is not None else 0
+        if rank is not None:
+            faults.set_rank(rank)  # one registration point for workers
+        if self.dir:
+            os.makedirs(self.dir, exist_ok=True)
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.dir)
+
+    def beat(self, step: int) -> None:
+        if not self.dir:
+            return
+        final = os.path.join(self.dir, f"rank{self.rank}.hb")
+        tmp = final + ".tmp"
+        try:
+            with open(tmp, "w") as fh:
+                fh.write(f"{int(step)} {time.monotonic():.3f} "
+                         f"{time.time():.3f}\n")
+            os.replace(tmp, final)
+        except OSError:
+            pass  # a failed beat must never kill training
+
+
+def read_heartbeats(directory: str) -> Dict[int, int]:
+    """Supervisor side: ``{rank: last_step}`` from a heartbeat dir.
+    Unparseable or partial files are skipped (the next beat replaces
+    them)."""
+    out: Dict[int, int] = {}
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return out
+    for n in names:
+        if not (n.startswith("rank") and n.endswith(".hb")):
+            continue
+        try:
+            rank = int(n[len("rank"):-len(".hb")])
+            with open(os.path.join(directory, n)) as fh:
+                out[rank] = int(fh.read().split()[0])
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+# ----------------------------------------------------------------------
+# the standard worker resume pattern
+# ----------------------------------------------------------------------
+def elastic_resume(model, workdir: str, prefix: str = "elastic"
+                   ) -> Optional[str]:
+    """Load the newest valid checkpoint of ``workdir`` into ``model``
+    (corrupt or truncated files are skipped, each with a
+    ``checkpoint_skipped`` event).  Returns the path resumed from, or
+    None for a fresh start.
+
+    The winning file is read once: it is validated against the model
+    (nothing changes on a mismatch), then compared with the mesh the
+    model runs on (``FFModel._reshard_if_mesh_changed``: a file saved on
+    another mesh emits ``reshard_on_resume``), then restored from the
+    same read.  On a mesh every rank calls it."""
+    model.wait_for_checkpoint()  # never read under a pending writer
+    for _, path, data in iter_valid_checkpoints(workdir, prefix):
+        model._validate_restore(data)
+        model._reshard_if_mesh_changed(data, path)
+        model._restore_from_host(data)
+        return path
+    return None

@@ -22,13 +22,24 @@ Both halves come from the layer list itself:
   position table ``decode_window``), then the greedy argmax match or
   the sampled rejection test (``sampling.speculative_accept``).
 
-The functions run eagerly under ``torch.inference_mode()`` on the
-model's device, update the pool tensors in place (the JAX programs
+The functions run eagerly under ``torch.inference_mode()`` (under
+``torch.no_grad()`` on a mesh) on the model's device, update the pool tensors in place (the JAX programs
 donate them) and return the next tokens as device tensors; the caller
 fetches them once (a speculative round: once after the verify, none
 between the draft's steps).  The host's index arrays go to the device in
 one copy a call.  Pool geometry comes from ``analysis.kv_memory`` and the
 tensors from ``pages.alloc_pool_arrays``.
+
+On a mesh (``mesh``, the model's ``MachineMesh``: sharded generation,
+``GenerationEngine.from_strategy``) every rank walks the whole decode
+batch on local tensors (:meth:`GraphDecoder.local_params`): an
+attention op its local heads when the mesh's ``c`` axis divides them
+(its K/V pools hold those heads, ``kv_cache_layout``'s entries, and the
+output projection's partial products are summed over the ``c`` line),
+a Linear or Embedding whose strategy splits its output features over
+``c`` its columns (the output gathered over the line), every other op
+its full parameters.  The page dim is replicated, so the ranks of an
+``n`` line hold the same pages and run the same walk.
 
 Supported graphs: one (n, s) integer token input; position-wise ops
 (dense, norms, elementwise, softmax, dropout), sequence-mode embeddings,
@@ -48,7 +59,7 @@ from ...analysis.kv_memory import (DEFAULT_PAGE_SIZE, default_num_pages,
 from ...op import OpContext, OpType
 from ...ops.attention import MultiHeadAttention, PositionEmbedding
 from ...ops.common import resolve_op_dtype
-from ...ops.linear import Embedding
+from ...ops.linear import Embedding, Linear
 from ...ops.rnn import LSTM
 from . import sampling
 from .pages import alloc_pool_arrays
@@ -97,7 +108,8 @@ class GraphDecoder:
     share an instance."""
 
     def __init__(self, model, slots: int, max_seq: int,
-                 page_size: int = 0, num_pages: int = 0, device=None):
+                 page_size: int = 0, num_pages: int = 0, device=None,
+                 mesh=None):
         if slots < 2:
             raise ValueError(
                 f"slots must be >= 2, got {slots}: a 1-slot decode "
@@ -129,14 +141,25 @@ class GraphDecoder:
                 f"({self.pages_per_slot} pages of {self.page_size})")
         self._validate()
         self.buckets = prefill_buckets(self.max_seq)
-        # one device: no mesh axis shards the pools
-        self.layout = kv_cache_layout(model.layers, None, self.slots,
-                                      self.max_seq,
-                                      page_size=self.page_size,
-                                      num_pages=self.num_pages)
         self.has_attention = any(isinstance(op, MultiHeadAttention)
                                  for op in model.layers)
         self.has_state = any(isinstance(op, LSTM) for op in model.layers)
+        self.mesh = mesh
+        self._line = None        # the c line the local heads split over
+        self._gathered: set = set()   # ops whose outputs the line gathers
+        if mesh is not None:
+            if self.has_state:
+                raise ValueError(
+                    "sharded generation takes attention graphs: an LSTM's "
+                    "state would split its slots over 'n', which this "
+                    "decoder does not run; serve the LSTM LM on one "
+                    "device")
+            mesh.make_axis_groups(("c",))
+            self._line = mesh.axis_group("c")
+        self.layout = kv_cache_layout(
+            model.layers, None if mesh is None else dict(mesh.sizes),
+            self.slots, self.max_seq, page_size=self.page_size,
+            num_pages=self.num_pages)
         # an LSTM chunk at an offset would need the previous chunk's
         # carry: whole-prompt chunks and no prefix reuse for such graphs
         self.supports_chunking = not self.has_state
@@ -230,27 +253,105 @@ class GraphDecoder:
         return self._to_device(np.stack([np.asarray(temp, np.float32),
                                          np.asarray(top_p, np.float32)]))
 
+    def _mode(self):
+        """The walks' autograd mode: inference mode on one device,
+        ``no_grad`` on a mesh (the engine's collectives and DTensor views
+        refuse inference tensors)."""
+        return (torch.no_grad() if self.mesh is not None
+                else torch.inference_mode())
+
     def _walk(self, params, tokens, ctx: OpContext, run_op
               ) -> torch.Tensor:
         """The layer list on ``tokens``, each op in its resolved compute
-        dtype; ``run_op(op, ins, ctx)`` returns the op's outputs.  Returns
-        the final tensor."""
+        dtype; ``run_op(op, ins, ctx)`` returns the op's outputs.  On a
+        mesh an op of ``_gathered`` computes its local output columns,
+        gathered over the ``c`` line.  Returns the final tensor."""
         base = ctx.compute_dtype
         values: Dict[int, torch.Tensor] = {self._input_uid: tokens}
         for op in self.model.layers:
             ctx.compute_dtype = resolve_op_dtype(op, base)
             outs = run_op(op, [values[t.uid] for t in op.inputs], ctx)
+            if op.name in self._gathered:
+                outs = [self._gather_columns(o) for o in outs]
             for t, val in zip(op.outputs, outs):
                 values[t.uid] = val
         ctx.compute_dtype = base
         return values[self._final_uid]
 
+    def _gather_columns(self, y: torch.Tensor) -> torch.Tensor:
+        """The ``c`` line's column blocks of ``y`` side by side, in the
+        line's order."""
+        import torch.distributed as dist
+        line = self._line
+        parts = [torch.empty_like(y) for _ in range(line.size)]
+        dist.all_gather(parts, y.contiguous(), group=line.group)
+        return torch.cat(parts, dim=-1)
+
+    # ---- sharded parameters --------------------------------------------
+    def _heads_split(self, op) -> bool:
+        line = self._line
+        return (line is not None and isinstance(op, MultiHeadAttention)
+                and op.num_heads % line.size == 0)
+
+    def _c_sharded(self, name: str, dim: int) -> bool:
+        """Whether parameter ``name``'s placements split ``dim`` over
+        every sub-axis of ``c`` and nothing else."""
+        from torch.distributed.tensor import Replicate, Shard
+        pl = self.model._param_pl.get(name)
+        if pl is None:
+            return False
+        axes = self.mesh.dim_axes
+        return all((isinstance(p, Shard) and p.dim == dim) if a == "c"
+                   else isinstance(p, Replicate) for p, a in zip(pl, axes))
+
+    def local_params(self, params) -> Dict[str, torch.Tensor]:
+        """The local tensors the walks take on a mesh (the model's own
+        dict on one device): for each attention op whose heads split over
+        ``c`` the rows of its local heads in ``wq``/``wk``/``wv`` and
+        their columns of ``wo``; for a Linear or Embedding whose output
+        features its placements split over ``c``, its local columns
+        (the op joins ``_gathered``); every other parameter whole.  A
+        gather is a collective: every rank builds them at one point."""
+        if self.mesh is None:
+            return params
+        from ...parallel.sharding import gather
+        line = self._line
+        out: Dict[str, torch.Tensor] = {}
+
+        def block(name, dim):
+            v = params[name]
+            if self._c_sharded(name, dim):
+                return v.to_local()
+            return gather(v).chunk(line.size, dim)[line.index].contiguous()
+
+        for op in self.model.layers:
+            split = {}
+            if self._heads_split(op):
+                split = {op.w_q.name: 0, op.w_k.name: 0, op.w_v.name: 0,
+                         op.w_o.name: 1}
+            elif (line is not None and isinstance(op, (Linear, Embedding))
+                  and self._c_sharded(op.weights[0].name,
+                                      op.weights[0].sharded_dim)):
+                split = {w.name: w.sharded_dim for w in op.weights}
+                self._gathered.add(op.name)
+            for w in op.weights:
+                if w.name in out:
+                    continue
+                out[w.name] = (block(w.name, split[w.name])
+                               if w.name in split else gather(params[w.name]))
+        return out
+
+    def _line_for(self, op):
+        return self._line if self._heads_split(op) else None
+
     # ---- cache ---------------------------------------------------------
     def init_cache(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The zeroed page pools and LSTM state, through
-        ``pages.alloc_pool_arrays``."""
-        return alloc_pool_arrays(self.layout, self.device,
-                                 self.model.config.compute_dtype)
+        ``pages.alloc_pool_arrays`` (on a mesh this rank's shards of
+        them)."""
+        return alloc_pool_arrays(
+            self.layout, self.device, self.model.config.compute_dtype,
+            None if self.mesh is None else dict(self.mesh.sizes))
 
     # ---- prefill -------------------------------------------------------
     def prefill_bucket(self, chunk_len: int) -> int:
@@ -271,7 +372,8 @@ class GraphDecoder:
             if isinstance(op, MultiHeadAttention):
                 c = caches[op.name]
                 return op.forward_paged(params, ins[0], c["k"], c["v"],
-                                        table_row, start, length, ctx)[0]
+                                        table_row, start, length, ctx,
+                                        self._line_for(op))[0]
             if isinstance(op, LSTM):
                 # whole-prompt chunks only: start is 0, so the zero-state
                 # forward is the prefill
@@ -297,7 +399,7 @@ class GraphDecoder:
 
         def prefill(params, caches, tokens, table_row, slot, start,
                     length):
-            with torch.inference_mode():
+            with self._mode():
                 tok, row = self._upload(tokens, table_row)
                 logits = self._walk_prefill(params, caches, tok, row,
                                             int(slot), int(start),
@@ -327,7 +429,8 @@ class GraphDecoder:
                 c = caches[op.name]
                 return op.decode_paged(params, ins[0], c["k"], c["v"],
                                        table, pos, write_slots,
-                                       write_pages, write_rows, ctx)[0]
+                                       write_pages, write_rows, ctx,
+                                       self._line_for(op))[0]
             if isinstance(op, LSTM):
                 c = caches[op.name]
                 outs, h2, c2 = op.decode(params, ins[0], c["h"], c["c"],
@@ -352,7 +455,7 @@ class GraphDecoder:
 
         def decode(params, caches, tokens, pos, table, write_pages,
                    write_rows):
-            with torch.inference_mode():
+            with self._mode():
                 dev = self.decode_inputs(tokens, pos, table, write_pages,
                                          write_rows)
                 return self._walk_decode(params, caches, *dev).argmax(-1)
@@ -369,7 +472,7 @@ class GraphDecoder:
 
         def decode_s(params, caches, tokens, pos, table, write_pages,
                      write_rows, temp, top_k, top_p, seeds):
-            with torch.inference_mode():
+            with self._mode():
                 tok, p, tab, ws, wp, wr, k, sd = self.decode_inputs(
                     tokens, pos, table, write_pages, write_rows, top_k,
                     seeds)
@@ -397,7 +500,8 @@ class GraphDecoder:
                 c = caches[op.name]
                 return op.verify_paged(params, ins[0], c["k"], c["v"],
                                        table, pos, write_slots, write_cols,
-                                       write_pages, write_rows, ctx)[0]
+                                       write_pages, write_rows, ctx,
+                                       self._line_for(op))[0]
             if isinstance(op, PositionEmbedding):
                 return op.decode_window(params, ins[0], pos, ctx)
             return op.forward(params, ins, ctx)
@@ -443,7 +547,7 @@ class GraphDecoder:
                                      wc, wpg, wrw)
 
         def verify(params, caches, first, d, pos, table, wp, wr):
-            with torch.inference_mode():
+            with self._mode():
                 tok, p, tab, ws, wc, wpg, wrw = inputs(first, pos, table,
                                                        wp, wr)
                 logits = walk(params, caches, tok, d, p, tab, ws, wc, wpg,
@@ -455,7 +559,7 @@ class GraphDecoder:
 
         def verify_s(params, caches, first, d, q, pos, table, wp, wr, temp,
                      top_k, top_p, seeds):
-            with torch.inference_mode():
+            with self._mode():
                 tok, p, tab, ws, wc, wpg, wrw, k, sd = inputs(
                     first, pos, table, wp, wr, top_k, seeds)
                 fl = self._upload_floats(temp, top_p)
@@ -499,7 +603,7 @@ class GraphDecoder:
             return dev[:3], steps, dev[3 + 3 * g:]
 
         def draft(params, caches, first, pos, table, wp, wr):
-            with torch.inference_mode():
+            with self._mode():
                 (tok, p, tab), steps, _ = inputs(first, pos, table, wp, wr)
                 props = []
                 for t, (ws, wpg, wrw) in enumerate(steps):
@@ -510,7 +614,7 @@ class GraphDecoder:
 
         def draft_s(params, caches, first, pos, table, wp, wr, temp, top_k,
                     top_p, seeds):
-            with torch.inference_mode():
+            with self._mode():
                 (tok, p, tab), steps, (k, sd) = inputs(
                     first, pos, table, wp, wr, top_k, seeds)
                 fl = self._upload_floats(temp, top_p)
@@ -530,11 +634,11 @@ class GraphDecoder:
     # ---- shared-instance registry --------------------------------------
     @classmethod
     def for_model(cls, model, slots: int, max_seq: int,
-                  page_size: int = 0, num_pages: int = 0, device=None
-                  ) -> "GraphDecoder":
+                  page_size: int = 0, num_pages: int = 0, device=None,
+                  mesh=None) -> "GraphDecoder":
         """One decoder per (model, slots, max_seq, page geometry,
-        device), keyed on the resolved geometry (a later config change
-        gets its own)."""
+        device, mesh), keyed on the resolved geometry (a later config
+        change gets its own)."""
         cfg = model.config
         ps = int(page_size
                  or getattr(cfg, "serve_kv_page", 0)
@@ -545,11 +649,11 @@ class GraphDecoder:
                        if ps > 0 else 0))
         reg = model.__dict__.setdefault("_gen_decoders", {})
         dev = model.device if device is None else torch.device(device)
-        key = (int(slots), int(max_seq), ps, pool, str(dev))
+        key = (int(slots), int(max_seq), ps, pool, str(dev), id(mesh))
         dec = reg.get(key)
         if dec is None:
             dec = cls(model, slots, max_seq, page_size=ps,
-                      num_pages=pool, device=dev)
+                      num_pages=pool, device=dev, mesh=mesh)
             reg[key] = dec
         return dec
 

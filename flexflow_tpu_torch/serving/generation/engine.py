@@ -54,16 +54,36 @@ Events (``gen_engine_start``, ``gen_stats``, ``gen_drain``,
 ``serve_slow_decode``, ``serve_cancel_at_token`` and ``spec_draft_fail``
 ``FF_FAULT`` kinds fire at step boundaries.
 
-Not ported yet, and refused: ``from_strategy`` (more than one device,
-A.8).  ``serve_quantize`` is refused for good with the JAX engine's
-ValueError: weight quantization covers dense serving only.
+* **Sharded generation** — :meth:`GenerationEngine.from_strategy`
+  compiles (or re-places) the model under a strategy file on a mesh of
+  one process a device and shards the KV pools' heads over ``c``.  The
+  JAX engine is one controller; here rank 0 owns every decision (it
+  admits, assigns slots and pages, runs the prefix trie, samples and
+  runs the speculation controller) and, before each dispatch, broadcasts
+  one step plan (which function, and its host arguments: slots,
+  positions, token ids, page-table rows, write pages and rows, sampling
+  floats; a verify's draft proposals) over a gloo group of its own, so
+  it works under NCCL too.  The other ranks' ``start()`` runs a follower
+  loop that applies each plan to its own shard and decides nothing;
+  their ``submit`` raises.  The tokens a step emits reach them inside
+  the next plan, so no rank's rounding can fork a stream.  A dispatch
+  error fails the group loudly (rank 0 fails every stream and aborts
+  the followers; a follower whose own step fails exits its process);
+  KV migration and fleet mode are not taken on a mesh.
+
+``serve_quantize`` is refused for good with the JAX engine's ValueError:
+weight quantization covers dense serving only.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import queue
+import sys
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import Future
 from typing import Dict, List, Optional
@@ -89,11 +109,6 @@ from .sampling import SamplingParams
 _END = object()  # token-stream sentinel
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to flexflow_tpu_torch yet (ROADMAP {item})")
-
-
 def _params_on(model, device: torch.device) -> Dict[str, torch.Tensor]:
     """The model's parameters on ``device``: the model's own dict when it
     lives there (engines of one model on one card share it), else a
@@ -101,6 +116,111 @@ def _params_on(model, device: torch.device) -> Dict[str, torch.Tensor]:
     if _canon(device) == _canon(model.device):
         return model._params
     return {k: v.to(device) for k, v in model._params.items()}
+
+
+def _on_mesh(model) -> bool:
+    return bool(getattr(model, "_on_mesh", False))
+
+
+class _PlanChannel:
+    """Rank 0's step plans to the other ranks of a sharded engine: one
+    pickled tuple a dispatch, broadcast as a length and a byte tensor
+    over a gloo group the engine creates (CPU tensors, so it runs under
+    an NCCL default group too).  ``dispatches`` and ``plan_bytes`` count
+    what went through, on every rank."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self._dist = dist
+        # collective: every rank builds the engine at one point
+        self.group = dist.new_group(backend="gloo")
+        self.dispatches = 0
+        self.plan_bytes = 0
+
+    def send(self, plan) -> None:
+        payload = pickle.dumps(plan, protocol=pickle.HIGHEST_PROTOCOL)
+        n = torch.tensor([len(payload)], dtype=torch.int64)
+        self._dist.broadcast(n, 0, group=self.group)
+        self._dist.broadcast(
+            torch.frombuffer(bytearray(payload), dtype=torch.uint8), 0,
+            group=self.group)
+        self._count(plan, len(payload))
+
+    def recv(self):
+        n = torch.zeros(1, dtype=torch.int64)
+        self._dist.broadcast(n, 0, group=self.group)
+        buf = torch.empty(int(n[0]), dtype=torch.uint8)
+        self._dist.broadcast(buf, 0, group=self.group)
+        plan = pickle.loads(buf.numpy().tobytes())
+        self._count(plan, int(n[0]))
+        return plan
+
+    def _count(self, plan, nbytes: int) -> None:
+        if plan[0] != "stop":
+            self.dispatches += 1
+            self.plan_bytes += nbytes
+
+
+class _DeviceArg:
+    """A device tensor argument of a plan (a verify's draft proposals or
+    probabilities), shipped as its host array."""
+
+    def __init__(self, t: torch.Tensor):
+        self.array = t.detach().cpu().numpy()
+
+
+class _PlannedDecoder:
+    """Rank 0's view of a decoder in a sharded engine: each dispatch
+    function sends its plan (``role``, kind, its argument and the call's
+    host arguments) before it runs; everything else is the decoder's."""
+
+    def __init__(self, decoder: GraphDecoder, role: str,
+                 channel: _PlanChannel):
+        self._dec, self._role, self._chan = decoder, role, channel
+
+    def __getattr__(self, name):
+        return getattr(self._dec, name)
+
+    def _planned(self, kind: str, arg, fn):
+        def call(params, caches, *args):
+            self._chan.send((self._role, kind, arg, tuple(
+                _DeviceArg(a) if isinstance(a, torch.Tensor) else a
+                for a in args)))
+            return fn(params, caches, *args)
+        return call
+
+    def prefill_fn(self, bucket: int):
+        return self._planned("prefill", bucket, self._dec.prefill_fn(bucket))
+
+    def decode_fn(self):
+        return self._planned("decode", None, self._dec.decode_fn())
+
+    def decode_sampled_fn(self):
+        return self._planned("decode_s", None,
+                             self._dec.decode_sampled_fn())
+
+    def verify_fn(self, width: int, sampled: bool = False):
+        return self._planned("verify", (width, sampled),
+                             self._dec.verify_fn(width, sampled))
+
+    def draft_fn(self, gamma: int, sampled: bool = False):
+        return self._planned("draft", (gamma, sampled),
+                             self._dec.draft_fn(gamma, sampled))
+
+
+def _dispatch_fn(decoder: GraphDecoder, kind: str, arg):
+    """The decoder function a plan names."""
+    if kind == "prefill":
+        return decoder.prefill_fn(arg)
+    if kind == "decode":
+        return decoder.decode_fn()
+    if kind == "decode_s":
+        return decoder.decode_sampled_fn()
+    if kind == "verify":
+        return decoder.verify_fn(*arg)
+    if kind == "draft":
+        return decoder.draft_fn(*arg)
+    raise ValueError(f"unknown plan kind {kind!r}")
 
 
 def _canon(device: torch.device) -> torch.device:
@@ -460,7 +580,18 @@ class GenerationEngine:
         # two engines of one model on one card share the parameters
         self.device = (model.device if device is None
                        else torch.device(device))
-        self._params = _params_on(model, self.device)
+        # sharded generation: one process a device, rank 0 the owner
+        self._mesh = model.mesh if _on_mesh(model) else None
+        self._plan_chan: Optional[_PlanChannel] = None
+        self.is_owner = True
+        self._group_error: Optional[str] = None
+        if self._mesh is not None:
+            import torch.distributed as dist
+            if _canon(self.device) != _canon(model.device):
+                raise ValueError(
+                    f"a sharded engine runs on its rank's device "
+                    f"{model.device}, not {self.device}")
+            self.is_owner = dist.get_rank() == 0
         self.slots = int(slots or cfg.serve_gen_slots)
         seq_len = (model.input_tensors[0].shape[1]
                    if model.input_tensors else 0)
@@ -494,12 +625,19 @@ class GenerationEngine:
         self._decoder = GraphDecoder.for_model(
             model, self.slots, self.max_seq,
             page_size=int(page_size or 0), num_pages=int(num_pages or 0),
-            device=self.device)
+            device=self.device, mesh=self._mesh)
+        # the walks' parameters: the model's own (a copy on another
+        # device), on a mesh this rank's local tensors
+        self._params = (self._decoder.local_params(model._params)
+                        if self._mesh is not None
+                        else _params_on(model, self.device))
         self.page_size = self._decoder.page_size
         self.num_pages = self._decoder.num_pages
-        # what the memory gate charges is what the pool allocates
+        # what the memory gate charges is what the pool allocates (on a
+        # mesh, a device's bytes)
         self.kv_plan = kv_page_plan(
-            model.layers, None, self.slots, self.max_seq,
+            model.layers, self._mesh_sizes(model), self.slots,
+            self.max_seq,
             kv_dtype_bytes=dtype_bytes(cfg.compute_dtype),
             page_size=self.page_size, num_pages=self.num_pages)
         self.kv_cache_bytes = self.kv_plan["total_bytes"]
@@ -545,6 +683,18 @@ class GenerationEngine:
         self._pool_high_base = 0
         self.metrics.pool_stats_fn = self._pool_stats
         self._init_spec(draft_model, spec_gamma, spec_gamma_max, policy)
+        # the decoders the followers apply plans to; rank 0 dispatches
+        # through planned views of them
+        self._raw_decoder = self._decoder
+        self._raw_draft_decoder = self._draft_decoder
+        if self._mesh is not None:
+            self._plan_chan = _PlanChannel()
+            if self.is_owner:
+                self._decoder = _PlannedDecoder(self._decoder, "t",
+                                                self._plan_chan)
+                if self._draft_decoder is not None:
+                    self._draft_decoder = _PlannedDecoder(
+                        self._draft_decoder, "d", self._plan_chan)
         self._gen_faults: List[Dict] = []
         # set by each host fetch, so dispatch_pending knows whether its
         # charged time already waited for the device
@@ -558,6 +708,10 @@ class GenerationEngine:
         self._closing = threading.Event()
         self._abort = threading.Event()
         self._shutdown_done = threading.Event()
+
+    @staticmethod
+    def _mesh_sizes(model) -> Optional[Dict[str, int]]:
+        return dict(model.mesh.sizes) if _on_mesh(model) else None
 
     def _init_spec(self, draft_model, spec_gamma, spec_gamma_max,
                    policy: str) -> None:
@@ -606,10 +760,16 @@ class GenerationEngine:
                 raise ValueError(
                     f"draft model is on {draft_model.device}, the target "
                     f"on {self.model.device}: both must share the device")
+            if _on_mesh(draft_model) != (self._mesh is not None):
+                raise ValueError(
+                    "a sharded engine's draft runs on the same ranks: "
+                    "compile it in the same process group (a replicated "
+                    "draft is data parallel over every rank)")
             self._draft_decoder = GraphDecoder.for_model(
                 draft_model, self.slots, self.max_seq,
                 page_size=self.page_size, num_pages=self.num_pages,
-                device=self.device)
+                device=self.device,
+                mesh=draft_model.mesh if _on_mesh(draft_model) else None)
             if not self._draft_decoder.supports_chunking:
                 raise ValueError("draft model must be a chunkable "
                                  "attention graph too")
@@ -620,11 +780,15 @@ class GenerationEngine:
                                  f"{tv}: the proposals would not be "
                                  f"token ids of the target")
             self.draft_kv_plan = kv_page_plan(
-                draft_model.layers, None, self.slots, self.max_seq,
+                draft_model.layers, self._mesh_sizes(draft_model),
+                self.slots, self.max_seq,
                 kv_dtype_bytes=dtype_bytes(cfg.compute_dtype),
                 page_size=self.page_size, num_pages=self.num_pages)
             self.draft_kv_cache_bytes = self.draft_kv_plan["total_bytes"]
-            self._draft_params = _params_on(draft_model, self.device)
+            self._draft_params = (
+                self._draft_decoder.local_params(draft_model._params)
+                if _on_mesh(draft_model)
+                else _params_on(draft_model, self.device))
             self._draft_pool = KVPagePool(self.num_pages, self.page_size)
             self._draft_table = np.full(
                 (self.slots, self._draft_decoder.pages_per_slot),
@@ -654,11 +818,37 @@ class GenerationEngine:
         self._draft_prefills = 0
         self.metrics.spec_stats_fn = self._spec_stats
 
-    # ---- not ported ----------------------------------------------------
+    # ---- strategy-sharded construction -------------------------------
     @classmethod
     def from_strategy(cls, model, strategy_file: str, mesh=None, **kw):
-        raise _not_ported("GenerationEngine.from_strategy (a sharded "
-                          "engine)", "A.8b")
+        """Build a tensor-parallel generation engine from a strategy
+        ``.pb``: load the per-op ParallelConfigs, compile the model
+        against them (verified; the mesh inferred from the strategies
+        over the world when not given) and initialise it, or, for a
+        model already initialised, re-place its live parameters under
+        the strategies (``FFModel.reshard`` onto the strategy's mesh),
+        then build the engine, whose KV pools shard their heads over
+        ``c``.  One process per device: every rank calls it at the same
+        point with the same arguments, and rank 0 owns the engine (see
+        the module docstring)."""
+        from ...parallel.mesh import MachineMesh
+        from ...strategy.proto import load_strategy_file
+        strategies = load_strategy_file(strategy_file)
+        model.config.strategies.update(strategies)
+        if not model._compiled:
+            model.compile(mesh=mesh)
+            model.init_layers(seed=model.config.seed)
+        else:
+            for op in model.layers:
+                op.parallel_config = model.config.strategies.get(
+                    op.name, op.parallel_config)
+            if mesh is None:
+                from ...parallel import distributed
+                mesh = MachineMesh(
+                    model._infer_mesh_shape(distributed.world_size()),
+                    device=model.device)
+            model.reshard(new_mesh=mesh)
+        return cls(model, **kw)
 
     # ---- lifecycle -----------------------------------------------------
     def _warmup(self) -> None:
@@ -746,10 +936,13 @@ class GenerationEngine:
                 if self._caches is not None:
                     raise RuntimeError("engine is fleet-managed "
                                        "(begin_external_dispatch)")
-                self._arm(warmup, external=False)
+                # a follower applies rank 0's plans, warm-up included
+                self._arm(warmup and self.is_owner, external=False)
+                target = (self._follow_loop if not self.is_owner
+                          else self._owner_loop if self._mesh is not None
+                          else self._decode_loop)
                 self._thread = threading.Thread(
-                    target=self._decode_loop, name="ff-generate",
-                    daemon=True)
+                    target=target, name="ff-generate", daemon=True)
                 self._thread.start()
         return self
 
@@ -781,6 +974,58 @@ class GenerationEngine:
         # a stopped engine must not be retained by the process registry
         self.metrics.release()
         self._shutdown_done.set()
+        if self._group_error is not None:
+            raise RuntimeError(f"the sharded engine's group failed: "
+                               f"{self._group_error}")
+
+    # ---- sharded engine: rank 0's loop and the followers' ---------------
+    def _owner_loop(self) -> None:
+        """Rank 0's dispatcher, then the stop plan that ends the
+        followers' loops."""
+        try:
+            self._decode_loop()
+        finally:
+            self._plan_chan.send(("stop", self._group_error))
+
+    def _follow_loop(self) -> None:
+        """A follower's dispatcher: apply each of rank 0's plans to this
+        rank's shard (its parameters, pools and caches) until the stop
+        plan.  A step that fails here exits the process: the group's
+        collectives cannot go on without this rank, and a silent rank
+        would leave the others waiting."""
+        device = self.model.device
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)
+        chan = self._plan_chan
+        while True:
+            plan = chan.recv()
+            if plan[0] == "stop":
+                self._group_error = plan[1]
+                if plan[1] is not None:
+                    get_logger("serve").event(
+                        "gen_group_error", model=self.name, error=plan[1])
+                return
+            role, kind, arg, args = plan
+            try:
+                if role == "t":
+                    dec, params, caches = (self._raw_decoder, self._params,
+                                           self._caches)
+                else:
+                    dec, params, caches = (self._raw_draft_decoder,
+                                           self._draft_params,
+                                           self._draft_caches)
+                args = tuple(torch.from_numpy(a.array).to(self.device)
+                             if isinstance(a, _DeviceArg) else a
+                             for a in args)
+                _dispatch_fn(dec, kind, arg)(params, caches, *args)
+            except BaseException:  # noqa: BLE001 — the group fails loudly
+                print(f"sharded generation: rank "
+                      f"{torch.distributed.get_rank()} failed its "
+                      f"{kind} step; exiting the group",
+                      file=sys.stderr, flush=True)
+                traceback.print_exc()
+                sys.stderr.flush()
+                os._exit(1)
 
     def drain(self, timeout: Optional[float] = None) -> Dict:
         """Stop admitting, give work in flight ``timeout`` seconds, then
@@ -853,6 +1098,10 @@ class GenerationEngine:
             if self._thread is not None:
                 raise RuntimeError(
                     "engine already runs its own decode thread")
+            if self._mesh is not None:
+                raise ValueError("a sharded engine runs its own "
+                                 "dispatcher (rank 0's plans); fleet "
+                                 "mode takes one-device engines")
             if self._caches is None:
                 self._arm(warmup, external=True)
         return self
@@ -911,6 +1160,13 @@ class GenerationEngine:
         serving) is a ``callable(payload) -> bool`` offered the stream's
         exported KV pages at prefill completion (see
         :meth:`adopt_migrated`)."""
+        if not self.is_owner:
+            raise RuntimeError(
+                "submit on a follower rank of a sharded engine: rank 0 "
+                "owns every request (the other ranks apply its plans)")
+        if handoff is not None and self._mesh is not None:
+            raise ValueError("KV migration (handoff) takes one-device "
+                             "engines, not a sharded one")
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if arr.size < 1:
             raise ValueError("empty prompt")
@@ -1019,7 +1275,10 @@ class GenerationEngine:
 
     def stats(self) -> Dict:
         active = sum(1 for s in self._slots_state if s is not None)
-        return {**self.metrics.snapshot(), "slots": self.slots,
+        plan = ({} if self._plan_chan is None else
+                {"plan_dispatches": self._plan_chan.dispatches,
+                 "plan_bytes": self._plan_chan.plan_bytes})
+        return {**self.metrics.snapshot(), **plan, "slots": self.slots,
                 "active_slots": active, "max_seq": self.max_seq,
                 "kv_cache_bytes": self.kv_cache_bytes,
                 "prefill_chunk": self.prefill_chunk,
@@ -1293,7 +1552,8 @@ class GenerationEngine:
         on this engine's own dispatch thread, which alone writes its
         pools.  Returns False once the engine is stopping."""
         with self._lifecycle:
-            if self._stopped or self._closing.is_set():
+            if (self._stopped or self._closing.is_set()
+                    or self._mesh is not None):
                 return False
         self._adopt_q.append(payload)
         return True
@@ -1805,7 +2065,11 @@ class GenerationEngine:
         hold a partial step, so every stream in flight and every cached
         prefix page is lost.  Fail them all, rebuild the pool, trie and
         zeroed pools (lifetime counters carry over) and keep serving the
-        queue."""
+        queue.  A sharded engine cannot rebuild one rank's shard alone:
+        its group fails loudly instead (:meth:`_fail_group`)."""
+        if self._mesh is not None:
+            self._fail_group(e, event)
+            return
         failed = 0
         now = self.clock()
         for i, s in enumerate(self._slots_state):
@@ -1842,6 +2106,34 @@ class GenerationEngine:
                                   failed_streams=failed)
         flight_dump(event, extra={"model": self.name,
                                   "step": self._n_steps, "error": err,
+                                  "failed_streams": failed})
+
+    def _fail_group(self, e: BaseException, event: str) -> None:
+        """Rank 0 of a sharded engine after a failed dispatch: fail every
+        stream in flight and queued with the error, record it (the event
+        and a flight dump), and stop serving; the stop plan carries the
+        error to the followers, whose ``stop`` raises it, as this
+        engine's does."""
+        err = f"{type(e).__name__}: {e}"[:300]
+        self._group_error = err
+        now = self.clock()
+        failed = 0
+        for i, s in enumerate(self._slots_state):
+            if s is not None and s.stream._fail(e):
+                self.metrics.record_failure(e)
+                self._trace_terminal(s.stream, "error", now)
+                failed += 1
+            self._slots_state[i] = None
+        self._prefill_q.clear()
+        self._closing.set()
+        self._batcher.close()
+        for r in self._batcher.fail_pending():
+            if r.on_done(e, now):
+                failed += 1
+        get_logger("serve").event(event, model=self.name,
+                                  step=self._n_steps, error=err,
+                                  failed_streams=failed, group=True)
+        flight_dump(event, extra={"model": self.name, "error": err,
                                   "failed_streams": failed})
 
     def _retire(self, slot: int, s: _Slot, now: float) -> None:

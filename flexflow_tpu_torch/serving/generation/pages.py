@@ -257,17 +257,26 @@ class PrefixCache:
 
 
 def alloc_pool_arrays(layout: Dict[str, Dict], device,
-                      compute_dtype: str) -> Dict[str, Dict[str, torch.Tensor]]:
+                      compute_dtype: str,
+                      mesh_sizes: Optional[Dict[str, int]] = None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The ``kv_cache_layout`` as zeroed tensors on ``device``: attention
     K/V page pools in the compute dtype and float32 LSTM state pairs.
-    Zeroed, not empty: a masked column multiplies probability 0 by the
-    pool's contents, and 0 x NaN is NaN."""
+    With ``mesh_sizes`` each leaf is this rank's shard: a dim whose
+    layout entry names ``c`` holds ``1/c`` of it (the page dim is
+    replicated), the one allocation under the layout's entries.  Zeroed,
+    not empty: a masked column multiplies probability 0 by the pool's
+    contents, and 0 x NaN is NaN."""
     compute_dt = torch_dtype(compute_dtype)
+    c = int((mesh_sizes or {}).get("c", 1))
     caches: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, ent in layout.items():
         dt = compute_dt if ent["dtype"] == "compute" else torch.float32
-        caches[name] = {leaf: torch.zeros(shape, dtype=dt, device=device)
-                        for leaf, shape in ent["shapes"].items()}
+        caches[name] = {}
+        for leaf, shape in ent["shapes"].items():
+            local = [int(d) // c if e == "c" else int(d)
+                     for d, e in zip(shape, ent["entries"][leaf])]
+            caches[name][leaf] = torch.zeros(local, dtype=dt, device=device)
     return caches
 
 

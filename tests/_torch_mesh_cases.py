@@ -167,11 +167,13 @@ def weights(model) -> dict:
 # the rank harness
 # ----------------------------------------------------------------------
 def spawn(suite: str, workdir: str, world: int = WORLD,
-          timeout: float = 600.0) -> list:
-    """Run ``suite`` of ``_torch_mesh_worker.py`` on ``world`` CPU ranks
-    (gloo, a ``file://`` rendezvous in ``workdir``) and return each
-    rank's results: a dict of numpy arrays and, under ``"json"``, the
-    decoded JSON record.  A rank that fails raises with its output."""
+          timeout: float = 600.0,
+          script: str = "_torch_mesh_worker.py") -> list:
+    """Run ``suite`` of ``script`` (a rank script beside this file) on
+    ``world`` CPU ranks (gloo, a ``file://`` rendezvous in ``workdir``)
+    and return each rank's results: a dict of numpy arrays and, under
+    ``"json"``, the decoded JSON record.  A rank that fails raises with
+    its output."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["OMP_NUM_THREADS"] = "1"
@@ -179,7 +181,7 @@ def spawn(suite: str, workdir: str, world: int = WORLD,
     for r in range(world):
         log = open(os.path.join(workdir, f"{suite}-rank{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_mesh_worker.py"),
+            [sys.executable, os.path.join(HERE, script),
              suite, str(r), str(world), workdir],
             stdout=log, stderr=subprocess.STDOUT, env=env), log))
     deadline = time.monotonic() + timeout

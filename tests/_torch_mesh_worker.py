@@ -93,8 +93,10 @@ def shard_layouts():
 
 
 def refusals(workdir: str):
-    """A.8b's items on the mesh: "no error" where one compiles, else the
-    NotImplementedError's text."""
+    """A.8b's items on the mesh: "no error" where one compiles (or, for
+    ``reshard``, moves the model in process), else the
+    NotImplementedError's text; ``reshard_count`` the ValueError of a
+    reshard to another device count."""
     out = {}
 
     def attempt(what, fn):
@@ -125,7 +127,12 @@ def refusals(workdir: str):
     attempt("host", host_table)
 
     model, _ = mesh_model("mlp_dp4", workdir)
-    attempt("reshard", lambda: model.reshard(num_devices=2))
+    attempt("reshard", lambda: model.reshard(new_mesh={"n": 2, "c": 2}))
+    try:
+        model.reshard(num_devices=2)
+        out["reshard_count"] = "no error"
+    except ValueError as e:
+        out["reshard_count"] = f"ValueError: {e}"
     RECORD["refusals"] = out
 
 

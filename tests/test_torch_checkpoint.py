@@ -228,8 +228,11 @@ def test_corrupt_newest_with_valid_older_under_retention(tmp_path):
     kept = sorted(n for n in os.listdir(tmp_path) if n.endswith(".npz"))
     assert kept == ["elastic_step3.npz", "elastic_step4.npz"]
     faults.corrupt_file(os.path.join(tmp_path, "elastic_step4.npz"))
-    with pytest.warns(UserWarning, match="checkpoint_skipped"):
+    from flexflow_tpu_torch.fflogger import capture_events
+    with capture_events("elastic") as events:
         path = latest_valid_checkpoint(str(tmp_path))
+    assert [(e["event"], e["step"]) for e in events] == [
+        ("checkpoint_skipped", 4)]
     assert path == os.path.join(tmp_path, "elastic_step3.npz")
     b = _mlp()
     b.load_checkpoint(path)

@@ -10,7 +10,7 @@ prefix cache on and off and with whole and chunked prefill.  Then the
 engine's own behaviour: EOS, continuous batching, cancel while queued,
 mid-stream and during prefill, a queued deadline, admission reject, KV
 exhaustion shedding one stream, prefix eviction under pool pressure,
-the decoder's refusals, the feature not ported yet, fleet-managed
+the decoder's refusals, ``from_strategy`` on one device, fleet-managed
 dispatch, and the JAX engine's refusals (``serve_quantize``; an unknown ``spec_policy``), a
 draft model served (speculative decoding, ``tests/test_torch_speculative.py``
 holds it in full), and
@@ -355,7 +355,7 @@ def test_decoder_refuses_unsupported_graphs(lms):
         GraphDecoder(lms[1], 2, SEQ, page_size=16, num_pages=1)
 
 
-def test_unported_features_are_refused(lms, prompts, refs):
+def test_unported_features_are_refused(lms, prompts, refs, tmp_path):
     model = lms[1]
     # speculative decoding is ported: a draft is accepted and served
     # (the model as its own draft: every proposal verifies)
@@ -368,8 +368,18 @@ def test_unported_features_are_refused(lms, prompts, refs):
     # the JAX engine
     with pytest.raises(ValueError, match="spec_policy"):
         GenerationEngine(model, slots=2, spec_gamma=2, spec_policy="greedy")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        GenerationEngine.from_strategy(model, "s.pb")
+    # from_strategy is ported (A.8b item 5): on one device a one-device
+    # strategy re-places the live parameters where they are and serves
+    # the reference tokens (tests/test_torch_generation_mesh.py holds
+    # the sharded engine)
+    from flexflow_tpu_torch.strategy.proto import save_strategy_file
+    pb = str(tmp_path / "one.pb")
+    save_strategy_file(pb, {"attention_0": ft.ParallelConfig(
+        dims=(1, 1, 1), device_ids=(0,))})
+    eng = GenerationEngine.from_strategy(model, pb, slots=2)
+    with eng:
+        assert [int(t) for t in eng.submit(prompts[0], max_new_tokens=6)
+                .result(timeout=120)] == refs[0][0]
     # fleet-managed dispatch and KV page migration are ported: an
     # externally driven engine serves the reference tokens, and a
     # stopped engine declines a migrated stream

@@ -138,3 +138,20 @@ def test_faults_never_names_jax():
     torch.distributed; no line of it names jax."""
     with open(os.path.join(PKG, "faults.py"), encoding="utf-8") as f:
         assert "jax" not in f.read()
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.parallel.elastic", "flexflow_tpu_torch.resilience",
+    "flexflow_tpu_torch.faults", "flexflow_tpu_torch.model",
+    "flexflow_tpu_torch.serving.generation.engine",
+    "flexflow_tpu_torch.serving.generation.decoder",
+    "flexflow_tpu_torch.serving.generation.pages",
+    "flexflow_tpu_torch.analysis.kv_memory",
+    "flexflow_tpu_torch.ops.attention"])
+def test_the_reshard_and_elastic_slice_modules_are_checked(module):
+    """The live-reshard, elastic-supervisor and sharded-generation
+    slice's modules (the new ``parallel/elastic.py`` among them) are
+    among those the import and parse tests above check."""
+    assert module in _modules()
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    assert path in _port_sources()

@@ -3,7 +3,8 @@ against the JAX package on the same mesh (its virtual CPU devices) and
 against the port's own one-device run: MLPs at dp4, n2 x c2 and a
 mixed degree, the multichip dryrun's CNN at n2 x c2 and with h split,
 the training-loop knobs, the shard layouts, the FF106 record, A.8b's
-items that compile (1-3) and the one that still refuses (4).
+items that compile (1-3), the in-process reshard (4) and
+``from_strategy`` (5) in a one-process world.
 
 The ranks are spawned once for the module; each case reads their
 results.  Tolerances are the JAX package's parallel tests'
@@ -192,12 +193,49 @@ def test_a8b_items_1_3_compile_on_the_mesh(runs, what):
 
 @pytest.mark.parametrize("what", ["reshard"])
 def test_a8b_items_refuse_on_the_mesh(runs, what):
-    """``reshard`` (A.8b's item 4) still refuses, naming A.8b."""
+    """``reshard`` (A.8b's item 4) moves the model onto another
+    factorization of the same four ranks in process, and refuses only
+    another device count, naming the supervisor that takes it
+    (``tests/test_torch_reshard.py`` holds it against the JAX
+    package)."""
     for res in runs["ranks"]:
-        msg = res["json"]["refusals"][what]
-        assert msg.startswith("NotImplementedError") and "A.8b" in msg
+        refusals = res["json"]["refusals"]
+        assert refusals[what] == "no error", refusals[what]
+        msg = refusals[what + "_count"]
+        assert msg.startswith("ValueError") and "run_elastic" in msg
 
 
-def test_sharded_generation_engine_refuses():
-    with pytest.raises(NotImplementedError, match=r"A\.8b"):
-        ft.GenerationEngine.from_strategy(None, "s.pb")
+def test_sharded_generation_engine_refuses(tmp_path):
+    """``from_strategy`` (A.8b's item 5) is ported: in a one-process
+    world a one-device strategy compiles a fresh model, initialises it
+    and serves the tokens of the plain engine
+    (``tests/test_torch_generation_mesh.py`` holds the sharded engine
+    against the JAX package); a strategy that needs more devices than
+    the world has is refused as compile refuses it."""
+    from flexflow_tpu_torch.models import build_transformer_lm
+    from flexflow_tpu_torch.strategy.proto import save_strategy_file
+    kw = dict(num_layers=1, d_model=16, num_heads=2, d_ff=32, seq_len=16,
+              vocab_size=31, device="cpu")
+    pb = str(tmp_path / "one.pb")
+    save_strategy_file(pb, {"attention_0": ft.ParallelConfig(
+        dims=(1, 1, 1), device_ids=(0,))})
+    prompt = np.arange(1, 6, dtype=np.int32)
+    fresh = build_transformer_lm(ft.FFConfig(batch_size=2, compute_dtype=
+                                             "float32"), **kw)[0]
+    with ft.GenerationEngine.from_strategy(fresh, pb, slots=2) as eng:
+        got = [int(t) for t in eng.submit(prompt, max_new_tokens=4)
+               .result(timeout=60)]
+    plain = build_transformer_lm(ft.FFConfig(batch_size=2, compute_dtype=
+                                             "float32"), **kw)[0]
+    plain.compile()
+    plain.init_layers(seed=plain.config.seed)
+    with ft.GenerationEngine(plain, slots=2) as eng:
+        want = [int(t) for t in eng.submit(prompt, max_new_tokens=4)
+                .result(timeout=60)]
+    assert got == want
+    save_strategy_file(pb, {"attention_0": ft.ParallelConfig(
+        dims=(2, 1, 2), device_ids=(0, 1, 2, 3))})
+    other = build_transformer_lm(ft.FFConfig(batch_size=2, compute_dtype=
+                                             "float32"), **kw)[0]
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        ft.GenerationEngine.from_strategy(other, pb, slots=2)

@@ -324,7 +324,7 @@ def test_loader_windows_match_batches():
             np.testing.assert_array_equal(g.numpy(), wv.numpy())
 
 
-def test_loader_pad_tail_nvalid_and_counters():
+def test_loader_pad_tail_nvalid_and_counters(capsys):
     n = 2 * BS + 5
     x, y = _data(n)
     m = _mlp(ft, k=2, pad=True)
@@ -339,8 +339,10 @@ def test_loader_pad_tail_nvalid_and_counters():
     tail_x = windows[1][0][0][0].numpy()
     assert np.all(tail_x[5:] == 0)  # padded rows are zeros
     np.testing.assert_array_equal(tail_x[:5], x[2 * BS:])
-    with pytest.warns(UserWarning, match="dropping 5 tail samples"):
-        plain = PrefetchLoader(m, [x], y, batch_size=BS)
+    capsys.readouterr()
+    plain = PrefetchLoader(m, [x], y, batch_size=BS)
+    # logged on the ff logger as the JAX loader logs it, not warned
+    assert "[ff] info: dropping 5 tail samples" in capsys.readouterr().err
     assert plain.num_steps == 2 and plain.num_samples_used == 2 * BS
 
 

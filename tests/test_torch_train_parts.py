@@ -164,7 +164,7 @@ def test_optimizer_update_is_functional_and_names_resolve():
         optimizers.get_optimizer("lamb")
 
 
-def test_synthetic_dataset_matches_jax_and_loader_drops_the_tail():
+def test_synthetic_dataset_matches_jax_and_loader_drops_the_tail(capsys):
     from flexflow_tpu.data.dataloader import \
         synthetic_dataset as jax_synthetic
 
@@ -179,8 +179,9 @@ def test_synthetic_dataset_matches_jax_and_loader_drops_the_tail():
         device = torch.device("cpu")
         config = ft.FFConfig(batch_size=4)
 
-    with pytest.warns(UserWarning, match="dropping 2 tail samples"):
-        loader = PrefetchLoader(Stub(), got[0], got[1])
+    capsys.readouterr()
+    loader = PrefetchLoader(Stub(), got[0], got[1])
+    assert "[ff] info: dropping 2 tail samples" in capsys.readouterr().err
     assert loader.num_samples_used == 8
     batches = list(loader)
     assert len(batches) == 2 and all(len(b) == 3 for b in batches)
