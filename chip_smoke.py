@@ -207,6 +207,27 @@
    otherwise than one rank's whole batch) within 15% by the L2 norm of
    the change (the first moment under Adam).  Then a one-rank group on the default backend
    (NCCL): a {"n": 1} mesh step bit-equal to the step without a mesh;
+   since PR 16 the ranks reshard BERT-base in process and serve the
+   sharded generation engine, and then compile BERT-base (bf16, 12
+   layers) and its float32 twin (2 layers) with ``search_budget``: each
+   rank searches the analytic objective for the four ranks, every
+   rank's strategy equals the one this process searched (one digest,
+   one exported file, the bf16 one byte for byte the search phase's
+   file), and 2 steps on it are held to one rank (the twin at rtol
+   1e-4, bf16 by the L2 share);
+17e. search phase (before the mesh phase): the strategy search for 4
+   devices on the native engine (asserted), ``optimize_strategies``
+   through the objective it builds (the H100 spec): BERT-base and
+   InceptionV3 at full width, analytic (best and data-parallel
+   simulated step, proposals a second, wall seconds; BERT-base's
+   strategy exported), then measure mode, each candidate partition of
+   each op timed alone on the card with CUDA events: AlexNet (229 px,
+   batch 64) launches both max-pool kernels and BERT-base at 2 layers
+   the flash forward, backward and LayerNorm kernels (asserted; the
+   ``search_measure_*`` paths of the ``kernels`` line), and the
+   measured times against the spec's roofline by op type, the cache's
+   partitions and seconds; the spec's launch time beside this run's
+   floor;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -3286,6 +3307,7 @@ def verifier_phase(ft, card: str) -> None:
     from flexflow_tpu_torch.analysis import verify
     from flexflow_tpu_torch.strategy import load_strategy_file
 
+    assert SEARCHED, "no committed searched strategy to verify"
     for fname, builder, batch, ndev in SEARCHED:
         t0 = time.perf_counter()
         model = getattr(models, builder)(ft.FFConfig(batch_size=batch))[0]
@@ -4220,6 +4242,17 @@ def spec_run(ft, model, prompts, counters, ntok: int, sampling=None,
     rec = gap_capture(eng) if capture else None
     if tamper is not None:
         tamper(eng)
+    warmup = eng._warmup
+
+    def warmup_then_count():
+        # the dispatcher serves the queued prompts as soon as start()
+        # returns, so the counts start at the warm-up's end, before its
+        # thread exists
+        warmup()
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+
+    eng._warmup = warmup_then_count
     free_garbage()
     eng.start()
     torch.cuda.synchronize()
@@ -4229,7 +4262,6 @@ def spec_run(ft, model, prompts, counters, ntok: int, sampling=None,
                        for c in eng._draft_caches.values()
                        for t in c.values())
                    if eng._draft_caches is not None else 0)
-    reset_counts(*counters)
     t0 = time.perf_counter()
     try:
         outs = [s.result(timeout=900).tolist() for s in streams]
@@ -5527,6 +5559,10 @@ def mesh_rank_main(argv) -> int:
     for name in GEN_MESH_RUNS:
         record[name] = mesh_gen_rank(ft, name, rank, workdir, counters,
                                      card)
+    # A.9: compile with search_budget on every rank, then train
+    for name in SEARCH_MESH_RUNS:
+        record[name] = mesh_search_rank(ft, name, rank, workdir, counters,
+                                        card)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
     ft.finalize_distributed()
@@ -5602,6 +5638,45 @@ def mesh_children(args, n: int, workdir: str) -> None:
     assert not any(codes), f"{args[0]} children exited {codes}"
 
 
+def hold_mesh_state(name, shape, dtype, mesh_losses, losses, one, got,
+                    init, card: str) -> None:
+    """A mesh run's final state ``got`` against the one-rank run's
+    ``one`` from the same ``init``: float32 runs at MESH_RTOL/MESH_ATOL,
+    bf16 runs by the L2 share of the difference (MESH_L2_SHARE)."""
+    import numpy as np
+
+    if dtype != "bfloat16":
+        np.testing.assert_allclose(mesh_losses, losses, rtol=MESH_RTOL,
+                                   atol=MESH_ATOL)
+        worst = 0.0
+        for k, v in one.items():
+            np.testing.assert_allclose(got[k], v, rtol=MESH_RTOL,
+                                       atol=MESH_ATOL, err_msg=k)
+            worst = max(worst, float(np.max(np.abs(got[k] - v))))
+        print(f"mesh {name} {shape}: the mesh step equals the one-rank "
+              f"step on the card (losses {mesh_losses} / {losses}, "
+              f"largest parameter difference {worst:.3g}, rtol "
+              f"{MESH_RTOL}) [{card}]")
+        return
+    held = "m/" if any(k.startswith("m/") for k in one) else "param/"
+    shares = {}
+    for prefix in ("param/", "m/"):
+        keys = [k for k in one if k.startswith(prefix)]
+        if not keys:
+            continue
+        base = {k: init[k] if prefix == "param/" else 0.0 for k in keys}
+        d_one = sum(float(np.sum((one[k] - base[k]) ** 2)) for k in keys)
+        d_gap = sum(float(np.sum((got[k] - one[k]) ** 2)) for k in keys)
+        shares[prefix[:-1]] = math.sqrt(d_gap / max(d_one, 1e-30))
+    share = shares[held[:-1]]
+    print(f"mesh {name} {shape} {dtype}: losses {mesh_losses} "
+          f"against one rank's {losses}; L2 of the difference over L2 "
+          f"of the one-rank change: {shares} (held: {held[:-1]} <= "
+          f"{MESH_L2_SHARE}) [{card}]")
+    assert share <= MESH_L2_SHARE, (name, shares)
+    assert np.all(np.isfinite(mesh_losses)), mesh_losses
+
+
 def mesh_phase(ft, card: str) -> dict:
     """MESH_WORLD ranks on the card over MESH_BACKEND run MESH_RUNS; then
     this process runs each one on one rank, and holds the mesh's against
@@ -5640,43 +5715,13 @@ def mesh_phase(ft, card: str) -> dict:
             losses = [float(model.train_batch(*batch))
                       for _ in range(steps)]
         model_dtype = model.config.compute_dtype
-        bf16 = model_dtype == "bfloat16"
-        one = mesh_state(model, bf16)
+        one = mesh_state(model, model_dtype == "bfloat16")
         del model
         torch.cuda.empty_cache()
         with np.load(os.path.join(workdir, f"{name}-final.npz")) as z:
             got = {k: z[k] for k in z.files}
-        mesh_losses = ranks[0][name]["losses"]
-        if not bf16:
-            np.testing.assert_allclose(mesh_losses, losses, rtol=MESH_RTOL,
-                                       atol=MESH_ATOL)
-            worst = 0.0
-            for k, v in one.items():
-                np.testing.assert_allclose(got[k], v, rtol=MESH_RTOL,
-                                           atol=MESH_ATOL, err_msg=k)
-                worst = max(worst, float(np.max(np.abs(got[k] - v))))
-            print(f"mesh {name} {shape}: the mesh step equals the one-rank "
-                  f"step on the card (losses {mesh_losses} / {losses}, "
-                  f"largest parameter difference {worst:.3g}, rtol "
-                  f"{MESH_RTOL}) [{card}]")
-            continue
-        held = "m/" if any(k.startswith("m/") for k in one) else "param/"
-        shares = {}
-        for prefix in ("param/", "m/"):
-            keys = [k for k in one if k.startswith(prefix)]
-            if not keys:
-                continue
-            base = {k: init[k] if prefix == "param/" else 0.0 for k in keys}
-            d_one = sum(float(np.sum((one[k] - base[k]) ** 2)) for k in keys)
-            d_gap = sum(float(np.sum((got[k] - one[k]) ** 2)) for k in keys)
-            shares[prefix[:-1]] = math.sqrt(d_gap / max(d_one, 1e-30))
-        share = shares[held[:-1]]
-        print(f"mesh {name} {shape} {model_dtype}: losses {mesh_losses} "
-              f"against one rank's {losses}; L2 of the difference over L2 "
-              f"of the one-rank change: {shares} (held: {held[:-1]} <= "
-              f"{MESH_L2_SHARE}) [{card}]")
-        assert share <= MESH_L2_SHARE, (name, shares)
-        assert np.all(np.isfinite(mesh_losses)), mesh_losses
+        hold_mesh_state(name, shape, model_dtype, ranks[0][name]["losses"],
+                        losses, one, got, init, card)
     for name in RESHARD_RUNS:
         launches[name] = [sum(sum(step[i] for step in r[name]["launches"])
                               for r in ranks) for i in range(len(names))]
@@ -5685,6 +5730,10 @@ def mesh_phase(ft, card: str) -> dict:
         launches[name] = [sum(r[name]["launches"][i] for r in ranks)
                           for i in range(len(names))]
         mesh_gen_check(ft, name, ranks, card, {"ref": 0})
+    for name in SEARCH_MESH_RUNS:
+        launches[name] = [sum(sum(step[i] for step in r[name]["launches"])
+                              for r in ranks) for i in range(len(names))]
+        mesh_search_check(ft, name, workdir, ranks, card)
     for name, counts in launches.items():
         print(f"mesh launches over the {MESH_WORLD} ranks, {name}: "
               + ", ".join(f"{n} {c}" for n, c in zip(names, counts))
@@ -6219,6 +6268,298 @@ def elastic_phase(card: str) -> dict:
     return {tag: round(r[2], 3) for tag, r in runs.items()}
 
 
+# ----------------------------------------------------------------------
+# A.9 (first half): the strategy search
+# ----------------------------------------------------------------------
+# the analytic searches (BERT-base and InceptionV3 at full width, every
+# proposal priced by the H100 spec's roofline on the native engine) and
+# the measured ones (each candidate partition of each op timed alone on
+# the card with CUDA events, through the port's kernels: AlexNet whole,
+# BERT-base at SEARCH_BERT_MEASURE_LAYERS of its layers), all for
+# SEARCH_DEVICES devices.  SEARCH_MESH_RUNS: the four mesh ranks compile
+# BERT-base with search_budget (each rank searches the same analytic
+# objective) and train 2 steps on the searched strategy; the bf16 run is
+# held to one rank by the L2 share, its float32 twin (2 layers) at
+# MESH_RTOL
+SEARCH_DEVICES = 4
+SEARCH_BUDGET = 2000
+SEARCH_MEASURE_BUDGET = 120
+SEARCH_BERT_MEASURE_LAYERS = 2
+SEARCH_MESH_RUNS = {"search_bert": ("bfloat16", BERT["num_layers"]),
+                    "search_bert_f32": ("float32", 2)}
+SEARCH_MESH_STEPS = 2
+# (pool fwd, pool bwd, flash fwd, flash bwd, layernorm): the kernels each
+# measured search must launch
+SEARCH_MEASURE_KERNELS = {"alexnet": (0, 1), "bert": (2, 3, 4)}
+# the searches' strategy digests by (model, layers, compute dtype), and
+# the file the search phase exported BERT-base's strategy to (the mesh
+# ranks' exports must equal it)
+SEARCH_DIGESTS = {}
+SEARCH_EXPORT = ""
+
+
+def search_model(ft, name: str, layers=None, **cfg_kw):
+    """The search phase's model, compiled on one device (no mesh, no
+    parameters): BERT-base (bf16, batch 16, Adam 1e-4) at ``layers``
+    layers, InceptionV3 (299 px, 1000 classes, batch 64, SGD 0.001 with
+    momentum) or AlexNet (229 px, 10 classes, batch 64, SGD 0.01)."""
+    from flexflow_tpu_torch.models import (build_alexnet,
+                                           build_inception_v3,
+                                           build_transformer)
+
+    if name == "bert":
+        cfg = ft.FFConfig(batch_size=BERT_BATCH, seed=SEED, **cfg_kw)
+        arch = dict(BERT, num_layers=layers or BERT["num_layers"])
+        model, _, logits = build_transformer(cfg, **arch)
+        model.compile(ft.AdamOptimizer(alpha=1e-4), metrics=["accuracy"],
+                      final_tensor=logits, verify="off")
+        return model
+    cfg = ft.FFConfig(batch_size=BATCH, seed=SEED, **cfg_kw)
+    if name == "inception_v3":
+        model, _, _ = build_inception_v3(cfg, 1000, 299)
+        opt = ft.SGDOptimizer(lr=0.001, momentum=0.9)
+    else:
+        model, _, _ = build_alexnet(cfg, num_classes=10, image_size=229)
+        opt = ft.SGDOptimizer(lr=0.01)
+    model.compile(opt, metrics=["accuracy"], verify="off")
+    return model
+
+
+def search_run(model, budget: int):
+    """One search for SEARCH_DEVICES devices through
+    ``optimize_strategies`` (what compile calls) on the objective it
+    builds; returns (strategies, mesh, simulator, stats, wall seconds)."""
+    from flexflow_tpu_torch.search.mcmc import (optimize_strategies,
+                                                search_simulator)
+
+    sim = search_simulator(model, model.config, SEARCH_DEVICES)
+    stats = {}
+    t0 = time.perf_counter()
+    best, mesh = optimize_strategies(model, model.config,
+                                     num_devices=SEARCH_DEVICES,
+                                     budget=budget, with_mesh=True,
+                                     sim=sim, stats=stats)
+    return best, mesh, sim, stats, time.perf_counter() - t0
+
+
+def search_op_types(model, sim, card: str) -> dict:
+    """Measure mode's times (forward + backward, every finite cached
+    partition) against the H100 spec's analytic roofline on the same
+    partitions, summed by op type."""
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    ana = Simulator(spec=sim.spec, num_devices=sim.num_devices,
+                    use_native=False, flash_attention=sim.flash_attention,
+                    compute_dtype=sim.compute_dtype, device=sim.device)
+    ops = {op.name: op for op in model.layers}
+    rows = {}
+    for key, (fwd, bwd) in sim.measured().items():
+        if not (math.isfinite(fwd) and math.isfinite(bwd)):
+            continue
+        op, dims = ops[key[0]], key[1]
+        r = rows.setdefault(op.op_type.value, {
+            "partitions": 0, "measured_ms": 0.0, "analytic_ms": 0.0})
+        r["partitions"] += 1
+        r["measured_ms"] += (fwd + bwd) * 1e3
+        r["analytic_ms"] += (ana._analytic_time(op, dims, False)
+                             + ana._analytic_time(op, dims, True)) * 1e3
+    for r in rows.values():
+        r["ratio"] = r["measured_ms"] / r["analytic_ms"]
+    return rows
+
+
+def search_phase(ft, card: str) -> dict:
+    """The analytic searches (native engine asserted), then the measured
+    ones with each kernel's launches counted; returns the launches by
+    path (pool fwd, pool bwd, flash fwd, flash bwd, layernorm)."""
+    global SEARCH_EXPORT
+    import torch
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
+    from flexflow_tpu_torch.search.cost_model import H100_SXM_SPEC
+    from flexflow_tpu_torch.search.decompose import \
+        data_parallel_strategies
+    from flexflow_tpu_torch.strategy.proto import strategy_digest
+
+    counters = (cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward,
+                cuda_attention.flash_attention_forward,
+                cuda_attention.flash_attention_backward,
+                cuda_norm.fused_layernorm)
+    x = torch.randn((16, BERT["d_model"]), device="cuda",
+                    dtype=torch.bfloat16)
+    floor = time_ms(lambda t: cuda_norm.empty_launch(t), [x], 200)
+    print(f"search spec: H100_SXM_SPEC kernel_launch "
+          f"{H100_SXM_SPEC.kernel_launch * 1e3} ms, ici_latency "
+          f"{H100_SXM_SPEC.ici_latency * 1e3} ms; this run's launch floor "
+          f"(an empty kernel, 16 rows) {floor:.5f} ms [{card}]")
+    out = {"launches": {}}
+    for name in ("bert", "inception_v3"):
+        model = search_model(ft, name)
+        best, mesh, sim, st, wall = search_run(model, SEARCH_BUDGET)
+        assert sim.backend == "native", sim.backend
+        dp = sim.simulate(model.layers, data_parallel_strategies(
+            model.layers, SEARCH_DEVICES), mesh_shape={"n": SEARCH_DEVICES})
+        best_t = sim.simulate(model.layers, best, mesh_shape=mesh)
+        digest = strategy_digest(best)
+        SEARCH_DIGESTS[(name, BERT["num_layers"] if name == "bert"
+                        else None, model.config.compute_dtype)] = digest
+        if name == "bert":
+            SEARCH_EXPORT = write_strategy("searched_bert_4dev.pb", best)
+            print("search analytic bert: exported "
+                  f"{os.path.relpath(SEARCH_EXPORT, HERE)}")
+        print(f"search analytic {name}: best {best_t * 1e3:.6f} ms "
+              f"simulated on {len(model.layers)} ops, mesh "
+              f"{ {a: v for a, v in mesh.items() if v > 1} }, data "
+              f"parallel {dp * 1e3:.6f} ms, session backend {sim.backend}, "
+              f"{st['proposals']} proposals ({st['proposals'] / wall:.1f} "
+              f"a second), {st['evaluations']} evaluations, {st['accepted']} "
+              f"accepted, {wall:.3f} s wall, digest {digest} [{card}]")
+        del model
+    for name, layers in (("alexnet", None),
+                         ("bert", SEARCH_BERT_MEASURE_LAYERS)):
+        model = search_model(ft, name, layers, simulator_mode="measure")
+        reset_counts(*counters)
+        best, mesh, sim, st, wall = search_run(model, SEARCH_MEASURE_BUDGET)
+        torch.cuda.synchronize()
+        launches = [f.launches for f in counters]
+        assert sim.measure and sim.backend == "native", sim.backend
+        for i in SEARCH_MEASURE_KERNELS[name]:
+            assert launches[i] > 0, (name, launches)
+        rows = search_op_types(model, sim, card)
+        out["launches"][f"search_measure_{name}"] = launches
+        out[name] = rows
+        print(f"search measure {name}: best "
+              f"{st['best_trace'][-1][1] * 1e3:.6f} ms measured, mesh "
+              f"{ {a: v for a, v in mesh.items() if v > 1} }, "
+              f"measure cache {len(sim.measured())} partitions, "
+              f"{st['proposals']} proposals, {wall:.3f} s wall, launches "
+              f"{launches} (pool fwd, pool bwd, flash fwd, flash bwd, "
+              f"layernorm) [{card}]")
+        print(f"search measure {name} by op type (forward + backward ms "
+              f"summed over the measured partitions, against the H100 "
+              f"spec's roofline) [{card}]: " + json.dumps(rows))
+        del model, sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_search_rank(ft, name: str, rank: int, workdir: str, counters,
+                     card: str) -> dict:
+    """A search run on one rank: BERT-base (or its float32 twin)
+    compiled with search_budget on the process group's devices, the
+    strategy exported, SEARCH_MESH_STEPS steps."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.strategy.proto import strategy_digest
+
+    dtype, layers = SEARCH_MESH_RUNS[name]
+    arch = dict(BERT, num_layers=layers)
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, seed=SEED, compute_dtype=dtype,
+                      search_budget=SEARCH_BUDGET,
+                      export_strategy_file=os.path.join(
+                          workdir, f"{name}-rank{rank}.pb"))
+    model, _, logits = build_transformer(cfg, **arch)
+    t0 = time.perf_counter()
+    model.compile(ft.AdamOptimizer(alpha=1e-4), metrics=["accuracy"],
+                  final_tensor=logits)
+    compile_s = time.perf_counter() - t0
+    model.init_layers(seed=SEED)
+    if rank == 0:
+        np.savez(os.path.join(workdir, f"{name}-init.npz"),
+                 **mesh_state(model, False))
+    else:
+        mesh_state(model, False)
+    rng = np.random.default_rng(SEED)
+    batch = (rng.integers(0, arch["vocab_size"],
+                          (BERT_BATCH, arch["seq_len"])).astype(np.int32),
+             rng.integers(0, arch["num_classes"],
+                          (BERT_BATCH, 1)).astype(np.int32))
+    losses, launches, walls = [], [], []
+    for _ in range(SEARCH_MESH_STEPS):
+        reset_counts(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(model.train_batch(*batch)))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append([f.launches for f in counters])
+    state = mesh_state(model, dtype == "bfloat16")
+    if rank == 0:
+        np.savez(os.path.join(workdir, f"{name}-final.npz"), **state)
+    mesh = {a: s for a, s in model.mesh.sizes.items() if s > 1}
+    digest = strategy_digest({op.name: op.parallel_config
+                              for op in model.layers})
+    print(f"mesh {name} rank {rank}: compile with search_budget "
+          f"{SEARCH_BUDGET} in {compile_s:.3f} s, searched mesh {mesh}, "
+          f"digest {digest}, losses {losses}, launches a step "
+          f"{launches} (pool fwd, pool bwd, flash fwd, flash bwd, "
+          f"layernorm), step wall {[round(w, 3) for w in walls]} ms "
+          f"[{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "wall_ms": walls,
+            "mesh": mesh, "digest": digest, "compile_s": compile_s}
+
+
+def mesh_search_check(ft, name: str, workdir: str, ranks, card: str):
+    """Every rank searched the same strategy (the main process's search
+    of the same graph and objective, and one exported file), and the
+    run is held to one rank: the same model, no strategy, the same
+    parameters and batch."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.strategy.proto import strategy_digest
+
+    dtype, layers = SEARCH_MESH_RUNS[name]
+    recs = [r[name] for r in ranks]
+    digests = {r["digest"] for r in recs}
+    files = set()
+    for r in range(MESH_WORLD):
+        with open(os.path.join(workdir, f"{name}-rank{r}.pb"), "rb") as f:
+            files.add(f.read())
+    key = ("bert", layers, dtype)
+    if key not in SEARCH_DIGESTS:
+        model = search_model(ft, "bert", layers, compute_dtype=dtype)
+        SEARCH_DIGESTS[key] = strategy_digest(search_run(
+            model, SEARCH_BUDGET)[0])
+        del model
+    assert len(digests) == 1 and len(files) == 1, (digests, len(files))
+    assert digests == {SEARCH_DIGESTS[key]}, (digests, SEARCH_DIGESTS[key])
+    if dtype == "bfloat16":   # the search phase's export, byte for byte
+        assert SEARCH_EXPORT, "the search phase exported no strategy"
+        with open(SEARCH_EXPORT, "rb") as f:
+            assert files == {f.read()}, SEARCH_EXPORT
+    arch = dict(BERT, num_layers=layers)
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, seed=SEED, compute_dtype=dtype)
+    model, _, logits = build_transformer(cfg, **arch)
+    model.compile(ft.AdamOptimizer(alpha=1e-4), metrics=["accuracy"],
+                  final_tensor=logits)
+    model.init_layers(seed=SEED)
+    with np.load(os.path.join(workdir, f"{name}-init.npz")) as z:
+        init = {k: z[k] for k in z.files}
+    mine = mesh_state(model, False)
+    for k, v in init.items():   # both drew them from SEED
+        np.testing.assert_array_equal(v, mine[k], err_msg=k)
+    rng = np.random.default_rng(SEED)
+    batch = (rng.integers(0, arch["vocab_size"],
+                          (BERT_BATCH, arch["seq_len"])).astype(np.int32),
+             rng.integers(0, arch["num_classes"],
+                          (BERT_BATCH, 1)).astype(np.int32))
+    losses = [float(model.train_batch(*batch))
+              for _ in range(SEARCH_MESH_STEPS)]
+    one = mesh_state(model, dtype == "bfloat16")
+    del model
+    torch.cuda.empty_cache()
+    with np.load(os.path.join(workdir, f"{name}-final.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    print(f"mesh {name}: every rank searched mesh {recs[0]['mesh']}, "
+          f"digest {recs[0]['digest']} (the main process's search: "
+          f"{SEARCH_DIGESTS[key]}), one exported file [{card}]")
+    hold_mesh_state(name, recs[0]["mesh"], dtype, recs[0]["losses"],
+                    losses, one, got, init, card)
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -6329,6 +6670,7 @@ def main() -> int:
     phase("dlrm hetero", dlrm_hetero_phase, ft, card, kernel_counters)
     bpin = phase("bert pinned", bert_precision_phase, ft, counters, card)
     phase("verifier", verifier_phase, ft, card)
+    tsearch = phase("search", search_phase, ft, card)
     # last: each engine thread that ran a matmul leaves its cuBLAS
     # workspace (32 MiB a concurrently used handle) allocated, which no
     # training step's peak above may count
@@ -6418,11 +6760,17 @@ def main() -> int:
         fwd_paths[f"mesh_{run}"] = ml[run][0]
         bwd_paths[f"mesh_{run}"] = ml[run][1]
     mesh_flash = {f"mesh_{run}": ml[run] for run in (
-        "bert_n2c2", "tf_f32_n2c2", "bert_reshard", "bert_f32_reshard")}
+        "bert_n2c2", "tf_f32_n2c2", "bert_reshard", "bert_f32_reshard",
+        *SEARCH_MESH_RUNS)}
     mesh_ln = {f"mesh_{run}": ml[run][4] for run in (
         "bert_n2c2", "bert_s2c2", "tf_f32_n2c2", "tf_f32_s2c2", "pipe_p4",
         "pipe_n2p2", "pipe_f32_p4", "pipe_f32_n2p2", "bert_reshard",
-        "bert_f32_reshard", "gen_n2c2", "gen_f32_n2c2")}
+        "bert_f32_reshard", "gen_n2c2", "gen_f32_n2c2", *SEARCH_MESH_RUNS)}
+    # measure mode's launches while it timed the candidate partitions
+    sl = tsearch["launches"]
+    fwd_paths["search_measure_alexnet"] = sl["search_measure_alexnet"][0]
+    bwd_paths["search_measure_alexnet"] = sl["search_measure_alexnet"][1]
+    search_bert = {"search_measure_bert": sl["search_measure_bert"]}
     lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
@@ -6441,7 +6789,8 @@ def main() -> int:
                     "bert_int8_serve": tquant["fwd"],
                     **tspec["fwd"], **tdis["fwd"],
                     "fleet": tfleet["fwd"],
-                    **{k: v[2] for k, v in mesh_flash.items()}},
+                    **{k: v[2] for k, v in mesh_flash.items()},
+                    **{k: v[2] for k, v in search_bert.items()}},
                    fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
@@ -6449,7 +6798,8 @@ def main() -> int:
                     "bert_remat": bremat["bwd"],
                     "bert_accumulate": baccum["bwd"],
                     "bert_pinned": bpin["bwd"],
-                    **{k: v[3] for k, v in mesh_flash.items()}},
+                    **{k: v[3] for k, v in mesh_flash.items()},
+                    **{k: v[3] for k, v in search_bert.items()}},
                    fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
@@ -6463,7 +6813,8 @@ def main() -> int:
                     "bert_int8_serve": tquant["ln"],
                     **tspec["ln"], **tdis["ln"],
                     "fleet": tfleet["ln"], "pipeline": tpipe["ln"],
-                    **mesh_ln}, lp),
+                    **mesh_ln,
+                    **{k: v[4] for k, v in search_bert.items()}}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

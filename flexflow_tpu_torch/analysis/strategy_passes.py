@@ -71,18 +71,18 @@ def memory_diagnostics(layers: List[Op],
     """FF108 — per-device peak memory vs the device-memory budget,
     through the accounting the search's legality check uses
     (``Simulator.peak_memory_bytes`` times the compiler-temp factor).
-    ``xla_temp_factor`` overrides the built-in factor
-    (``search.cost_model.TEMP_FACTOR``, measured on the card); the JAX
+    ``xla_temp_factor`` overrides the spec's factor
+    (``DeviceSpec.temp_factor``, measured on the card); the JAX
     package's keyword keeps its name so one call drives both.
     ``extra_state_bytes``: always-resident per-device state (a
     preallocated cache) added to BOTH the FF108 scalar and the FF121
     timeline after the factor, which it does not take."""
-    from ..search.cost_model import TEMP_FACTOR, spec_for_device
+    from ..search.cost_model import spec_for_device
     from ..search.simulator import Simulator
 
     spec = spec or spec_for_device()
     factor = (float(xla_temp_factor) if xla_temp_factor
-              else TEMP_FACTOR)
+              else spec.temp_factor)
     sim = Simulator(spec=spec, num_devices=max(1, num_devices),
                     opt_slot_bytes=opt_slot_bytes,
                     sparse_tables=sparse_tables)

@@ -45,8 +45,10 @@ batch, and ``predict``/``evaluate``/``get_weights`` return full arrays
 on every rank.  Every rank feeds the same full arrays, the JAX
 package's multi-controller contract.  ``reshard`` moves live state onto
 another factorization of the same world in process; another device
-count goes through the supervisor (``parallel/elastic.py``).  Strategy
-search is refused (ROADMAP A.9).
+count goes through the supervisor (``parallel/elastic.py``).
+``search_budget > 0`` searches the strategy (``search/mcmc.py``: the
+SOAP space on the simulator, analytic or measured on the device) for the
+process group's devices, unless a strategy file is imported.
 
 The model runs on CUDA unless the caller passes another device
 (``device="cpu"`` in the tests); without CUDA and without a device it
@@ -472,14 +474,16 @@ class FFModel:
         the mesh has, for ``gradient_accumulation_steps`` or
         ``steps_per_dispatch`` below 1 and for a batch size that does not
         divide into the microbatches, and NotImplementedError for what
-        the port cannot run yet (strategy search, a multi-device mesh in
-        a process without a process group, profiling, a trace
-        directory), each naming the roadmap item that lifts it."""
+        the port cannot run yet (a multi-device mesh in a process without
+        a process group, a trace directory, a calibrated cost model),
+        each naming the roadmap item that lifts it.
+
+        ``search_budget > 0`` (and no ``import_strategy_file``) runs the
+        strategy search first (``search.mcmc.optimize_strategies``, as
+        the JAX package's compile does) for the process group's devices
+        (or ``config.num_devices``), on the model's device, and pins
+        ``config.mesh_shape`` to the searched mesh when it is unset."""
         cfg = self.config
-        if cfg.search_budget > 0:
-            raise NotImplementedError(
-                "strategy search (search_budget > 0) is not ported yet "
-                "(ROADMAP A.9); import a strategy file instead")
         if mesh is not None:
             if not isinstance(mesh, MachineMesh):
                 raise TypeError(f"mesh must be a MachineMesh, got "
@@ -497,12 +501,11 @@ class FFModel:
                     "parallel.distributed.initialize_distributed, then "
                     "compile(mesh=MachineMesh(...))); this process runs "
                     "one device")
-        unported = [name for name, on in (
-            ("profiling", cfg.profiling),
-            ("trace_dir", bool(cfg.trace_dir))) if on]
-        if unported:
+        if cfg.trace_dir:
             raise NotImplementedError(
-                f"not ported yet (ROADMAP A.11): {', '.join(unported)}")
+                "not ported yet (ROADMAP A.11): trace_dir")
+        from .search.calibration import estimator_from_config
+        estimator_from_config(cfg)   # refuses a calibrated cost model
         if cfg.gradient_accumulation_steps < 1:
             raise ValueError(
                 f"gradient_accumulation_steps must be >= 1, got "
@@ -543,6 +546,9 @@ class FFModel:
             from .strategy.proto import load_strategy_file
             cfg.strategies.update(
                 load_strategy_file(cfg.import_strategy_file))
+        elif cfg.search_budget > 0:
+            from .search.mcmc import optimize_strategies
+            cfg.strategies.update(optimize_strategies(self, cfg))
         for op in self.layers:
             op.parallel_config = cfg.strategies.get(op.name)
         if self.mesh is None:
@@ -869,8 +875,10 @@ class FFModel:
         (``parallel.elastic.run_elastic`` relaunches the world at that
         size, and the new ranks reshard on resume from the checkpoint).
         A re-search of the strategies (``research=True``, or a
-        ``reshard_search_budget``/``search_budget`` above 0) raises
-        NotImplementedError until the search is ported (ROADMAP A.9).
+        ``reshard_search_budget``/``search_budget`` above 0) searches
+        them for the target (``optimize_strategies`` with that budget):
+        given ``num_devices`` the searched mesh is adopted, given
+        ``new_mesh`` the search is pinned to it.
 
         Steps, in the JAX order: **verify** the strategies against the
         new mesh (``verify="error"`` aborts with the model unchanged),
@@ -892,12 +900,6 @@ class FFModel:
             raise ValueError("pass exactly one of new_mesh / num_devices")
         if research is None:
             research = self._reshard_budget() > 0
-        if research:
-            raise NotImplementedError(
-                "reshard with a strategy re-search (research=True, or "
-                "reshard_search_budget/search_budget > 0) needs the "
-                "strategy search, not ported yet (ROADMAP A.9); reshard "
-                "to an explicit mesh instead")
         if verify not in ("warn", "error", "off"):
             raise ValueError(
                 f"verify must be 'warn', 'error' or 'off', got {verify!r}")
@@ -925,6 +927,18 @@ class FFModel:
         self.wait_for_checkpoint()  # the pending writer reads _params
         old_shape = self._live_mesh_shape()
         old_ndev = self.mesh.mesh_product
+        new_strategies = None
+        if research:
+            # re-search for the target: pinned to an explicit mesh,
+            # adopting the searched factorization for a device count
+            from .search.mcmc import optimize_strategies
+            new_strategies, best_mesh = optimize_strategies(
+                self, self.config, num_devices=ndev,
+                budget=self._reshard_budget(), with_mesh=True,
+                mesh_shape=shape if new_mesh is not None else None)
+            if new_mesh is None:
+                shape = {a: s for a, s in best_mesh.items() if s > 1} \
+                    or {"n": 1}
         mesh = (MachineMesh(shape, device=self.device) if world > 1
                 else AbstractMesh(shape, num_devices=1))
         saved = {k: getattr(self, k) for k in (
@@ -940,6 +954,9 @@ class FFModel:
                 op.parallel_config = pc
 
         self.mesh = mesh
+        if new_strategies is not None:
+            for op in self.layers:
+                op.parallel_config = new_strategies.get(op.name)
         try:
             self._bind_mesh()
             self._host_params = self._resolve_host_placements()
@@ -995,7 +1012,7 @@ class FFModel:
                   "new_mesh": self._live_mesh_shape(),
                   "old_devices": old_ndev,
                   "new_devices": self.mesh.mesh_product,
-                  "researched": False, "step": self._step,
+                  "researched": bool(research), "step": self._step,
                   "strategy_digest": self._strategy_digest()}
         from .fflogger import get_logger
         get_logger("elastic").event("reshard", **report)
@@ -1009,8 +1026,8 @@ class FFModel:
         ``elastic`` logger (the saved and current mesh, devices and
         strategy digests).  The arrays are whole, so they load under
         the current placements as they are; a configured re-search
-        (``reshard_search_budget``/``search_budget`` > 0) would re-run
-        the search for the current devices (ROADMAP A.9: raises).
+        (``reshard_search_budget``/``search_budget`` > 0) re-runs the
+        search for the current devices and reshards onto its result.
         Returns True when the topology differed."""
         from .resilience import manifest_meta
         meta = manifest_meta(data)
@@ -1044,7 +1061,8 @@ class FFModel:
         """Consume a ``grow_at_step``/``shrink_at_step`` request
         (``faults.reshard_at_window``): by default double or halve the
         device count, landing on the data axis (``mesh.scaled_shape``).
-        A target equal to the world reshards in process; any other size
+        A target equal to the world reshards in process (re-searching the
+        strategies when a reshard or search budget is set); any other size
         goes through the supervisor: every rank saves the step's
         ``elastic_step<N>.npz`` in ``FF_ELASTIC_CKPT_DIR``, rank 0
         records the size asked for, and every rank exits with
@@ -1056,12 +1074,13 @@ class FFModel:
         devices = max(1, int(devices))
         if devices == cur:
             return
-        if self._reshard_budget() > 0:
-            self.reshard(num_devices=devices)   # re-search: A.9 raises
-            return
-        shape = scaled_shape(self.mesh.sizes, devices)
         if devices == distributed.world_size():
-            self.reshard(new_mesh=shape)
+            if self._reshard_budget() > 0:
+                # a configured re-search picks the target's strategies
+                self.reshard(num_devices=devices)
+            else:
+                self.reshard(new_mesh=scaled_shape(self.mesh.sizes,
+                                                   devices))
             return
         import os
         import sys
@@ -1927,9 +1946,10 @@ class FFModel:
         step instead of dropping them.
         ``validation_data=(x_val, y_val)`` runs ``evaluate`` after every
         epoch.  The ``FF_FAULT`` training hooks fire after every window
-        (kill, hang, slow rank, then the grow/shrink reshards).  The
-        per-epoch JSON event, the metrics registry and span tracing come
-        with the tooling slice (ROADMAP A.11)."""
+        (kill, hang, slow rank, then the grow/shrink reshards).
+        ``config.profiling`` prints ``profiling.profile_model``'s per-op
+        table first.  The per-epoch JSON event, the metrics registry and
+        span tracing come with the tooling slice (ROADMAP A.11)."""
         self._check_not_quantized("fit")
         cfg = self.config
         epochs = epochs or cfg.epochs
@@ -1946,6 +1966,11 @@ class FFModel:
         for cb in callbacks:
             cb.set_model(self)
             cb.on_train_begin()
+        if cfg.profiling:
+            # the reference's per-op fwd/bwd table, each op timed alone
+            # on the model's device
+            from .profiling import profile_model
+            profile_model(self)
         loader = PrefetchLoader(self, xs, y, batch_size=bs,
                                 steps_per_dispatch=k, pad_tail=pad)
         t_start = time.time()

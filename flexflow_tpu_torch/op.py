@@ -180,5 +180,55 @@ class Op:
                 ctx: OpContext) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    # --- the cost model's inputs (search/cost_model.py) ---------------
+    def flops(self) -> int:
+        """Forward FLOPs for the whole (unpartitioned) op."""
+        return 2 * self.outputs[0].volume if self.outputs else 0
+
+    def mxu_efficiency(self, spec=None) -> float:
+        """Fraction of the matrix rate this op's contraction reaches on
+        the device ``spec`` describes (a ``search.cost_model.DeviceSpec``;
+        its correction fields hold what a device measured).  Default
+        1.0."""
+        return 1.0
+
+    def backward_overhead(self, part_degrees=None, spec=None) -> float:
+        """Multiplier on the backward roofline for ops whose backward on
+        the device ``spec`` describes exceeds the 2x-forward model
+        (default 1.0).  ``part_degrees`` is the split under evaluation.
+        An analytic-mode correction only: measure mode times the real
+        kernels."""
+        return 1.0
+
+    def internal_io_bytes(self, flash_attention=None, device="cuda",
+                          compute_dtype: str = "bfloat16") -> int:
+        """Device-memory traffic of intermediates that are neither op
+        inputs nor outputs (default none).  ``flash_attention``,
+        ``device`` and ``compute_dtype`` are the run's, so an op whose
+        internals depend on the kernel that runs (attention) charges
+        that kernel's."""
+        return 0
+
+    def weight_bytes(self) -> int:
+        return sum(w.volume * 4 for w in self.weights)
+
+    def sub_problem(self, part_degrees):
+        """Per-partition ``(input_shapes, weight_shapes)`` for timing ONE
+        shard of this op alone (measure mode).  Default: the output's
+        degrees projected dim by dim onto each input, degree 1 where a
+        degree does not divide (the simulator's own fallback); weights
+        full-size.  Ops whose channel split shards a weight override.
+        Raises ValueError for degrees that cannot be realised (the
+        simulator scores those inf)."""
+        in_shapes = []
+        for t in self.inputs:
+            dims = snap_degrees(pad_degrees(part_degrees, t.num_dims),
+                                t.shape)
+            in_shapes.append(t.sub_shape(dims))
+        return in_shapes, {w.name: w.shape for w in self.weights}
+
+    def activation_bytes(self) -> int:
+        return sum(t.volume * 4 for t in self.outputs)
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"

@@ -58,11 +58,12 @@ import torch
 import torch.nn.functional as F
 
 from ..initializers import GlorotUniform, ZeroInitializer
-from ..op import Op, OpContext, OpType, fold_seed
+from ..op import Op, OpContext, OpType, fold_seed, pad_degrees, snap_degrees
 from ..parallel.sharding import is_dtensor, keep_shards, linear, \
     local_block, shard_map
 from .common import cast_compute
-from .cuda_attention import (NEG_INF, attention_scores, flash_attention,
+from .cuda_attention import (MAX_HEAD_DIM, NEG_INF, attention_scores,
+                             flash_attention,
                              flash_attention_reference, kernel_takes)
 
 __all__ = ["MultiHeadAttention", "PositionEmbedding", "NEG_INF",
@@ -361,6 +362,51 @@ class MultiHeadAttention(Op):
         # (n, s, c): samples, sequence and heads
         return (True, True, True)
 
+    def sub_problem(self, part_degrees):
+        # batch and sequence degrees shard the inputs; the head (c)
+        # degree is timed at full width (the heads' reshape is tied to
+        # num_heads), an upper bound of the c-split cost
+        dims = pad_degrees(part_degrees, 3)
+        dn, ds = dims[0], dims[1]
+        in_shapes = []
+        for t in self.inputs:
+            d = snap_degrees((dn, ds) + (1,) * (t.num_dims - 2), t.shape)
+            in_shapes.append(t.sub_shape(d))
+        return in_shapes, {w.name: w.shape for w in self.weights}
+
+    def flops(self):
+        n, s, d = self.outputs[0].shape
+        proj = 4 * 2 * n * s * d * d          # q,k,v,o projections
+        sk = self.inputs[0].shape[1] if self._self_attn else \
+            self.inputs[1].shape[1]
+        scores = 2 * 2 * n * s * sk * d       # qk^T and probs*v
+        return proj + scores
+
+    def takes_flash(self, flash_attention, device,
+                    compute_dtype: str) -> bool:
+        """:func:`use_flash` for this op's training step on ``device``
+        in ``compute_dtype``, from its shapes alone: the kernels run on
+        a CUDA device unless ``flash_attention`` is False, probability
+        dropout is on (the objective is a training step), or
+        ``kernel_takes`` refuses the head dim or the dtype."""
+        return (torch.device(device).type == "cuda"
+                and flash_attention is not False and self.dropout == 0.0
+                and 1 <= self.head_dim <= MAX_HEAD_DIM
+                and compute_dtype in ("float32", "bfloat16", "float16"))
+
+    def internal_io_bytes(self, flash_attention=None, device="cuda",
+                          compute_dtype: str = "bfloat16"):
+        """The dense path's float32 scores written and read (softmax)
+        and its probabilities written and read: 12 bytes an element of
+        (n, heads, sq, sk); none when the flash kernels run, whose
+        scores stay on chip (:meth:`takes_flash`, the port's rule)."""
+        if self.takes_flash(flash_attention, device, compute_dtype):
+            return 0
+        n, sq, _ = self.outputs[0].shape
+        sk = self.inputs[0].shape[1] if self._self_attn else \
+            self.inputs[1].shape[1]
+        return 12 * n * self.num_heads * sq * sk
+
     def forward(self, params, inputs, ctx: OpContext):
         xq = cast_compute(inputs[0], ctx)
         xk = xq if self._self_attn else cast_compute(inputs[1], ctx)
@@ -565,6 +611,9 @@ class PositionEmbedding(Op):
 
     def parallel_dims(self):
         return (True, True, False)
+
+    def flops(self):
+        return self.outputs[0].volume
 
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..initializers import GlorotUniform, ZeroInitializer
-from ..op import Op, OpContext, OpType
+from ..op import Op, OpContext, OpType, pad_degrees
 from ..parallel.sharding import is_dtensor, keep_shards, redistribute, \
     shard_map
 from .common import apply_activation, cast_compute
@@ -71,6 +71,45 @@ class Conv2D(Op):
     def parallel_dims(self):
         # n, h and w split; channels do not
         return (True, False, True, True)
+
+    def mxu_efficiency(self, spec=None):
+        # ``spec.conv_lane_fill``: the input channels a device needs to
+        # fill its contraction; 0 (the H100's spec) charges none
+        lanes = getattr(spec, "conv_lane_fill", 0)
+        return min(1.0, self.in_channels / lanes) if lanes else 1.0
+
+    def backward_overhead(self, part_degrees=None, spec=None):
+        # ``spec.strided_dgrad_law`` k: a stride-s dgrad costs 1 + k s^2/4
+        # times the 2x-forward model; 0 (the H100's spec) charges none
+        law = getattr(spec, "strided_dgrad_law", 0.0)
+        s = max(self.stride)
+        return 1.0 + law * (s * s) / 4.0 if s > 1 and law else 1.0
+
+    def flops(self):
+        n, c_out, oh, ow = self.outputs[0].shape
+        kh, kw = self.kernel
+        return (2 * n * c_out * oh * ow * (self.in_channels // self.groups)
+                * kh * kw)
+
+    def sub_problem(self, part_degrees):
+        # the c split shards the filters (input channels stay whole); the
+        # n/h/w splits shard the input box, halo ignored
+        n, cin, h, w = self.inputs[0].shape
+        out = self.outputs[0]
+        dn, dc, dh, dw = pad_degrees(part_degrees, 4)
+        dims = (dn, dc, dh, dw)
+        if n % max(1, dn) or self.out_channels % max(1, dc):
+            raise ValueError(f"conv degrees {dims} don't divide")
+        if out.shape[2] % max(1, dh) or out.shape[3] % max(1, dw):
+            raise ValueError(f"conv spatial degrees {dims} don't divide")
+        in_shape = (n // max(1, dn), cin, max(1, h // max(1, dh)),
+                    max(1, w // max(1, dw)))
+        kh, kw = self.kernel
+        shapes = {self.w_kernel.name: (self.out_channels // max(1, dc),
+                                       cin // self.groups, kh, kw)}
+        if self.use_bias:
+            shapes[self.w_bias.name] = (self.out_channels // max(1, dc),)
+        return [in_shape], shapes
 
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
@@ -120,6 +159,18 @@ class Pool2D(Op):
 
     def parallel_dims(self):
         return (True, False, True, True)
+
+    def flops(self):
+        return self.outputs[0].volume * self.kernel[0] * self.kernel[1]
+
+    def backward_overhead(self, part_degrees=None, spec=None):
+        # ``spec.maxpool_bwd_factor``: a device whose max-pool backward
+        # lowers past its bandwidth roofline.  On the H100 the
+        # hand-written backward kernel runs (per shard on a mesh), so its
+        # spec charges 1.0; measure mode times what really runs
+        if self.pool_type != "max":
+            return 1.0
+        return getattr(spec, "maxpool_bwd_factor", 1.0)
 
     def _splits_spatial(self) -> bool:
         """Does this op's strategy split h or w?"""

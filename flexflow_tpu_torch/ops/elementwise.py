@@ -64,6 +64,9 @@ class ElementUnary(Op):
     def parallel_dims(self):
         return (True,) * self.outputs[0].num_dims
 
+    def flops(self):
+        return self.outputs[0].volume
+
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         if self.scalar is not None and self.fn in _SCALAR:
@@ -86,6 +89,9 @@ class ElementBinary(Op):
 
     def parallel_dims(self):
         return (True,) * self.outputs[0].num_dims
+
+    def flops(self):
+        return self.outputs[0].volume
 
     def forward(self, params, inputs, ctx):
         a, b = inputs

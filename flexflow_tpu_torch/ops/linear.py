@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ..config import DeviceType, MemoryType
 from ..initializers import GlorotUniform, ZeroInitializer
-from ..op import Op, OpContext, OpType
+from ..op import Op, OpContext, OpType, pad_degrees
 from ..parallel.sharding import gather, linear
 from .common import (apply_activation, cast_compute, dequant_matmul,
                      scale_param_name)
@@ -54,6 +54,26 @@ class Linear(Op):
     def parallel_dims(self):
         # the sample dims and the output channels
         return (True,) * self.outputs[0].num_dims
+
+    def flops(self):
+        batch = self.outputs[0].volume // self.out_dim
+        return 2 * batch * self.in_dim * self.out_dim
+
+    def sub_problem(self, part_degrees):
+        # a c split on the output shards the (out, in) kernel's rows; the
+        # input stays whole in its feature dim
+        out = self.outputs[0]
+        dims = pad_degrees(part_degrees, out.num_dims)
+        c_deg = dims[-1]
+        if self.out_dim % max(1, c_deg):
+            raise ValueError(f"out_dim {self.out_dim} % c {c_deg}")
+        x = self.inputs[0]
+        in_shape = x.sub_shape(dims[:-1] + (1,))
+        shapes = {self.w_kernel.name: (self.out_dim // max(1, c_deg),
+                                       self.in_dim)}
+        if self.use_bias:
+            shapes[self.w_bias.name] = (self.out_dim // max(1, c_deg),)
+        return [in_shape], shapes
 
     def forward(self, params, inputs, ctx: OpContext):
         x = cast_compute(inputs[0], ctx)
@@ -165,6 +185,26 @@ class Embedding(Op):
     def parallel_dims(self):
         # the sample (and sequence) dims and the table's columns
         return (True,) * self.outputs[0].num_dims
+
+    def flops(self):
+        return self.outputs[0].volume
+
+    def sub_problem(self, part_degrees):
+        # the out-dim split shards the table's columns; the ids split
+        # over the batch (and, without aggregation, sequence) degrees
+        out = self.outputs[0]
+        dims = pad_degrees(part_degrees, out.num_dims)
+        c_deg = dims[-1]
+        if self.out_dim % max(1, c_deg):
+            raise ValueError(f"out_dim {self.out_dim} % c {c_deg}")
+        ids = self.inputs[0]
+        if self.aggr == "none":  # (n, s) ids mirror the (n, s, d) output
+            id_dims = dims[: ids.num_dims]
+        else:  # (n, bag) ids: only the sample degree applies
+            id_dims = (dims[0],) + (1,) * (ids.num_dims - 1)
+        in_shape = ids.sub_shape(id_dims)
+        return [in_shape], {self.w_table.name: (
+            self.num_entries, self.out_dim // max(1, c_deg))}
 
     def forward(self, params, inputs, ctx: OpContext):
         if ctx.embedding_rows and self.name in ctx.embedding_rows:

@@ -22,3 +22,6 @@ class MSELoss(Op):
 
     def forward(self, params, inputs, ctx: OpContext):
         return [inputs[0]]
+
+    def flops(self):
+        return 3 * self.outputs[0].volume

@@ -163,6 +163,14 @@ class MoE(Op):
         # (n, s, c): tokens split; the model dim stays whole
         return (True, True, False)
 
+    def flops(self):
+        n, s, d = self.outputs[0].shape
+        T, E, C = n * s, self.num_experts, self.capacity
+        router = 2 * T * d * E
+        dispatch = 2 * 2 * T * E * C * d        # dispatch + combine
+        experts = 2 * 2 * E * C * d * self.d_ff  # up + down projections
+        return router + dispatch + experts
+
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]
         if is_dtensor(x):

@@ -62,6 +62,16 @@ class BatchNorm(Op):
     def parallel_dims(self):
         return (True, False, True, True)
 
+    def flops(self):
+        return 8 * self.outputs[0].volume
+
+    def internal_io_bytes(self, flash_attention=None, device="cuda",
+                          compute_dtype: str = "bfloat16"):
+        # the float32 copy, the statistics pass over the batch and the
+        # normalising re-read: 10 bytes an element beyond the boundary
+        # tensors (the JAX package's accounting of the same passes)
+        return 10 * self.inputs[0].volume
+
     def forward(self, params, inputs, ctx: OpContext):
         xf = inputs[0].to(torch.float32)   # keeps channels_last memory
         if ctx.training:
@@ -99,6 +109,14 @@ class LayerNorm(Op):
     def parallel_dims(self):
         nd = self.outputs[0].num_dims
         return (True,) * (nd - 1) + (False,)
+
+    def flops(self):
+        return 8 * self.outputs[0].volume
+
+    def internal_io_bytes(self, flash_attention=None, device="cuda",
+                          compute_dtype: str = "bfloat16"):
+        # the float32 copy and the per-row statistics pass
+        return 8 * self.inputs[0].volume
 
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]
@@ -146,6 +164,13 @@ class RMSNorm(Op):
     def parallel_dims(self):
         nd = self.outputs[0].num_dims
         return (True,) * (nd - 1) + (False,)
+
+    def flops(self):
+        return 4 * self.outputs[0].volume
+
+    def internal_io_bytes(self, flash_attention=None, device="cuda",
+                          compute_dtype: str = "bfloat16"):
+        return 8 * self.inputs[0].volume
 
     def forward(self, params, inputs, ctx: OpContext):
         xf = inputs[0].to(torch.float32)

@@ -345,3 +345,6 @@ class PipelineSegment(Op):
         nd = self.outputs[0].num_dims
         return (True,) + (False,) * (nd - 1)
 
+    def flops(self):
+        return self.num_stages * sum(op.flops() for op in self._seg_layers)
+

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..initializers import GlorotUniform, ZeroInitializer
-from ..op import Op, OpContext, OpType
+from ..op import Op, OpContext, OpType, pad_degrees
 from .common import cast_compute
 
 
@@ -58,6 +58,22 @@ class LSTM(Op):
         # (n, s, c): samples and the hidden dim; the recurrence is serial
         # in s
         return (True, False, True)
+
+    def flops(self):
+        n, s, h = self.outputs[0].shape
+        d = self.inputs[0].shape[-1]
+        return 2 * n * s * 4 * h * (d + h)
+
+    def sub_problem(self, part_degrees):
+        # the batch degree shards every input's leading dim; the hidden
+        # (c) degree is timed at full width (the 4-way gate split is tied
+        # to hidden_size), an upper bound as for attention
+        dn = pad_degrees(part_degrees, 3)[0]
+        in_shapes = []
+        for t in self.inputs:
+            in_shapes.append(t.sub_shape((dn,) + (1,) * (t.num_dims - 1))
+                             if t.shape[0] % max(1, dn) == 0 else t.shape)
+        return in_shapes, {w.name: w.shape for w in self.weights}
 
     def _run(self, params, x, h, c, ctx: OpContext):
         """The cell over x (n, s, d) from the float32 carry (h, c): the

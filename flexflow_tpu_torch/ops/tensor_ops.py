@@ -32,6 +32,9 @@ class Flat(Op):
             x = redistribute(x, keep_shards(x.placements, (0,)))
         return [x.reshape(x.shape[0], -1)]
 
+    def flops(self):
+        return 0
+
 
 class Softmax(Op):
     """Softmax computed in float32, then cast to the compute dtype."""
@@ -46,6 +49,9 @@ class Softmax(Op):
     def forward(self, params, inputs, ctx):
         y = torch.softmax(inputs[0].to(torch.float32), dim=self.axis)
         return [cast_compute(y, ctx)]
+
+    def flops(self):
+        return 4 * self.outputs[0].volume
 
 
 class Concat(Op):
@@ -68,6 +74,9 @@ class Concat(Op):
         dt = functools.reduce(torch.promote_types, [x.dtype for x in inputs])
         return [torch.cat([x.to(dt) for x in inputs], dim=self.axis)]
 
+    def flops(self):
+        return 0
+
 
 class Split(Op):
     """Split along ``axis`` into pieces of ``sizes``."""
@@ -84,6 +93,9 @@ class Split(Op):
 
     def forward(self, params, inputs, ctx):
         return list(torch.split(inputs[0], self.sizes, dim=self.axis))
+
+    def flops(self):
+        return 0
 
 
 class Reshape(Op):
@@ -108,6 +120,9 @@ class Reshape(Op):
             shape = (inputs[0].shape[0],) + shape[1:]
         return [inputs[0].reshape(shape)]
 
+    def flops(self):
+        return 0
+
 
 class Transpose(Op):
     """Permute the dims by ``perm`` (a view; ``jnp.transpose``)."""
@@ -122,6 +137,9 @@ class Transpose(Op):
 
     def forward(self, params, inputs, ctx):
         return [inputs[0].permute(self.perm)]
+
+    def flops(self):
+        return 0
 
 
 class Dropout(Op):
@@ -149,3 +167,6 @@ class Dropout(Op):
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
+
+    def flops(self):
+        return self.outputs[0].volume

@@ -95,12 +95,12 @@ def model_residency(spec: TenantSpec, layers, input_tensors, strategies,
     slots/seq/page geometry/dtype as the target — the engine mirrors
     positions 1:1) are charged onto this tenant's residency, because
     that is exactly what its GenerationEngine allocates."""
-    from ...search.cost_model import TEMP_FACTOR, spec_for_device
+    from ...search.cost_model import spec_for_device
     from ...search.simulator import Simulator
 
     device_spec = device_spec or spec_for_device()
     factor = (float(xla_temp_factor) if xla_temp_factor
-              else TEMP_FACTOR)
+              else device_spec.temp_factor)
     if mesh_shape is None:
         if strategies:
             mesh_shape, _ = infer_mesh_shape(strategies, layers, 10 ** 9)

@@ -1,7 +1,7 @@
 """Serving statistics, the port of ``flexflow_tpu/serving/metrics.py``:
 lifetime counters, rolling QPS, batch occupancy, queue depth and
-nearest-rank latency percentiles, emitted as ``serve_stats`` events
-through :mod:`~flexflow_tpu_torch.fflogger`.
+nearest-rank latency percentiles (``profiling.quantiles``), emitted as
+``serve_stats`` events through :mod:`~flexflow_tpu_torch.fflogger`.
 
 The lifetime counters live in the process metrics registry
 (:mod:`~flexflow_tpu_torch.obs.registry`) under the labels ``model`` and
@@ -24,24 +24,8 @@ from ..fflogger import get_logger
 from ..obs import lockwatch
 from ..obs.registry import get_registry
 from ..obs.trace import phase_of
+from ..profiling import quantiles
 
-
-def quantiles(samples: Sequence[float],
-              qs=(0.5, 0.95, 0.99)) -> Dict[float, float]:
-    """Nearest-rank quantiles (every reported value is a sample that
-    happened); NaN for an empty input."""
-    xs = sorted(samples)
-    if not xs:
-        return {q: float("nan") for q in qs}
-    n = len(xs)
-    return {q: float(xs[min(n - 1, _nearest_rank(q, n))]) for q in qs}
-
-
-def _nearest_rank(q: float, n: int) -> int:
-    """0-based ceil(q*n) - 1 in integer arithmetic, so float jitter
-    (0.95*20 == 18.999...96) cannot shift the rank."""
-    num = int(round(q * 10000))
-    return max(0, -(-num * n // 10000) - 1)
 
 # per-process engine-generation sequence: the ``eng`` label that keeps
 # two engines serving the SAME model name (bench legs, a fleet swap's

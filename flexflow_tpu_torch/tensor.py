@@ -37,6 +37,16 @@ class Tensor:
     def volume(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64))
 
+    def sub_shape(self, dims: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Per-part shape when partitioned with degree ``dims[i]`` on
+        dim i."""
+        assert len(dims) == len(self.shape), (dims, self.shape)
+        out = []
+        for s, d in zip(self.shape, dims):
+            assert s % d == 0, f"dim {s} not divisible by degree {d}"
+            out.append(s // d)
+        return tuple(out)
+
     def __hash__(self) -> int:
         return self.uid
 

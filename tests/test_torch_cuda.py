@@ -1494,3 +1494,55 @@ def test_host_placed_linear_stays_pinned_on_the_card(no_tf32):
     for k in cpu._params:
         torch.testing.assert_close(card._params[k].cpu(), cpu._params[k],
                                    rtol=1e-5, atol=1e-5, msg=k)
+
+
+def _launches():
+    return (cuda_pool.max_pool_nhwc.launches,
+            cuda_pool.max_pool_nhwc_backward.launches,
+            cuda_attention.flash_attention_forward.launches,
+            cuda_attention.flash_attention_backward.launches,
+            cuda_norm.fused_layernorm.launches)
+
+
+def test_profile_op_times_the_kernels_with_cuda_events(no_tf32):
+    """Measure mode's timing on the card runs the op's own path: the
+    max pool's two kernels, the flash kernels and the LayerNorm kernel
+    launch while a partition's sub-shape is timed."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch import profiling
+
+    m = ft.FFModel(ft.FFConfig(batch_size=8), device="cuda")
+    x = m.create_tensor((8, 16, 28, 28))
+    m.pool2d(x, 3, 3, 2, 2, 0, 0)
+    t = m.create_tensor((8, 64, 128))
+    a = m.multihead_attention(t, t, t, 128, 2)
+    m.layer_norm(a)
+    for op, dims, moved in ((m.layers[0], (2, 1, 1, 1), (0, 1)),
+                            (m.layers[1], (2, 2, 1), (2, 3)),
+                            (m.layers[2], (2, 1, 1), (4,))):
+        ins, ws = op.sub_problem(dims)
+        before = _launches()
+        r = profiling.profile_op(op, "bfloat16", input_shapes=ins,
+                                 weight_shapes=ws, device="cuda")
+        assert r["fwd_ms"] > 0 and r["bwd_ms"] >= 0
+        after = _launches()
+        for i in moved:
+            assert after[i] > before[i], (op.name, i)
+
+
+def test_measured_search_runs_on_the_card(no_tf32):
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.search.mcmc import search
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    cfg = ft.FFConfig(batch_size=8)
+    m, _, _ = ft.build_transformer(cfg, num_layers=1, d_model=64,
+                                   num_heads=2, d_ff=128, seq_len=64,
+                                   vocab_size=100, num_classes=2,
+                                   device="cuda")
+    sim = Simulator(num_devices=4, measure=True, device="cuda")
+    before = _launches()
+    best, mesh, t = search(m.layers, 4, budget=8, seed=0, sim=sim)
+    assert 0 < t < float("inf") and sim.backend == "native"
+    after = _launches()
+    assert after[2] > before[2] and after[4] > before[4]

@@ -155,3 +155,33 @@ def test_the_reshard_and_elastic_slice_modules_are_checked(module):
     assert module in _modules()
     path = os.path.join(REPO, *module.split(".")) + ".py"
     assert path in _port_sources()
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.profiling", "flexflow_tpu_torch.native",
+    "flexflow_tpu_torch.search.cost_model",
+    "flexflow_tpu_torch.search.simulator",
+    "flexflow_tpu_torch.search.session", "flexflow_tpu_torch.search.mcmc",
+    "flexflow_tpu_torch.search.decompose",
+    "flexflow_tpu_torch.search.hybrid",
+    "flexflow_tpu_torch.search.calibration"])
+def test_the_search_slice_modules_are_checked(module):
+    """The search slice's modules are among those the two tests above
+    import and parse."""
+    assert module in _modules()
+    rel = os.path.join(*module.split("."))
+    path = (os.path.join(REPO, rel, "__init__.py")
+            if os.path.isdir(os.path.join(REPO, rel))
+            else os.path.join(REPO, rel) + ".py")
+    assert path in _port_sources()
+
+
+def test_the_native_simulator_source_is_the_ports_own():
+    """The port builds its own copy of the engine (``native/``), never
+    the JAX package's library."""
+    src = os.path.join(PKG, "native", "simulator.cpp")
+    assert os.path.exists(src)
+    with open(os.path.join(PKG, "native", "__init__.py")) as f:
+        loader = f.read()
+    assert "flexflow_tpu.native" not in loader
+    assert "flexflow_tpu/native" not in loader

@@ -111,13 +111,13 @@ def test_model_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"strategies": {"conv2d": ft.ParallelConfig(dims=(2, 1, 1, 1),
                                                   device_ids=(0, 1))}},
      ValueError, "strategy needs 2 devices, have 1"),
-    ({"search_budget": 10}, NotImplementedError, "strateg"),
+    ({"calibration_file": "table.json"}, NotImplementedError, r"A\.9b"),
     ({"workers_per_node": 2}, NotImplementedError, "one device"),
     ({"mesh_shape": {"n": 2}}, NotImplementedError, "one device"),
     ({"gradient_accumulation_steps": 0}, ValueError,
      "gradient_accumulation_steps must be >= 1"),
     ({"steps_per_dispatch": 0}, ValueError, "steps_per_dispatch must be >= 1"),
-    ({"profiling": True}, NotImplementedError, "profiling"),
+    ({"cost_estimator": "ridge"}, NotImplementedError, r"A\.9b"),
     ({"trace_dir": "traces"}, NotImplementedError, "trace_dir"),
 ])
 def test_compile_refuses_what_it_cannot_run(kw, exc, match):

@@ -7,7 +7,8 @@ step-2 checkpoint, and within rtol 1e-4, atol 1e-5 (the mesh tests'
 tolerance) of the JAX package's reshard on the same meshes (the
 suite's virtual devices).  The optimizer state (momentum) moves
 value-lossless; ``verify="error"`` rolls back and the model trains on;
-another device count names ``run_elastic``; a re-search names A.9.  A
+another device count names ``run_elastic``; a re-search pinned to the
+target mesh reshards onto the searched strategies and trains on.  A
 4-rank checkpoint resumes on 2 ranks with the JAX event's fields
 (``reshard_on_resume``).
 """
@@ -121,8 +122,9 @@ def test_reshard_rollback_and_refusals(runs):
         for key in ("count", "mesh_count"):
             assert b[key].startswith("ValueError")
             assert "run_elastic" in b[key] and "num_devices" in b[key]
-        assert b["research"].startswith("NotImplementedError")
-        assert "A.9" in b["research"]
+        assert b["research"]["researched"] is True
+        assert b["research"]["new_mesh"] == {"n": 4}
+        assert np.isfinite(b["research"]["loss"])
         assert b["args"] == ("ValueError: pass exactly one of new_mesh / "
                              "num_devices")
 
@@ -164,11 +166,13 @@ def test_reshard_on_one_process():
         m.reshard()
     with pytest.raises(ValueError, match="num_devices.*run_elastic"):
         m.reshard(num_devices=512)
-    with pytest.raises(NotImplementedError, match=r"A\.9"):
-        m.reshard(num_devices=1, research=True)
+    # a re-search (research=True, or a reshard budget above 0) searches
+    # the one device's strategies and trains on
+    assert m.reshard(num_devices=1, research=True)["researched"] is True
     m.config.reshard_search_budget = 5
-    with pytest.raises(NotImplementedError, match=r"A\.9"):
-        m.reshard(num_devices=1)
+    rep = m.reshard(num_devices=1)
+    assert rep["researched"] is True and rep["new_devices"] == 1
+    assert np.isfinite(cases.train(m, 1)[0])
 
 
 def test_quantized_model_refuses_reshard():

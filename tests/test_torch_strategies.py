@@ -368,7 +368,8 @@ def test_eight_device_strategy_refused_with_the_jax_message():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("search_budget", 10, "A.9"), ("profiling", True, "A.11"),
+    ("calibration_file", "table.json", "A.9b"),
+    ("cost_estimator", "table", "A.9b"),
     ("trace_dir", "traces", "A.11"), ("mesh_shape", {"n": 2}, "A.8"),
     ("workers_per_node", 2, "A.8")])
 def test_remaining_refusals_name_their_roadmap_item(field, value, item):
