@@ -153,7 +153,7 @@
    port's ``build_disagg`` (a prefill-role and a decode-role
    ``FleetEngine`` under a ``FleetRouter``, 16 slots each, pages of 16,
    chunks of 256, one copy of the parameters): the first 32 greedy
-   prompts of the generation traffic x 128 tokens with the prefix cache
+   prompts of the generation traffic x 64 tokens with the prefix cache
    off and on, each against one co-located engine of the same settings
    and submission order; tokens equal token for token, every stream
    migrated, ``migrated_bytes`` equal to the chains' pages x 589,824
@@ -163,7 +163,7 @@
    co-located run's; one 32-page chain exported, copied and imported
    (read back bit-equal, one copy each way at the dispatcher, each
    leg timed); the prefill host's pacing against none, cache off, in
-   the order A B B A (tokens equal, wall, TTFT and TPOT of each run);
+   one pair A B (tokens equal, wall, TTFT and TPOT of each run);
    ``FF_FAULT=migrate_fail_at:1`` (one ``serve_health`` fallback, that
    stream decodes co-located with equal tokens, nothing fails); a
    2-layer float32 twin (equal tokens, bit-equal pages); the kernels'
@@ -188,15 +188,16 @@
    2} (ring attention) and {"n": 2, "c": 2} (heads split), float32, one
    step each; full-width AlexNet (229 px, batch 64, bf16, conv on n,
    dense on n x c, 2 SGD steps) at {"n": 2, "c": 2}; BERT-base (bf16,
-   batch 16, Adam 1e-4) one step at {"n": 2, "c": 2} and one at {"s": 2,
-   "c": 2}; the pipeline block (bf16, 12 stages) at {"p": 4} (GPipe)
-   and at {"n": 2, "p": 2} (interleaved, 6 chunks a rank) and their
+   batch 16, Adam 1e-4, 2 of its 12 layers) one step at {"n": 2, "c":
+   2} and one at {"s": 2, "c": 2}; the pipeline block (bf16, 4 of its
+   12 stages) at {"p": 4} (GPipe)
+   and at {"n": 2, "p": 2} (interleaved, 2 chunks a rank) and their
    float32 twins (4 stages); the MoE of 17 at {"e": 4} and {"n": 2,
    "e": 2} and the dryrun's composed program (2 stages of a dense pair
    and an 8-expert MoE) at {"e": 2, "p": 2} with a smaller twin,
    float32.  Each rank counts
-   each step's kernel launches (3 + 3 pool launches an AlexNet step; 12
-   + 12 flash and 24 LayerNorm a BERT step on 6 local heads; 24
+   each step's kernel launches (3 + 3 pool launches an AlexNet step; 2
+   + 2 flash and 4 LayerNorm a 2-layer BERT step on 6 local heads; 4
    LayerNorm and no flash under the ring; 2 LayerNorm a stage a
    microbatch in a pipeline, whose ranks run nothing in a bubble), its
    step's wall and busy ms and its collectives (calls, bytes, and which
@@ -207,8 +208,8 @@
    otherwise than one rank's whole batch) within 15% by the L2 norm of
    the change (the first moment under Adam).  Then a one-rank group on the default backend
    (NCCL): a {"n": 1} mesh step bit-equal to the step without a mesh;
-   since PR 16 the ranks reshard BERT-base in process and serve the
-   sharded generation engine, and then compile BERT-base (bf16, 12
+   the ranks then reshard BERT-base (6 layers) in process and serve
+   the sharded generation engine, and then compile BERT-base (bf16, 12
    layers) and its float32 twin (2 layers) with ``search_budget``: each
    rank searches the analytic objective for the four ranks, every
    rank's strategy equals the one this process searched (one digest,
@@ -228,6 +229,24 @@
    measured times against the spec's roofline by op type, the cache's
    partitions and seconds; the spec's launch time beside this run's
    floor;
+17f. calibration phase (after the search phase): the calibrated cost
+   model on the card.  ``harvest_ops`` times every op of full-width
+   AlexNet (229 px, batch 64), BERT-base (batch 16) and InceptionV3
+   (299 px, batch 64) in bf16 at partition degrees 1 and 2, each alone
+   with CUDA events, into one ``CalibrationTable`` (no op skipped; the
+   max-pool kernels launched on the CNNs, flash forward, backward and
+   LayerNorm on BERT-base, asserted); ``harvest_train_dispatch`` reads
+   each model's ``fit`` epoch events (``dispatch_ms``: the host's wall
+   around a dispatch) and a power-law step correction is fit over the
+   three; the table is saved, validated and reloaded to the same digest,
+   its ``device_kind`` the card's; the error sweep re-times every op at
+   degree 1 and a synchronized ``fit`` per model and reports per-op MAPE
+   and end-to-end APE, analytic against the table and ridge estimators;
+   BERT-base is searched for 4 devices on the table's objective
+   (native engine asserted; best and data-parallel step under the table
+   and the analytic roofline, the strategy digest); one ``search-bench``
+   row on the table; the ``explain`` report of the calibrated strategy
+   validates;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -337,11 +356,12 @@ ZOO = {  # builder, its arguments, training batch, serving batch, SGD lr
 }
 # serving: ZOO_CLIENTS client threads, each sending one request at a
 # time and the next when it returns, ZOO_REQUESTS requests a round over
-# ZOO_ROUNDS rounds; sizes log-uniform from 1 row to the serving batch,
-# drawn once, so the rounds repeat one load.
+# ZOO_ROUNDS rounds (400 a round until the calibration phase needed the
+# time); sizes log-uniform from 1 row to the serving batch, drawn once,
+# so the rounds repeat one load.
 # The rows of the first ZOO_CHECKED requests are held against predict()
 ZOO_CLIENTS = 8
-ZOO_REQUESTS = 400
+ZOO_REQUESTS = 200
 ZOO_ROUNDS = 2
 ZOO_CHECKED = 32
 ZOO_FIT_BATCHES = 4
@@ -547,10 +567,14 @@ SPEC_CONTROL_NEW = 32
 # under a FleetRouter, 16 slots each, pages of 16, prefill chunks of 256,
 # sharing the model's parameters on the card), against one co-located
 # engine of the same settings; the first DISAGG_REQUESTS greedy prompts
-# of gen_traffic x GEN_NEW tokens, the prefix cache off and on.  A page
+# of gen_traffic x DISAGG_NEW tokens, the prefix cache off and on.  A page
 # is 2 (K, V) x 12 layers x 16 tokens x 12 heads x 64 x 2 bytes
 DISAGG_REQUESTS = 32
 DISAGG_PAGE_BYTES = 2 * 12 * 16 * 12 * 64 * 2
+# the bf16 runs' tokens a request (GEN_NEW until the calibration phase
+# needed the time) and the pacing arms' pairs after the first run
+DISAGG_NEW = 64
+DISAGG_PACING_PAIRS = 1
 # the float32 twin: GPT2's widths at this depth, the first
 # DISAGG_F32_REQUESTS prompts x DISAGG_F32_NEW tokens
 DISAGG_F32_LAYERS = 2
@@ -4720,11 +4744,13 @@ def pacing_timing(run) -> dict:
 
 
 def pacing_pairs(ft, model, layers, prompts, want, counters, card,
-                 pairs: int, first: dict = None) -> dict:
+                 pairs: int, first: dict = None,
+                 ntok: int = GEN_NEW) -> dict:
     """The prefill host's pacing: ``build_disagg``'s default (A) against
     the other of 0 and 0.002 s (B), prefix cache off, ``pairs`` pairs in
     the order A B, B A, A B, ...; ``first`` is the timing of an A run
-    already made, the first pair's.  Every run's tokens must equal
+    already made, the first pair's; ``ntok`` tokens a request.  Every
+    run's tokens must equal
     ``want``.  Prints each metric's runs, the pairs B won (lower is
     better), both arms' medians and A's quartile distance; returns them
     with the runs' launches."""
@@ -4740,7 +4766,7 @@ def pacing_pairs(ft, model, layers, prompts, want, counters, card,
         order = order[1:]
     launches = {"ln": 0, "fwd": 0}
     for pace in order:
-        run = disagg_run(ft, model, layers, prompts, GEN_NEW, "off",
+        run = disagg_run(ft, model, layers, prompts, ntok, "off",
                          counters, pace_s=pace)
         assert run["tokens"] == want
         for k in launches:
@@ -4814,8 +4840,9 @@ def disagg_phase(ft, counters, card) -> dict:
 
     pace0 = disagg_pace_default()
     for pc in ("off", "on"):
-        colo = colo_run(ft, model, prompts, GEN_NEW, pc)
-        dis = disagg_run(ft, model, layers, prompts, GEN_NEW, pc, counters)
+        colo = colo_run(ft, model, prompts, DISAGG_NEW, pc)
+        dis = disagg_run(ft, model, layers, prompts, DISAGG_NEW, pc,
+                         counters)
         count("disagg", dis)
         pf, dc = dis["engines"]
         r = dis["router"]
@@ -4829,7 +4856,7 @@ def disagg_phase(ft, counters, card) -> dict:
         exp_ms, imp_ms = pf.migrate_export_ms, dc.migrate_import_ms
         handoff_ms = r["migrate_ms_total"] / max(1, r["migrations"])
         cs, ds = colo["stats"], dis["stats"][1]
-        print(f"disagg prefix {pc}: {DISAGG_REQUESTS} requests x {GEN_NEW} "
+        print(f"disagg prefix {pc}: {DISAGG_REQUESTS} requests x {DISAGG_NEW} "
               f"greedy tokens, tokens equal to the co-located engine's: "
               f"{equal} (first differing request {first_diff}); routes "
               f"{r['routes']}, migrations {r['migrations']}, migrated bytes "
@@ -4876,9 +4903,11 @@ def disagg_phase(ft, counters, card) -> dict:
         del dis, pf, dc
         free_garbage()
         if pc == "off":
-            # the run above is the first of the pacing arms' two pairs
+            # the run above is the first of the pacing arms' pairs
             out["pacing"] = pacing_pairs(ft, model, layers, prompts, want,
-                                         counters, card, 2, first)
+                                         counters, card,
+                                         DISAGG_PACING_PAIRS, first,
+                                         DISAGG_NEW)
             count("disagg_pacing", out["pacing"])
     # FF_FAULT=migrate_fail_at:1: the first stream decodes co-located
     fprompts = prompts[:DISAGG_FAULT_REQUESTS]
@@ -4886,7 +4915,7 @@ def disagg_phase(ft, counters, card) -> dict:
     faults.reset()
     try:
         with capture_events("serve") as events:
-            fault = disagg_run(ft, model, layers, fprompts, GEN_NEW, "off",
+            fault = disagg_run(ft, model, layers, fprompts, DISAGG_NEW, "off",
                                counters)
     finally:
         os.environ.pop("FF_FAULT", None)
@@ -5083,8 +5112,11 @@ def fleet_phase(ft, counters, card) -> dict:
 # microbatches.  Its float32 twin has 2 stages at the same widths
 PIPE = dict(num_stages=12, num_heads=12, d_ff=3072, num_microbatches=4)
 PIPE_TWIN = dict(num_stages=2, batch=4, seq=128)
-# the mesh runs' float32 twins of the block (MESH_RUNS "pipe_f32_*")
+# the mesh runs' float32 twins of the block (MESH_RUNS "pipe_f32_*"),
+# and the stages of its bf16 runs (12, PIPE's, until the calibration
+# phase needed the time)
 MESH_PIPE_TWIN = dict(num_stages=4, batch=8, seq=64)
+MESH_PIPE_STAGES = 4
 
 
 def pipe_model(ft, device=None, dtype="bfloat16", batch=BERT_BATCH,
@@ -5232,7 +5264,7 @@ MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
 # gradient after one step, and the parameters' share is printed
 MESH_L2_SHARE = 0.15
 MESH_TIMEOUT = 600
-MESH_BERT_LAYERS = 6
+MESH_BERT_LAYERS = 2
 
 
 def mesh_pc(ft, dims):
@@ -5254,26 +5286,26 @@ def mesh_tf_strategies(ft, layers: int, attention, ffn_up) -> dict:
 # (__graft_entry__.py), "tf_f32_*" a 2-layer transformer with the
 # dryrun's strategies; both float32, held at MESH_RTOL.  AlexNet (229 px,
 # batch 64) and BERT-base (batch 16, s 512; MESH_BERT_LAYERS of its 12
-# layers, cut to make room for RESHARD_RUNS, whose BERT-base is whole)
-# run bf16 at full width
+# layers, cut from 6 to make room for the calibration phase) run bf16 at
+# full width
 MESH_RUNS = {
     "cnn_f32": ({"n": 2, "c": 2}, (1, 1, 0, 0, 0), 1),
     "tf_f32_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 4), 1),
     "tf_f32_n2c2": ({"n": 2, "c": 2}, (0, 0, 2, 2, 4), 1),
     "alexnet": ({"n": 2, "c": 2}, (3, 3, 0, 0, 0), 2),
-    "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 6, 6, 12), 1),
-    "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 12), 1),
-    # the pipeline block (PIPE, bf16) over p, GPipe, and
-    # interleaved at {"n": 2, "p": 2} with 6 chunks a rank; their float32
-    # twins (4 stages); the smoke's MoE (MOE, float32) over e; and the
-    # dryrun's composed program at {"e": 2, "p": 2} (float32) and its
-    # twin (COMPOSED_TWIN_*).  A rank
-    # runs no bubble tick, so its LayerNorm launches a step are 2 x its
-    # stages x M: (12 / 4) x 4 x 2 = 24 at p 4, 6 x 4 x 2 = 48
-    # interleaved, 1 x 4 x 2 = 8 and 2 x 4 x 2 = 16 in the twins (the
-    # backward recomputes the plain version: no launch)
-    "pipe_p4": ({"p": 4}, (0, 0, 0, 0, 24), 1),
-    "pipe_n2p2": ({"n": 2, "p": 2}, (0, 0, 0, 0, 48), 1),
+    "bert_n2c2": ({"n": 2, "c": 2}, (0, 0, 2, 2, 4), 1),
+    "bert_s2c2": ({"s": 2, "c": 2}, (0, 0, 0, 0, 4), 1),
+    # the pipeline block (PIPE's widths, bf16, MESH_PIPE_STAGES of its
+    # 12 stages) over p, GPipe, and interleaved at {"n": 2, "p": 2} with
+    # 2 chunks a rank; their float32 twins (4 stages, smaller batch and
+    # sequence); the smoke's MoE (MOE, float32) over e; and the dryrun's
+    # composed program at {"e": 2, "p": 2} (float32) and its twin
+    # (COMPOSED_TWIN_*).  A rank runs no bubble tick, so its LayerNorm
+    # launches a step are 2 x its stages x M: 1 x 4 x 2 = 8 at p 4 and
+    # 2 x 4 x 2 = 16 interleaved, in either dtype (the backward
+    # recomputes the plain version: no launch)
+    "pipe_p4": ({"p": 4}, (0, 0, 0, 0, 8), 1),
+    "pipe_n2p2": ({"n": 2, "p": 2}, (0, 0, 0, 0, 16), 1),
     "pipe_f32_p4": ({"p": 4}, (0, 0, 0, 0, 8), 1),
     "pipe_f32_n2p2": ({"n": 2, "p": 2}, (0, 0, 0, 0, 16), 1),
     "moe_e4": ({"e": 4}, (0, 0, 0, 0, 0), 1),
@@ -5310,13 +5342,13 @@ def mesh_model(ft, name: str, mesh=None, strategies: bool = True):
     rng = np.random.default_rng(SEED)
     if name.startswith("pipe"):
         twin = "f32" in name
-        block = dict(schedule="interleaved",
-                     virtual_stages=2 if twin else 6) \
+        block = dict(schedule="interleaved", virtual_stages=2) \
             if name.endswith("n2p2") else {}
         if twin:
             return pipe_model(ft, dtype="float32", mesh=mesh,
                               **MESH_PIPE_TWIN, **block)
-        return pipe_model(ft, mesh=mesh, **block)
+        return pipe_model(ft, mesh=mesh, num_stages=MESH_PIPE_STAGES,
+                          **block)
     if name.startswith("moe") or name.startswith("composed"):
         composed = name.startswith("composed")
         twin = "f32" in name
@@ -5756,8 +5788,9 @@ def mesh_phase(ft, card: str) -> dict:
 # A.8b items 4-5 on the mesh's ranks: an in-process reshard of BERT-base
 # and the strategy-sharded generation engine
 # ----------------------------------------------------------------------
-# bert_reshard: BERT-base (bf16, batch 16, s 512, Adam) with the
-# bert_n2c2 strategies, 2 steps at {"n": 2, "c": 2}, the step-2
+# bert_reshard: BERT-base (bf16, batch 16, s 512, Adam; RESHARD_BERT_LAYERS
+# of its 12 layers, cut from 12 to make room for the calibration phase)
+# with the bert_n2c2 strategies, 2 steps at {"n": 2, "c": 2}, the step-2
 # checkpoint, FFModel.reshard in process to {"n": 4}, 2 more steps; the
 # reference is a model fixed at {"n": 4} that loads the checkpoint and
 # takes the same 2 steps.  Predicted launches a step on each rank (pool
@@ -5767,10 +5800,11 @@ def mesh_phase(ft, card: str) -> dict:
 # (BERT-base's widths at RESHARD_TWIN_LAYERS layers) must match its
 # reference bit for bit; bf16 is held by the L2 share (MESH_L2_SHARE)
 RESHARD_RUNS = {
-    "bert_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 12, 12, 24), 2),
+    "bert_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 6, 6, 12), 2),
     "bert_f32_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 2, 2, 4), 2),
 }
 RESHARD_TWIN_LAYERS = 2
+RESHARD_BERT_LAYERS = 6
 # gen_n2c2: the generation LM (GPT2 above) through
 # GenerationEngine.from_strategy at {"n": 2, "c": 2} (attention, FFN and
 # token embedding (2, 1, 2), tests/test_generation.py's strategy), 8
@@ -5792,13 +5826,15 @@ GEN_MESH_OPS = ("tok_embedding",) + tuple(
 
 def reshard_model(ft, name: str, mesh):
     """The reshard run's model on ``mesh`` and its batch: BERT-base
-    (bf16, Adam 1e-4) with the bert_n2c2 strategies, or its float32 twin
-    at RESHARD_TWIN_LAYERS layers; parameters from SEED."""
+    (bf16, Adam 1e-4) at RESHARD_BERT_LAYERS layers with the bert_n2c2
+    strategies, or its float32 twin at RESHARD_TWIN_LAYERS layers;
+    parameters from SEED."""
     import numpy as np
     from flexflow_tpu_torch.models import build_transformer
 
     twin = "f32" in name
-    arch = dict(BERT, num_layers=RESHARD_TWIN_LAYERS) if twin else BERT
+    arch = dict(BERT, num_layers=RESHARD_TWIN_LAYERS if twin
+                else RESHARD_BERT_LAYERS)
     cfg = ft.FFConfig(batch_size=BERT_BATCH, seed=SEED,
                       compute_dtype="float32" if twin else "bfloat16")
     cfg.strategies = mesh_tf_strategies(ft, arch["num_layers"], (2, 1, 2),
@@ -6442,6 +6478,247 @@ def search_phase(ft, card: str) -> dict:
     return out
 
 
+# the calibration phase: the graphs harvested (search_model's), the
+# partition degrees, best-of-N profile runs and iterations per op, the
+# fit rows per dispatch harvest (batches of the model's batch), and the
+# kernels each graph must launch while its ops are timed (pool fwd, pool
+# bwd, flash fwd, flash bwd, layernorm)
+CALIB_MODELS = ("alexnet", "bert", "inception_v3")
+CALIB_DEGREES = (1, 2)
+CALIB_SAMPLES = 1
+CALIB_ITERS = 4
+CALIB_FIT_BATCHES = 2
+CALIB_KERNELS = {"alexnet": (0, 1), "bert": (2, 3, 4),
+                 "inception_v3": (0, 1)}
+CALIB_SEARCH_BENCH = dict(num_devices=16, steps=96, budget=200,
+                          min_time_s=0.2)
+CALIB_TABLE = os.path.join(HERE, "build", "calibration",
+                           "h100_table.json")
+
+
+def calib_data(model, rng):
+    """CALIB_FIT_BATCHES batches of random inputs and labels for a
+    calibration model: token rows and 2 classes for BERT-base, images
+    and the model's classes for the CNNs."""
+    import numpy as np
+
+    n = CALIB_FIT_BATCHES * model.config.batch_size
+    shape = model.input_tensors[0].shape
+    if model.input_tensors[0].dtype == "int32":
+        x = rng.integers(0, BERT["vocab_size"], (n,) + shape[1:]).astype(
+            np.int32)
+        classes = BERT["num_classes"]
+    else:
+        x = rng.standard_normal((n,) + shape[1:]).astype(np.float32)
+        classes = model.layers[-1].outputs[0].shape[-1]
+    return x, rng.integers(0, classes, (n, 1)).astype(np.int32)
+
+
+def calib_optimizer(ft, name: str):
+    """search_model's optimizer for ``name``."""
+    if name == "bert":
+        return ft.AdamOptimizer(alpha=1e-4)
+    if name == "inception_v3":
+        return ft.SGDOptimizer(lr=0.001, momentum=0.9)
+    return ft.SGDOptimizer(lr=0.01)
+
+
+def calibration_phase(ft, card: str) -> dict:
+    """Harvest a CalibrationTable on the card, fit its step correction,
+    save and reload it, sweep its error, search and bench on it and
+    explain the calibrated strategy (see the module docstring, 17f);
+    returns the kernels' launches by graph, harvest and sweep together
+    (pool fwd, pool bwd, flash fwd, flash bwd, layernorm)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.analysis import (explain_report,
+                                             validate_explain_json)
+    from flexflow_tpu_torch.fflogger import silenced
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
+    from flexflow_tpu_torch.search import calibration as calib
+    from flexflow_tpu_torch.search.bench import bench_graph
+    from flexflow_tpu_torch.search.cost_model import spec_for_device
+    from flexflow_tpu_torch.search.decompose import \
+        data_parallel_strategies
+    from flexflow_tpu_torch.search.mcmc import (optimize_strategies,
+                                                search_simulator)
+    from flexflow_tpu_torch.strategy.proto import strategy_digest
+
+    counters = (cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward,
+                cuda_attention.flash_attention_forward,
+                cuda_attention.flash_attention_backward,
+                cuda_norm.fused_layernorm)
+    free_garbage()
+    torch.cuda.empty_cache()
+    kind = torch.cuda.get_device_name(0)
+    table = calib.CalibrationTable(device_kind=calib.device_kind("cuda"),
+                                   compute_dtype="bfloat16")
+    assert table.device_kind == kind, (table.device_kind, kind)
+    spec = spec_for_device()
+    rng = np.random.default_rng(SEED)
+    out = {"launches": {}}
+    layers, data = {}, {}
+    # 1. every op timed alone at degrees 1 and 2
+    for name in CALIB_MODELS:
+        model = search_model(ft, name)
+        layers[name] = model.layers
+        skipped = []
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        n = calib.harvest_ops(table, model.layers, compute_dtype="bfloat16",
+                              iters=CALIB_ITERS, degrees=CALIB_DEGREES,
+                              samples=CALIB_SAMPLES, device="cuda",
+                              skipped=skipped)
+        torch.cuda.synchronize()
+        launches = [f.launches for f in counters]
+        wall = time.perf_counter() - t0
+        print(f"calibration harvest {name}: {len(model.layers)} ops at "
+              f"degrees {list(CALIB_DEGREES)}, {n} measurements, table "
+              f"{len(table.ops)} entries, {len(skipped)} skipped, "
+              f"launches {launches} (pool fwd, pool bwd, flash fwd, flash "
+              f"bwd, layernorm), {wall:.3f} s wall [{card}]")
+        assert not skipped, skipped
+        for i in CALIB_KERNELS[name]:
+            assert launches[i] > 0, (name, launches)
+        out["launches"][name] = launches
+        # 2. the dispatch harvest through fit's epoch events
+        data[name] = calib_data(model, rng)
+        model.init_layers(seed=SEED)
+        with silenced("ff"):
+            ms = calib.harvest_train_dispatch(table, name, model,
+                                              *data[name])
+        assert ms is not None and ms > 0, ms
+        print(f"calibration dispatch {name}: fit's dispatch_ms {ms:.4f} ms "
+              f"a dispatch (the host's wall around one step's enqueue), "
+              f"batch {model.config.batch_size} [{card}]")
+        del model
+        free_garbage()
+        torch.cuda.empty_cache()
+    table.step_correction = calib._fit_dispatch_correction(
+        table, layers, device="cuda")
+    assert table.step_correction is not None
+    print(f"calibration step correction over {len(layers)} models: "
+          f"{json.dumps(table.step_correction)} [{card}]")
+    # 3. save, validate, reload
+    os.makedirs(os.path.dirname(CALIB_TABLE), exist_ok=True)
+    digest = table.save(CALIB_TABLE)
+    errs = calib.validate_file(CALIB_TABLE)
+    again = calib.CalibrationTable.load(CALIB_TABLE)
+    print(f"calibration table {os.path.relpath(CALIB_TABLE, HERE)}: "
+          f"{len(table.ops)} op entries, {len(table.dispatch)} dispatch "
+          f"entries, digest {digest}, reloaded {again.digest}, "
+          f"validate_file {errs}, device_kind {again.device_kind!r} "
+          f"[{card}]")
+    assert errs == [] and again.digest == digest
+    assert again.device_kind == kind
+    out["digest"] = digest
+    # 4. the error sweep: fresh per-op times and a synchronized fit
+    ests = {"table": calib.TableEstimator(again),
+            "ridge": calib.RidgeEstimator(again)}
+    rows = {e: [] for e in ests}
+    for name in CALIB_MODELS:
+        model = search_model(ft, name)
+        reset_counts(*counters)
+        with silenced("ff"):
+            by_est = calib.bench_model_rows(
+                name, model, *data[name], ests, again, spec,
+                compute_dtype="bfloat16", iters=CALIB_ITERS,
+                samples=CALIB_SAMPLES, seed=SEED,
+                optimizer=calib_optimizer(ft, name))
+        torch.cuda.synchronize()
+        out["launches"][name] = [a + f.launches for a, f in
+                                 zip(out["launches"][name], counters)]
+        disp = next(r["measured_ms"] for k, r in again.dispatch.items()
+                    if k.startswith(f"train|{name}|"))
+        for e, row in by_est.items():
+            rows[e].append(row)
+            p, t = row["per_op"], row["end_to_end"]
+            print(f"calibration bench {name} {e}: per-op MAPE analytic "
+                  f"{p['mape_analytic']} calibrated {p['mape_calibrated']} "
+                  f"over {p['n_measured']} ops; measured "
+                  f"{t['measured_ms_per_step']} ms a step (synchronized) "
+                  f"against fit's dispatch_ms {disp:.4f}; simulated "
+                  f"analytic {t['sim_analytic_ms']} ms (APE "
+                  f"{t['ape_analytic']}), calibrated "
+                  f"{t['sim_calibrated_ms']} ms (APE "
+                  f"{t['ape_calibrated']}) [{card}]")
+        del model
+        free_garbage()
+        torch.cuda.empty_cache()
+    for e, r in rows.items():
+        payload = {"kind": calib.BENCH_KIND, "version": calib.SCHEMA_VERSION,
+                   "bench": "calibrate-bench", "device_kind": kind,
+                   "calibration_digest": digest, "estimator": e,
+                   "step_correction": again.step_correction, "models": r}
+        assert calib.validate_bench(payload) == [], e
+        print(f"calibration bench {e} [{card}]: " + json.dumps(payload))
+    out["bench"] = rows
+    # 5. BERT-base searched for 4 devices on the table's objective
+    model = search_model(ft, "bert", calibration_file=CALIB_TABLE,
+                         cost_estimator="table")
+    sim = search_simulator(model, model.config, SEARCH_DEVICES)
+    assert sim.estimator is not None and sim.estimator.name == "table"
+    ana = search_simulator(model, dataclasses.replace(
+        model.config, calibration_file="", cost_estimator="auto"),
+        SEARCH_DEVICES)
+    stats = {}
+    t0 = time.perf_counter()
+    best, mesh = optimize_strategies(model, model.config,
+                                     num_devices=SEARCH_DEVICES,
+                                     budget=SEARCH_BUDGET, with_mesh=True,
+                                     sim=sim, stats=stats)
+    wall = time.perf_counter() - t0
+    assert sim.backend == "native", sim.backend
+    dp = data_parallel_strategies(model.layers, SEARCH_DEVICES)
+    dp_mesh = {"n": SEARCH_DEVICES}
+    got = {"best_table_ms": sim.simulate(model.layers, best,
+                                         mesh_shape=mesh) * 1e3,
+           "best_analytic_ms": ana.simulate(model.layers, best,
+                                            mesh_shape=mesh) * 1e3,
+           "dp_table_ms": sim.simulate(model.layers, dp,
+                                       mesh_shape=dp_mesh) * 1e3,
+           "dp_analytic_ms": ana.simulate(model.layers, dp,
+                                          mesh_shape=dp_mesh) * 1e3}
+    shape = {a: v for a, v in mesh.items() if v > 1}
+    print(f"calibration search bert: best mesh {shape}, simulated "
+          f"{got['best_table_ms']:.6f} ms under the table "
+          f"({got['best_analytic_ms']:.6f} under the analytic roofline), "
+          f"data parallel {got['dp_table_ms']:.6f} ms under the table "
+          f"({got['dp_analytic_ms']:.6f} analytic), session backend "
+          f"{sim.backend}, {stats['proposals']} proposals in {wall:.3f} s, "
+          f"digest {strategy_digest(best)} [{card}]")
+    out["search"] = dict(got, mesh=shape, digest=strategy_digest(best))
+    # 6. one search-bench row on the table
+    row = bench_graph("transformer", estimator=ests["table"],
+                      **CALIB_SEARCH_BENCH)
+    assert row["estimator"] == "table"
+    assert row["calibration_digest"] == digest
+    print(f"calibration search-bench transformer ({row['num_ops']} ops, "
+          f"{row['num_devices']} devices, table): "
+          f"{row['proposals_per_sec_delta']} proposals a second delta "
+          f"against {row['proposals_per_sec_full']} full (x"
+          f"{row['speedup']}), backend {row['backend']}, best "
+          f"{row['best_simulated_ms']} ms, mesh {row['best_mesh']} "
+          f"[{card}]")
+    # 7. the explain report of the calibrated strategy
+    rep = explain_report("bert", model.layers, best, mesh_shape=shape,
+                         num_devices=SEARCH_DEVICES)
+    errs = validate_explain_json(rep)
+    tl = rep["memory_timeline"]
+    print(f"calibration explain bert on {rep['mesh']}: comm plan "
+          f"{rep['comm_plan_digest']} ({rep['comm_plan']['totals']}), "
+          f"peak {tl['peak_bytes'] / 1e9:.3f} GB against "
+          f"hbm_capacity_bytes {tl['hbm_capacity_bytes'] / 1e9:.1f} GB, "
+          f"{len(rep['predicted_fallbacks'])} predicted fallbacks, "
+          f"validate_explain_json {errs} [{card}]")
+    assert errs == [], errs
+    del model, sim, ana
+    free_garbage()
+    return out
+
+
 def mesh_search_rank(ft, name: str, rank: int, workdir: str, counters,
                      card: str) -> dict:
     """A search run on one rank: BERT-base (or its float32 twin)
@@ -6671,6 +6948,7 @@ def main() -> int:
     bpin = phase("bert pinned", bert_precision_phase, ft, counters, card)
     phase("verifier", verifier_phase, ft, card)
     tsearch = phase("search", search_phase, ft, card)
+    tcalib = phase("calibration", calibration_phase, ft, card)
     # last: each engine thread that ran a matmul leaves its cuBLAS
     # workspace (32 MiB a concurrently used handle) allocated, which no
     # training step's peak above may count
@@ -6771,6 +7049,13 @@ def main() -> int:
     fwd_paths["search_measure_alexnet"] = sl["search_measure_alexnet"][0]
     bwd_paths["search_measure_alexnet"] = sl["search_measure_alexnet"][1]
     search_bert = {"search_measure_bert": sl["search_measure_bert"]}
+    # the calibration phase's launches while it timed each graph's ops
+    # (harvest and error sweep)
+    cl = tcalib["launches"]
+    for name in ("alexnet", "inception_v3"):
+        fwd_paths[f"calibration_{name}"] = cl[name][0]
+        bwd_paths[f"calibration_{name}"] = cl[name][1]
+    search_bert["calibration_bert"] = cl["bert"]
     lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",

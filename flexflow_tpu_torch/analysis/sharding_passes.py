@@ -12,10 +12,16 @@ THOSE functions over the whole graph against a device-free
   (:func:`predict_fallbacks`);
 * **communication plan** — per-edge reshard/allgather volumes from
   producer/consumer spec mismatches plus per-parameter gradient
-  allreduce volumes (:func:`communication_plan`), and its digest.
+  allreduce volumes (:func:`communication_plan`), and its digest;
+* **the ``explain`` report** (:func:`explain_report`,
+  :func:`render_explain_text`, :func:`validate_explain_json`): the
+  propagation, the predicted fallbacks, the communication plan and the
+  liveness memory timeline (``Simulator.memory_timeline``, FF121) of one
+  (graph, strategy, mesh), with the KV cache of a generation deployment
+  when one is sized.
 
-The ``explain`` report needs the time simulation and the KV-cache
-accounting, which come with the search and the generation engine.
+Everything here is device-free: a 64-device mesh is interpreted on a
+machine with no card.
 """
 
 from __future__ import annotations
@@ -265,3 +271,227 @@ def comm_plan_digest_for_model(model) -> str:
     mesh = AbstractMesh(sizes)
     return comm_plan_digest(communication_plan(
         model.layers, strategies, mesh))
+
+
+# ---------------------------------------------------------------------
+# the `explain` report
+# ---------------------------------------------------------------------
+
+def explain_report(model_name: str, layers: List[Op],
+                   strategies: Optional[Dict[str, ParallelConfig]],
+                   mesh_shape: Optional[MeshShape] = None,
+                   num_devices: Optional[int] = None,
+                   dtype_bytes: int = 2, spec=None,
+                   opt_slot_bytes: int = 4,
+                   sparse_tables=frozenset(),
+                   serve_slots: int = 0,
+                   serve_seq: int = 0,
+                   serve_kv_page: int = 0,
+                   serve_kv_pages: int = 0) -> Dict:
+    """The device-free ``explain`` payload: propagated sharding summary,
+    predicted FF120 fallbacks, the communication plan (+ digest), and
+    the liveness memory timeline against ``spec.hbm_capacity`` (default
+    spec: the card's).  ``mesh_shape`` defaults to the static inference
+    lint runs (``strategy_passes.infer_mesh_shape``).
+    ``serve_slots``/``serve_seq`` > 0 size a token-generation
+    deployment: the KV cache (``analysis.kv_memory``, the engine's own
+    accounting) rides in the timeline's resident state and a
+    ``kv_cache`` section is added."""
+    from ..search.cost_model import spec_for_device
+    from ..search.simulator import Simulator
+    from .strategy_passes import infer_mesh_shape
+
+    strategies = strategies or {}
+    if mesh_shape is None:
+        mesh_shape, _over = infer_mesh_shape(
+            strategies, layers, num_devices or 10 ** 9)
+    mesh_shape = {k: int(v) for k, v in mesh_shape.items() if int(v) > 1} \
+        or {"n": 1}
+    notes: List[str] = []
+    try:
+        # num_devices None -> the mesh product, never a false
+        # machine-too-small note
+        mesh = AbstractMesh(mesh_shape, num_devices=num_devices)
+    except ValueError:
+        # the machine is SMALLER than the mesh: still explain the plan
+        # (the report is device-free), and say so (lint reports the same
+        # condition as FF112)
+        mesh = AbstractMesh(mesh_shape)
+        notes.append(
+            f"requested machine of {num_devices} device(s) is smaller "
+            f"than the mesh product {mesh.num_devices}; explaining the "
+            f"mesh itself (flexflow-tpu lint reports this as FF112)")
+    specs, fallbacks = propagate_specs(layers, strategies, mesh)
+    plan = communication_plan(layers, strategies, mesh,
+                              dtype_bytes=dtype_bytes,
+                              sparse_tables=sparse_tables)
+    spec = spec or spec_for_device()
+    sim = Simulator(spec=spec, num_devices=mesh.num_devices,
+                    use_native=False, dtype_bytes=dtype_bytes,
+                    opt_slot_bytes=opt_slot_bytes,
+                    sparse_tables=sparse_tables)
+    kv_bytes = 0.0
+    kv_section = None
+    if serve_slots > 0 and serve_seq > 0:
+        from .kv_memory import kv_page_plan
+        kv_plan = kv_page_plan(layers, mesh_shape, serve_slots,
+                               serve_seq, kv_dtype_bytes=dtype_bytes,
+                               page_size=serve_kv_page,
+                               num_pages=serve_kv_pages)
+        kv_bytes = kv_plan["total_bytes"]
+        kv_section = {"slots": int(serve_slots),
+                      "max_seq": int(serve_seq),
+                      "page_size": kv_plan["page_size"],
+                      "num_pages": kv_plan["num_pages"],
+                      "page_bytes": kv_plan["page_bytes"],
+                      "pool_bytes": kv_plan["pool_bytes"],
+                      "state_bytes": kv_plan["state_bytes"],
+                      "bytes_per_device": kv_bytes}
+    timeline = sim.memory_timeline(layers, strategies, mesh_shape,
+                                   assume_remat=False,
+                                   extra_state_bytes=kv_bytes)
+    sharded = sum(1 for entries in specs.values()
+                  if any(e not in (None, ()) for e in entries))
+    return {
+        **({"kv_cache": kv_section} if kv_section else {}),
+        "report": "explain",
+        "model": model_name,
+        "mesh": dict(mesh.sizes),
+        "num_devices": mesh.num_devices,
+        "notes": notes,
+        "ops": len(layers),
+        "edges_propagated": len(specs),
+        "tensors_sharded": sharded,
+        "predicted_fallbacks": [
+            {"op": name, "dim": dim, "degree": deg, "axis": axis,
+             "axis_size": axis_size, "reason": reason}
+            for (name, dim, deg, axis, axis_size, reason)
+            in sorted(fallbacks)],
+        "comm_plan": plan,
+        "comm_plan_digest": comm_plan_digest(plan),
+        "memory_timeline": {
+            "state_bytes": timeline["state_bytes"],
+            "peak_bytes": timeline["peak_bytes"],
+            "peak_event": timeline["peak_event"],
+            "peak_owners": timeline["peak_owners"],
+            "events": len(timeline["events"]),
+            "hbm_capacity_bytes": float(spec.hbm_capacity),
+        },
+    }
+
+
+def render_explain_text(rep: Dict, top: int = 8) -> str:
+    """Human rendering of an explain report."""
+    lines = [
+        f"explain: {rep['model']} on mesh "
+        f"{ {k: v for k, v in rep['mesh'].items() if v > 1} or {'n': 1} } "
+        f"({rep['num_devices']} device(s))",
+        f"  {rep['ops']} ops, {rep['edges_propagated']} tensor specs "
+        f"propagated, {rep['tensors_sharded']} sharded",
+    ]
+    for note in rep.get("notes", ()):
+        lines.append(f"  NOTE: {note}")
+    fb = rep["predicted_fallbacks"]
+    if fb:
+        lines.append(f"  predicted replicate fallbacks (FF120): {len(fb)}")
+        for s in fb[:top]:
+            lines.append(
+                f"    {s['op']}: degree {s['degree']} on dim {s['dim']} "
+                f"({s['reason']})")
+    else:
+        lines.append("  predicted replicate fallbacks (FF120): none — "
+                     "the strategy executes as written")
+    t = rep["comm_plan"]["totals"]
+    lines.append(
+        f"  comm plan [{rep['comm_plan_digest']}]: "
+        f"{t['edges']} partition seam(s) "
+        f"({t['edge_bytes_per_step'] / 1e6:.2f} MB/step), "
+        f"{t['allreduces']} weight allreduce(s) "
+        f"({t['allreduce_bytes_per_step'] / 1e6:.2f} MB/step), "
+        f"{t['collectives_per_step']} collective(s)/step")
+    for e in rep["comm_plan"]["edges"][:top]:
+        lines.append(
+            f"    {e['kind']:9s} {e['src']} -> {e['dst']}: "
+            f"{e['bytes_per_step'] / 1e6:.2f} MB/step "
+            f"(split {tuple(e['producer_dims'])} -> "
+            f"{tuple(e['consumer_dims'])})")
+    for w in rep["comm_plan"]["weight_sync"][:top]:
+        lines.append(
+            f"    allreduce {w['param']}: "
+            f"{w['bytes_per_step'] / 1e6:.2f} MB/step "
+            f"x{w['replicas']} replicas"
+            + (" (sparse rows)" if w.get("sparse_rows_only") else ""))
+    m = rep["memory_timeline"]
+    kv = rep.get("kv_cache")
+    if kv:
+        lines.append(
+            f"  KV cache: {kv['slots']} decode slot(s) x "
+            f"{kv['max_seq']} positions = "
+            f"{kv['bytes_per_device'] / 1e6:.2f} MB/device "
+            f"({kv['num_pages']} pages of {kv['page_size']} tokens; "
+            f"resident in the timeline below)")
+    lines.append(
+        f"  HBM timeline: state {m['state_bytes'] / 1e9:.3f} GB, "
+        f"high-water {m['peak_bytes'] / 1e9:.3f} GB at "
+        f"{m['peak_event']['phase']} {m['peak_event']['op']!r} "
+        f"(budget {m['hbm_capacity_bytes'] / 1e9:.1f} GB)")
+    for o in m["peak_owners"]:
+        lines.append(f"    peak owner {o['op']}: "
+                     f"{o['act_bytes'] / 1e6:.2f} MB resident")
+    return "\n".join(lines)
+
+
+def validate_explain_json(obj) -> List[str]:
+    """Schema check for an explain report; returns problem strings
+    (empty = valid)."""
+    probs: List[str] = []
+
+    def want(cond, msg):
+        if not cond:
+            probs.append(msg)
+
+    want(isinstance(obj, dict), "report must be an object")
+    if not isinstance(obj, dict):
+        return probs
+    want(obj.get("report") == "explain", "report != 'explain'")
+    for key, typ in (("model", str), ("mesh", dict), ("num_devices", int),
+                     ("ops", int), ("predicted_fallbacks", list),
+                     ("comm_plan", dict), ("comm_plan_digest", str),
+                     ("memory_timeline", dict)):
+        want(isinstance(obj.get(key), typ), f"{key}: want {typ.__name__}")
+    want(isinstance(obj.get("notes", []), list), "notes: want a list")
+    for s in obj.get("predicted_fallbacks", []) or []:
+        want(isinstance(s, dict)
+             and isinstance(s.get("op"), str)
+             and isinstance(s.get("dim"), int)
+             and isinstance(s.get("degree"), int)
+             and isinstance(s.get("reason"), str),
+             f"malformed fallback site {s!r}")
+    plan = obj.get("comm_plan")
+    if isinstance(plan, dict):
+        want(isinstance(plan.get("edges"), list), "comm_plan.edges")
+        want(isinstance(plan.get("weight_sync"), list),
+             "comm_plan.weight_sync")
+        totals = plan.get("totals")
+        want(isinstance(totals, dict), "comm_plan.totals")
+        for e in plan.get("edges", []) or []:
+            want(isinstance(e, dict)
+                 and e.get("kind") in ("allgather", "reshard", "slice")
+                 and isinstance(e.get("bytes_per_step"), int),
+                 f"malformed edge {e!r}")
+        for w in plan.get("weight_sync", []) or []:
+            want(isinstance(w, dict) and w.get("kind") == "allreduce"
+                 and isinstance(w.get("bytes_per_step"), int)
+                 and isinstance(w.get("replicas"), int),
+                 f"malformed weight_sync {w!r}")
+        if isinstance(obj.get("comm_plan_digest"), str):
+            want(obj["comm_plan_digest"] == comm_plan_digest(plan),
+                 "comm_plan_digest does not match the plan content")
+    tl = obj.get("memory_timeline")
+    if isinstance(tl, dict):
+        for key in ("state_bytes", "peak_bytes", "hbm_capacity_bytes"):
+            want(isinstance(tl.get(key), (int, float)),
+                 f"memory_timeline.{key}")
+        want(isinstance(tl.get("peak_owners"), list),
+             "memory_timeline.peak_owners")
+    return probs

@@ -63,6 +63,7 @@ import math
 import threading
 import time
 import traceback
+from time import perf_counter as _perf_counter
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -472,17 +473,21 @@ class FFModel:
 
         Raises ValueError for a strategy that needs more devices than
         the mesh has, for ``gradient_accumulation_steps`` or
-        ``steps_per_dispatch`` below 1 and for a batch size that does not
-        divide into the microbatches, and NotImplementedError for what
-        the port cannot run yet (a multi-device mesh in a process without
-        a process group, a trace directory, a calibrated cost model),
-        each naming the roadmap item that lifts it.
+        ``steps_per_dispatch`` below 1, for a batch size that does not
+        divide into the microbatches and for a calibration setting that
+        does not resolve (a ``calibration_file`` that does not load, an
+        unknown ``cost_estimator`` or one that needs a table), and
+        NotImplementedError for what the port cannot run yet (a
+        multi-device mesh in a process without a process group, a trace
+        directory), each naming the roadmap item that lifts it.
 
         ``search_budget > 0`` (and no ``import_strategy_file``) runs the
         strategy search first (``search.mcmc.optimize_strategies``, as
         the JAX package's compile does) for the process group's devices
         (or ``config.num_devices``), on the model's device, and pins
-        ``config.mesh_shape`` to the searched mesh when it is unset."""
+        ``config.mesh_shape`` to the searched mesh when it is unset; the
+        search's objective is calibrated by ``calibration_file`` and
+        ``cost_estimator`` when they are set."""
         cfg = self.config
         if mesh is not None:
             if not isinstance(mesh, MachineMesh):
@@ -505,7 +510,7 @@ class FFModel:
             raise NotImplementedError(
                 "not ported yet (ROADMAP A.11): trace_dir")
         from .search.calibration import estimator_from_config
-        estimator_from_config(cfg)   # refuses a calibrated cost model
+        estimator_from_config(cfg)   # a bad calibration setting fails here
         if cfg.gradient_accumulation_steps < 1:
             raise ValueError(
                 f"gradient_accumulation_steps must be >= 1, got "
@@ -1948,8 +1953,15 @@ class FFModel:
         epoch.  The ``FF_FAULT`` training hooks fire after every window
         (kill, hang, slow rank, then the grow/shrink reshards).
         ``config.profiling`` prints ``profiling.profile_model``'s per-op
-        table first.  The per-epoch JSON event, the metrics registry and
-        span tracing come with the tooling slice (ROADMAP A.11)."""
+        table first.  Every epoch emits the ``ff`` logger's ``epoch``
+        event (the JAX package's fields: ``epoch``, ``step``,
+        ``samples``, ``elapsed_s``, ``steps_per_dispatch``,
+        ``dispatches``, ``dispatch_ms`` — the mean host wall time around
+        one window's dispatch, which in eager CUDA is its enqueue unless
+        the queue is full — and the epoch's metric and validation
+        scalars) and feeds the metrics registry's ``ff_train_*``
+        counters and gauge.  Span tracing comes with the tooling slice
+        (ROADMAP A.11)."""
         self._check_not_quantized("fit")
         cfg = self.config
         epochs = epochs or cfg.epochs
@@ -1974,6 +1986,7 @@ class FFModel:
         loader = PrefetchLoader(self, xs, y, batch_size=bs,
                                 steps_per_dispatch=k, pad_tail=pad)
         t_start = time.time()
+        t_fit = _perf_counter()
         total_samples = 0
         val_time = 0.0
         for epoch in range(epochs):
@@ -1981,9 +1994,14 @@ class FFModel:
                 cb.on_epoch_begin(epoch)
             self.perf_metrics = metrics_mod.PerfMetrics()
             epoch_losses, epoch_sums = [], []
+            dispatches, dispatch_time = 0, 0.0
+            epoch_step0 = self._step
             for window, nvalid in loader.iter_windows():
                 start = self._step
+                t_d = _perf_counter()
                 losses_, sums_ = self._run_window(window, nvalid)
+                dispatch_time += _perf_counter() - t_d
+                dispatches += 1
                 self._window_faults(start, self._step)
                 epoch_losses.extend(losses_)
                 epoch_sums.extend(sums_)
@@ -2003,6 +2021,9 @@ class FFModel:
                                     for k, v in val_pm.scalars().items()
                                     if k != "samples_seen"})
                 self.perf_metrics.val_scalars = val_scalars
+            self._epoch_record(epoch, epoch_step0, total_samples, t_fit,
+                               k, dispatches, dispatch_time,
+                               loader.num_samples_used, val_scalars)
             for cb in callbacks:
                 cb.on_epoch_end(epoch, self.perf_metrics)
             stopping = any(getattr(cb, "stop_training", False)
@@ -2028,6 +2049,39 @@ class FFModel:
         for cb in callbacks:
             cb.on_train_end()
         return self.perf_metrics
+
+    def _epoch_record(self, epoch: int, epoch_step0: int,
+                      total_samples: int, t_fit: float, k: int,
+                      dispatches: int, dispatch_time: float,
+                      epoch_samples: int, val_scalars: Dict) -> None:
+        """One epoch's train-loop numbers into the process metrics
+        registry and the ``ff`` logger's ``epoch`` event, as the JAX
+        package's ``fit`` records them: a ``/metrics`` scrape and the
+        event report the same numbers.  ``elapsed_s`` counts from
+        ``t_fit``, a ``perf_counter`` reading at ``fit``'s start."""
+        from .fflogger import get_logger
+        from .obs.registry import get_registry
+        dispatch_ms = dispatch_time / max(1, dispatches) * 1e3
+        reg = get_registry()
+        reg.counter("ff_train_steps_total",
+                    "Optimizer steps executed").labels().inc(
+            self._step - epoch_step0)
+        reg.counter("ff_train_dispatches_total",
+                    "Training dispatches (fused windows count "
+                    "once)").labels().inc(dispatches)
+        reg.counter("ff_train_samples_total",
+                    "Training samples consumed").labels().inc(epoch_samples)
+        reg.gauge("ff_train_dispatch_ms",
+                  "Mean wall ms per training dispatch, last "
+                  "epoch").labels().set(dispatch_ms)
+        get_logger("ff").event(
+            "epoch", epoch=epoch, step=self._step, samples=total_samples,
+            elapsed_s=round(_perf_counter() - t_fit, 3),
+            steps_per_dispatch=k, dispatches=dispatches,
+            dispatch_ms=round(dispatch_ms, 3),
+            **{mk: round(float(v), 6)
+               for mk, v in {**self.perf_metrics.scalars(),
+                             **val_scalars}.items()})
 
     def evaluate(self, x, y, batch_size: Optional[int] = None):
         """Batched evaluation over every sample: the last batch is

@@ -1,14 +1,262 @@
-"""The start of the JAX package's ``search/calibration.py``: the content
-digest its tables and the warm-start store share, and the uncalibrated
-branch of ``estimator_from_config``.  The calibration tables, the table
-and ridge estimators, harvesting and ``calibrate`` are ROADMAP A.9b.
+"""Profile-calibrated cost model, the JAX package's
+``search/calibration.py``: measured op and dispatch times fed back into
+the strategy search.
+
+The simulator's analytic roofline (``cost_model.py``) prices an op from
+the H100 data sheet's peaks; what the port runs on the card (eager
+torch, cuBLAS float32 GEMMs, the hand-written kernels, the host's
+enqueue) can sit far from it.  This module measures and corrects, as
+"A Learned Performance Model for TPUs" (arXiv 2008.01040) and
+"Learning to Optimize Tensor Programs" (arXiv 1805.08166) prescribe.
+
+Three layers:
+
+* :class:`CalibrationTable` — a versioned on-disk record of measured
+  timings, keyed ``op-type × shape-bucket × dtype × partition-degree``,
+  with device-kind and content-digest metadata.  Harvested from
+  - the per-op microbench path (``profiling.profile_op``, the same
+    CUDA-event timing the simulator's measure mode uses), and
+  - the per-dispatch wall times of the train and serve loops (``fit``'s
+    ``dispatch_ms`` epoch events; the serving engine's per-bucket
+    ``dispatch_ms`` percentiles).
+  :func:`default_table` loads ``calibration_seed.json``, a byte-for-byte
+  copy of the JAX package's seed record, kept so a table either package
+  writes reads alike in the other; it was measured on another device.
+
+* :class:`CostEstimator` — the pluggable per-op time model the
+  :class:`~flexflow_tpu_torch.search.simulator.Simulator` consults.
+  ``AnalyticEstimator`` is the simulator's own roofline bit for bit (an
+  uncalibrated run — ``estimator=None`` — never constructs one, so the
+  default path is unchanged).  ``TableEstimator`` rescales the analytic
+  time by the measured/analytic ratio of the nearest table entry.
+  ``RidgeEstimator`` fits a ridge regression over op features (FLOPs,
+  elements in and out, fan-in and -out, partition degrees: the
+  2008.01040 feature set) in log space and predicts absolute times.
+
+* :func:`calibrate_main` / :func:`calibrate_bench_main` — harvest a table
+  from the model zoo on the card, validate it (``--check``: schema and
+  digest), and report the simulated-against-measured error (per-op and
+  end-to-end, analytic against calibrated).  Run them as
+  ``python -m flexflow_tpu_torch.search.calibration calibrate ...`` and
+  ``... calibrate-bench ...``.
+
+Every roofline here is the one the simulator charges on the same device:
+``op_compute_time`` with the run's ``device`` and ``compute_dtype``
+(attention's flash rule), so the analytic time a harvest divides by is
+the number a lookup rescales.
+
+Comm-side calibration threads through :func:`calibrated_spec`: a table
+may carry ``DeviceSpec`` field overrides (measured effective bandwidths)
+and a temporaries factor; rebuilding the Simulator or verifier spec from
+them rescales ``transfer_time``/``allreduce_time`` and the FF108 memory
+pass alike — the native engine receives the same spec numbers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
-from typing import Dict, Optional, Tuple
+import math
+import os
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .cost_model import (DeviceSpec, op_compute_time, precision_dtype_bytes,
+                         spec_for_device)
+
+SCHEMA_VERSION = 1
+TABLE_KIND = "calibration_table"
+BENCH_KIND = "calib_bench"
+
+_SEED_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "calibration_seed.json")
+
+
+# ---------------------------------------------------------------------------
+# keys and features
+# ---------------------------------------------------------------------------
+
+def _pow2(n: int) -> int:
+    """Smallest power of two >= max(1, n)."""
+    n = max(1, int(n))
+    return 1 << (n - 1).bit_length()
+
+
+def shape_bucket(shape: Sequence[int]) -> str:
+    """Per-dim power-of-two bucket string, e.g. ``(24, 35, 100)`` ->
+    ``"32x64x128"``: nearby shapes share a bucket (and so a calibration
+    entry) without collapsing rank or aspect ratio."""
+    return "x".join(str(_pow2(s)) for s in shape)
+
+
+def table_key(op_type: str, out_shape: Sequence[int], dtype: str,
+              nparts: int) -> str:
+    """The calibration key: op-type × shape-bucket × dtype ×
+    partition-degree.  ``out_shape`` is the op's FULL (logical) output
+    shape; ``nparts`` the product of the partition degrees — the pair
+    the simulator holds when it asks for one partition's time, so
+    harvest and lookup cannot disagree."""
+    return f"{op_type}|{shape_bucket(out_shape)}|{dtype}|p{int(nparts)}"
+
+
+def _nparts(dims: Sequence[int]) -> int:
+    n = 1
+    for d in dims:
+        n *= int(d)
+    return max(1, n)
+
+
+def op_key(op, dims: Sequence[int], dtype: str) -> str:
+    return table_key(op.op_type.value, op.outputs[0].shape, dtype,
+                     _nparts(dims))
+
+
+def op_features(op, dims: Sequence[int]) -> Dict[str, float]:
+    """The 2008.01040-style feature vector of one (op, partitioning):
+    total FLOPs, element counts in and out, weight elements, fan-in and
+    -out and the partition degree.  Stored per table entry so a learned
+    estimator can be fit from the table alone."""
+    nparts = _nparts(dims)
+    return {
+        "flops": float(op.flops()),
+        "in_elems": float(sum(t.volume for t in op.inputs)),
+        "out_elems": float(sum(t.volume for t in op.outputs)),
+        "weight_elems": float(sum(w.volume for w in op.weights)),
+        "fan_in": float(len(op.inputs)),
+        "fan_out": float(len(op.outputs)),
+        "nparts": float(nparts),
+        "out_volume": float(op.outputs[0].volume),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the on-disk table
+# ---------------------------------------------------------------------------
+
+class CalibrationTable:
+    """Measured-timing record: ``ops[key] = {features, fwd, bwd}`` with
+    ``{analytic_ms, measured_ms, n}`` per direction (running means over
+    ``n`` merged samples), per-dispatch entries from the train and serve
+    loops, optional DeviceSpec overrides, and digest/device metadata.
+    The JSON is the JAX package's: a table either package saves loads in
+    the other with the same digest."""
+
+    def __init__(self, device_kind: str = "unknown",
+                 compute_dtype: str = "bfloat16",
+                 source: str = "flexflow_tpu_torch calibrate"):
+        self.version = SCHEMA_VERSION
+        self.device_kind = device_kind
+        self.compute_dtype = compute_dtype
+        self.source = source
+        self.spec: Dict[str, float] = {}
+        self.xla_temp_factor: Optional[float] = None
+        self.ops: Dict[str, Dict] = {}
+        self.dispatch: Dict[str, Dict] = {}
+        # optional dispatch-level power-law correction (fit_step_correction)
+        self.step_correction: Optional[Dict] = None
+
+    # -- mutation ----------------------------------------------------
+    @staticmethod
+    def _merge(rec: Optional[Dict], analytic_ms: float, measured_ms: float,
+               n: int = 1) -> Dict:
+        if rec is None:
+            return {"analytic_ms": float(analytic_ms),
+                    "measured_ms": float(measured_ms), "n": int(n)}
+        tot = rec["n"] + n
+        rec = dict(rec)
+        rec["measured_ms"] = (rec["measured_ms"] * rec["n"]
+                              + measured_ms * n) / tot
+        rec["analytic_ms"] = (rec["analytic_ms"] * rec["n"]
+                              + analytic_ms * n) / tot
+        rec["n"] = tot
+        return rec
+
+    def add_op_sample(self, key: str, features: Dict[str, float],
+                      fwd_analytic_ms: float, fwd_measured_ms: float,
+                      bwd_analytic_ms: Optional[float] = None,
+                      bwd_measured_ms: Optional[float] = None,
+                      n: int = 1) -> None:
+        entry = self.ops.get(key) or {"features": dict(features),
+                                      "fwd": None, "bwd": None}
+        entry["fwd"] = self._merge(entry["fwd"], fwd_analytic_ms,
+                                   fwd_measured_ms, n)
+        if bwd_measured_ms is not None and bwd_analytic_ms is not None \
+                and bwd_measured_ms == bwd_measured_ms:  # not NaN
+            entry["bwd"] = self._merge(entry["bwd"], bwd_analytic_ms,
+                                       bwd_measured_ms, n)
+        self.ops[key] = entry
+
+    def add_dispatch_sample(self, key: str, measured_ms: float,
+                            n: int = 1, **meta) -> None:
+        rec = self.dispatch.get(key)
+        if rec is None:
+            rec = {"measured_ms": float(measured_ms), "n": int(n), **meta}
+        else:
+            tot = rec["n"] + n
+            rec = dict(rec)
+            rec["measured_ms"] = (rec["measured_ms"] * rec["n"]
+                                  + measured_ms * n) / tot
+            rec["n"] = tot
+            rec.update(meta)
+        self.dispatch[key] = rec
+
+    # -- (de)serialization -------------------------------------------
+    def _payload(self) -> Dict:
+        return {
+            "kind": TABLE_KIND,
+            "version": self.version,
+            "device_kind": self.device_kind,
+            "compute_dtype": self.compute_dtype,
+            "source": self.source,
+            "spec": self.spec,
+            "xla_temp_factor": self.xla_temp_factor,
+            "step_correction": self.step_correction,
+            "ops": self.ops,
+            "dispatch": self.dispatch,
+        }
+
+    @property
+    def digest(self) -> str:
+        return content_digest(self._payload())
+
+    def to_json(self) -> Dict:
+        return {**self._payload(), "digest": self.digest}
+
+    def save(self, path: str) -> str:
+        """Atomic write (tmp + rename: a crashed harvest must not leave
+        a truncated table at the final name).  Returns the digest."""
+        d = self.to_json()
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(d, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+        return d["digest"]
+
+    @classmethod
+    def from_json(cls, data: Dict) -> "CalibrationTable":
+        errs = validate_table(data)
+        if errs:
+            raise ValueError("invalid calibration table: "
+                             + "; ".join(errs[:5]))
+        t = cls(device_kind=data["device_kind"],
+                compute_dtype=data.get("compute_dtype", "bfloat16"),
+                source=data.get("source", ""))
+        t.version = data["version"]
+        t.spec = dict(data.get("spec") or {})
+        t.xla_temp_factor = data.get("xla_temp_factor")
+        t.step_correction = (dict(data["step_correction"])
+                             if data.get("step_correction") else None)
+        t.ops = {k: dict(v) for k, v in data.get("ops", {}).items()}
+        t.dispatch = {k: dict(v)
+                      for k, v in data.get("dispatch", {}).items()}
+        return t
+
+    @classmethod
+    def load(cls, path: str) -> "CalibrationTable":
+        with open(path) as f:
+            return cls.from_json(json.load(f))
 
 
 def content_digest(payload: Dict) -> str:
@@ -21,18 +269,1078 @@ def content_digest(payload: Dict) -> str:
     return "sha256:" + hashlib.sha256(blob).hexdigest()[:16]
 
 
-def estimator_from_config(cfg) -> Tuple[Optional[object], Optional[object]]:
+def _check_rec(rec, where: str, errs: List[str]) -> None:
+    if rec is None:
+        return
+    if not isinstance(rec, dict):
+        errs.append(f"{where}: not an object")
+        return
+    for f in ("analytic_ms", "measured_ms", "n"):
+        v = rec.get(f)
+        if not isinstance(v, (int, float)) or v != v or v < 0:
+            errs.append(f"{where}.{f}: want a non-negative number, "
+                        f"got {v!r}")
+
+
+def validate_table(data: Dict) -> List[str]:
+    """Schema errors for a calibration-table JSON (empty = valid).
+    Digest mismatches are reported too: a hand-edited table must not
+    pass for the one that was harvested."""
+    errs: List[str] = []
+    if not isinstance(data, dict):
+        return ["top level: want an object"]
+    if data.get("kind") != TABLE_KIND:
+        errs.append(f"kind: want {TABLE_KIND!r}, got {data.get('kind')!r}")
+    if not isinstance(data.get("version"), int):
+        errs.append("version: want an int")
+    elif data["version"] > SCHEMA_VERSION:
+        errs.append(f"version {data['version']} is newer than this "
+                    f"reader ({SCHEMA_VERSION})")
+    if not isinstance(data.get("device_kind"), str):
+        errs.append("device_kind: want a string")
+    ops = data.get("ops", {})
+    if not isinstance(ops, dict):
+        errs.append("ops: want an object")
+        ops = {}
+    for key, entry in ops.items():
+        if not isinstance(entry, dict):
+            errs.append(f"ops[{key!r}]: not an object")
+            continue
+        if len(key.split("|")) != 4:
+            errs.append(f"ops[{key!r}]: key is not "
+                        "op-type|shape-bucket|dtype|pN")
+        if entry.get("fwd") is None:
+            errs.append(f"ops[{key!r}]: missing fwd record")
+        _check_rec(entry.get("fwd"), f"ops[{key!r}].fwd", errs)
+        _check_rec(entry.get("bwd"), f"ops[{key!r}].bwd", errs)
+        feats = entry.get("features")
+        if not isinstance(feats, dict):
+            errs.append(f"ops[{key!r}].features: want an object")
+    disp = data.get("dispatch", {})
+    if not isinstance(disp, dict):
+        errs.append("dispatch: want an object")
+        disp = {}
+    for key, rec in disp.items():
+        if not isinstance(rec, dict) or not isinstance(
+                rec.get("measured_ms"), (int, float)):
+            errs.append(f"dispatch[{key!r}]: want "
+                        "{{measured_ms: number, ...}}")
+    spec = data.get("spec", {})
+    if spec:
+        known = {f.name for f in dataclasses.fields(DeviceSpec)}
+        for k, v in spec.items():
+            if k not in known:
+                errs.append(f"spec.{k}: not a DeviceSpec field")
+            elif not isinstance(v, (int, float)) or v != v \
+                    or abs(v) == float("inf"):
+                # calibrated_spec() float()s these: a non-numeric value
+                # must fail --check, not crash a search downstream
+                errs.append(f"spec.{k}: want a finite number, got {v!r}")
+    xtf = data.get("xla_temp_factor")
+    if xtf is not None and (not isinstance(xtf, (int, float))
+                            or xtf != xtf or abs(xtf) == float("inf")
+                            or xtf <= 0):
+        errs.append(f"xla_temp_factor: want a positive finite number, "
+                    f"got {xtf!r}")
+    sc = data.get("step_correction")
+    if sc is not None:
+        if not isinstance(sc, dict):
+            errs.append("step_correction: want an object or null")
+        else:
+            for f in ("alpha", "beta"):
+                v = sc.get(f)
+                if not isinstance(v, (int, float)) or v != v \
+                        or abs(v) == float("inf"):
+                    errs.append(f"step_correction.{f}: want a finite "
+                                f"number, got {v!r}")
+            if not isinstance(sc.get("n"), int) or sc.get("n", 0) < 2:
+                errs.append("step_correction.n: want an int >= 2 "
+                            "(a power law from one point is noise)")
+    if "digest" in data:
+        want = content_digest(data)
+        if data["digest"] != want:
+            errs.append(f"digest mismatch: file says {data['digest']}, "
+                        f"content is {want}")
+    else:
+        errs.append("digest: missing")
+    return errs
+
+
+def validate_bench(data: Dict) -> List[str]:
+    """Schema errors for a ``calibrate-bench`` report JSON."""
+    errs: List[str] = []
+    if not isinstance(data, dict):
+        return ["top level: want an object"]
+    if data.get("kind") != BENCH_KIND:
+        errs.append(f"kind: want {BENCH_KIND!r}, got {data.get('kind')!r}")
+    models = data.get("models")
+    if not isinstance(models, list) or not models:
+        errs.append("models: want a non-empty list")
+        models = []
+    for i, row in enumerate(models):
+        if not isinstance(row, dict) or "model" not in row:
+            errs.append(f"models[{i}]: want an object with 'model'")
+            continue
+        per_op = row.get("per_op", {})
+        # null MAPEs are legal only for an explicitly recorded empty
+        # profile (n_measured == 0); a null beside measurements is not
+        empty = per_op.get("n_measured") == 0
+        for f in ("mape_analytic", "mape_calibrated"):
+            v = per_op.get(f)
+            if not isinstance(v, (int, float)) and not (empty and v is None):
+                errs.append(f"models[{i}].per_op.{f}: want a number")
+        e2e = row.get("end_to_end", {})
+        for f in ("measured_ms_per_step", "ape_analytic",
+                  "ape_calibrated"):
+            if not isinstance(e2e.get(f), (int, float)):
+                errs.append(f"models[{i}].end_to_end.{f}: want a number")
+    if "calibration_digest" not in data:
+        errs.append("calibration_digest: missing")
+    return errs
+
+
+def validate_file(path: str) -> List[str]:
+    """Validate either artifact kind by its ``kind`` field."""
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError) as e:
+        return [f"cannot read: {e}"]
+    kind = data.get("kind") if isinstance(data, dict) else None
+    if kind == TABLE_KIND:
+        return validate_table(data)
+    if kind == BENCH_KIND:
+        return validate_bench(data)
+    return [f"unknown kind {kind!r} (want {TABLE_KIND!r} or "
+            f"{BENCH_KIND!r})"]
+
+
+def default_table() -> CalibrationTable:
+    """The seed CalibrationTable (``calibration_seed.json``): the JAX
+    package's seed record, byte for byte, measured on another device
+    (its ``device_kind``).  Kept as data for parity with the JAX
+    package; harvest a table on the card for the port's numbers."""
+    return CalibrationTable.load(_SEED_PATH)
+
+
+def fit_step_correction(pairs: Sequence[Tuple[float, float]]
+                        ) -> Optional[Dict]:
+    """Dispatch-level correction: fit ``measured = e^alpha * sim^beta``
+    (least squares in log space) over per-model ``(simulated step ms,
+    measured dispatch ms per step)`` pairs.
+
+    A per-op table cannot see what happens between ops: on a large
+    graph the host's enqueue overlaps the device's work, on a tiny one
+    the per-dispatch overhead dominates.  One sublinear power law
+    captures both regimes.  Returns None with fewer than two usable
+    pairs (the fit would be exact and meaningless) or a fit that is not
+    increasing."""
+    pts = [(math.log(x), math.log(y)) for x, y in pairs
+           if x > 0 and y > 0 and math.isfinite(x) and math.isfinite(y)]
+    if len(pts) < 2:
+        return None
+    n = len(pts)
+    mx = sum(p[0] for p in pts) / n
+    my = sum(p[1] for p in pts) / n
+    sxx = sum((p[0] - mx) ** 2 for p in pts)
+    if sxx <= 0:
+        return None
+    beta = sum((p[0] - mx) * (p[1] - my) for p in pts) / sxx
+    if beta <= 0:
+        return None  # anti-monotone fit: dispatch data is degenerate
+    return {"alpha": round(my - beta * mx, 6), "beta": round(beta, 6),
+            "n": n}
+
+
+def apply_step_correction(table: Optional[CalibrationTable],
+                          sim_ms: float) -> float:
+    """Map a simulated per-step time (ms) through the table's dispatch
+    correction; identity when the table carries none.  This calibrates
+    absolute end-to-end predictions (``calibrate-bench``); the search
+    objective never needs it: the power law is monotone, so rankings
+    are unchanged."""
+    sc = table.step_correction if table is not None else None
+    if not sc or sim_ms <= 0 or not math.isfinite(sim_ms):
+        return sim_ms
+    return math.exp(sc["alpha"]) * sim_ms ** sc["beta"]
+
+
+def calibrated_spec(table: Optional[CalibrationTable],
+                    base: Optional[DeviceSpec] = None) -> DeviceSpec:
+    """Apply a table's measured DeviceSpec overrides over ``base``
+    (default: the attached card's spec).  Rebuilding the Simulator or
+    verifier from this spec threads comm calibration through
+    ``transfer_time``/``allreduce_time`` (Python and native engine) and
+    the FF108 memory budget."""
+    spec = base if base is not None else spec_for_device()
+    if table is None or not table.spec:
+        return spec
+    return dataclasses.replace(spec, **{k: float(v)
+                                        for k, v in table.spec.items()})
+
+
+# ---------------------------------------------------------------------------
+# estimators
+# ---------------------------------------------------------------------------
+
+class CostEstimator:
+    """Pluggable per-op time model for the Simulator: ``op_time`` has
+    the contract of ``cost_model.op_compute_time`` (seconds for ONE
+    partition of ``op`` under ``dims``), with the run's ``device`` and
+    ``compute_dtype`` (the dtype the op runs in, a precision pin
+    resolved).  ``Simulator(estimator=None)`` — the default — never
+    consults one."""
+
+    name = "base"
+
+    def op_time(self, op, dims, spec: DeviceSpec, dtype_bytes: int = 2,
+                backward: bool = False, flash_attention=None,
+                compute_dtype: str = "bfloat16",
+                precision: str = "", device="cuda") -> float:
+        raise NotImplementedError
+
+    def describe(self) -> Dict[str, Optional[str]]:
+        return {"estimator": self.name, "calibration_digest": None}
+
+
+class AnalyticEstimator(CostEstimator):
+    """The identity estimator: the simulator's roofline
+    (``Simulator._analytic_time``), bit for bit."""
+
+    name = "analytic"
+
+    def op_time(self, op, dims, spec, dtype_bytes=2, backward=False,
+                flash_attention=None, compute_dtype="bfloat16",
+                precision="", device="cuda"):
+        return op_compute_time(op, dims, spec, dtype_bytes, backward,
+                               flash_attention=flash_attention,
+                               precision=precision, device=device,
+                               compute_dtype=compute_dtype)
+
+
+class TableEstimator(AnalyticEstimator):
+    """Analytic time × the measured/analytic ratio of the nearest table
+    entry.  Lookup tiers (first hit wins, deterministic):
+
+    1. exact key (op-type × shape-bucket × dtype × partition-degree);
+    2. same op-type + dtype + degree, nearest output volume;
+    3. same op-type + dtype, nearest output volume (any degree);
+    4. same op-type, nearest output volume (any dtype);
+    5. no entry — scale 1.0 (the analytic time).
+
+    A missing backward record borrows the entry's forward scale; scales
+    are clamped to a band so one corrupted sample cannot turn the
+    objective into noise."""
+
+    name = "table"
+    SCALE_MIN, SCALE_MAX = 1e-4, 1e6
+
+    def __init__(self, table: CalibrationTable):
+        self.table = table
+        # tiered indexes: key parts -> [(log2 out_volume, fwd, bwd)]
+        self._exact: Dict[str, Tuple[float, float]] = {}
+        by_tdp: Dict[Tuple[str, str, str], List] = {}
+        by_td: Dict[Tuple[str, str], List] = {}
+        by_t: Dict[str, List] = {}
+        for key, entry in sorted(table.ops.items()):
+            op_type, _bucket, dtype, deg = key.split("|")
+            fwd, bwd = self._entry_scales(entry)
+            if fwd is None:
+                continue
+            self._exact[key] = (fwd, bwd)
+            vol = float((entry.get("features") or {}).get(
+                "out_volume", 0.0)) or 1.0
+            row = (math.log2(max(1.0, vol)), fwd, bwd)
+            by_tdp.setdefault((op_type, dtype, deg), []).append(row)
+            by_td.setdefault((op_type, dtype), []).append(row)
+            by_t.setdefault(op_type, []).append(row)
+        self._tiers = (by_tdp, by_td, by_t)
+
+    @classmethod
+    def _entry_scales(cls, entry: Dict
+                      ) -> Tuple[Optional[float], Optional[float]]:
+        def ratio(rec):
+            if not rec or rec.get("analytic_ms", 0) <= 0:
+                return None
+            m = rec.get("measured_ms")
+            if m is None or m != m or m <= 0:
+                return None
+            return min(cls.SCALE_MAX,
+                       max(cls.SCALE_MIN, m / rec["analytic_ms"]))
+        fwd = ratio(entry.get("fwd"))
+        bwd = ratio(entry.get("bwd"))
+        if bwd is None:
+            bwd = fwd
+        return fwd, bwd
+
+    def _scale(self, op, dims, backward: bool, dtype: str) -> float:
+        key = op_key(op, dims, dtype)
+        hit = self._exact.get(key)
+        if hit is None:
+            op_type, _b, dt, deg = key.split("|")
+            lv = math.log2(max(1.0, float(op.outputs[0].volume)))
+            by_tdp, by_td, by_t = self._tiers
+            for rows in (by_tdp.get((op_type, dt, deg)),
+                         by_td.get((op_type, dt)), by_t.get(op_type)):
+                if rows:
+                    hit = min(rows, key=lambda r: (abs(r[0] - lv), r[0]))[1:]
+                    break
+        if hit is None:
+            return 1.0
+        return hit[1] if backward else hit[0]
+
+    def op_time(self, op, dims, spec, dtype_bytes=2, backward=False,
+                flash_attention=None, compute_dtype="bfloat16",
+                precision="", device="cuda"):
+        # The table is dtype-keyed: a per-op precision pin reaches the
+        # lookup through ``compute_dtype`` (the simulator resolves the
+        # pin's dtype name; ``dtype_bytes`` arrives as the session width
+        # and the byte effect is applied here).  The analytic base takes
+        # NO precision rate factor: a dtype-keyed entry's measured/
+        # analytic ratio already holds that dtype's rate (the harvest's
+        # denominator has no factor), so charging it in the base too
+        # would count the float32 rate twice on exact-tier hits.  The
+        # base keeps the run's device and dtype: the flash rule the
+        # harvest's denominator followed.
+        base = op_compute_time(op, dims, spec,
+                               precision_dtype_bytes(precision,
+                                                     dtype_bytes),
+                               backward, flash_attention=flash_attention,
+                               device=device, compute_dtype=compute_dtype)
+        return base * self._scale(op, dims, backward, compute_dtype)
+
+    def describe(self):
+        return {"estimator": self.name,
+                "calibration_digest": self.table.digest}
+
+
+class RidgeEstimator(CostEstimator):
+    """Learned estimator: ridge regression over op features in log space
+    (the linear baseline of 2008.01040's learned performance model), fit
+    from the table's entries at construction.  Features: log1p of
+    per-partition FLOPs / elements in / elements out / weight elements,
+    log2 of the partition degree, fan-in and -out.  Separate forward and
+    backward fits; with fewer than ``MIN_SAMPLES`` measured entries the
+    direction falls back to the analytic roofline."""
+
+    name = "ridge"
+    MIN_SAMPLES = 3
+    LAMBDA = 1e-3
+
+    def __init__(self, table: CalibrationTable):
+        self.table = table
+        self._w_fwd = self._fit(table, backward=False)
+        self._w_bwd = self._fit(table, backward=True)
+
+    # feature map: raw table features -> design row
+    @staticmethod
+    def _phi(feats: Dict[str, float]) -> List[float]:
+        nparts = max(1.0, float(feats.get("nparts", 1.0)))
+        lp = lambda v: math.log1p(max(0.0, float(v)) / nparts)  # noqa: E731
+        return [1.0,
+                lp(feats.get("flops", 0.0)),
+                lp(feats.get("in_elems", 0.0)),
+                lp(feats.get("out_elems", 0.0)),
+                lp(feats.get("weight_elems", 0.0)),
+                math.log2(nparts),
+                float(feats.get("fan_in", 1.0)),
+                float(feats.get("fan_out", 1.0))]
+
+    @classmethod
+    def _fit(cls, table: CalibrationTable, backward: bool):
+        import numpy as np
+        rows, ys = [], []
+        for entry in table.ops.values():
+            rec = entry.get("bwd" if backward else "fwd")
+            feats = entry.get("features")
+            if not rec or not feats:
+                continue
+            m = rec.get("measured_ms")
+            if m is None or m != m or m <= 0:
+                continue
+            rows.append(cls._phi(feats))
+            ys.append(math.log(m))
+        if len(rows) < cls.MIN_SAMPLES:
+            return None
+        X = np.asarray(rows, dtype=np.float64)
+        y = np.asarray(ys, dtype=np.float64)
+        a = X.T @ X + cls.LAMBDA * np.eye(X.shape[1])
+        return np.linalg.solve(a, X.T @ y)
+
+    def op_time(self, op, dims, spec, dtype_bytes=2, backward=False,
+                flash_attention=None, compute_dtype="bfloat16",
+                precision="", device="cuda"):
+        def roofline(pin):
+            return op_compute_time(op, dims, spec, dtype_bytes, backward,
+                                   flash_attention=flash_attention,
+                                   precision=pin, device=device,
+                                   compute_dtype=compute_dtype)
+
+        w = self._w_bwd if backward else self._w_fwd
+        if w is None:
+            return roofline(precision)
+        import numpy as np
+        phi = np.asarray(self._phi(op_features(op, dims)))
+        t = float(math.exp(float(phi @ w))) * 1e-3  # ms -> s
+        if precision:
+            # the features carry no dtype (the table KEY holds it):
+            # without a correction every precision flip would cost
+            # nothing and the walk would accept pins the objective never
+            # priced.  The dtype's effect rides on the ratio of the
+            # pinned to the session roofline (bytes and matrix rate);
+            # "" skips this branch, keeping the unpinned path exact
+            session = roofline("")
+            if session > 0:
+                t *= roofline(precision) / session
+        return t
+
+    def describe(self):
+        return {"estimator": self.name,
+                "calibration_digest": self.table.digest}
+
+
+ESTIMATORS = ("analytic", "table", "ridge")
+
+
+def make_estimator(name: str, table: Optional[CalibrationTable] = None
+                   ) -> CostEstimator:
+    if name == "analytic":
+        return AnalyticEstimator()
+    if table is None:
+        raise ValueError(f"estimator {name!r} needs a calibration table "
+                         f"(FFConfig.calibration_file / --calibration)")
+    if name == "table":
+        return TableEstimator(table)
+    if name == "ridge":
+        return RidgeEstimator(table)
+    raise ValueError(f"unknown cost estimator {name!r} "
+                     f"(have {', '.join(ESTIMATORS)})")
+
+
+def estimator_from_config(cfg) -> Tuple[Optional[CostEstimator],
+                                        Optional[CalibrationTable]]:
     """(estimator, table) for ``cfg.cost_estimator`` /
-    ``cfg.calibration_file``: ``(None, None)`` — the analytic roofline,
-    no table — for the uncalibrated default (no file, estimator
-    ``"auto"`` or ``"analytic"``).  Any other setting raises
-    NotImplementedError: the calibration tables and their estimators
-    are not ported yet (ROADMAP A.9b)."""
+    ``cfg.calibration_file``.  With no calibration configured this
+    returns ``(None, None)`` and the caller passes ``estimator=None``:
+    the Simulator then never touches this module.  ``"auto"`` resolves
+    to ``"table"`` when a file is set, ``"analytic"`` otherwise; an
+    analytic run returns the table (if any) so the caller can record
+    its digest.  Raises ValueError for a table that cannot be loaded and
+    for an estimator that needs one or is unknown."""
     path = getattr(cfg, "calibration_file", "") or ""
     name = getattr(cfg, "cost_estimator", "auto") or "auto"
-    if not path and name in ("auto", "analytic"):
-        return None, None
-    raise NotImplementedError(
-        f"calibrated cost model (calibration_file={path!r}, "
-        f"cost_estimator={name!r}) is not ported yet (ROADMAP A.9b); "
-        f"the port's search runs the analytic roofline or measure mode")
+    if name == "auto":
+        name = "table" if path else "analytic"
+    try:
+        table = CalibrationTable.load(path) if path else None
+    except (OSError, ValueError) as e:
+        raise ValueError(
+            f"cannot load calibration table {path!r} "
+            f"(--calibration / FFConfig.calibration_file): {e}") from e
+    if name == "analytic":
+        return None, table
+    return make_estimator(name, table), table
+
+
+# ---------------------------------------------------------------------------
+# harvesting
+# ---------------------------------------------------------------------------
+
+def _dtype_bytes(dtype: str) -> int:
+    return 2 if "16" in dtype else 4
+
+
+def _synchronize(device) -> None:
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _profile_best(op, samples: int = 2, **kw) -> Dict[str, float]:
+    """Best-of-N ``profile_op`` (per direction): noise only ever
+    inflates a sample, and harvest and bench both using the same rule
+    keeps their ratio stable.  NaNs pass through (int-only ops)."""
+    from ..profiling import profile_op
+    best = {"fwd_ms": float("nan"), "bwd_ms": float("nan")}
+    for _ in range(max(1, samples)):
+        r = profile_op(op, **kw)
+        for k in best:
+            v = r[k]
+            if v == v and not (best[k] == best[k] and best[k] <= v):
+                best[k] = v
+    return best
+
+
+def harvest_ops(table: CalibrationTable, layers, *,
+                compute_dtype: str = "bfloat16", iters: int = 4,
+                warmup: int = 1, degrees: Sequence[int] = (1,),
+                flash_attention=None, conv_layout: str = "auto",
+                spec: Optional[DeviceSpec] = None, samples: int = 2,
+                verbose: bool = False, device="cuda",
+                skipped: Optional[List] = None) -> int:
+    """Microbench every op of ``layers`` on ``device``
+    (``profiling.profile_op``, the measure-mode timing path, best of
+    ``samples`` runs per direction) at each partition degree in
+    ``degrees`` (n-axis splits via ``Op.sub_problem``), and merge
+    (analytic, measured) sample pairs into ``table``.  The analytic
+    half is the simulator's roofline on the same device and dtype.
+    Identical (key, sub-shape) combinations are measured once.  An op
+    that cannot be profiled is skipped, as is an indivisible degree;
+    ``skipped``, when a list, receives ``(op name, degree, error)`` for
+    each op that raised.  Returns the number of new measurements."""
+    spec = spec if spec is not None else spec_for_device()
+    dtype_bytes = _dtype_bytes(compute_dtype)
+    seen = set()
+    n_new = 0
+    for op in layers:
+        nd = op.outputs[0].num_dims
+        for deg in degrees:
+            dims = (int(deg),) + (1,) * (nd - 1)
+            in_shapes = weight_shapes = None
+            if deg > 1:
+                try:
+                    in_shapes, weight_shapes = op.sub_problem(dims)
+                except (AssertionError, ValueError):
+                    continue  # indivisible at this degree
+            key = op_key(op, dims, compute_dtype)
+            dedupe = (key, tuple(map(tuple, in_shapes or ())),
+                      tuple(sorted((weight_shapes or {}).items())))
+            if dedupe in seen:
+                continue
+            seen.add(dedupe)
+            try:
+                r = _profile_best(op, samples=samples,
+                                  compute_dtype=compute_dtype,
+                                  warmup=warmup, iters=iters,
+                                  flash_attention=flash_attention,
+                                  input_shapes=in_shapes,
+                                  weight_shapes=weight_shapes,
+                                  conv_layout=conv_layout, device=device)
+            except Exception as e:  # noqa: BLE001 — one unprofilable op
+                # must not lose the whole harvest
+                if skipped is not None:
+                    skipped.append((op.name, int(deg),
+                                    f"{type(e).__name__}: {e}"))
+                if verbose:
+                    print(f"# calibrate: {op.name} p{deg} failed: "
+                          f"{type(e).__name__}: {e}", flush=True)
+                continue
+            fwd_ms, bwd_ms = r["fwd_ms"], r["bwd_ms"]
+            if fwd_ms != fwd_ms:  # NaN: int-only op, nothing to time
+                continue
+            ana_f, ana_b = (op_compute_time(
+                op, dims, spec, dtype_bytes, b,
+                flash_attention=flash_attention, device=device,
+                compute_dtype=compute_dtype) * 1e3 for b in (False, True))
+            table.add_op_sample(
+                key, op_features(op, dims), ana_f, fwd_ms,
+                ana_b, bwd_ms if bwd_ms == bwd_ms else None)
+            n_new += 1
+            if verbose:
+                print(f"# calibrate[{n_new}] {op.name} p{deg}: "
+                      f"fwd {ana_f:.3f}->{fwd_ms:.3f} ms  "
+                      f"bwd {ana_b:.3f}->{bwd_ms:.3f} ms", flush=True)
+    return n_new
+
+
+def harvest_train_dispatch(table: CalibrationTable, name: str, model,
+                           x, y, *, epochs: int = 2) -> Optional[float]:
+    """Harvest per-dispatch wall time from the real ``fit`` loop: one
+    warm epoch, then ``epochs`` timed ones, and record the mean
+    ``dispatch_ms`` of their epoch events into
+    ``table.dispatch["train|<name>|k<K>|b<batch>"]``.  ``dispatch_ms``
+    is the host's wall time around a dispatch (in eager CUDA the
+    enqueue, unless the queue is full), as in the JAX package.  Returns
+    the mean measured ms per dispatch (None when no event carried
+    one)."""
+    from ..fflogger import capture_events
+    model.fit(x, y, epochs=1, verbose=False)  # warm
+    with capture_events("ff") as events:
+        model.fit(x, y, epochs=epochs, verbose=False)
+    ms = [e["dispatch_ms"] for e in events
+          if e.get("event") == "epoch" and "dispatch_ms" in e]
+    if not ms:
+        return None
+    k = int(getattr(model.config, "steps_per_dispatch", 1) or 1)
+    mean_ms = sum(ms) / len(ms)
+    table.add_dispatch_sample(
+        f"train|{name}|k{k}|b{model.config.batch_size}", mean_ms,
+        n=len(ms), steps_per_dispatch=k,
+        batch_size=model.config.batch_size)
+    return mean_ms
+
+
+def harvest_serve_dispatch(table: CalibrationTable, name: Optional[str],
+                           snapshot: Dict) -> int:
+    """Harvest the serving engine's per-shape-bucket dispatch medians
+    (the ``per_bucket`` section of ``ServingMetrics.snapshot``) into
+    ``table.dispatch["serve|<name>|bucket<b>"]`` entries.  ``name=None``
+    keys on the snapshot's own ``model`` tag, so a fleet process
+    harvesting several engines' snapshots cannot attribute one model's
+    dispatch times to another.  Returns the number of buckets
+    recorded."""
+    if name is None:
+        name = snapshot.get("model") or "default"
+    per_bucket = snapshot.get("per_bucket") or {}
+    n = 0
+    for bucket, rec in sorted(per_bucket.items()):
+        p50 = rec.get("dispatch_p50_ms")
+        if p50 is None:
+            continue
+        table.add_dispatch_sample(
+            f"serve|{name}|bucket{bucket}", float(p50),
+            n=int(rec.get("dispatches", 1)), bucket=int(bucket))
+        n += 1
+    return n
+
+
+# ---------------------------------------------------------------------------
+# the model zoo (the JAX package's calibration sizes)
+# ---------------------------------------------------------------------------
+
+def _zoo_transformer(batch: int, dtype: str = "float32", device="cuda"):
+    from ..config import FFConfig
+    from ..models.transformer import build_transformer
+    cfg = FFConfig(batch_size=batch, compute_dtype=dtype)
+    model, tokens, _ = build_transformer(
+        cfg, num_layers=2, d_model=64, num_heads=4, d_ff=128,
+        seq_len=32, vocab_size=1000, device=device)
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n = batch * 4
+    x = rng.integers(0, 1000, (n, 32)).astype(np.int32)
+    y = rng.integers(0, 2, (n, 1)).astype(np.int32)
+    return model, x, y
+
+
+def _zoo_dlrm(batch: int, dtype: str = "float32", device="cuda"):
+    from ..config import FFConfig
+    from ..models.dlrm import build_dlrm
+    cfg = FFConfig(batch_size=batch, compute_dtype=dtype)
+    model, _, _ = build_dlrm(
+        cfg, embedding_size=(1000, 1000, 1000, 1000),
+        sparse_feature_size=16, mlp_bot=(32, 64, 16),
+        mlp_top=(80, 64, 1), device=device)
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n = batch * 4
+    xs = [rng.integers(0, 1000, (n, 1)).astype(np.int32)
+          for _ in range(4)]
+    xs.append(rng.standard_normal((n, 32)).astype(np.float32))
+    y = rng.standard_normal((n, 1)).astype(np.float32)
+    return model, xs, y
+
+
+def _zoo_inception(batch: int, dtype: str = "float32", device="cuda"):
+    from ..config import FFConfig
+    from ..models.inception import build_inception_v3
+    cfg = FFConfig(batch_size=batch, compute_dtype=dtype)
+    model, _, _ = build_inception_v3(cfg, image_size=75, device=device)
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n = batch * 2
+    x = rng.standard_normal((n, 3, 75, 75)).astype(np.float32)
+    y = rng.integers(0, 10, (n, 1)).astype(np.int32)
+    return model, x, y
+
+
+ZOO = {"transformer": _zoo_transformer, "dlrm": _zoo_dlrm,
+       "inception": _zoo_inception}
+_ZOO_BATCH = {"transformer": 8, "dlrm": 8, "inception": 2}
+
+
+def device_kind(device="cuda") -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a CUDA
+    device that is there, ``"cpu"`` for the CPU, else ``"unknown"``."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "cpu"
+    if device.type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.get_device_name(device)
+    return "unknown"
+
+
+def _check_device(device: str) -> Optional[str]:
+    """Why ``device`` cannot run a harvest, or None.  A CUDA harvest on
+    a machine without a card is refused, never quietly timed on the
+    CPU."""
+    import torch
+    try:
+        dev = torch.device(device)
+    except RuntimeError as e:
+        return str(e)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return (f"--device {device}: no CUDA device is available (pass "
+                f"--device cpu to time the CPU)")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the entry points: calibrate / calibrate-bench
+# ---------------------------------------------------------------------------
+
+def calibrate_main(argv=None) -> int:
+    """``calibrate``: harvest a CalibrationTable from the model zoo on
+    the card (per-op microbench + per-dispatch train timings, optionally
+    serving per-bucket timings), or validate existing artifacts with
+    ``--check`` (schema + digest, exit 1 on any error)."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m flexflow_tpu_torch.search.calibration calibrate",
+        description="harvest measured op/dispatch timings into a "
+                    "CalibrationTable, or --check existing artifacts")
+    ap.add_argument("--check", nargs="+", metavar="FILE", default=None,
+                    help="validate calibration artifacts (schema + "
+                         "digest) instead of harvesting")
+    ap.add_argument("--out", default="calibration.json",
+                    help="table output path")
+    ap.add_argument("--models", default="transformer,dlrm,inception",
+                    help=f"comma-separated zoo subset of: "
+                         f"{','.join(sorted(ZOO))}")
+    ap.add_argument("--iters", type=int, default=4,
+                    help="profile_op timing iterations per op")
+    ap.add_argument("--samples", type=int, default=2,
+                    help="best-of-N profile runs per op/direction")
+    ap.add_argument("--degrees", default="1,2",
+                    help="partition degrees to microbench (n-axis "
+                         "splits via Op.sub_problem)")
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--no-dispatch", action="store_true",
+                    help="skip the per-dispatch fit() harvest")
+    ap.add_argument("--serve", action="store_true",
+                    help="also harvest serving per-bucket dispatch "
+                         "timings (runs a short engine loop)")
+    ap.add_argument("--from-seed", action="store_true",
+                    help="start from the seed table instead of an empty "
+                         "one")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="the device to time on (default cuda; cpu "
+                         "only when asked)")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.check is not None:
+        rc = 0
+        for path in args.check:
+            errs = validate_file(path)
+            if errs:
+                rc = 1
+                for e in errs:
+                    print(f"{path}: {e}")
+            else:
+                with open(path) as f:
+                    d = json.load(f)
+                digest = d.get("digest", d.get("calibration_digest"))
+                print(f"{path}: OK ({d.get('kind')}, digest {digest})")
+        return rc
+
+    names = [m.strip() for m in args.models.split(",") if m.strip()]
+    for m in names:
+        if m not in ZOO:
+            ap.error(f"unknown model {m!r}; choose from {sorted(ZOO)}")
+    if args.serve and "transformer" not in names:
+        ap.error("--serve harvests the serving path through the "
+                 "transformer zoo model; add transformer to --models")
+    degrees = tuple(int(d) for d in args.degrees.split(",") if d.strip())
+    why = _check_device(args.device)
+    if why:
+        print(f"calibrate: {why}", file=sys.stderr, flush=True)
+        return 1
+
+    table = default_table() if args.from_seed else CalibrationTable()
+    seed_kind = table.device_kind if args.from_seed else ""
+    table.device_kind = device_kind(args.device)
+    if seed_kind not in ("", "unknown", table.device_kind):
+        # running means merge seed rows with this machine's samples:
+        # the stamped device_kind can only name one of them
+        print(f"# calibrate: WARNING --from-seed table was measured on "
+              f"{seed_kind!r}; merging with {table.device_kind!r} "
+              f"samples conflates devices in the saved table",
+              flush=True)
+    table.compute_dtype = args.dtype
+    from ..fflogger import silenced
+    n_ops = 0
+    zoo_layers = {}
+    for m in names:
+        model, x, y = ZOO[m](_ZOO_BATCH[m], args.dtype, args.device)
+        zoo_layers[m] = model.layers
+        print(f"# calibrate: harvesting {m} "
+              f"({len(model.layers)} ops)", flush=True)
+        n_ops += harvest_ops(table, model.layers,
+                             compute_dtype=args.dtype, iters=args.iters,
+                             degrees=degrees, samples=args.samples,
+                             verbose=args.verbose, device=args.device)
+        if not args.no_dispatch:
+            from ..optimizers import SGDOptimizer
+            model.compile(SGDOptimizer(lr=0.01), verify="off")
+            model.init_layers(seed=args.seed)
+            with silenced("ff"):
+                ms = harvest_train_dispatch(table, m, model, x, y)
+            if ms is not None:
+                print(f"# calibrate: {m} train dispatch "
+                      f"{ms:.3f} ms", flush=True)
+        if args.serve and m == "transformer":
+            _harvest_serving_loop(table, m, model, x, args.seed)
+    table.step_correction = _fit_dispatch_correction(table, zoo_layers,
+                                                     device=args.device)
+    digest = table.save(args.out)
+    print(json.dumps({"wrote": args.out, "device_kind": table.device_kind,
+                      "op_entries": len(table.ops),
+                      "dispatch_entries": len(table.dispatch),
+                      "step_correction": table.step_correction,
+                      "measurements": n_ops, "digest": digest}))
+    return 0
+
+
+def _fit_dispatch_correction(table: CalibrationTable, zoo_layers: Dict,
+                             device="cuda") -> Optional[Dict]:
+    """Pair each harvested model's calibrated simulated step time (the
+    final table's TableEstimator over its graph, on ``device``) with its
+    measured per-step dispatch time, and fit
+    :func:`fit_step_correction` over the pairs.  Needs >= 2 models with
+    both an op harvest and a dispatch entry."""
+    if not table.ops or not table.dispatch:
+        return None
+    from .simulator import Simulator
+    est = TableEstimator(table)
+    pairs = []
+    for m, layers in zoo_layers.items():
+        rec = next((r for k, r in sorted(table.dispatch.items())
+                    if k.startswith(f"train|{m}|")), None)
+        if rec is None:
+            continue
+        dt = table.compute_dtype or "bfloat16"
+        sim_ms = Simulator(num_devices=1, use_native=False, estimator=est,
+                           dtype_bytes=_dtype_bytes(dt),
+                           compute_dtype=dt, device=device).simulate(
+            layers, {}) * 1e3
+        k = max(1, int(rec.get("steps_per_dispatch", 1)))
+        pairs.append((sim_ms, rec["measured_ms"] / k))
+    return fit_step_correction(pairs)
+
+
+def _harvest_serving_loop(table: CalibrationTable, name: str, model,
+                          x, seed: int = 0) -> None:
+    """Short serving run to feed per-bucket dispatch calibration."""
+    from ..fflogger import silenced
+    from ..serving.engine import ServingEngine
+    if not model._compiled:  # --no-dispatch skipped the compile
+        from ..optimizers import SGDOptimizer
+        model.compile(SGDOptimizer(lr=0.01), verify="off")
+        model.init_layers(seed=seed)
+    with silenced("ff", "serve"):
+        engine = ServingEngine(model, max_batch=model.config.batch_size)
+        with engine:
+            futs = [engine.submit(*_rows(model, x, i)) for i in range(32)]
+            for f in futs:
+                f.result(timeout=120)
+        n = harvest_serve_dispatch(table, name, engine.stats())
+    print(f"# calibrate: {name} serving buckets harvested: {n}",
+          flush=True)
+
+
+def _rows(model, x, i):
+    n_in = len(model.input_tensors)
+    size = 1 + (i % 3)
+    if n_in == 1:
+        return (x[i: i + size],)
+    return tuple(a[i: i + size] for a in x)
+
+
+def calibrate_bench_main(argv=None) -> int:
+    """``calibrate-bench``: the simulated-against-measured error sweep.
+    For each zoo model it (a) re-measures every op fresh (independent of
+    the table's samples) and reports per-op MAPE of the analytic and
+    the calibrated estimator against those measurements, and (b)
+    measures real ms per step through ``fit`` (synchronized on the
+    device) and reports the end-to-end absolute percentage error of the
+    simulated step time under both estimators."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m flexflow_tpu_torch.search.calibration "
+             "calibrate-bench",
+        description="per-op + end-to-end sim-vs-measured MAPE, analytic "
+                    "vs calibrated")
+    ap.add_argument("--table", required=True,
+                    help="CalibrationTable JSON from calibrate")
+    ap.add_argument("--models", default="transformer,dlrm,inception")
+    ap.add_argument("--estimator", default="table",
+                    choices=["table", "ridge"],
+                    help="calibrated estimator to compare against "
+                         "analytic")
+    ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--samples", type=int, default=2,
+                    help="best-of-N profile runs per op/direction — "
+                         "the same noise floor the harvest used")
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="the device to time on (default cuda; cpu "
+                         "only when asked)")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+
+    table = CalibrationTable.load(args.table)
+    est = make_estimator(args.estimator, table)
+    names = [m.strip() for m in args.models.split(",") if m.strip()]
+    for m in names:
+        if m not in ZOO:
+            ap.error(f"unknown model {m!r}; choose from {sorted(ZOO)}")
+    why = _check_device(args.device)
+    if why:
+        print(f"calibrate-bench: {why}", file=sys.stderr, flush=True)
+        return 1
+
+    spec = spec_for_device()
+    rows = []
+    for m in names:
+        model, x, y = ZOO[m](_ZOO_BATCH[m], args.dtype, args.device)
+        rows.append(bench_model_rows(
+            m, model, x, y, {est.name: est}, table, spec,
+            compute_dtype=args.dtype, iters=args.iters,
+            samples=args.samples, seed=args.seed)[est.name])
+    payload = {
+        "kind": BENCH_KIND,
+        "version": SCHEMA_VERSION,
+        "bench": "calibrate-bench",
+        "device_kind": device_kind(args.device),
+        "calibration_digest": table.digest,
+        "estimator": est.name,
+        "step_correction": table.step_correction,
+        "models": rows,
+    }
+    text = json.dumps(payload, indent=2)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"# wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def bench_model_rows(name: str, model, x, y,
+                     estimators: Dict[str, CostEstimator],
+                     table: CalibrationTable, spec: DeviceSpec, *,
+                     compute_dtype: str = "bfloat16", iters: int = 4,
+                     samples: int = 2, seed: int = 1, epochs: int = 2,
+                     optimizer=None) -> Dict[str, Dict]:
+    """One model's simulated-against-measured rows (per-op MAPE +
+    end-to-end APE), one row per estimator of ``estimators`` (name ->
+    estimator), all against ONE set of measurements: every op profiled
+    once at degree 1 on the model's device, and ``epochs`` epochs of
+    ``fit`` (after a warm one) timed with the device synchronized.
+    ``optimizer`` defaults to the JAX bench's SGD at 0.01."""
+    import time
+
+    from ..fflogger import silenced
+    from ..optimizers import SGDOptimizer
+    from .simulator import Simulator
+
+    device = model.device
+    dtype_bytes = _dtype_bytes(compute_dtype)
+    layers = model.layers
+    meas_ms: List[float] = []
+    ana_ms: List[float] = []
+    cal_ms: Dict[str, List[float]] = {k: [] for k in estimators}
+    seen = set()
+    for op in layers:
+        nd = op.outputs[0].num_dims
+        dims = (1,) * nd
+        key = op_key(op, dims, compute_dtype)
+        if key in seen:
+            continue
+        seen.add(key)
+        try:
+            r = _profile_best(op, samples=samples,
+                              compute_dtype=compute_dtype, warmup=1,
+                              iters=iters, device=device)
+        except Exception:  # noqa: BLE001 — skip unprofilable, keep sweep
+            continue
+        meas = r["fwd_ms"] + (r["bwd_ms"] if r["bwd_ms"] == r["bwd_ms"]
+                              else 0.0)
+        if meas != meas or meas <= 0:
+            continue
+        meas_ms.append(meas)
+        ana_ms.append(sum(op_compute_time(
+            op, dims, spec, dtype_bytes, b, device=device,
+            compute_dtype=compute_dtype) for b in (False, True)) * 1e3)
+        for k, est in estimators.items():
+            cal_ms[k].append(sum(est.op_time(
+                op, dims, spec, dtype_bytes, b,
+                compute_dtype=compute_dtype, device=device)
+                for b in (False, True)) * 1e3)
+    if not meas_ms:
+        print(f"# calibrate-bench: WARNING no op of {name!r} could be "
+              "profiled — per-op MAPEs will be null", flush=True)
+
+    # end to end: real ms per step through fit() against the simulated
+    # step time
+    model.compile(optimizer or SGDOptimizer(lr=0.01), verify="off")
+    model.init_layers(seed=seed)
+    steps = (len(x[0]) if isinstance(x, (list, tuple)) else len(x)) \
+        // model.config.batch_size
+    with silenced("ff"):
+        model.fit(x, y, epochs=1, verbose=False)  # warm
+        _synchronize(device)
+        t0 = time.perf_counter()
+        model.fit(x, y, epochs=epochs, verbose=False)
+        _synchronize(device)
+    measured_ms = (time.perf_counter() - t0) / (epochs * steps) * 1e3
+
+    sim_kw = dict(num_devices=1, use_native=False, dtype_bytes=dtype_bytes,
+                  compute_dtype=compute_dtype, device=device)
+    t_ana = Simulator(**sim_kw).simulate(layers, {}) * 1e3
+
+    def mape(sims):
+        if not sims:
+            return None
+        return round(sum(abs(s - m) / m for s, m in zip(sims, meas_ms))
+                     / len(sims), 4)
+
+    def ape(sim_ms):
+        return round(abs(sim_ms - measured_ms) / measured_ms, 4)
+
+    out = {}
+    for k, est in estimators.items():
+        # the calibrated prediction runs the simulated step through the
+        # table's dispatch-level power law; the analytic one stays raw
+        t_cal = apply_step_correction(
+            table, Simulator(estimator=est, **sim_kw).simulate(
+                layers, {}) * 1e3)
+        out[k] = {
+            "model": name,
+            "n_ops": len(layers),
+            "per_op": {
+                "n_measured": len(meas_ms),
+                "mape_analytic": mape(ana_ms),
+                "mape_calibrated": mape(cal_ms[k]),
+            },
+            "end_to_end": {
+                "measured_ms_per_step": round(measured_ms, 3),
+                "sim_analytic_ms": round(t_ana, 3),
+                "sim_calibrated_ms": round(t_cal, 3),
+                "ape_analytic": ape(t_ana),
+                "ape_calibrated": ape(t_cal),
+            },
+        }
+    return out
+
+
+def main(argv=None) -> int:
+    """``python -m flexflow_tpu_torch.search.calibration calibrate ...``
+    or ``... calibrate-bench ...``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    verbs = {"calibrate": calibrate_main,
+             "calibrate-bench": calibrate_bench_main}
+    if not argv or argv[0] not in verbs:
+        print("usage: python -m flexflow_tpu_torch.search.calibration "
+              "{calibrate,calibrate-bench} [options]", file=sys.stderr)
+        return 2
+    return verbs[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -538,9 +538,22 @@ def search_simulator(model, cfg: FFConfig, num_devices: int) -> Simulator:
     """The Simulator :func:`optimize_strategies` searches with: the
     config's objective (``simulator_mode``, flash flag, remat, compute
     dtype, the optimizer's slot bytes, the sparse tables, ``num_nodes``
-    hosts) for ``num_devices`` devices, on the model's device."""
-    from .calibration import estimator_from_config
-    estimator_from_config(cfg)   # raises for what is not ported
+    hosts) for ``num_devices`` devices, on the model's device.
+
+    ``cfg.calibration_file`` and ``cfg.cost_estimator`` resolve to a
+    calibrated estimator (``calibration.estimator_from_config``), and,
+    when the table carries measured DeviceSpec overrides, to the
+    calibrated spec.  The overrides ride with a calibrated estimator
+    only: an explicit ``cost_estimator="analytic"`` is the raw roofline.
+    With no calibration configured the objective is the uncalibrated
+    one, bit for bit."""
+    from .calibration import calibrated_spec, estimator_from_config
+    est, table = estimator_from_config(cfg)
+    extra = {}
+    if est is not None:
+        extra["estimator"] = est
+        if table is not None and table.spec:
+            extra["spec"] = calibrated_spec(table)
     from ..op import resolve_conv_layout
     return Simulator(
         num_devices=num_devices,
@@ -553,7 +566,7 @@ def search_simulator(model, cfg: FFConfig, num_devices: int) -> Simulator:
         opt_slot_bytes=getattr(model.optimizer, "slot_bytes_per_param", 4),
         # tables on the sparse-update path sync row gradients
         sparse_tables={t for _, t, _ in model._sparse_embedding_specs()},
-        device=model.device)
+        device=model.device, **extra)
 
 
 def optimize_strategies(model, cfg: FFConfig, num_devices: int = None,
@@ -598,9 +611,14 @@ def optimize_strategies(model, cfg: FFConfig, num_devices: int = None,
     if shared:
         best, best_mesh, best_time = _broadcast_result(
             (best, best_mesh, best_time) if _rank() == 0 else None)
+    desc = (sim.estimator.describe() if sim.estimator is not None
+            else {})
+    calib_note = (f", estimator {desc['estimator']} "
+                  f"(calibration {desc['calibration_digest']})"
+                  if desc.get("calibration_digest") else "")
     print(f"[search] best simulated iteration time: {best_time * 1e3:.3f} ms "
           f"on {ndev} devices, mesh "
-          f"{ {a: s for a, s in best_mesh.items() if s > 1} }")
+          f"{ {a: s for a, s in best_mesh.items() if s > 1} }{calib_note}")
     if cfg.mesh_shape is None and num_devices is None:
         cfg.mesh_shape = {a: s for a, s in best_mesh.items() if s > 1}
     return (best, best_mesh) if with_mesh else best

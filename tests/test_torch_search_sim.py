@@ -143,9 +143,14 @@ def test_native_library_is_built_under_its_source_digest():
 
 
 def test_estimator_hook_takes_only_none():
-    with pytest.raises(NotImplementedError, match=r"A\.9b"):
-        PortSim(estimator=object(), device="cpu")
+    """The hook defaults to None (the analytic roofline) and takes a
+    calibrated estimator (``tests/test_torch_calibration.py`` holds its
+    times against the JAX package's)."""
+    from flexflow_tpu_torch.search.calibration import (TableEstimator,
+                                                       default_table)
     assert PortSim(device="cpu").estimator is None
+    est = TableEstimator(default_table())
+    assert PortSim(estimator=est, device="cpu").estimator is est
 
 
 def test_the_python_engine_runs_without_the_native_library():
