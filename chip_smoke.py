@@ -61,7 +61,8 @@
    small's widths (12 x 768, 12 heads, d_ff 3072, 1024 positions, vocab
    50257, bf16, random weights from seed 0) through ``GenerationEngine``
    (16 slots, the auto pool of 1024 pages of 16 tokens, the prefix cache
-   on, prefill chunks of 256): 64 greedy requests of 128 tokens (prompts of 32-512 tokens,
+   on, prefill chunks of 256): 32 greedy requests of 64 tokens
+   (``GEN_NEW``, also the speculative phase's; prompts of 32-512 tokens,
    half behind one 256-token prefix), then 16 sampled ones: tokens/s,
    TTFT and TPOT, the pool's high-water and prefix hits, allocated KV
    bytes against ``kv_cache_bytes``, peak memory, 24 LayerNorm launches
@@ -247,6 +248,29 @@
    and the analytic roofline, the strategy digest); one ``search-bench``
    row on the table; the ``explain`` report of the calibrated strategy
    validates;
+17g. frontends phase (after the calibration phase): the runner
+   (``python -m flexflow_tpu_torch.cli``) started in subprocesses beside
+   the rest: a script that trains (b) below for 2 steps under ``-b 64
+   -e 1`` (its config's batch, its device cuda and its 2 + 2 pool
+   launches a step, asserted), ``lint --model alexnet --json`` and
+   ``explain --model transformer --mesh n=4 --json`` (device-free, the
+   payloads checked); in this process (a) examples/python/native/
+   alexnet_torch.py's AlexNet through ``nn_compat`` at its width (229
+   px, batch 64, 10 classes, bf16): ``fit`` over 4 batches (3 + 3 pool
+   launches a step) and ``predict`` (3), and its float32 twin, the same
+   graph by FFModel's builder calls from the same weights, 2 SGD steps
+   within 1e-6 (bit-equal expected); (b) examples/python/keras/
+   func_cifar10_alexnet.py (3 x 32 x 32, batch 64) on
+   ``keras.datasets.cifar10``'s synthetic fallback: its two pools (8 x 8
+   x 64 and 4 x 4 x 192, 2 x 2 stride 2) held bit-equal to the plain
+   version forward and backward in bf16 and f32, ``fit`` 4 steps (2 + 2
+   a step) and ``evaluate`` (2 a batch); (c) a keras residual block at
+   BERT-base's width (``Dense(3072, relu)``, ``Dense(768)``, ``Add``
+   with the input, ``LayerNormalization``, ``Dense(2)``; 512 rows, bf16):
+   the LayerNorm kernel against its plain version at (512, 768), then one
+   launch a forward through ``fit`` and ``predict``, no flash launch.
+   The ``kernels`` line carries the paths ``frontends_nn_alexnet``,
+   ``frontends_keras_alexnet`` and ``frontends_keras_ln``;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -500,12 +524,16 @@ GPT2 = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072,
 GEN_SLOTS = 16
 GEN_PAGE = 16
 GEN_CHUNK = 256
-# traffic: 64 greedy requests of 128 new tokens, prompts of 32-512 tokens,
-# half of them behind one shared 256-token prefix; then 16 sampled ones
-GEN_REQUESTS = 64
+# traffic: GEN_REQUESTS greedy requests of GEN_NEW new tokens, prompts
+# of 32-512 tokens, half of them behind one shared 256-token prefix; then
+# 16 sampled ones.  GEN_REQUESTS was 64 and GEN_NEW (the generation and
+# speculative phases' tokens a request) 128 until the frontends phase
+# needed the time; the other phases take the first prompts, the same
+# whatever GEN_REQUESTS is
+GEN_REQUESTS = 32
 GEN_PROMPT = (32, 512)
 GEN_PREFIX = 256
-GEN_NEW = 128
+GEN_NEW = 64
 GEN_SAMPLED = 16
 GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 # prompts x tokens whose every step's logits are held against the full
@@ -6837,6 +6865,479 @@ def mesh_search_check(ft, name: str, workdir: str, ranks, card: str):
                     losses, one, got, init, card)
 
 
+# ----------------------------------------------------------------------
+# A.11, the frontends: the nn_compat module API, keras and the runner
+# ----------------------------------------------------------------------
+# (a) examples/python/native/alexnet_torch.py through nn_compat at its
+# width (229 px, batch 64, 10 classes, bf16): fit over FRONT_FIT_BATCHES
+# batches, then predict; its float32 twin, the same graph by FFModel's
+# builder calls from the same weights, FRONT_TWIN_STEPS SGD steps within
+# FRONT_TWIN_RTOL (bit-equal expected: the same ops in the same order).
+# (b) examples/python/keras/func_cifar10_alexnet.py (3 x 32 x 32, batch
+# 64) on keras.datasets.cifar10 (the synthetic fallback: no file on the
+# card's machine): fit over FRONT_KERAS_STEPS batches, then evaluate;
+# its two pools (FRONT_KERAS_POOLS) held bit-equal to the plain version.
+# (c) a keras residual block at BERT-base's width, FRONT_LN_ROWS rows:
+# the LayerNorm kernel once a forward.  (d) the runner in subprocesses,
+# started first and run beside (a)-(c): (b) for FRONT_RUNNER_STEPS steps
+# under `-b 64 -e 1`, and lint and explain, device-free
+FRONT_FIT_BATCHES = 4
+FRONT_TWIN_STEPS = 2
+FRONT_TWIN_RTOL = 1e-6
+FRONT_KERAS_STEPS = 4
+FRONT_KERAS_POOLS = [((64, 8, 8), ((2, 2), (2, 2), (0, 0))),
+                     ((192, 4, 4), ((2, 2), (2, 2), (0, 0)))]
+FRONT_LN_ROWS = 512
+FRONT_LN_STEPS = 2
+FRONT_RUNNER_STEPS = 2
+FRONT_TIMEOUT = 300
+
+
+def front_nn_alexnet(nn):
+    """alexnet_torch.py's AlexNet over the ``nn`` shim."""
+
+    class AlexNet(nn.Module):
+        def __init__(self, config=None):
+            super().__init__(config)
+            self.conv2_1 = nn.Conv2d(3, 64, kernel_size=11, stride=4,
+                                     padding=2)
+            self.relu_1 = nn.ReLU()
+            self.maxpool2d_1 = nn.MaxPool2d(kernel_size=3, stride=2)
+            self.conv2_2 = nn.Conv2d(64, 192, kernel_size=5, stride=1,
+                                     padding=2)
+            self.relu_2 = nn.ReLU()
+            self.maxpool2d_2 = nn.MaxPool2d(kernel_size=3, stride=2)
+            self.conv2_3 = nn.Conv2d(192, 384, kernel_size=3, stride=1,
+                                     padding=1)
+            self.relu_3 = nn.ReLU()
+            self.conv2_4 = nn.Conv2d(384, 256, kernel_size=3, stride=1,
+                                     padding=1)
+            self.relu_4 = nn.ReLU()
+            self.conv2_5 = nn.Conv2d(256, 256, kernel_size=3, stride=1,
+                                     padding=1)
+            self.relu_5 = nn.ReLU()
+            self.maxpool2d_3 = nn.MaxPool2d(kernel_size=3, stride=2)
+            self.flat = nn.Flatten()
+            self.linear_1 = nn.Linear(256 * 6 * 6, 4096)
+            self.relu_6 = nn.ReLU()
+            self.linear_2 = nn.Linear(4096, 4096)
+            self.relu_7 = nn.ReLU()
+            self.linear_3 = nn.Linear(4096, 10)
+            self.softmax = nn.Softmax()
+
+        def forward(self, x):
+            x = self.maxpool2d_1(self.relu_1(self.conv2_1(x)))
+            x = self.maxpool2d_2(self.relu_2(self.conv2_2(x)))
+            x = self.relu_3(self.conv2_3(x))
+            x = self.relu_4(self.conv2_4(x))
+            x = self.maxpool2d_3(self.relu_5(self.conv2_5(x)))
+            x = self.flat(x)
+            x = self.relu_6(self.linear_1(x))
+            x = self.relu_7(self.linear_2(x))
+            return self.softmax(self.linear_3(x))
+
+    return AlexNet
+
+
+def front_builder_alexnet(ft, cfg):
+    """The nn_compat AlexNet's graph by FFModel's builder calls, op for
+    op, each op named as the shim names it (its attribute)."""
+    m = ft.FFModel(cfg)
+    t = m.create_tensor((cfg.batch_size, 3, 229, 229), name="input")
+    convs = [("conv2_1", 64, 11, 4, 2, "maxpool2d_1"),
+             ("conv2_2", 192, 5, 1, 2, "maxpool2d_2"),
+             ("conv2_3", 384, 3, 1, 1, None),
+             ("conv2_4", 256, 3, 1, 1, None),
+             ("conv2_5", 256, 3, 1, 1, "maxpool2d_3")]
+    for i, (name, out, k, stride, pad, pool) in enumerate(convs):
+        t = m.conv2d(t, out, k, k, stride, stride, pad, pad, name=name)
+        t = m.relu(t, name=f"relu_{i + 1}")
+        if pool:
+            t = m.pool2d(t, 3, 3, 2, 2, 0, 0, pool_type="max", name=pool)
+    t = m.flat(t, name="flat")
+    t = m.relu(m.dense(t, 4096, name="linear_1"), name="relu_6")
+    t = m.relu(m.dense(t, 4096, name="linear_2"), name="relu_7")
+    return m, m.softmax(m.dense(t, 10, name="linear_3"), name="softmax")
+
+
+def front_keras_cifar(K):
+    """func_cifar10_alexnet.py's functional model over the ``K`` keras
+    package (the runner's script builds it too)."""
+    inp = K.Input((3, 32, 32))
+    t = K.Conv2D(64, (11, 11), strides=(4, 4), padding=(5, 5),
+                 activation="relu")(inp)
+    t = K.MaxPooling2D((2, 2))(t)
+    t = K.Conv2D(192, (5, 5), padding=(2, 2), activation="relu")(t)
+    t = K.MaxPooling2D((2, 2))(t)
+    t = K.Conv2D(256, (3, 3), padding="same", activation="relu")(t)
+    t = K.Flatten()(t)
+    t = K.Dense(512, activation="relu")(t)
+    t = K.Dense(512, activation="relu")(t)
+    out = K.Activation("softmax")(K.Dense(10)(t))
+    return K.Model(inp, out)
+
+
+def front_cifar_data(K, n: int, split: int = 0):
+    """The first ``n`` rows of cifar10's train (0) or test (1) split as
+    the example feeds them: float32 in [0, 1], int32 (n, 1) labels."""
+    import numpy as np
+    x, y = K.datasets.cifar10.load_data()[split]
+    return (x[:n].astype(np.float32) / 255.0,
+            y[:n].reshape(-1, 1).astype(np.int32))
+
+
+FRONT_RUNNER_SCRIPT = """\
+import json
+import sys
+
+sys.path.insert(0, {here!r})
+import chip_smoke as s
+import flexflow_tpu_torch as ft
+from flexflow_tpu_torch import keras
+from flexflow_tpu_torch.ops import cuda_pool
+
+cfg = ft.get_default_config()
+x, y = s.front_cifar_data(keras, cfg.batch_size * s.FRONT_RUNNER_STEPS)
+model = s.front_keras_cifar(keras)
+model.compile(keras.SGD(learning_rate=0.01),
+              loss="sparse_categorical_crossentropy", metrics=["accuracy"])
+fwd, bwd = cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward
+s.reset_counts(fwd, bwd)
+pm = model.fit(x, y, epochs=cfg.epochs, verbose=0)
+print("FRONT_RUNNER " + json.dumps({{
+    "batch_size": model.ffconfig.batch_size, "epochs": cfg.epochs,
+    "device": model.ffmodel.device.type, "pool_fwd": fwd.launches,
+    "pool_bwd": bwd.launches, "steps": model.ffmodel._step,
+    "accuracy": pm.accuracy}}))
+"""
+
+
+def front_start_runner(workdir: str) -> dict:
+    """Start the runner's three subprocesses (the script, lint,
+    explain), their output to files in ``workdir``."""
+    script = os.path.join(workdir, "front_runner.py")
+    with open(script, "w") as f:
+        f.write(FRONT_RUNNER_SCRIPT.format(here=HERE))
+    cli = [sys.executable, "-m", "flexflow_tpu_torch.cli"]
+    cmds = {"script": cli + [script, "-b", str(BATCH), "-e", "1"],
+            "lint": cli + ["lint", "--model", "alexnet", "--json"],
+            "explain": cli + ["explain", "--model", "transformer",
+                              "--mesh", "n=4", "--json"]}
+    procs = {}
+    for name, cmd in cmds.items():
+        out = open(os.path.join(workdir, f"{name}.out"), "w")
+        err = open(os.path.join(workdir, f"{name}.err"), "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=HERE, stdout=out,
+                                        stderr=err), out, err,
+                       time.perf_counter())
+    return procs
+
+
+def front_finish_runner(procs, workdir: str, card: str) -> dict:
+    """Wait for the runner's subprocesses and check what each printed;
+    returns the script's record."""
+    outs = {}
+    for name, (proc, out, err, t0) in procs.items():
+        rc = proc.wait(timeout=FRONT_TIMEOUT)
+        out.close()
+        err.close()
+        with open(os.path.join(workdir, f"{name}.out")) as f:
+            text = f.read()
+        with open(os.path.join(workdir, f"{name}.err")) as f:
+            errtext = f.read()
+        assert rc == 0, (name, rc, errtext[-3000:])
+        outs[name] = (text, time.perf_counter() - t0)
+    from flexflow_tpu_torch.analysis import validate_explain_json
+    line = [ln for ln in outs["script"][0].splitlines()
+            if ln.startswith("FRONT_RUNNER ")]
+    assert len(line) == 1, outs["script"][0][-3000:]
+    rec = json.loads(line[0][len("FRONT_RUNNER "):])
+    steps = FRONT_RUNNER_STEPS
+    assert rec["batch_size"] == BATCH and rec["epochs"] == 1, rec
+    assert rec["device"] == "cuda" and rec["steps"] == steps, rec
+    assert (rec["pool_fwd"], rec["pool_bwd"]) == (2 * steps, 2 * steps), rec
+    lint = json.loads(outs["lint"][0])
+    assert set(lint) == {"diagnostics", "counts"}, lint
+    explain = json.loads(outs["explain"][0])
+    assert {a: n for a, n in explain["mesh"].items() if n > 1} == {
+        "n": 4}, explain["mesh"]
+    assert validate_explain_json(explain) == [], "explain payload"
+    # each subprocess's seconds: from its start to this check, which
+    # waits for (a)-(c) first
+    print(f"frontends runner: python -m flexflow_tpu_torch.cli "
+          f"front_runner.py -b {BATCH} -e 1 exit 0 (done within "
+          f"{outs['script'][1]:.1f} s of its start): the script's config "
+          f"batch {rec['batch_size']}, epochs {rec['epochs']}, device "
+          f"{rec['device']}, {rec['steps']} steps, pool launches "
+          f"{rec['pool_fwd']} forward and {rec['pool_bwd']} backward "
+          f"(2 + 2 a step); lint --model alexnet --json exit 0 (within "
+          f"{outs['lint'][1]:.1f} s; {len(lint['diagnostics'])} "
+          f"diagnostics), explain --model transformer --mesh n=4 --json "
+          f"exit 0 (within {outs['explain'][1]:.1f} s; payload valid, "
+          f"comm digest {explain['comm_plan_digest']}) [{card}]")
+    return rec
+
+
+def front_params(core) -> dict:
+    return {p.name: core.get_weights(p.name) for p in core.parameters}
+
+
+def front_nn_twin(ft, AlexNet, card: str) -> dict:
+    """The nn_compat AlexNet in float32 against its builder-call twin
+    from the same weights: FRONT_TWIN_STEPS SGD steps, losses and every
+    parameter within FRONT_TWIN_RTOL (of the parameter's largest
+    magnitude), cuDNN deterministic."""
+    import numpy as np
+    import torch
+
+    def cfg():
+        return ft.FFConfig(batch_size=BATCH, compute_dtype="float32",
+                           seed=SEED)
+
+    with deterministic_cudnn():
+        net = AlexNet(cfg())
+        net(net.create_input((BATCH, 3, 229, 229)))
+        net.compile(ft.SGDOptimizer(lr=0.01),
+                    ft.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, [])
+        twin, out = front_builder_alexnet(ft, cfg())
+        twin.compile(ft.SGDOptimizer(lr=0.01),
+                     ft.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, [],
+                     final_tensor=out)
+        twin.init_layers(seed=SEED + 1)
+        shim = net.ffmodel
+        assert ([(op.name, op.op_type) for op in twin.layers]
+                == [(op.name, op.op_type) for op in shim.layers])
+        for name, v in front_params(shim).items():
+            twin.set_weights(name, v)
+        xs, y = ft.synthetic_dataset(BATCH * FRONT_TWIN_STEPS,
+                                     [(3, 229, 229)], (1,),
+                                     num_classes=10, seed=SEED + 1)
+        losses = []
+        for i in range(FRONT_TWIN_STEPS):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            losses.append((float(shim.train_batch(xs[0][sl], y[sl])),
+                           float(twin.train_batch(xs[0][sl], y[sl]))))
+        torch.cuda.synchronize()
+        a, b = front_params(shim), front_params(twin)
+    rel = max(float(np.abs(a[k] - b[k]).max()
+                    / max(float(np.abs(b[k]).max()), 1e-30)) for k in a)
+    loss_rel = max(abs(x - w) / max(abs(w), 1e-30) for x, w in losses)
+    bit = (all(np.array_equal(a[k], b[k]) for k in a)
+           and all(x == w for x, w in losses))
+    print(f"frontends f32 AlexNet: nn_compat against its builder-call twin "
+          f"({len(shim.layers)} ops, {len(a)} parameters), "
+          f"{FRONT_TWIN_STEPS} SGD steps: losses {losses}, largest "
+          f"relative difference of a loss {loss_rel:.3g} and of a "
+          f"parameter {rel:.3g} (limit {FRONT_TWIN_RTOL}), bit-equal "
+          f"{bit} [{card}]")
+    assert loss_rel <= FRONT_TWIN_RTOL and rel <= FRONT_TWIN_RTOL, \
+        (losses, rel)
+    del net, twin, shim
+    free_garbage()
+    return {"bit_equal": bit, "rel": rel}
+
+
+def front_nn_path(ft, cuda_pool, card: str) -> dict:
+    """(a): the nn_compat AlexNet at full width on the card."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.nn_compat import nn
+
+    AlexNet = front_nn_alexnet(nn)
+    net = AlexNet(ft.FFConfig(batch_size=BATCH, seed=SEED))
+    net(net.create_input((BATCH, 3, 229, 229)))
+    net.compile(ft.SGDOptimizer(lr=0.001),
+                ft.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                [ft.METRICS_ACCURACY])
+    core = net.ffmodel
+    assert core.device.type == "cuda" and \
+        core.resolved_conv_layout == "nhwc", (core.device,
+                                              core.resolved_conv_layout)
+    xs, y = ft.synthetic_dataset(BATCH * FRONT_FIT_BATCHES,
+                                 [(3, 229, 229)], (1,), num_classes=10,
+                                 seed=SEED)
+    fwd, bwd = cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward
+    reset_counts(fwd, bwd)
+    t0 = time.perf_counter()
+    pm = net.fit(xs[0], y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = (fwd.launches, bwd.launches)
+    preds = net.predict(xs[0][:BATCH])
+    counts = (fwd.launches, bwd.launches)
+    losses = core.last_epoch_losses
+    print(f"frontends nn_compat AlexNet (229 px, batch {BATCH}, bf16): fit "
+          f"over {FRONT_FIT_BATCHES} batches in {fit_s:.3f} s, losses "
+          f"{[round(float(v), 4) for v in losses]}, accuracy "
+          f"{pm.accuracy:.4f}; pool launches fit {fit_counts[0]} forward "
+          f"+ {fit_counts[1]} backward (3 + 3 a step), predict "
+          f"{counts[0] - fit_counts[0]} forward; predict "
+          f"{tuple(preds.shape)}, rows sum to "
+          f"{float(preds.sum(1).min()):.4f}-{float(preds.sum(1).max()):.4f}"
+          f" [{card}]")
+    assert fit_counts == (3 * FRONT_FIT_BATCHES, 3 * FRONT_FIT_BATCHES)
+    assert counts == (3 * (FRONT_FIT_BATCHES + 1), 3 * FRONT_FIT_BATCHES)
+    assert preds.shape == (BATCH, 10) and np.isfinite(preds).all()
+    assert np.allclose(preds.sum(1), 1.0, atol=2e-2)
+    assert len(losses) == FRONT_FIT_BATCHES and np.isfinite(losses).all()
+    del net, core
+    free_garbage()
+    twin = front_nn_twin(ft, AlexNet, card)
+    return {"fwd": counts[0], "bwd": counts[1], "twin": twin}
+
+
+def front_pool_checks(cuda_pool, gen) -> tuple:
+    """(b)'s two pool shapes at batch BATCH, bf16 and f32: the kernels
+    against the plain version, forward and backward, bit for bit (these
+    launches are comparisons, counted by no path)."""
+    import torch
+    err_f = err_b = 0.0
+    for (c, h, w), (k, s, p) in FRONT_KERAS_POOLS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rand_input((BATCH, c, h, w), dtype, gen)
+            y = cuda_pool.max_pool_nhwc(x, k, s, p)
+            ref = cuda_pool.max_pool_nhwc_reference(x, k, s, p)
+            name = f"frontends keras {h}x{w}x{c} {str(dtype)[6:]}"
+            err_f = max(err_f, assert_bit_equal(y, ref, name))
+            oh, ow = cuda_pool.out_hw(h, w, k, s, p)
+            g = rand_input((BATCH, c, oh, ow), dtype, gen)
+            with plain_refused(cuda_pool):
+                dx = cuda_pool.max_pool_nhwc_backward(x, g, k, s, p)
+                torch.cuda.synchronize()
+            dref = cuda_pool.max_pool_nhwc_backward_reference(x, g, k, s, p)
+            err_b = max(err_b, assert_bit_equal(dx, dref,
+                                                f"{name} backward"))
+            print(f"kernel == plain (bit-equal), forward and backward: "
+                  f"{name} (batch {BATCH}) k={k} s={s} p={p}")
+    return err_f, err_b
+
+
+def front_keras_path(ft, cuda_pool, gen, card: str) -> dict:
+    """(b): the keras functional CIFAR-10 AlexNet on the card."""
+    import numpy as np
+    from flexflow_tpu_torch import keras
+
+    err_f, err_b = front_pool_checks(cuda_pool, gen)
+    # cifar10 warns that it falls back to its synthetic set
+    x, y = front_cifar_data(keras, BATCH * FRONT_KERAS_STEPS)
+    xt, yt = front_cifar_data(keras, 8 * BATCH, split=1)
+    model = front_keras_cifar(keras)
+    model.compile(keras.SGD(learning_rate=0.01),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  config=ft.FFConfig(batch_size=BATCH, seed=SEED))
+    fwd, bwd = cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward
+    reset_counts(fwd, bwd)
+    pm = model.fit(x, y, epochs=1, verbose=0)
+    fit_counts = (fwd.launches, bwd.launches)
+    fit_losses = model.ffmodel.last_epoch_losses
+    loss, epm = model.evaluate(xt, yt)
+    counts = (fwd.launches, bwd.launches)
+    evals = -(-len(xt) // BATCH)
+    print(f"frontends keras CIFAR-10 AlexNet (3x32x32, batch {BATCH}, "
+          f"bf16, the synthetic cifar10): fit {FRONT_KERAS_STEPS} steps, "
+          f"losses {[round(float(v), 4) for v in fit_losses]}, accuracy "
+          f"{pm.accuracy:.4f}; evaluate {len(xt)} rows: loss "
+          f"{loss:.4f}, accuracy {epm.accuracy:.4f}; pool launches fit "
+          f"{fit_counts[0]} + {fit_counts[1]} (2 + 2 a step), evaluate "
+          f"{counts[0] - fit_counts[0]} forward [{card}]")
+    assert fit_counts == (2 * FRONT_KERAS_STEPS, 2 * FRONT_KERAS_STEPS)
+    assert counts == (2 * (FRONT_KERAS_STEPS + evals),
+                      2 * FRONT_KERAS_STEPS), counts
+    assert np.isfinite(loss) and np.isfinite(fit_losses).all()
+    summary = model.summary().splitlines()
+    assert summary[-1].startswith("total parameters: "), summary
+    del model
+    free_garbage()
+    return {"fwd": counts[0], "bwd": counts[1], "err_fwd": err_f,
+            "err_bwd": err_b}
+
+
+def front_ln_path(ft, counters, card: str) -> dict:
+    """(c): a keras residual block at BERT-base's width: the LayerNorm
+    kernel held against its plain version at (FRONT_LN_ROWS, 768), then
+    one launch a forward through fit and predict."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import keras
+    from flexflow_tpu_torch.ops import cuda_norm
+
+    d = BERT["d_model"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((FRONT_LN_ROWS, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    res = torch.randn((FRONT_LN_ROWS, d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    err = max(ln_check(cuda_norm, x, None, scale, bias,
+                       " (frontends keras block)"),
+              ln_check(cuda_norm, x, res, scale, bias,
+                       " (frontends keras block)"))
+    inp = keras.Input((d,))
+    t = keras.Dense(BERT["d_ff"], activation="relu")(inp)
+    t = keras.Dense(d)(t)
+    t = keras.LayerNormalization()(keras.Add()([t, inp]))
+    model = keras.Model(inp, keras.Dense(2)(t))
+    model.compile(keras.SGD(learning_rate=0.01),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  config=ft.FFConfig(batch_size=FRONT_LN_ROWS, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    xs = rng.standard_normal((FRONT_LN_ROWS * FRONT_LN_STEPS, d),
+                             dtype=np.float32)
+    ys = rng.integers(0, 2, (len(xs), 1)).astype(np.int32)
+    reset_counts(*counters)
+    model.fit(xs, ys, epochs=1, verbose=0)
+    fit_losses = model.ffmodel.last_epoch_losses
+    preds = model.predict(xs[:FRONT_LN_ROWS])
+    flash_f, flash_b, ln = (c.launches for c in counters)
+    forwards = FRONT_LN_STEPS + 1
+    print(f"frontends keras residual block (Dense {BERT['d_ff']} relu, "
+          f"Dense {d}, Add, LayerNormalization, Dense 2; {FRONT_LN_ROWS} "
+          f"rows, bf16): fit {FRONT_LN_STEPS} steps, losses "
+          f"{[round(float(v), 4) for v in fit_losses]}, predict "
+          f"{tuple(preds.shape)}; LayerNorm launches {ln} over "
+          f"{forwards} forwards, flash {flash_f} + {flash_b} [{card}]")
+    assert ln == forwards and flash_f == flash_b == 0, (ln, flash_f,
+                                                        flash_b)
+    assert preds.shape == (FRONT_LN_ROWS, 2) and np.isfinite(preds).all()
+    del model
+    free_garbage()
+    return {"ln": ln, "err": err}
+
+
+def frontends_phase(ft, cuda_pool, counters, card: str) -> dict:
+    """A.11's frontends on the card: the runner's subprocesses (d)
+    started first, then (a)-(c) in this process, then (d) checked.
+    Returns each path's launches and the kernels' errors at the new
+    shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    workdir = tempfile.mkdtemp(prefix="ff-front-")
+    procs = front_start_runner(workdir)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        nn_path = front_nn_path(ft, cuda_pool, card)
+        keras_path = front_keras_path(ft, cuda_pool, gen, card)
+        ln_path = front_ln_path(ft, counters, card)
+        runner = front_finish_runner(procs, workdir, card)
+    finally:
+        # a failure above leaves no runner process behind
+        for proc, out, err, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"nn": nn_path, "keras": keras_path, "ln": ln_path,
+            "runner": runner}
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -6949,6 +7450,8 @@ def main() -> int:
     phase("verifier", verifier_phase, ft, card)
     tsearch = phase("search", search_phase, ft, card)
     tcalib = phase("calibration", calibration_phase, ft, card)
+    tfront = phase("frontends", frontends_phase, ft, cuda_pool, counters,
+                   card)
     # last: each engine thread that ran a matmul leaves its cuBLAS
     # workspace (32 MiB a concurrently used handle) allocated, which no
     # training step's peak above may count
@@ -7056,6 +7559,15 @@ def main() -> int:
         fwd_paths[f"calibration_{name}"] = cl[name][0]
         bwd_paths[f"calibration_{name}"] = cl[name][1]
     search_bert["calibration_bert"] = cl["bert"]
+    # the frontends' paths (the runner's subprocess counts apart: its
+    # counts are its own process's, asserted in the phase)
+    for path, key in (("frontends_nn_alexnet", "nn"),
+                      ("frontends_keras_alexnet", "keras")):
+        fwd_paths[path] = tfront[key]["fwd"]
+        bwd_paths[path] = tfront[key]["bwd"]
+    kp["max_abs_err"] = max(kp["max_abs_err"], tfront["keras"]["err_fwd"])
+    bp["max_abs_err"] = max(bp["max_abs_err"], tfront["keras"]["err_bwd"])
+    lp["max_abs_err"] = max(lp["max_abs_err"], tfront["ln"]["err"])
     lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
@@ -7099,7 +7611,8 @@ def main() -> int:
                     **tspec["ln"], **tdis["ln"],
                     "fleet": tfleet["ln"], "pipeline": tpipe["ln"],
                     **mesh_ln,
-                    **{k: v[4] for k, v in search_bert.items()}}, lp),
+                    **{k: v[4] for k, v in search_bert.items()},
+                    "frontends_keras_ln": tfront["ln"]["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

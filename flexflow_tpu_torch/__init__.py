@@ -4,13 +4,22 @@ A second package beside the JAX one: the FFModel graph API and its
 operators in PyTorch, running on an NVIDIA GPU (Hopper), with the JAX
 package's Pallas kernels rewritten by hand in CUDA (``csrc/``).  It
 imports neither jax nor flexflow_tpu.  Entry points run on CUDA unless
-the caller passes ``device="cpu"``.  On several devices it runs one
-process per device and a ``MachineMesh`` over them
+the caller passes ``device="cpu"`` or the process has a default device
+(:func:`set_default_device`, the runner's ``--device``).  On several
+devices it runs one process per device and a ``MachineMesh`` over them
 (``parallel/distributed.py``).
+
+The frontends sit on top: ``flexflow_tpu_torch.keras`` (Sequential and
+functional models), ``flexflow_tpu_torch.nn_compat`` (the torch.nn-style
+module API) and the ``flexflow-tpu-torch`` script runner (``cli.py``),
+which installs the parsed flags as the default config
+(:func:`set_default_config`, :func:`get_default_config`).
 """
 
 from . import losses, metrics, resilience
-from .config import DeviceType, FFConfig, MemoryType, ParallelConfig
+from .config import (DeviceType, FFConfig, MemoryType, ParallelConfig,
+                     get_default_config, get_default_device,
+                     set_default_config, set_default_device)
 from .data import synthetic_dataset
 from .initializers import (ConstantInitializer, GlorotUniform,
                            NormInitializer, UniformInitializer,
@@ -41,7 +50,8 @@ from .serving import (DeadlineExceeded, GenerationCancelled,
 from .tensor import Parameter, Tensor
 
 __all__ = ["DeviceType", "FFConfig", "MemoryType",
-           "ParallelConfig", "ConstantInitializer", "GlorotUniform",
+           "ParallelConfig", "get_default_config", "get_default_device",
+           "set_default_config", "set_default_device", "ConstantInitializer", "GlorotUniform",
            "NormInitializer", "UniformInitializer", "ZeroInitializer",
            "FFModel", "Op", "OpContext", "OpType", "DeadlineExceeded",
            "build_alexnet", "build_candle_uno", "build_dlrm",

@@ -3,19 +3,23 @@
 The port's own copy of ``flexflow_tpu/config.py``: the same fields, the
 same defaults and the same validation, so a configuration written for
 the JAX package means the same thing here.  The worker unit is a CUDA
-device (``workers_per_node``).  Fields that
-drive machinery the port has not grown yet (strategy search,
-multi-device meshes, generation serving, tracing) are kept so
+device (``workers_per_node``, ``-ll:gpu``).  Fields that drive
+machinery the port has not grown yet (tracing) are kept so
 configurations stay portable; ``FFModel.compile`` refuses the ones it
-cannot honour.  The command-line
-parser comes with the tooling slice.
+cannot honour.  ``FFConfig.parse_args`` reads the reference's flag set,
+the JAX package's parser flag for flag.
+
+The process-wide defaults live here too: the config the script runner
+(``cli.py``) parsed, and the device it was told to run on
+(:func:`set_default_config`, :func:`get_default_config`,
+:func:`set_default_device`, :func:`get_default_device`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 class DeviceType(enum.IntEnum):
@@ -75,6 +79,27 @@ class ParallelConfig:
             raise ValueError(
                 f"ParallelConfig.precision must be one of "
                 f"{PRECISIONS}, got {self.precision!r}")
+
+    @property
+    def num_parts(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+    def with_dims(self, dims: Sequence[int]) -> "ParallelConfig":
+        """The same placement with degrees ``dims`` over devices
+        ``0..prod(dims)-1``."""
+        nparts = 1
+        for d in dims:
+            nparts *= d
+        return ParallelConfig(
+            device_type=self.device_type,
+            dims=tuple(int(d) for d in dims),
+            device_ids=tuple(range(nparts)),
+            memory_types=self.memory_types,
+            precision=self.precision,
+        )
 
     @staticmethod
     def data_parallel(num_parts: int, ndims: int = 2) -> "ParallelConfig":
@@ -208,3 +233,193 @@ class FFConfig:
         if self.serve_quantize:
             short += f"+{self.serve_quantize}w"
         return short
+
+    @staticmethod
+    def parse_args(argv: Optional[List[str]] = None) -> "FFConfig":
+        """CLI parser with the reference's flag set (model.cc:1221-1289),
+        the JAX package's flags in its order and with its errors:
+        ``-e/--epochs -b/--batch-size --lr/--learning-rate
+        --wd/--weight-decay -p/--print-freq -d/--dataset --budget --alpha
+        -s/--export -import/--import -ll:gpu -ll:cpu --nodes --profiling
+        --overlap`` and the search, precision, serving and observability
+        flags after them.  ``-ll:gpu`` counts CUDA devices a node;
+        ``-ll:tpu`` is its alias, as ``-ll:gpu`` is the JAX package's.
+        Unknown flags pass through."""
+        import sys
+
+        if argv is None:
+            argv = sys.argv[1:]
+        cfg = FFConfig()
+        i = 0
+        while i < len(argv):
+            a = argv[i]
+
+            def val() -> str:
+                nonlocal i
+                i += 1
+                return argv[i]
+
+            if a in ("-e", "--epochs"):
+                cfg.epochs = int(val())
+            elif a in ("-b", "--batch-size"):
+                cfg.batch_size = int(val())
+            elif a in ("--lr", "--learning-rate"):
+                cfg.learning_rate = float(val())
+            elif a in ("--wd", "--weight-decay"):
+                cfg.weight_decay = float(val())
+            elif a in ("-p", "--print-freq"):
+                cfg.print_frequency = max(1, int(val()))
+            elif a in ("-d", "--dataset"):
+                cfg.dataset_path = val()
+            elif a == "--budget":
+                cfg.search_budget = int(val())
+            elif a == "--alpha":
+                cfg.search_alpha = float(val())
+            elif a == "--chains":
+                cfg.search_chains = max(1, int(val()))
+            elif a == "--search-precision":
+                cfg.search_precision = True
+            elif a == "--search-mode":
+                mode = val().lower()
+                if mode not in ("mcmc", "hybrid"):
+                    raise ValueError(
+                        f"--search-mode {mode!r}: want 'mcmc' or 'hybrid'")
+                cfg.search_mode = mode
+            elif a == "--best-known":
+                cfg.best_known_file = val()
+            elif a == "--reshard-budget":
+                cfg.reshard_search_budget = int(val())
+            elif a == "--calibration":
+                cfg.calibration_file = val()
+            elif a == "--cost-estimator":
+                cfg.cost_estimator = val().lower()
+            elif a == "--overlap":
+                cfg.search_overlap_backward_update = True
+            elif a in ("-s", "--export"):
+                cfg.export_strategy_file = val()
+            elif a in ("-import", "--import"):
+                cfg.import_strategy_file = val()
+            elif a in ("-ll:gpu", "-ll:tpu"):
+                cfg.workers_per_node = int(val())
+            elif a == "-ll:cpu":
+                cfg.cpus_per_node = int(val())
+            elif a == "--nodes":
+                cfg.num_nodes = int(val())
+            elif a == "--profiling":
+                cfg.profiling = True
+            elif a == "--seed":
+                cfg.seed = int(val())
+            elif a == "--remat":
+                cfg.remat = True
+            elif a == "--conv-layout":
+                cfg.conv_layout = val().lower()
+            elif a == "--accum-steps":
+                cfg.gradient_accumulation_steps = int(val())
+            elif a == "--steps-per-dispatch":
+                cfg.steps_per_dispatch = int(val())
+            elif a == "--pad-tail":
+                cfg.pad_tail_batches = True
+            elif a == "--serve-max-batch":
+                cfg.serve_max_batch = int(val())
+            elif a == "--serve-max-wait-ms":
+                cfg.serve_max_wait_ms = float(val())
+            elif a == "--serve-buckets":
+                cfg.serve_buckets = val()
+            elif a == "--serve-quantize":
+                cfg.serve_quantize = val().lower()
+                if cfg.serve_quantize not in ("", "int8"):
+                    raise ValueError(
+                        f"--serve-quantize must be '' or 'int8', got "
+                        f"{cfg.serve_quantize!r}")
+            elif a == "--compute-dtype":
+                cfg.compute_dtype = val().lower()
+                _validate_dtype_field("compute_dtype", cfg.compute_dtype,
+                                      VALID_COMPUTE_DTYPES)
+            elif a == "--param-dtype":
+                cfg.param_dtype = val().lower()
+                _validate_dtype_field("param_dtype", cfg.param_dtype,
+                                      VALID_PARAM_DTYPES)
+            elif a == "--serve-model-name":
+                cfg.serve_model_name = val()
+            elif a == "--serve-max-queue-rows":
+                cfg.serve_max_queue_rows = int(val())
+            elif a == "--serve-admission":
+                cfg.serve_admission = val().lower()
+            elif a == "--serve-starvation-ms":
+                cfg.serve_starvation_ms = float(val())
+            elif a == "--serve-gen-slots":
+                cfg.serve_gen_slots = int(val())
+            elif a == "--serve-gen-max-seq":
+                cfg.serve_gen_max_seq = int(val())
+            elif a == "--serve-gen-max-new":
+                cfg.serve_gen_max_new_tokens = int(val())
+            elif a == "--serve-kv-page":
+                cfg.serve_kv_page = int(val())
+            elif a == "--serve-kv-pages":
+                cfg.serve_kv_pages = int(val())
+            elif a == "--serve-prefix-cache":
+                cfg.serve_prefix_cache = val().lower()
+                if cfg.serve_prefix_cache not in ("on", "off"):
+                    raise ValueError(
+                        f"--serve-prefix-cache must be 'on' or 'off', "
+                        f"got {cfg.serve_prefix_cache!r}")
+            elif a == "--serve-prefill-chunk":
+                cfg.serve_prefill_chunk = int(val())
+            elif a == "--serve-spec-gamma":
+                cfg.serve_spec_gamma = int(val())
+            elif a == "--serve-spec-gamma-max":
+                cfg.serve_spec_gamma_max = int(val())
+            elif a == "--serve-spec-policy":
+                cfg.serve_spec_policy = val().lower()
+                if cfg.serve_spec_policy not in ("fixed", "adaptive"):
+                    raise ValueError(
+                        f"--serve-spec-policy must be 'fixed' or "
+                        f"'adaptive', got {cfg.serve_spec_policy!r}")
+            elif a == "--trace-sample-rate":
+                cfg.trace_sample_rate = float(val())
+            elif a == "--metrics-port":
+                cfg.metrics_port = int(val())
+            elif a == "--metrics-host":
+                cfg.metrics_host = val()
+            # unknown flags pass through (the reference forwards Legion's)
+            i += 1
+        return cfg
+
+
+# the process-wide defaults the script runner installs (cli.py)
+_default_config: Optional[FFConfig] = None
+_default_device: Optional[str] = None
+
+
+def set_default_config(cfg: Optional[FFConfig]) -> None:
+    """Install the process-wide default FFConfig (None removes it):
+    ``FFModel()``, keras ``compile`` and ``nn_compat.Module`` without a
+    config read it.  The ``flexflow-tpu-torch`` runner installs the one
+    it parsed."""
+    global _default_config
+    _default_config = cfg
+
+
+def get_default_config() -> FFConfig:
+    """A fresh copy per call — models must not share mutable strategy
+    state (compile() writes searched strategies into its config)."""
+    import copy
+    if _default_config is None:
+        return FFConfig()
+    return copy.deepcopy(_default_config)
+
+
+def set_default_device(device: Optional[str]) -> None:
+    """Install the device entry points run on when the caller names
+    none (``"cuda"`` or ``"cpu"``; None removes it, and the card is the
+    default again).  The runner's ``--device`` sets it."""
+    global _default_device
+    if device is not None and str(device) not in ("cuda", "cpu"):
+        raise ValueError(f"default device must be 'cuda' or 'cpu', got "
+                         f"{device!r}")
+    _default_device = None if device is None else str(device)
+
+
+def get_default_device() -> Optional[str]:
+    """The installed default device, or None (the card)."""
+    return _default_device

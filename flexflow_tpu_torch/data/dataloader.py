@@ -1,5 +1,7 @@
-"""Synthetic data and the double-buffered device feed, the counterpart of
-``flexflow_tpu/data/dataloader.py`` (``synthetic_dataset`` and
+"""Synthetic data, disk datasets, the reference's loaders and the
+double-buffered device feed, the counterpart of
+``flexflow_tpu/data/dataloader.py`` (``synthetic_dataset``,
+``load_numpy_dataset``, ``SingleDataLoader``, ``DataLoader`` and
 ``PrefetchLoader``).
 
 The dataset lives in host numpy.  ``PrefetchLoader`` uploads batch i+1
@@ -42,6 +44,102 @@ def synthetic_dataset(num_samples: int,
         y = rng.standard_normal(
             (num_samples,) + tuple(label_shape), dtype=np.float32)
     return xs, y
+
+
+def load_numpy_dataset(path: str):
+    """Disk dataset loader (reference ImgDataLoader numpy path,
+    flexflow_dataloader.cc:512-599): ``.npz`` archives with x*/y arrays,
+    or a bare ``.npy`` tensor.  Returns (inputs_list, labels_or_None).
+
+    A truncated or bit-rotted archive raises
+    ``resilience.CorruptNpzError`` naming the path — not the bare
+    ``zipfile.BadZipFile`` numpy would surface."""
+    import zipfile
+    import zlib
+    try:
+        if path.endswith(".npy"):
+            return [np.load(path)], None
+        with np.load(path, allow_pickle=False) as f:
+            keys = sorted(f.files)
+            # keras-layout archives carry BOTH splits; return the train
+            # split (x_test pairs with y_test, never with y_train)
+            if "x_train" in keys:
+                return [f["x_train"]], (f["y_train"] if "y_train" in keys
+                                        else None)
+            xs = [f[k] for k in keys
+                  if k.startswith("x") and not k.startswith("x_test")]
+            ys = [f[k] for k in keys
+                  if (k.startswith("y") and not k.startswith("y_test"))
+                  or k == "label"]
+            if not xs:  # positional fallback: first n-1 arrays are inputs
+                arrays = [f[k] for k in keys]
+                xs, ys = arrays[:-1], arrays[-1:]
+            return xs, (ys[0] if ys else None)
+    except FileNotFoundError:
+        raise  # a missing dataset is not a corrupt one
+    except (zipfile.BadZipFile, zlib.error, ValueError, OSError,
+            EOFError) as e:
+        from ..resilience import CorruptNpzError
+        raise CorruptNpzError(
+            f"dataset archive {path!r} is corrupt or unreadable "
+            f"({type(e).__name__}: {e}); re-export the archive, or point "
+            f"the run at a valid one (synthetic data needs no file at "
+            f"all)") from e
+
+
+class SingleDataLoader:
+    """Reference SingleDataLoader: one full tensor held host-side,
+    batched."""
+
+    def __init__(self, model, input_tensor, data: np.ndarray,
+                 batch_size: Optional[int] = None):
+        self.model = model
+        self.tensor = input_tensor
+        self.data = data
+        self.batch_size = batch_size or model.config.batch_size
+        self.num_samples = data.shape[0]
+        self.next_index = 0
+
+    def reset(self) -> None:
+        self.next_index = 0
+
+    def next_batch(self) -> np.ndarray:
+        i = self.next_index
+        self.next_index += self.batch_size
+        return self.data[i:i + self.batch_size]
+
+
+class DataLoader:
+    """Multi-input loader mirroring the reference app DataLoaders
+    (e.g. alexnet.cc DataLoader: full dataset + per-iteration
+    next_batch)."""
+
+    def __init__(self, model, inputs_data: Sequence[np.ndarray],
+                 labels: np.ndarray, batch_size: Optional[int] = None):
+        self.model = model
+        self.inputs_data = [np.asarray(a) for a in inputs_data]
+        self.labels = np.asarray(labels)
+        self.batch_size = batch_size or model.config.batch_size
+        self.num_samples = self.labels.shape[0]
+        self.next_index = 0
+
+    def reset(self) -> None:
+        self.next_index = 0
+
+    def next_batch(self, model=None) -> None:
+        """Load the next batch into the model (reference
+        ``data_loader.next_batch(ff)``): ``set_batch`` uploads it to
+        the model's device.  Past the end it starts over."""
+        model = model or self.model
+        i = self.next_index
+        bs = self.batch_size
+        if i + bs > self.num_samples:
+            i = 0
+            self.next_index = 0
+        self.next_index = i + bs
+        arrays = [a[i:i + bs] for a in self.inputs_data]
+        arrays.append(self.labels[i:i + bs])
+        model.set_batch(*arrays)
 
 
 def upload(arrays, device: torch.device) -> tuple:

@@ -51,8 +51,11 @@ SOAP space on the simulator, analytic or measured on the device) for the
 process group's devices, unless a strategy file is imported.
 
 The model runs on CUDA unless the caller passes another device
-(``device="cpu"`` in the tests); without CUDA and without a device it
-raises instead of falling back.
+(``device="cpu"`` in the tests) or the process has a default one (the
+runner's ``--device``); without CUDA and without either it raises
+instead of falling back.  ``FFModel()`` without a config takes the
+process default (``config.get_default_config``), which the
+``flexflow-tpu-torch`` runner fills from its flags.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ import torch.utils.checkpoint
 
 from . import faults, losses
 from . import metrics as metrics_mod
-from .config import FFConfig
+from .config import FFConfig, get_default_config, get_default_device
 from .data.dataloader import PrefetchLoader, upload
 from .initializers import GlorotUniform
 from .op import Op, OpContext, OpType, fold_seed, resolve_conv_layout
@@ -103,7 +106,12 @@ from .tensor import Parameter, Tensor
 
 
 def default_device() -> torch.device:
-    """The device entry points run on when the caller names none."""
+    """The device entry points run on when the caller names none: the
+    process default (``config.set_default_device``, the runner's
+    ``--device``) when one is installed, else the card."""
+    installed = get_default_device()
+    if installed is not None:
+        return torch.device(installed)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "flexflow_tpu_torch runs on a CUDA device and none is "
@@ -163,7 +171,10 @@ def _mesh_context(on_mesh: bool):
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None,
                  device=None, mesh: Optional[MachineMesh] = None):
-        self.config = config if config is not None else FFConfig()
+        if config is None:
+            # the flexflow-tpu-torch runner installs a parsed default
+            config = get_default_config()
+        self.config = config
         if device is None and mesh is not None:
             device = mesh.device
         self.device = (default_device() if device is None
@@ -817,6 +828,31 @@ class FFModel:
             else:
                 self._params[k] = v
 
+    def share_weights(self, op: Op, source_op: Op) -> None:
+        """Make ``op`` read ``source_op``'s parameters — keras
+        shared-layer reuse (the reference's graph model re-uses one
+        weight region across calls): both ops reference the same
+        Parameter objects, so the params dict, the optimizer state and
+        a checkpoint hold one entry and autograd sums both call sites'
+        gradients."""
+        assert len(op.weights) == len(source_op.weights), \
+            (op.name, source_op.name)
+        for w_new, w_old in zip(list(op.weights), source_op.weights):
+            assert tuple(w_new.shape) == tuple(w_old.shape), \
+                (w_new.name, w_new.shape, w_old.shape)
+            for attr, val in list(vars(op).items()):
+                if val is w_new:
+                    setattr(op, attr, w_old)
+            self.parameters = [p for p in self.parameters if p is not w_new]
+        op.weights = list(source_op.weights)
+
+    def get_parameter_by_name(self, name: str) -> Optional[Parameter]:
+        """The Parameter whose name is ``name`` or ends in ``/name``."""
+        for p in self.parameters:
+            if p.name == name or p.name.endswith("/" + name):
+                return p
+        return None
+
     def _trainable_names(self) -> set:
         return {p.name for p in self.parameters if p.trainable}
 
@@ -1121,6 +1157,19 @@ class FFModel:
         if faults.plan():
             faults.on_window(start, end)
             self._maybe_reshard_fault(start, end)
+
+    def summary(self) -> str:
+        """One line per op (name, type, output shape, parameter count)
+        and the total, the JAX package's text."""
+        lines = [f"{'op':30s} {'type':14s} {'output':24s} {'params':>12s}"]
+        total = 0
+        for op in self.layers:
+            nparam = sum(w.volume for w in op.weights)
+            total += nparam
+            lines.append(f"{op.name:30s} {op.op_type.value:14s} "
+                         f"{str(op.outputs[0].shape):24s} {nparam:12d}")
+        lines.append(f"total parameters: {total}")
+        return "\n".join(lines)
 
     @property
     def num_parameters(self) -> int:

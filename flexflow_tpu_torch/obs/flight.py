@@ -8,8 +8,9 @@ structured fflogger events and tracer spans (taps installed on first
 failed KV migration handoff) the ring is dumped as one JSON post-mortem
 into ``FF_FLIGHT_DIR``.  With the variable unset nothing is written.
 Dumps are rate-limited per reason and atomically renamed into place.
-The ``flight`` CLI and the fatal-exception hook come with the tooling
-slice.
+:func:`install_excepthook` (installed by the ``flexflow-tpu-torch``
+runner) dumps the ring on a fatal uncaught exception.  The ``flight``
+CLI is still to come (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -152,6 +153,47 @@ def flight_dump(reason: str, extra: Optional[Dict] = None,
     """Module-level trigger: dump the process ring (no-op without
     ``$FF_FLIGHT_DIR``)."""
     return get_flight().dump(reason, extra=extra, force=force)
+
+
+_orig_excepthook = None
+_orig_thread_hook = None
+
+
+def install_excepthook() -> None:
+    """Dump the flight ring on a FATAL uncaught exception, then defer
+    to the previous hook (installed by the ``flexflow-tpu-torch``
+    runner — a crashed serving process leaves its last seconds on
+    disk).  Hooks BOTH ``sys.excepthook`` and ``threading.excepthook``:
+    the most likely serving crash is an exception escaping a dispatcher
+    daemon THREAD's loop, which Python routes to the threading hook —
+    the sys hook alone would never see it."""
+    import sys
+    global _orig_excepthook, _orig_thread_hook
+    if _orig_excepthook is not None:
+        return  # idempotent
+    _orig_excepthook = sys.excepthook
+    _orig_thread_hook = threading.excepthook
+
+    def _dump(exc_type, exc, where: str) -> None:
+        try:
+            get_flight().dump(
+                "fatal_exception", force=True,
+                extra={"type": exc_type.__name__,
+                       "error": str(exc)[:300], "where": where})
+        except Exception:  # noqa: BLE001 — never mask the real crash
+            pass
+
+    def hook(exc_type, exc, tb):
+        _dump(exc_type, exc, "main")
+        _orig_excepthook(exc_type, exc, tb)
+
+    def thread_hook(args):
+        _dump(args.exc_type, args.exc_value,
+              getattr(args.thread, "name", "") or "thread")
+        _orig_thread_hook(args)
+
+    sys.excepthook = hook
+    threading.excepthook = thread_hook
 
 
 def validate_flight_dump(obj) -> List[str]:
