@@ -271,6 +271,31 @@
    launch a forward through ``fit`` and ``predict``, no flash launch.
    The ``kernels`` line carries the paths ``frontends_nn_alexnet``,
    ``frontends_keras_alexnet`` and ``frontends_keras_ln``;
+17h. tooling phase (last): three subprocesses started first: (b) the
+   runner with ``--metrics-port`` over a script that fits the full-width
+   AlexNet (229 px, batch 64, bf16) for 2 steps and scrapes its own
+   ``/metrics`` (valid exposition, the ``ff_train_*`` counters, 3 + 3
+   pool launches a step), (c) the runner over a script that raises with
+   ``FF_FLIGHT_DIR`` set (non-zero exit, one valid dump; ``flight dump``
+   and ``flight show`` exit 0, ``flight dump`` on an empty directory
+   1), (d) this file's ``--lockwatch`` workload under ``FF_LOCKWATCH=1``
+   (AlexNet behind a ServingEngine, the GPT-2-small-width LM behind a
+   GenerationEngine, a two-tenant FleetEngine round, one scrape: its
+   runtime lock edges inside ``static_lock_edges()``, no cycle), with
+   ``lint --concurrency`` (exit 0) run meanwhile; then in this process
+   (a) BERT-base (12 x 768, s 512, batch 16, bf16) ``fit`` over 4 batches
+   in windows of 2 under ``trace_dir`` and the span tracer: the
+   profiler's file names the flash forward and backward and the
+   LayerNorm kernels, 48 + 48 flash and 96 LayerNorm launches, 2
+   ``train_window`` spans of 2 steps under one trace id, ``trace
+   export`` of the saved spans exit 0 and valid, and the profiler's
+   overhead (a step's busy and wall time with and without
+   ``trace_dir``); (e) ``train-bench --ks 1,4,8,16 --steps 64 --epochs
+   2``, ``precision-bench``, ``serve-bench --requests 256`` and
+   ``serve-bench --overload --cell-seconds 0.5`` through the runner's
+   verbs on the card (no hand-written kernel launches), their headline
+   rows printed.  The ``kernels`` line carries ``tooling_bert_traced``
+   and ``tooling_metrics_alexnet``;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -7338,6 +7363,556 @@ def frontends_phase(ft, cuda_pool, counters, card: str) -> dict:
             "runner": runner}
 
 
+# ----------------------------------------------------------------------
+# the tooling phase: fit's trace plane, the metrics endpoint, the trace
+# and flight verbs, the lock analysis and the benches (A.11)
+# ----------------------------------------------------------------------
+# (a) BERT-base traced: fit over TOOL_BATCHES batches of BERT_BATCH in
+# windows of TOOL_K steps
+TOOL_BATCHES = 4
+TOOL_K = 2
+TOOL_TIMEOUT = 300
+# (b) the runner's AlexNet fit with --metrics-port: steps at batch BATCH
+TOOL_METRICS_STEPS = 2
+# (d) the FF_LOCKWATCH=1 process: AlexNet requests of 1-4 rows, LM
+# prompts x new tokens, and the fleet round's requests a tenant
+TOOL_LW_SERVE = 48
+TOOL_LW_GEN = (8, 16)
+TOOL_LW_FLEET = 4
+# (e) the benches through the runner's verbs, on the card
+TOOL_BENCHES = (
+    ("train-bench", ["train-bench", "--ks", "1,4,8,16", "--steps", "64",
+                     "--epochs", "2"]),
+    ("precision-bench", ["precision-bench"]),
+    ("serve-bench", ["serve-bench", "--requests", "256"]),
+    ("serve-bench --overload", ["serve-bench", "--overload",
+                                "--cell-seconds", "0.5"]),
+)
+# the profiler names of the hand-written kernels a BERT-base step runs
+TOOL_KERNEL_NAMES = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                     "flash_bwd_dq_tc_kernel", "layernorm_kernel")
+
+TOOL_METRICS_SCRIPT = """\
+import json
+import sys
+import urllib.request
+
+sys.path.insert(0, {here!r})
+import chip_smoke as s
+import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.obs.registry import validate_prometheus_text
+from flexflow_tpu_torch.ops import cuda_pool
+
+cfg = ft.get_default_config()
+_, image, classes, _ = s.CNNS["alexnet"]
+model, _, _ = s.build_cnn(ft, "alexnet", cfg)
+model.compile(ft.SGDOptimizer(lr=0.001), metrics=["accuracy"])
+model.init_layers(seed=s.SEED)
+xs, y = ft.synthetic_dataset(s.TOOL_METRICS_STEPS * cfg.batch_size,
+                             [(3, image, image)], (1,),
+                             num_classes=classes, seed=s.SEED)
+fwd, bwd = cuda_pool.max_pool_nhwc, cuda_pool.max_pool_nhwc_backward
+s.reset_counts(fwd, bwd)
+model.fit(xs, y, epochs=1, verbose=False)
+launches = (fwd.launches, bwd.launches)
+url = f"http://{{cfg.metrics_host}}:{{cfg.metrics_port}}/metrics"
+text = urllib.request.urlopen(url, timeout=60).read().decode()
+print("TOOL_METRICS " + json.dumps({{
+    "batch_size": cfg.batch_size, "compute_dtype": cfg.compute_dtype,
+    "device": model.device.type, "steps": model._step,
+    "pool_fwd": launches[0], "pool_bwd": launches[1],
+    "problems": validate_prometheus_text(text),
+    "train": sorted({{ln.split()[0] for ln in text.splitlines()
+                     if ln.startswith("ff_train_")}})}}))
+"""
+
+TOOL_CRASH_SCRIPT = """\
+import torch
+
+torch.ones(4, device="cuda").sum().item()
+raise RuntimeError("tooling crash probe")
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tool_start(workdir: str) -> dict:
+    """Start (b), (c) and (d)'s subprocesses, their output to files in
+    ``workdir``: the runner with --metrics-port over the AlexNet script,
+    the runner over a script that raises with FF_FLIGHT_DIR set, and
+    this file's --lockwatch workload under FF_LOCKWATCH=1."""
+    for name, text in (("metrics.py", TOOL_METRICS_SCRIPT.format(
+            here=HERE)), ("crash.py", TOOL_CRASH_SCRIPT)):
+        with open(os.path.join(workdir, name), "w") as f:
+            f.write(text)
+    cli = [sys.executable, "-m", "flexflow_tpu_torch.cli"]
+    port = free_port()
+    env = dict(os.environ)
+    cmds = {
+        "metrics": (cli + [os.path.join(workdir, "metrics.py"), "-b",
+                           str(BATCH), "-e", "1", "--compute-dtype",
+                           "bfloat16", "--metrics-port", str(port)], env),
+        "crash": (cli + [os.path.join(workdir, "crash.py")],
+                  dict(env, FF_FLIGHT_DIR=os.path.join(workdir, "flight"))),
+        "lockwatch": ([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                       "--lockwatch", os.path.join(workdir, "lw.json")],
+                      dict(env, FF_LOCKWATCH="1")),
+    }
+    procs = {"port": port}
+    for name, (cmd, penv) in cmds.items():
+        out = open(os.path.join(workdir, f"{name}.out"), "w")
+        err = open(os.path.join(workdir, f"{name}.err"), "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=HERE, stdout=out,
+                                        stderr=err, env=penv), out, err,
+                       time.perf_counter())
+    return procs
+
+
+def tool_wait(procs, workdir: str) -> dict:
+    """Wait for the subprocesses; returns name -> (exit code, stdout,
+    stderr, seconds)."""
+    done = {}
+    for name, item in procs.items():
+        if name == "port":
+            continue
+        proc, out, err, t0 = item
+        rc = proc.wait(timeout=TOOL_TIMEOUT)
+        out.close()
+        err.close()
+        texts = []
+        for ext in ("out", "err"):
+            with open(os.path.join(workdir, f"{name}.{ext}")) as f:
+                texts.append(f.read())
+        done[name] = (rc, texts[0], texts[1], time.perf_counter() - t0)
+    return done
+
+
+def tool_cli(argv) -> tuple:
+    """(exit code, stdout) of the runner's ``main`` in this process."""
+    from flexflow_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(list(argv))
+            rc = 0
+        except SystemExit as e:
+            rc = 0 if e.code is None else e.code
+    return rc, out.getvalue()
+
+
+def kernel_busy_ms(fn) -> float:
+    """The kernels' device time over one call of ``fn`` (torch
+    profiler): what the traced file's ``"cat": "kernel"`` events sum to,
+    so without the copies, the memsets and the ranges that
+    ``record_function`` marks on the device's timeline."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    skip = ("train_window#", "train#", "ProfilerStep", "Memcpy", "Memset")
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(skip))
+    assert total > 0, "the profiler saw no kernel"
+    return total / 1e3
+
+
+def tool_traced_bert(ft, counters, workdir: str, card: str) -> dict:
+    """(a): BERT-base's fit in windows of TOOL_K under ``trace_dir`` and
+    the span tracer; the profiler's overhead against the same fit
+    untraced; the raw spans through ``trace export``."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.fflogger import silenced
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.obs.trace import (get_tracer,
+                                              validate_chrome_trace)
+
+    fwd_k, bwd_k, ln_k = counters
+    cfg = ft.FFConfig(batch_size=BERT_BATCH, compute_dtype="bfloat16",
+                      seed=SEED)
+    cfg.steps_per_dispatch = TOOL_K
+    model, _, logits = build_transformer(cfg, **BERT)
+    model.compile(ft.AdamOptimizer(alpha=1e-4), final_tensor=logits)
+    model.init_layers(seed=SEED)
+    assert model.warmup_compile() == ["flash_attention", "fused_layernorm"]
+    rng = np.random.default_rng(SEED)
+    n = TOOL_BATCHES * BERT_BATCH
+    xs = rng.integers(0, BERT["vocab_size"], (n, BERT["seq_len"])).astype(
+        np.int32)
+    y = rng.integers(0, BERT["num_classes"], (n, 1)).astype(np.int32)
+
+    def fit():
+        with silenced("ff"):
+            model.fit(xs, y, epochs=1, verbose=False)
+
+    fit()   # warm: the allocator's blocks and cuBLAS's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    wall_plain = (time.perf_counter() - t0) * 1e3
+    busy_plain = kernel_busy_ms(fit)
+
+    tracer = get_tracer()
+    tracer.disable()
+    tracer.reset()
+    cfg.trace_dir = os.path.join(workdir, "profile")
+    cfg.trace_sample_rate = 1.0
+    reset_counts(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    wall_traced = (time.perf_counter() - t0) * 1e3
+    launches = {"fwd": fwd_k.launches, "bwd": bwd_k.launches,
+                "ln": ln_k.launches}
+    cfg.trace_dir = ""
+    cfg.trace_sample_rate = 0.0
+    raw = tracer.snapshot()
+    raw_path = os.path.join(workdir, "spans.json")
+    tracer.save(raw_path)
+    tracer.disable()
+    tracer.reset()
+    path = model.last_trace_file
+    assert path and os.path.dirname(path) == os.path.join(workdir,
+                                                          "profile"), path
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_traced = sum(e.get("dur", 0) for e in kernels) / 1e3
+    names = {e["name"] for e in kernels}
+    found = {k: sum(1 for e in kernels if k in e["name"])
+             for k in TOOL_KERNEL_NAMES}
+    assert all(found.values()), (found, sorted(names)[:20])
+    ranges = sorted(e["name"] for e in events
+                    if e.get("name", "").startswith("train_window#"))
+    layers, steps = BERT["num_layers"], TOOL_BATCHES
+    assert launches == {"fwd": layers * steps, "bwd": layers * steps,
+                        "ln": 2 * layers * steps}, launches
+    spans = raw["spans"]
+    ids = {s.get("trace") for s in spans}
+    assert [s["name"] for s in spans] == ["train_window"] * (
+        steps // TOOL_K), spans
+    assert len(ids) == 1 and None not in ids, ids
+    assert [s["args"]["steps"] for s in spans] == [TOOL_K] * (
+        steps // TOOL_K), spans
+    chrome_path = os.path.join(workdir, "spans_chrome.json")
+    rc, _ = tool_cli(["trace", "export", raw_path, "--out", chrome_path])
+    assert rc == 0, rc
+    with open(chrome_path) as f:
+        chrome = json.load(f)
+    assert validate_chrome_trace(chrome) == [] and len(
+        chrome["traceEvents"]) == len(spans)
+    print(f"tooling traced fit: BERT-base batch {BERT_BATCH} bf16, "
+          f"{steps} steps in windows of {TOOL_K}; profiler file "
+          f"{os.path.basename(path)} ({size} bytes, {len(events)} events, "
+          f"{len(kernels)} kernel events; hand-written kernel events "
+          f"{json.dumps(found)}; ranges {ranges}); launches flash "
+          f"{launches['fwd']} forward + {launches['bwd']} backward, "
+          f"LayerNorm {launches['ln']}; {len(spans)} train_window spans "
+          f"under trace {ids.pop()}, steps "
+          f"{[s['args']['steps'] for s in spans]}; trace export exit 0, "
+          f"{len(chrome['traceEvents'])} Chrome events valid [{card}]")
+    over = {"busy_ms_a_step_plain": round(busy_plain / steps, 3),
+            "busy_ms_a_step_traced": round(busy_traced / steps, 3),
+            "wall_ms_a_step_plain": round(wall_plain / steps, 3),
+            "wall_ms_a_step_traced": round(wall_traced / steps, 3),
+            "trace_bytes": size}
+    print(f"tooling profiler overhead (BERT-base, a step at batch "
+          f"{BERT_BATCH}, bf16, fit of {steps} steps; traced wall "
+          f"includes the profiler's start, stop and file export): "
+          f"{json.dumps(over)} [{card}]")
+    del model
+    free_garbage()
+    return {"launches": launches, "overhead": over}
+
+
+def tool_check_metrics(done: dict, port: int, card: str) -> dict:
+    """(b): the runner's --metrics-port run."""
+    rc, out, err, secs = done["metrics"]
+    assert rc == 0, (rc, err[-3000:])
+    assert f"[obs] metrics on 127.0.0.1:{port}/metrics" in err, err[-2000:]
+    line = [ln for ln in out.splitlines() if ln.startswith("TOOL_METRICS ")]
+    assert len(line) == 1, out[-3000:]
+    rec = json.loads(line[0][len("TOOL_METRICS "):])
+    steps = TOOL_METRICS_STEPS
+    pools = CNNS["alexnet"][3]
+    assert rec["device"] == "cuda" and rec["batch_size"] == BATCH, rec
+    assert rec["steps"] == steps and rec["problems"] == [], rec
+    assert (rec["pool_fwd"], rec["pool_bwd"]) == (pools * steps,
+                                                  pools * steps), rec
+    assert rec["train"] == ["ff_train_dispatch_ms",
+                            "ff_train_dispatches_total",
+                            "ff_train_samples_total",
+                            "ff_train_steps_total"], rec
+    print(f"tooling metrics: python -m flexflow_tpu_torch.cli metrics.py "
+          f"-b {BATCH} --metrics-port {port} exit 0 (done within "
+          f"{secs:.1f} s of its start); AlexNet 229 px {rec['compute_dtype']}"
+          f" {steps} steps, pool launches {rec['pool_fwd']} forward + "
+          f"{rec['pool_bwd']} backward ({pools} + {pools} a step); its own "
+          f"scrape valid, {rec['train']} [{card}]")
+    return {"fwd": rec["pool_fwd"], "bwd": rec["pool_bwd"]}
+
+
+def tool_check_flight(done: dict, workdir: str, card: str) -> None:
+    """(c): the crashed script's one dump and the flight verbs."""
+    from flexflow_tpu_torch.obs.flight import validate_flight_dump
+
+    rc, out, err, secs = done["crash"]
+    assert rc != 0 and "tooling crash probe" in err, (rc, err[-2000:])
+    fdir = os.path.join(workdir, "flight")
+    dumps = sorted(os.listdir(fdir))
+    assert len(dumps) == 1 and dumps[0].startswith(
+        "flight_fatal_exception_"), dumps
+    with open(os.path.join(fdir, dumps[0])) as f:
+        dump = json.load(f)
+    assert validate_flight_dump(dump) == [], dump
+    rc_dump, text = tool_cli(["flight", "dump", "--dir", fdir])
+    assert rc_dump == 0 and text.strip() == os.path.join(fdir, dumps[0])
+    rc_show, text = tool_cli(["flight", "show", "--dir", fdir])
+    assert rc_show == 0 and "reason=fatal_exception" in text, text
+    empty = os.path.join(workdir, "empty")
+    os.makedirs(empty)
+    rc_empty, _ = tool_cli(["flight", "dump", "--dir", empty])
+    assert rc_empty == 1
+    print(f"tooling flight: the script exit {rc} (within {secs:.1f} s), "
+          f"one dump {dumps[0]} valid ({len(dump['records'])} records, "
+          f"extra {json.dumps(dump['extra'])[:120]}); flight dump exit "
+          f"{rc_dump}, flight show exit {rc_show}, flight dump on an "
+          f"empty directory exit {rc_empty} [{card}]")
+
+
+def tool_check_locks(done: dict, workdir: str, lint: tuple,
+                     card: str) -> None:
+    """(d): lint --concurrency over the port's tree, and the runtime
+    edges of the FF_LOCKWATCH=1 process against the static graph."""
+    from flexflow_tpu_torch.obs import lockwatch
+
+    rc, text = lint
+    assert rc == 0 and "no diagnostics" in text, text[-3000:]
+    prc, out, err, secs = done["lockwatch"]
+    assert prc == 0, (prc, err[-3000:])
+    with open(os.path.join(workdir, "lw.json")) as f:
+        rep = json.load(f)
+    runtime = {tuple(e) for e in rep["runtime"]}
+    static = {tuple(e) for e in rep["static"]}
+    missing = sorted(runtime - static)
+    assert rep["cycle"] is None and not missing, (rep["cycle"], missing)
+    assert lockwatch.find_cycle(runtime) is None
+    assert rep["scrape_problems"] == [], rep["scrape_problems"]
+    roster = text.strip().splitlines()[-1]
+    print(f"tooling locks: lint --concurrency exit 0 ({roster}); "
+          f"FF_LOCKWATCH=1 run (AlexNet "
+          f"{TOOL_LW_SERVE} requests, GPT-2-small-width LM "
+          f"{TOOL_LW_GEN[0]} x {TOOL_LW_GEN[1]} tokens, a two-tenant fleet "
+          f"round and one scrape; within {secs:.1f} s) observed "
+          f"{len(runtime)} runtime edges, all among the {len(static)} "
+          f"static ones, no cycle; its launches {json.dumps(rep['launches'])}"
+          f" [{card}]")
+
+
+def tool_benches(card: str, kernel_counters) -> dict:
+    """(e): the benches through the runner's verbs, in this process, on
+    the card; their dense models launch no hand-written kernel."""
+    reset_counts(*kernel_counters)
+    payloads = {}
+    for label, argv in TOOL_BENCHES:
+        t0 = time.perf_counter()
+        rc, out = tool_cli(argv)
+        assert rc == 0, (label, rc, out[-2000:])
+        payloads[label] = json.loads(out)
+        payloads[label]["_seconds"] = round(time.perf_counter() - t0, 3)
+    launches = [k.launches for k in kernel_counters]
+    assert launches == [0] * len(kernel_counters), launches
+    name = _card_name()
+    tb = payloads["train-bench"]
+    assert tb["backend"] == "cuda" and tb["device_kind"] == name, tb
+    assert [r["dispatches"] for r in tb["results"]] == [
+        -(-64 // k) * 2 for k in (1, 4, 8, 16)], tb["results"]
+    print("tooling train-bench: " + json.dumps({
+        f"K={r['steps_per_dispatch']}": {
+            "steps_per_sec": r["steps_per_sec"],
+            "ms_per_step": r["ms_per_step"],
+            "speedup_vs_k1": r["speedup_vs_k1"],
+            "final_loss": r["final_loss"]} for r in tb["results"]})
+        + f" ({tb['_seconds']} s) [{card}]")
+    pb = payloads["precision-bench"]
+    assert pb["backend"] == "cuda" and pb["serve"]["quality"]["bound_ok"]
+    print("tooling precision-bench: " + json.dumps({
+        "bf16_over_f32": pb["train"]["bf16_over_f32"],
+        "f32_steps_per_sec": pb["train"]["float32"]["steps_per_sec"],
+        "bf16_steps_per_sec": pb["train"]["bfloat16"]["steps_per_sec"],
+        "int8_over_baseline": pb["serve"]["int8_over_baseline"],
+        "int8_rows_per_s": pb["serve"]["int8_rows_per_s"],
+        "baseline_rows_per_s": pb["serve"]["baseline_rows_per_s"],
+        "max_abs_err": pb["serve"]["quality"]["max_abs_err"],
+        "search": {k: pb["search"][k] for k in (
+            "baseline_all_f32_ms", "mixed_precision_ms", "speedup",
+            "mixed_beats_baseline", "bf16_ops", "best_mesh")}})
+        + f" ({pb['_seconds']} s) [{card}]")
+    sb = payloads["serve-bench"]
+    assert sb["backend"] == "cuda" and sb["engine"]["dispatches"] > 0
+    print("tooling serve-bench: " + json.dumps({
+        "engine_rows_per_s": sb["engine"]["qps_rows"],
+        "naive_rows_per_s": sb["naive"]["qps_rows"],
+        "speedup_rows": sb["speedup_rows"],
+        "engine_p50_ms": sb["engine"]["p50_ms"],
+        "engine_p99_ms": sb["engine"]["p99_ms"],
+        "paced_p50_ms": sb["paced"]["p50_ms"],
+        "paced_p99_ms": sb["paced"]["p99_ms"],
+        "paced_rate_rps": sb["paced"]["offered_rate_rps"]})
+        + f" ({sb['_seconds']} s) [{card}]")
+    ob = payloads["serve-bench --overload"]
+    cells = ob["cells"]
+    assert len(cells) == 12 and all(c["reconciled"] for c in cells)
+    print("tooling serve-bench --overload: " + json.dumps({
+        "capacity_rps": ob["capacity"]["qps_requests"],
+        "slo_ms": ob["config"]["slo_ms"],
+        "goodput_rows_per_s": {f"{c['policy']} x{c['offered_mult']}":
+                               c["goodput_rows_per_s"] for c in cells},
+        "summary": ob["summary"]}) + f" ({ob['_seconds']} s) [{card}]")
+    return {k: v["_seconds"] for k, v in payloads.items()}
+
+
+def _card_name() -> str:
+    import torch
+    return torch.cuda.get_device_name(0)
+
+
+def tooling_phase(ft, counters, kernel_counters, card: str) -> dict:
+    """A.11's tooling plane on the card: (b)-(d)'s subprocesses started
+    first, lint --concurrency meanwhile, then (a) and (e) in this
+    process once they are done (so nothing else loads the host while
+    (a) and (e) time), then (b)-(d) checked.  Returns the launches of
+    (a) and (b)."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="ff-tool-")
+    procs = tool_start(workdir)
+    try:
+        lint = tool_cli(["lint", "--concurrency"])
+        done = tool_wait(procs, workdir)
+        traced = tool_traced_bert(ft, counters, workdir, card)
+        metrics = tool_check_metrics(done, procs["port"], card)
+        tool_check_flight(done, workdir, card)
+        tool_check_locks(done, workdir, lint, card)
+        benches = tool_benches(card, kernel_counters)
+    finally:
+        for name, item in procs.items():
+            if name == "port":
+                continue
+            proc, out, err, _ = item
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"bert": traced["launches"], "alexnet": metrics,
+            "overhead": traced["overhead"], "benches": benches}
+
+
+def lockwatch_main(argv) -> int:
+    """The FF_LOCKWATCH=1 workload of the tooling phase (d), in a process
+    of its own (enablement is sampled when a lock is made, at import):
+    AlexNet behind a ServingEngine, the GPT-2-small-width LM behind a
+    GenerationEngine, a two-tenant FleetEngine round of both and one
+    scrape of the metrics server; writes the runtime and static lock
+    edges to ``argv[0]``."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.analysis import concurrency as cz
+    from flexflow_tpu_torch.fflogger import silenced
+    from flexflow_tpu_torch.obs import lockwatch
+    from flexflow_tpu_torch.obs.registry import (start_metrics_server,
+                                                 validate_prometheus_text)
+    from flexflow_tpu_torch.ops import cuda_attention, cuda_norm, cuda_pool
+    from flexflow_tpu_torch.serving.fleet import FleetEngine
+
+    assert lockwatch.enabled(), "run with FF_LOCKWATCH=1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counted = (cuda_pool.max_pool_nhwc, cuda_attention.flash_attention_forward,
+               cuda_norm.fused_layernorm)
+    reset_counts(*counted)
+    rng = np.random.default_rng(SEED)
+    _, image, classes, _ = CNNS["alexnet"]
+    cfg = ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16", seed=SEED)
+    alex, _, _ = build_cnn(ft, "alexnet", cfg)
+    alex.compile()
+    alex.init_layers(seed=SEED)
+    lm = spec_model(ft, GPT2, "bfloat16", SEED)
+    n_prompts, n_new = TOOL_LW_GEN
+    prompts = [rng.integers(0, GPT2["vocab_size"], 32).astype(np.int32)
+               for _ in range(n_prompts)]
+
+    def rows(n):
+        return rng.standard_normal((n, 3, image, image)).astype(np.float32)
+
+    gen_kw = {"slots": n_prompts, "page_size": GEN_PAGE,
+              "prefill_chunk": GEN_CHUNK}
+    with silenced("serve", "obs"):
+        with ft.ServingEngine(alex, stats_every=8) as eng:
+            futs = [eng.submit(rows(int(n)))
+                    for n in rng.integers(1, 5, TOOL_LW_SERVE)]
+            for f in futs:
+                assert np.isfinite(f.result(timeout=TOOL_TIMEOUT)).all()
+        with ft.GenerationEngine(lm, max_new_tokens=n_new, **gen_kw) as gen:
+            futs = [gen.submit(p) for p in prompts]
+            for f in futs:
+                assert 0 < len(f.result(timeout=TOOL_TIMEOUT)) <= n_new
+        server = start_metrics_server(0)
+        try:
+            fleet = FleetEngine()
+            fleet.add_engine("alexnet", ft.ServingEngine(alex,
+                                                         name="alexnet"))
+            fleet.add_engine("lm", ft.GenerationEngine(
+                lm, name="lm", **gen_kw))
+            with fleet:
+                futs = [fleet.submit("alexnet", rows(2))
+                        for _ in range(TOOL_LW_FLEET)]
+                streams = [fleet.submit("lm", p, max_new_tokens=4)
+                           for p in prompts[:TOOL_LW_FLEET]]
+                for f in futs + streams:
+                    f.result(timeout=TOOL_TIMEOUT)
+                text = urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.server_port}/metrics",
+                    timeout=60).read().decode()
+        finally:
+            server.shutdown()
+            server.server_close()
+    an = cz.build()
+    with open(argv[0], "w") as f:
+        json.dump({"runtime": sorted(lockwatch.edges()),
+                   "static": sorted(an.edges),
+                   "cycle": lockwatch.report()["cycle"],
+                   "scrape_problems": validate_prometheus_text(text),
+                   "launches": {"pool_fwd": counted[0].launches,
+                                "flash_fwd": counted[1].launches,
+                                "layernorm": counted[2].launches}}, f)
+    return 0
+
+
 def build_all(kernels) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -7459,6 +8034,8 @@ def main() -> int:
     tdis = phase("disaggregated serving", disagg_phase, ft, counters, card)
     tfleet = phase("fleet", fleet_phase, ft, counters, card)
     phase("elastic", elastic_phase, card)
+    ttool = phase("tooling", tooling_phase, ft, counters, kernel_counters,
+                  card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -7565,6 +8142,10 @@ def main() -> int:
                       ("frontends_keras_alexnet", "keras")):
         fwd_paths[path] = tfront[key]["fwd"]
         bwd_paths[path] = tfront[key]["bwd"]
+    # the tooling phase's runner script (its subprocess's own counts,
+    # printed by the script and asserted in the phase)
+    fwd_paths["tooling_metrics_alexnet"] = ttool["alexnet"]["fwd"]
+    bwd_paths["tooling_metrics_alexnet"] = ttool["alexnet"]["bwd"]
     kp["max_abs_err"] = max(kp["max_abs_err"], tfront["keras"]["err_fwd"])
     bp["max_abs_err"] = max(bp["max_abs_err"], tfront["keras"]["err_bwd"])
     lp["max_abs_err"] = max(lp["max_abs_err"], tfront["ln"]["err"])
@@ -7587,7 +8168,8 @@ def main() -> int:
                     **tspec["fwd"], **tdis["fwd"],
                     "fleet": tfleet["fwd"],
                     **{k: v[2] for k, v in mesh_flash.items()},
-                    **{k: v[2] for k, v in search_bert.items()}},
+                    **{k: v[2] for k, v in search_bert.items()},
+                    "tooling_bert_traced": ttool["bert"]["fwd"]},
                    fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
@@ -7596,7 +8178,8 @@ def main() -> int:
                     "bert_accumulate": baccum["bwd"],
                     "bert_pinned": bpin["bwd"],
                     **{k: v[3] for k, v in mesh_flash.items()},
-                    **{k: v[3] for k, v in search_bert.items()}},
+                    **{k: v[3] for k, v in search_bert.items()},
+                    "tooling_bert_traced": ttool["bert"]["bwd"]},
                    fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
@@ -7612,7 +8195,8 @@ def main() -> int:
                     "fleet": tfleet["ln"], "pipeline": tpipe["ln"],
                     **mesh_ln,
                     **{k: v[4] for k, v in search_bert.items()},
-                    "frontends_keras_ln": tfront["ln"]["ln"]}, lp),
+                    "frontends_keras_ln": tfront["ln"]["ln"],
+                    "tooling_bert_traced": ttool["bert"]["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7627,4 +8211,6 @@ if __name__ == "__main__":
         sys.exit(mesh_nccl_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--elastic-rank"]:
         sys.exit(elastic_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lockwatch"]:
+        sys.exit(lockwatch_main(sys.argv[2:]))
     sys.exit(main())

@@ -9,10 +9,10 @@ the machine view from the model's resolved mesh.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Iterable, List, Optional
 
 from ..config import ParallelConfig
+from ..obs import lockwatch
 from ..op import Op
 from .diagnostics import Diagnostic, DiagnosticReport, make
 from .graph_passes import graph_diagnostics
@@ -164,7 +164,7 @@ def verify_compile(model) -> DiagnosticReport:
 # runtime replicate-fallback aggregation (parallel/sharding.py feeds this
 # instead of one warnings.warn per traced tensor)
 # ---------------------------------------------------------------------
-_fallback_lock = threading.Lock()
+_fallback_lock = lockwatch.lock("verifier._fallback_lock")
 _fallbacks: Dict[tuple, int] = {}
 # distinct-site cap: a long-lived process tracing many models must not
 # grow the dict unboundedly; overflow is counted and reported on drain

@@ -14,13 +14,21 @@ keras ``compile`` and ``nn_compat.Module`` read it; scripts may also call
 and without ``--device cpu`` the runner stops with ``default_device()``'s
 error rather than fall back to the CPU.
 
-Built-in verbs: ``lint`` and ``explain`` (device-free, over the port's
-``analysis``), ``elastic`` (over ``parallel.elastic.run_elastic``),
-``calibrate``, ``calibrate-bench`` (``search.calibration``) and
-``search-bench`` (``search.bench``).  ``trace``, ``flight``,
-``train-bench``, ``serve-bench``, ``precision-bench`` and
-``--metrics-port`` have no engine in the port yet and exit 2 naming
-ROADMAP A.11.
+Built-in verbs: ``lint`` (``--concurrency``: the lock-discipline pass
+over the port's tree, ``analysis/concurrency.py``) and ``explain``
+(device-free, over the port's ``analysis``), ``elastic`` (over
+``parallel.elastic.run_elastic``), ``calibrate``, ``calibrate-bench``
+(``search.calibration``), ``search-bench`` (``search.bench``),
+``trace`` (``obs.trace.trace_main``: export or summarise a raw span
+file) and ``flight`` (``obs.flight.flight_main``: find and show flight
+dumps), and the benches ``train-bench`` (``train_bench``),
+``serve-bench`` (``serving.bench``) and ``precision-bench``
+(``precision_bench``), which take ``--device`` like a script and run on
+the card by default.  ``--metrics-port P`` (with ``--metrics-host``,
+loopback by default) serves the process metrics registry at
+``GET /metrics`` while the script runs.  ``serve-bench --generate``,
+``--fleet`` and ``--disagg`` have no bench in the port yet and exit 2
+naming ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -33,23 +41,12 @@ from .config import FFConfig
 
 PROG = "flexflow-tpu-torch"
 
-# the verbs and flags whose engine the port does not have yet
-WAITING = {
-    "trace": "the span-trace export CLI",
-    "flight": "the flight-recorder CLI",
-    "train-bench": "the training-dispatch benchmark (train_bench.py)",
-    "serve-bench": "the serving benchmarks (serving/bench.py and the "
-                   "generation, fleet and cluster benches)",
-    "precision-bench": "the precision benchmark (precision_bench.py)",
+# the benches among the verbs: each takes --device (the card by default)
+BENCHES = {
+    "train-bench": "train_bench",
+    "serve-bench": "serving.bench",
+    "precision-bench": "precision_bench",
 }
-
-
-def not_ported(what: str) -> int:
-    """Print the refusal of a verb or flag the port has no engine for
-    and return the usage exit code 2."""
-    print(f"{PROG}: {what} is not ported yet (ROADMAP A.11)",
-          file=sys.stderr)
-    return 2
 
 
 def _usage() -> str:
@@ -58,6 +55,11 @@ def _usage() -> str:
             f"       {PROG} elastic [supervisor flags] -- <script.py> "
             f"[script args]\n"
             f"       {PROG} search-bench [flags]\n"
+            f"       {PROG} train-bench [--device cuda|cpu] [flags]\n"
+            f"       {PROG} serve-bench [--overload] [--device cuda|cpu] "
+            f"[flags]\n"
+            f"       {PROG} precision-bench [--device cuda|cpu] "
+            f"[--out f.json]\n"
             f"       {PROG} calibrate [--out table.json | --check "
             f"FILE...] [--device cuda|cpu]\n"
             f"       {PROG} calibrate-bench --table table.json "
@@ -68,8 +70,12 @@ def _usage() -> str:
             f"       {PROG} explain --model NAME [--strategy s.pb] "
             f"[--mesh n=4,c=2] [--json]\n"
             f"       {PROG} explain --fleet fleet.json [--json]\n"
-            f"not ported yet (ROADMAP A.11): {', '.join(WAITING)}, "
-            f"--metrics-port\n"
+            f"       {PROG} lint --concurrency [--json]\n"
+            f"       {PROG} trace export RAW.json [--out f.json] | "
+            f"trace summary RAW.json\n"
+            f"       {PROG} flight dump|show [--dir D]\n"
+            f"not ported yet (ROADMAP A.11): serve-bench --generate, "
+            f"--fleet, --disagg\n"
             "flags (reference model.cc:1221-1289): -e -b --lr --wd -d "
             "--budget --alpha --search-mode --best-known "
             "--reshard-budget -s/-import -ll:gpu "
@@ -78,7 +84,8 @@ def _usage() -> str:
             "--cost-estimator "
             "--serve-max-batch --serve-max-wait-ms --serve-buckets "
             "--serve-max-queue-rows --serve-admission "
-            "--serve-starvation-ms --trace-sample-rate")
+            "--serve-starvation-ms --trace-sample-rate --metrics-port "
+            "--metrics-host")
 
 
 def _take_device(argv):
@@ -102,9 +109,17 @@ def main(argv=None) -> None:
         from .search.bench import main as bench_main
         bench_main(argv[1:])
         return
-    if argv and argv[0] in WAITING:
-        raise SystemExit(not_ported(
-            f"'{argv[0]}' ({WAITING[argv[0]]})"))
+    if argv and argv[0] in BENCHES:
+        raise SystemExit(run_bench(argv[0], argv[1:]))
+    if argv and argv[0] == "trace":
+        # export/inspect recorded request-span traces (host files only:
+        # --device is taken and has nothing to select)
+        from .obs.trace import trace_main
+        raise SystemExit(trace_main(_take_device(argv[1:])[0]))
+    if argv and argv[0] == "flight":
+        # flight-recorder post-mortem dumps (host files only)
+        from .obs.flight import flight_main
+        raise SystemExit(flight_main(_take_device(argv[1:])[0]))
     if argv and argv[0] == "calibrate":
         # harvest measured op/dispatch timings into a CalibrationTable,
         # or --check existing artifacts
@@ -135,22 +150,20 @@ def main(argv=None) -> None:
         raise SystemExit(2)
     flags = [a for a in argv if a != script]
     cfg = FFConfig.parse_args(flags)
-    if cfg.metrics_port > 0:
-        raise SystemExit(not_ported("--metrics-port (the HTTP metrics "
-                                    "server)"))
-    from .config import set_default_config, set_default_device
-    from .model import default_device
-    set_default_device(device)
-    try:
-        default_device()  # no card and no --device cpu: stop here
-    except RuntimeError as e:
-        print(f"{PROG}: {e}", file=sys.stderr)
-        raise SystemExit(1)
+    from .config import set_default_config
+    _install_device(device)
     set_default_config(cfg)
     # a fatal uncaught exception in the user script dumps the flight
-    # ring before the traceback prints
+    # ring before the traceback prints; --metrics-port exposes the
+    # process registry
     from .obs.flight import install_excepthook
     install_excepthook()
+    if cfg.metrics_port > 0:
+        from .obs.registry import start_metrics_server
+        server = start_metrics_server(cfg.metrics_port,
+                                      host=cfg.metrics_host)
+        print(f"[obs] metrics on {cfg.metrics_host}:"
+              f"{server.server_port}/metrics", file=sys.stderr)
     # bring up the process group when this is one rank of a world
     # (torchrun's or the elastic supervisor's variables; a single
     # process is a no-op).  --nodes > 1 makes the multi-process
@@ -164,6 +177,36 @@ def main(argv=None) -> None:
     # the script sees the remaining argv like any __main__
     sys.argv = [script] + flags
     runpy.run_path(script, run_name="__main__")
+
+
+def _install_device(device) -> None:
+    """Install ``device`` (None: the card) as the process default; with
+    no card and no ``--device cpu`` exit 1 with ``default_device()``'s
+    error, running nothing."""
+    from .config import set_default_device
+    from .model import default_device
+    set_default_device(device)
+    try:
+        default_device()
+    except RuntimeError as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        raise SystemExit(1)
+
+
+def run_bench(verb: str, argv) -> int:
+    """Run the bench ``verb`` on the runner's ``--device`` (the card by
+    default); returns its exit code."""
+    import importlib
+
+    argv, device = _take_device(list(argv))
+    if verb == "serve-bench":
+        # the modes with no bench yet refuse before the device is asked
+        from .serving.bench import refuse_waiting_modes
+        refuse_waiting_modes(argv)
+    _install_device(device)
+    mod = importlib.import_module(f".{BENCHES[verb]}", __package__)
+    mod.main(argv)
+    return 0
 
 
 def _lint_builders():
@@ -282,8 +325,9 @@ def lint_main(argv) -> int:
     parser.add_argument("--json", action="store_true",
                         help="machine-readable report on stdout")
     parser.add_argument("--concurrency", action="store_true",
-                        help="the whole-program lock-discipline pass "
-                             "(not ported yet, ROADMAP A.11)")
+                        help="run the whole-program lock-discipline "
+                             "pass (FF150-FF154) over flexflow_tpu_torch/ "
+                             "instead of a model/strategy lint")
     parser.add_argument("--no-resharding", action="store_true",
                         help="skip the FF109 hotspot report")
     parser.add_argument("--serve-slots", type=int, default=0,
@@ -304,13 +348,14 @@ def lint_main(argv) -> int:
     args = parser.parse_args(argv)
 
     if args.concurrency:
-        return not_ported("lint --concurrency (analysis/concurrency.py)")
+        from .analysis.concurrency import concurrency_main
+        return concurrency_main(as_json=args.json)
     if args.fleet:
         return _lint_fleet(args)
     builders = _lint_builders()
     if args.model is None:
-        print("lint: --model is required (or --fleet for the whole-fleet "
-              "gate)", file=sys.stderr)
+        print("lint: --model is required (or --fleet / --concurrency "
+              "for the whole-tree gates)", file=sys.stderr)
         return 2
     if args.model not in builders:
         print(f"lint: unknown model {args.model!r} (have "

@@ -95,7 +95,11 @@ class Category:
         for tap in taps:
             # passive observers (the obs.flight ring, the router's
             # scrape): mute-agnostic, and a broken tap must never take
-            # the emitting path down
+            # the emitting path down.
+            # may-acquire: FlightRecorder._lock
+            # (the flight tap records into its ring under that lock; a
+            # stored callable is beyond the walk, so the contract puts
+            # the edge in the static graph)
             try:
                 tap(dict(rec))
             except Exception:  # noqa: BLE001

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
 import time
@@ -168,6 +169,10 @@ def _mesh_context(on_mesh: bool):
     return implicit_replication()
 
 
+# numbers the traced fits of this process (the profiler files' names)
+_TRACED_FITS = itertools.count(1)
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None,
                  device=None, mesh: Optional[MachineMesh] = None):
@@ -214,6 +219,8 @@ class FFModel:
         self._ckpt_exc: Optional[BaseException] = None
         self.perf_metrics = metrics_mod.PerfMetrics()
         self.last_epoch_losses = np.zeros((0,), np.float32)
+        # the profiler file of the last fit under config.trace_dir
+        self.last_trace_file: Optional[str] = None
         # int8 weight-only serving (quantize_weights): the mode and the
         # quality report; one-way for this instance
         self._quantized: str = ""
@@ -517,9 +524,6 @@ class FFModel:
                     "parallel.distributed.initialize_distributed, then "
                     "compile(mesh=MachineMesh(...))); this process runs "
                     "one device")
-        if cfg.trace_dir:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP A.11): trace_dir")
         from .search.calibration import estimator_from_config
         estimator_from_config(cfg)   # a bad calibration setting fails here
         if cfg.gradient_accumulation_steps < 1:
@@ -1896,15 +1900,21 @@ class FFModel:
         self._window_faults(self._step - 1, self._step)
         return loss
 
-    def _run_window(self, window, nvalid=None) -> tuple:
+    def _run_window(self, window, nvalid=None,
+                    label: str = "train_window") -> tuple:
         """The steps of a window of device tensors, back to back: lists
-        of the per-step losses and metric-sum dicts, on the device."""
+        of the per-step losses and metric-sum dicts, on the device.  The
+        window is one ``torch.profiler`` range, ``<label>#<first step>``
+        (the JAX package's ``StepTraceAnnotation(label, step_num=...)``;
+        ``fit``'s one-step path passes ``"train"``)."""
         losses_, sums_ = [], []
-        for i in range(int(window[0].shape[0])):
-            nv = None if nvalid is None else int(nvalid[i])
-            loss, sums = self._train_step(tuple(a[i] for a in window), nv)
-            losses_.append(loss)
-            sums_.append(sums)
+        with torch.profiler.record_function(f"{label}#{self._step}"):
+            for i in range(int(window[0].shape[0])):
+                nv = None if nvalid is None else int(nvalid[i])
+                loss, sums = self._train_step(tuple(a[i] for a in window),
+                                              nv)
+                losses_.append(loss)
+                sums_.append(sums)
         return losses_, sums_
 
     def train_window(self, window, nvalid=None):
@@ -1979,6 +1989,77 @@ class FFModel:
                 for row in packed]
         return packed[:, 0].astype(np.float32), host
 
+    def warmup_compile(self, *arrays) -> List[str]:
+        """Build and load every hand-written kernel a training step on
+        ``arrays`` launches, without running a step: the counterpart of
+        the JAX package's ``warmup_compile``, which compiles the fused
+        step (and the window of ``steps_per_dispatch``) without
+        executing it.  In the port a step is eager and a window is its
+        steps back to back, so what there is to compile ahead is the
+        kernels' libraries (``kernels.load``: nvcc at first use, then
+        the cached library), whose first build would otherwise land in
+        the first timed step.  Parameters, optimizer state and the step
+        counter are left as they are.  Returns the names of the
+        libraries loaded (none off CUDA, where the plain versions run)."""
+        if self._opt_state is None:
+            raise RuntimeError("call compile() and init_layers() first")
+        if arrays:
+            self._check_accum_divisible(len(arrays[0]), "batch of")
+        if self.device.type != "cuda":
+            return []
+        from .ops import cuda_attention, cuda_norm, cuda_pool
+        loaders = {"max_pool_nhwc": cuda_pool._library,
+                   "fused_layernorm": cuda_norm._library,
+                   "flash_attention": cuda_attention._library}
+        names = sorted({lib for op in self.layers
+                        for lib in op.kernel_libraries(self.config)})
+        for name in names:
+            loaders[name]()
+        return names
+
+    @contextlib.contextmanager
+    def _profile_fit(self):
+        """``fit``'s ``torch.profiler`` session when ``config.trace_dir``
+        is set (the JAX package's ``jax.profiler.trace(trace_dir)``), else
+        nothing.  CPU activity always, CUDA activity on the card; the
+        Chrome-trace JSON that Perfetto and chrome://tracing load is
+        written when ``fit`` returns, as
+        ``<trace_dir>/fit_rank<r>_<pid>_<n>.pt.trace.json`` (``r`` the
+        process group rank, 0 without a group; ``n`` counts this
+        process's traced fits), and its path kept on
+        ``last_trace_file``.  On CUDA a trace without a kernel event is
+        an error: the profiler did not see the card."""
+        trace_dir = self.config.trace_dir
+        if not trace_dir:
+            yield
+            return
+        import os
+        import re
+
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        rank = (torch.distributed.get_rank()
+                if torch.distributed.is_initialized() else 0)
+        path = os.path.join(trace_dir, f"fit_rank{rank}_{os.getpid()}_"
+                                       f"{next(_TRACED_FITS)}.pt.trace.json")
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(path)
+        self.last_trace_file = path
+        if self.device.type == "cuda":
+            # a scan of the text: parsing a trace of 10^5 events would
+            # cost the caller a second
+            with open(path) as f:
+                seen = re.search(r'"cat"\s*:\s*"kernel"', f.read())
+            if seen is None:
+                raise RuntimeError(
+                    f"the profiler recorded no CUDA kernel in {path}: it "
+                    f"did not trace the card")
+
     def fit(self, x, y, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, callbacks=None,
             verbose: bool = True, validation_data=None, pad_tail=None):
@@ -2009,8 +2090,19 @@ class FFModel:
         one window's dispatch, which in eager CUDA is its enqueue unless
         the queue is full — and the epoch's metric and validation
         scalars) and feeds the metrics registry's ``ff_train_*``
-        counters and gauge.  Span tracing comes with the tooling slice
-        (ROADMAP A.11)."""
+        counters and gauge.
+
+        Tracing, as in the JAX package.  ``config.trace_dir`` runs the
+        whole of ``fit`` under ``torch.profiler`` and writes one
+        Chrome-trace JSON file there (:meth:`_profile_fit` names it);
+        each window is a profiler range ``train_window#<first step>``,
+        each step of the one-step path ``train#<step>``.  With the span
+        tracer on (``config.trace_sample_rate > 0``) a ``fit`` call draws
+        one trace id and every dispatched window records a
+        ``train_window`` span (``cat="train"``, ``tid="train"``, with
+        ``epoch``, ``step0`` and ``steps``) when windows are in use
+        (``steps_per_dispatch > 1`` or a padded tail), none on the
+        one-step path."""
         self._check_not_quantized("fit")
         cfg = self.config
         epochs = epochs or cfg.epochs
@@ -2032,61 +2124,72 @@ class FFModel:
             # on the model's device
             from .profiling import profile_model
             profile_model(self)
+        use_windows = k > 1 or pad
+        label = "train_window" if use_windows else "train"
+        from .obs.trace import tracer_from_config
+        span_tr = tracer_from_config(cfg)
+        fit_trace = span_tr.new_trace() if span_tr.active else None
         loader = PrefetchLoader(self, xs, y, batch_size=bs,
                                 steps_per_dispatch=k, pad_tail=pad)
         t_start = time.time()
         t_fit = _perf_counter()
         total_samples = 0
         val_time = 0.0
-        for epoch in range(epochs):
-            for cb in callbacks:
-                cb.on_epoch_begin(epoch)
-            self.perf_metrics = metrics_mod.PerfMetrics()
-            epoch_losses, epoch_sums = [], []
-            dispatches, dispatch_time = 0, 0.0
-            epoch_step0 = self._step
-            for window, nvalid in loader.iter_windows():
-                start = self._step
-                t_d = _perf_counter()
-                losses_, sums_ = self._run_window(window, nvalid)
-                dispatch_time += _perf_counter() - t_d
-                dispatches += 1
-                self._window_faults(start, self._step)
-                epoch_losses.extend(losses_)
-                epoch_sums.extend(sums_)
-            total_samples += loader.num_samples_used
-            self.last_epoch_losses, host_sums = self._fetch(epoch_losses,
-                                                            epoch_sums)
-            for sums in host_sums:
-                self.perf_metrics.update(sums)
-            val_scalars: Dict[str, float] = {}
-            if validation_data is not None:
-                t_val = time.time()
-                val_loss, val_pm = self.evaluate(*validation_data,
-                                                 batch_size=bs)
-                val_time += time.time() - t_val
-                val_scalars = {"val_loss": float(val_loss)}
-                val_scalars.update({f"val_{k}": float(v)
-                                    for k, v in val_pm.scalars().items()
-                                    if k != "samples_seen"})
-                self.perf_metrics.val_scalars = val_scalars
-            self._epoch_record(epoch, epoch_step0, total_samples, t_fit,
-                               k, dispatches, dispatch_time,
-                               loader.num_samples_used, val_scalars)
-            for cb in callbacks:
-                cb.on_epoch_end(epoch, self.perf_metrics)
-            stopping = any(getattr(cb, "stop_training", False)
-                           for cb in callbacks)
-            if verbose and (epoch % cfg.print_frequency == 0
-                            or epoch == epochs - 1 or stopping):
-                line = (f"epoch {epoch}: " + self.perf_metrics.report(
-                    self.metrics or [self.loss_type]))
-                if val_scalars:
-                    line += " — " + ", ".join(
-                        f"{k}: {v:.6g}" for k, v in val_scalars.items())
-                print(line)
-            if stopping:
-                break
+        with self._profile_fit():
+            for epoch in range(epochs):
+                for cb in callbacks:
+                    cb.on_epoch_begin(epoch)
+                self.perf_metrics = metrics_mod.PerfMetrics()
+                epoch_losses, epoch_sums = [], []
+                dispatches, dispatch_time = 0, 0.0
+                epoch_step0 = self._step
+                for window, nvalid in loader.iter_windows():
+                    start = self._step
+                    t_d = _perf_counter()
+                    losses_, sums_ = self._run_window(window, nvalid, label)
+                    t_d1 = _perf_counter()
+                    dispatch_time += t_d1 - t_d
+                    dispatches += 1
+                    if use_windows and fit_trace is not None:
+                        span_tr.span("train_window", fit_trace, t_d, t_d1,
+                                     cat="train", tid="train", epoch=epoch,
+                                     step0=start, steps=self._step - start)
+                    self._window_faults(start, self._step)
+                    epoch_losses.extend(losses_)
+                    epoch_sums.extend(sums_)
+                total_samples += loader.num_samples_used
+                self.last_epoch_losses, host_sums = self._fetch(epoch_losses,
+                                                                epoch_sums)
+                for sums in host_sums:
+                    self.perf_metrics.update(sums)
+                val_scalars: Dict[str, float] = {}
+                if validation_data is not None:
+                    t_val = time.time()
+                    val_loss, val_pm = self.evaluate(*validation_data,
+                                                     batch_size=bs)
+                    val_time += time.time() - t_val
+                    val_scalars = {"val_loss": float(val_loss)}
+                    val_scalars.update({f"val_{k}": float(v)
+                                        for k, v in val_pm.scalars().items()
+                                        if k != "samples_seen"})
+                    self.perf_metrics.val_scalars = val_scalars
+                self._epoch_record(epoch, epoch_step0, total_samples, t_fit,
+                                   k, dispatches, dispatch_time,
+                                   loader.num_samples_used, val_scalars)
+                for cb in callbacks:
+                    cb.on_epoch_end(epoch, self.perf_metrics)
+                stopping = any(getattr(cb, "stop_training", False)
+                               for cb in callbacks)
+                if verbose and (epoch % cfg.print_frequency == 0
+                                or epoch == epochs - 1 or stopping):
+                    line = (f"epoch {epoch}: " + self.perf_metrics.report(
+                        self.metrics or [self.loss_type]))
+                    if val_scalars:
+                        line += " — " + ", ".join(
+                            f"{k}: {v:.6g}" for k, v in val_scalars.items())
+                    print(line)
+                if stopping:
+                    break
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.time() - t_start

@@ -9,8 +9,8 @@ failed KV migration handoff) the ring is dumped as one JSON post-mortem
 into ``FF_FLIGHT_DIR``.  With the variable unset nothing is written.
 Dumps are rate-limited per reason and atomically renamed into place.
 :func:`install_excepthook` (installed by the ``flexflow-tpu-torch``
-runner) dumps the ring on a fatal uncaught exception.  The ``flight``
-CLI is still to come (ROADMAP A.11).
+runner) dumps the ring on a fatal uncaught exception.  :func:`flight_main`
+is the runner's ``flight`` verb (``flexflow-tpu-torch flight dump|show``).
 """
 
 from __future__ import annotations
@@ -219,3 +219,97 @@ def validate_flight_dump(obj) -> List[str]:
             probs.append("... (truncated)")
             break
     return probs
+
+
+# ---------------------------------------------------------------------------
+# ``flexflow-tpu-torch flight`` CLI
+# ---------------------------------------------------------------------------
+
+def _list_dumps(directory: str) -> List[str]:
+    try:
+        names = [n for n in os.listdir(directory)
+                 if n.startswith("flight_") and n.endswith(".json")]
+    except OSError:
+        return []
+    paths = [os.path.join(directory, n) for n in names]
+    return sorted(paths, key=lambda p: (os.path.getmtime(p), p))
+
+
+def flight_main(argv) -> int:
+    """``flexflow-tpu-torch flight dump [--dir D] [--json]``: locate the
+    newest flight dump in D (default ``$FF_FLIGHT_DIR``), validate it,
+    print its path (``--json``: its full content).  ``flight show
+    [FILE] [--dir D] [--last N]``: human-readable tail of a dump.
+    Exit: 0 ok, 1 no/invalid dump, 2 usage."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        prog="flexflow-tpu-torch flight",
+        description="inspect flight-recorder post-mortem dumps")
+    sub = parser.add_subparsers(dest="cmd")
+    p_dump = sub.add_parser("dump", help="newest dump: path / content")
+    p_dump.add_argument("--dir", default="",
+                        help=f"dump directory (default ${ENV_DIR})")
+    p_dump.add_argument("--json", action="store_true",
+                        help="print the dump's JSON content")
+    p_show = sub.add_parser("show", help="human-readable dump timeline")
+    p_show.add_argument("file", nargs="?", default="",
+                        help="dump file (default: newest in --dir)")
+    p_show.add_argument("--dir", default="",
+                        help=f"dump directory (default ${ENV_DIR})")
+    p_show.add_argument("--last", type=int, default=40,
+                        help="records to show (default 40)")
+    args = parser.parse_args(argv)
+    if args.cmd is None:
+        parser.print_help(sys.stderr)
+        return 2
+
+    path = getattr(args, "file", "") or ""
+    if not path:
+        directory = args.dir or os.environ.get(ENV_DIR, "")
+        if not directory:
+            print(f"flight: no dump directory (pass --dir or set "
+                  f"${ENV_DIR})", file=sys.stderr)
+            return 2
+        dumps = _list_dumps(directory)
+        if not dumps:
+            print(f"flight: no dumps in {directory}", file=sys.stderr)
+            return 1
+        path = dumps[-1]
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"flight: cannot load {path}: {e}", file=sys.stderr)
+        return 1
+    probs = validate_flight_dump(obj)
+    if probs:
+        for p in probs:
+            print(f"flight: {path}: {p}", file=sys.stderr)
+        return 1
+    if args.cmd == "dump":
+        if args.json:
+            print(json.dumps(obj, indent=1))
+        else:
+            print(path)
+        return 0
+    recs = obj["records"][-args.last:] if args.last > 0 else []
+    print(f"flight dump {path}")
+    print(f"  reason={obj['reason']} pid={obj['pid']} "
+          f"t_unix={obj['t_unix']} records={len(obj['records'])} "
+          f"(showing last {len(recs)})")
+    for r in recs:
+        if r["kind"] == "event":
+            head = f"[event] {r.get('cat', '?')}/{r.get('event', '?')}"
+            rest = {k: v for k, v in r.items()
+                    if k not in ("kind", "cat", "event", "t", "t_ns")}
+            print(f"  {head} t={r.get('t')} "
+                  f"{json.dumps(rest, default=str)[:160]}")
+        else:
+            dur_us = (r.get("t1_ns", 0) - r.get("t0_ns", 0)) / 1e3
+            trace = f" trace={r['trace']}" if r.get("trace") else ""
+            print(f"  [span ] {r.get('name', '?')}{trace} "
+                  f"dur={dur_us:.1f}us "
+                  f"{json.dumps(r.get('args', {}), default=str)[:120]}")
+    return 0

@@ -11,8 +11,11 @@ two views of one set of numbers.
 Families are label-keyed (``model`` = tenant, ``eng`` = per-process
 engine generation: two engines serving one model name never merge
 counts).  Rendering follows the Prometheus text exposition format 0.0.4;
-:func:`validate_prometheus_text` checks a rendered exposition.  The HTTP
-scrape endpoint of the JAX package comes with the tooling slice.
+:func:`validate_prometheus_text` checks a rendered exposition.
+
+The scrape endpoint (:func:`start_metrics_server`, ``--metrics-port``) is
+a stdlib ``ThreadingHTTPServer`` on a daemon thread, stopped by
+``server.shutdown()``.
 """
 
 from __future__ import annotations
@@ -338,3 +341,43 @@ def validate_prometheus_text(text: str) -> List[str]:
                 f"histogram {series}: _count {n} != +Inf bucket "
                 f"{inf_buckets[series]}")
     return probs
+
+
+# ---------------------------------------------------------------------------
+# scrape endpoint (stdlib HTTP)
+# ---------------------------------------------------------------------------
+
+def start_metrics_server(port: int, host: str = "127.0.0.1",
+                         registry: Optional[MetricsRegistry] = None):
+    """Serve ``GET /metrics`` (Prometheus text exposition of
+    ``registry``, default the process registry) on a daemon thread.
+    Binds loopback by default: the exposition names tenants and their
+    traffic, so reaching it from another host is an explicit choice
+    (``host="0.0.0.0"`` / ``--metrics-host``).  ``port=0`` binds an
+    ephemeral port; the bound port is ``server.server_port``.  Returns
+    the server: ``shutdown()`` and ``server_close()`` stop it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    reg = registry or get_registry()
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server's API)
+            if self.path.split("?")[0] != "/metrics":
+                self.send_error(404, "try /metrics")
+                return
+            body = reg.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):  # scrapes must not spam stderr
+            pass
+
+    server = ThreadingHTTPServer((host, int(port)), _Handler)
+    thread = threading.Thread(target=server.serve_forever,
+                              name="ff-metrics-http", daemon=True)
+    thread.start()
+    return server

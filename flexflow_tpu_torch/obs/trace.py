@@ -19,7 +19,8 @@ with the serving counters.
   RNG), so two runs of one workload sample the same requests.
 
 :func:`to_chrome` converts the raw ``ff-trace-v1`` snapshot to
-Chrome-trace JSON.  The ``trace`` CLI comes with the tooling slice.
+Chrome-trace JSON; :func:`trace_main` is the ``trace`` verb of the
+runner (``flexflow-tpu-torch trace export|summary``).
 """
 
 from __future__ import annotations
@@ -332,3 +333,72 @@ def validate_chrome_trace(obj) -> List[str]:
             probs.append("... (truncated)")
             break
     return probs
+
+
+# ---------------------------------------------------------------------------
+# ``flexflow-tpu-torch trace`` CLI
+# ---------------------------------------------------------------------------
+
+def trace_main(argv) -> int:
+    """``flexflow-tpu-torch trace export RAW.json [--out chrome.json]``:
+    validate a raw ``ff-trace-v1`` file (serve-bench ``--trace-out``,
+    ``Tracer.save``) and export it as Chrome-trace JSON, which
+    chrome://tracing and Perfetto load.  ``trace summary`` prints span
+    counts by name and the terminal-phase counts instead.  Exit: 0 ok,
+    1 validation failure, 2 usage."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        prog="flexflow-tpu-torch trace",
+        description="export/inspect recorded request traces")
+    sub = parser.add_subparsers(dest="cmd")
+    p_exp = sub.add_parser("export", help="raw trace -> Chrome-trace JSON")
+    p_exp.add_argument("raw", help="raw ff-trace-v1 JSON file")
+    p_exp.add_argument("--out", default="",
+                       help="output path (default: stdout)")
+    p_sum = sub.add_parser("summary", help="span/phase counts of a trace")
+    p_sum.add_argument("raw", help="raw ff-trace-v1 JSON file")
+    args = parser.parse_args(argv)
+    if args.cmd is None:
+        parser.print_help(sys.stderr)
+        return 2
+    try:
+        with open(args.raw) as f:
+            raw = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"trace: cannot load {args.raw}: {e}", file=sys.stderr)
+        return 2
+    probs = validate_raw_trace(raw)
+    if probs:
+        for p in probs:
+            print(f"trace: {args.raw}: {p}", file=sys.stderr)
+        return 1
+    if args.cmd == "summary":
+        by_name: Dict[str, int] = {}
+        phases: Dict[str, int] = {}
+        for s in raw["spans"]:
+            by_name[s["name"]] = by_name.get(s["name"], 0) + 1
+            if s["name"] == "request":
+                ph = (s.get("args") or {}).get("phase", "?")
+                phases[ph] = phases.get(ph, 0) + 1
+        print(json.dumps({"spans": by_name,
+                          "terminal_phases": phases,
+                          "dropped": raw.get("dropped", 0)}, indent=2))
+        return 0
+    chrome = to_chrome(raw)
+    probs = validate_chrome_trace(chrome)
+    if probs:  # only if to_chrome and the validator disagree
+        for p in probs:
+            print(f"trace: export failed self-validation: {p}",
+                  file=sys.stderr)
+        return 1
+    text = json.dumps(chrome, separators=(",", ":"))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"# wrote {args.out} ({len(chrome['traceEvents'])} events)",
+              file=sys.stderr)
+    else:
+        print(text)
+    return 0

@@ -209,6 +209,12 @@ class Op:
         that kernel's."""
         return 0
 
+    def kernel_libraries(self, config) -> Tuple[str, ...]:
+        """The hand-written kernel libraries (``csrc/<name>.cu``) this
+        op's training step launches on a CUDA device under ``config``
+        (default none); ``FFModel.warmup_compile`` loads them."""
+        return ()
+
     def weight_bytes(self) -> int:
         return sum(w.volume * 4 for w in self.weights)
 

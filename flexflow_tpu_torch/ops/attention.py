@@ -394,6 +394,10 @@ class MultiHeadAttention(Op):
                 and 1 <= self.head_dim <= MAX_HEAD_DIM
                 and compute_dtype in ("float32", "bfloat16", "float16"))
 
+    def kernel_libraries(self, config):
+        return (("flash_attention",) if self.takes_flash(
+            config.flash_attention, "cuda", config.compute_dtype) else ())
+
     def internal_io_bytes(self, flash_attention=None, device="cuda",
                           compute_dtype: str = "bfloat16"):
         """The dense path's float32 scores written and read (softmax)

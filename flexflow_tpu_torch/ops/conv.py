@@ -172,6 +172,9 @@ class Pool2D(Op):
             return 1.0
         return getattr(spec, "maxpool_bwd_factor", 1.0)
 
+    def kernel_libraries(self, config):
+        return ("max_pool_nhwc",) if self.pool_type == "max" else ()
+
     def _splits_spatial(self) -> bool:
         """Does this op's strategy split h or w?"""
         dims = getattr(self.parallel_config, "dims", None)

@@ -118,6 +118,10 @@ class LayerNorm(Op):
         # the float32 copy and the per-row statistics pass
         return 8 * self.inputs[0].volume
 
+    def kernel_libraries(self, config):
+        return (("fused_layernorm",) if self.w_scale is not None
+                and self.w_bias is not None else ())
+
     def forward(self, params, inputs, ctx: OpContext):
         x = inputs[0]
         if self.w_scale is not None and self.w_bias is not None:

@@ -229,6 +229,10 @@ class PipelineTransformerBlock(Op):
                             mixes_rows=False)
         return [cast_compute(y, ctx)]
 
+    def kernel_libraries(self, config):
+        # the two residual LayerNorms of a stage
+        return ("fused_layernorm",)
+
     def parallel_dims(self):
         # data parallelism over samples composes with the pipeline
         return (True, False, False)
@@ -339,6 +343,10 @@ class PipelineSegment(Op):
                               self._mixes_rows)
         ctx.aux_losses[self.name] = aux
         return [cast_compute(y, ctx)]
+
+    def kernel_libraries(self, config):
+        return tuple(sorted({lib for op in self._seg_layers
+                             for lib in op.kernel_libraries(config)}))
 
     def parallel_dims(self):
         # data parallelism over samples composes with the pipeline

@@ -149,15 +149,16 @@ class MicroBatcher:
         self._cv = lockwatch.condition("MicroBatcher._cv")
         # priority class -> FIFO deque; every field below is guarded by
         # self._cv
-        self._classes: Dict[int, deque] = {}
-        self._rows = 0
-        self._count = 0
-        self._watch = 0       # queued requests with a deadline or stale
-        self._peak_rows = 0
+        self._classes: Dict[int, deque] = {}  # guarded_by: self._cv
+        self._rows = 0        # guarded_by: self._cv
+        self._count = 0       # guarded_by: self._cv
+        # queued requests with a deadline or stale
+        self._watch = 0       # guarded_by: self._cv
+        self._peak_rows = 0   # guarded_by: self._cv
         # when the dispatcher's current wait self-expires (-inf while it
         # is awake): submit wakes it only for a deadline before this
-        self._armed_wake = float("-inf")
-        self._closed = False
+        self._armed_wake = float("-inf")  # guarded_by: self._cv
+        self._closed = False  # guarded_by: self._cv
 
     # ---- producer side -------------------------------------------------
     def submit(self, req: Request) -> float:
@@ -249,7 +250,7 @@ class MicroBatcher:
             raise overload
         return blocked_s
 
-    def _evict_for(self, need_rows: int,
+    def _evict_for(self, need_rows: int,  # guarded_by: self._cv
                    incoming_priority: int) -> List[Request]:
         """shed_oldest eviction (lock held): pop the oldest request of
         the lowest priority class not above the incoming one until
@@ -336,17 +337,17 @@ class MicroBatcher:
         with self._cv:
             return self._peak_rows
 
-    def _unlink(self, r: Request) -> None:
+    def _unlink(self, r: Request) -> None:  # guarded_by: self._cv
         self._rows -= r.n
         self._count -= 1
         if r._watched:
             self._watch -= 1
 
-    def _oldest_t(self) -> Optional[float]:
+    def _oldest_t(self) -> Optional[float]:  # guarded_by: self._cv
         return min((dq[0].t_submit for dq in self._classes.values() if dq),
                    default=None)
 
-    def _ready(self, now: float) -> bool:
+    def _ready(self, now: float) -> bool:  # guarded_by: self._cv
         if not self._count:
             return False
         if self._rows >= self.max_batch:
@@ -354,7 +355,8 @@ class MicroBatcher:
         oldest = self._oldest_t()
         return oldest is not None and now - oldest >= self.max_wait_s
 
-    def _collect_expired(self, now: float) -> List[Request]:
+    def _collect_expired(self, now: float  # guarded_by: self._cv
+                         ) -> List[Request]:
         """Remove deadline-expired and stale requests (lock held) and
         return the expired ones; stale entries are dropped silently.
         Skipped when nothing queued carries a deadline or predicate."""
@@ -397,7 +399,7 @@ class MicroBatcher:
                 f"queued (waited {now - r.t_submit:.3f}s; expired before "
                 f"packing, no dispatch burned)"), now)
 
-    def _class_order(self, now: float) -> List[int]:
+    def _class_order(self, now: float) -> List[int]:  # guarded_by: self._cv
         """Service order over priority classes (lock held): higher class
         first, except that starving classes jump ahead, oldest first."""
         classes = [p for p, dq in self._classes.items() if dq]
@@ -413,7 +415,7 @@ class MicroBatcher:
                       reverse=True)
         return starving + rest
 
-    def _take(self, now: float) -> List[Request]:
+    def _take(self, now: float) -> List[Request]:  # guarded_by: self._cv
         """Pop a coalesced batch of at most ``max_batch`` rows (lock
         held): classes in `_class_order`, a FIFO prefix of whole
         requests within each."""
@@ -462,7 +464,7 @@ class MicroBatcher:
                 return batch
             self._fire_expired(fire)
 
-    def _wake_in(self, now: float) -> Optional[float]:
+    def _wake_in(self, now: float) -> Optional[float]:  # guarded_by: self._cv
         """Seconds until the next self-scheduled event (lock held): the
         oldest request's flush time and the earliest deadline."""
         wait = None

@@ -232,16 +232,18 @@ class ServingEngine:
         # lifecycle fields are written under self._lifecycle; the health
         # property reads them without it
         self._lifecycle = lockwatch.lock("ServingEngine._lifecycle")
-        self._thread: Optional[threading.Thread] = None
+        self._thread: Optional[  # guarded_by: self._lifecycle
+            threading.Thread] = None
         # fleet mode: a FleetEngine drives dispatch_pending() instead of
         # an owned thread
-        self._external = False
-        self._stopped = False
-        self._draining = False
-        self._finalized = False  # the final serve_stats, emitted once
+        self._external = False   # guarded_by: self._lifecycle
+        self._stopped = False    # guarded_by: self._lifecycle
+        self._draining = False   # guarded_by: self._lifecycle
+        # the final serve_stats, emitted once
+        self._finalized = False  # guarded_by: self._lifecycle
         self._shutdown_done = threading.Event()
         self._health_lock = lockwatch.lock("ServingEngine._health_lock")
-        self._last_health = "starting"  # guarded by self._health_lock
+        self._last_health = "starting"  # guarded_by: self._health_lock
         self._serve_faults: List[Dict] = []
         # dispatcher-thread-only (single writer)
         self._n_dispatch = 0
@@ -256,11 +258,12 @@ class ServingEngine:
         (consecutive dispatch errors, or a windowed shed+reject rate
         over threshold), ``draining`` or ``stopped``, computed from live
         state."""
-        if self._stopped:
+        if self._stopped:      # unguarded-ok: lock-free health read
             return "stopped"
-        if self._draining:
+        if self._draining:     # unguarded-ok: lock-free health read
             return "draining"
-        if self._thread is None and not self._external:
+        if (self._thread is None  # unguarded-ok: lock-free health read
+                and not self._external):  # unguarded-ok: lock-free read
             return "starting"
         if self._consec_errors >= self._degraded_after_errors:
             return "degraded"
@@ -320,8 +323,8 @@ class ServingEngine:
             self._stopped = True
             self._batcher.close()
             if self._thread is not None:
-                # the dispatcher never takes _lifecycle: joining under it
-                # cannot deadlock
+                # lock-ok: the dispatcher never takes _lifecycle, so
+                # joining it under the lock cannot deadlock
                 self._thread.join()
                 self._thread = None
                 if not self._finalized:

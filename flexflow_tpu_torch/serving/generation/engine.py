@@ -381,8 +381,8 @@ class GenerationMetrics(ServingMetrics):
 
     def __init__(self, **kw):
         super().__init__(**kw)
-        self._ttfts: deque = deque(maxlen=4096)  # guarded by self._lock
-        self._steps: deque = deque()             # guarded by self._lock
+        self._ttfts: deque = deque(maxlen=4096)  # guarded_by: self._lock
+        self._steps: deque = deque()             # guarded_by: self._lock
         # the engine's pool and speculation views, merged into
         # snapshot(); only this object holds them (the registry holds
         # no reference to it once released), so stats() keeps them
@@ -701,10 +701,11 @@ class GenerationEngine:
         self._fetched = False
         # lifecycle (single use, as ServingEngine)
         self._lifecycle = lockwatch.lock("GenerationEngine._lifecycle")
-        self._thread: Optional[threading.Thread] = None
-        self._stopped = False
-        self._draining = False
-        self._finalized = False
+        self._thread: Optional[  # guarded_by: self._lifecycle
+            threading.Thread] = None
+        self._stopped = False    # guarded_by: self._lifecycle
+        self._draining = False   # guarded_by: self._lifecycle
+        self._finalized = False  # guarded_by: self._lifecycle
         self._closing = threading.Event()
         self._abort = threading.Event()
         self._shutdown_done = threading.Event()
@@ -956,8 +957,8 @@ class GenerationEngine:
             self._closing.set()
             self._batcher.close()
             if self._thread is not None:
-                # the dispatcher never takes _lifecycle: joining under it
-                # cannot deadlock
+                # lock-ok: the dispatcher never takes _lifecycle, so
+                # joining it under the lock cannot deadlock
                 self._thread.join()
                 self._thread = None
                 if not self._finalized:

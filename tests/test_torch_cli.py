@@ -10,7 +10,9 @@ the parsed flags installed (``FFModel()`` picks them up) on
 print what the port's verifier and ``explain_report`` give when called
 directly, with the JAX CLI's keys; ``lint --calibration`` hands the
 table's ``xla_temp_factor`` to the memory gate as ``temp_factor``.  The
-verbs with no engine in the port yet exit 2 naming ROADMAP A.11.
+``serve-bench`` modes with no bench in the port yet exit 2 naming
+ROADMAP A.11 (the verbs of the tooling plane:
+``tests/test_torch_tooling.py``).
 """
 
 import dataclasses
@@ -211,10 +213,9 @@ def test_runner_usage_errors_exit_2(args):
 
 
 @pytest.mark.parametrize("args", [
-    ["trace", "export", "raw.json"], ["flight", "show"],
-    ["train-bench"], ["serve-bench", "--generate"], ["precision-bench"],
-    ["x.py", "--metrics-port", "9100"], ["lint", "--concurrency"]],
-    ids=lambda a: a[0] if a[0] != "x.py" else "--metrics-port")
+    ["serve-bench", "--generate"], ["serve-bench", "--fleet"],
+    ["serve-bench", "--disagg", "--device", "cpu"]],
+    ids=lambda a: a[1])
 def test_waiting_verbs_exit_2_naming_a11(args, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(args)

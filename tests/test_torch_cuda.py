@@ -1546,3 +1546,82 @@ def test_measured_search_runs_on_the_card(no_tf32):
     assert 0 < t < float("inf") and sim.backend == "native"
     after = _launches()
     assert after[2] > before[2] and after[4] > before[4]
+
+
+def _bert(ft, layers=12, batch=4, **cfg_kw):
+    cfg = ft.FFConfig(batch_size=batch, compute_dtype="bfloat16", **cfg_kw)
+    m, _, logits = ft.build_transformer(
+        cfg, num_layers=layers, d_model=768, num_heads=12, d_ff=3072,
+        seq_len=512, vocab_size=30522, num_classes=2, device="cuda")
+    m.compile(ft.AdamOptimizer(alpha=1e-4), final_tensor=logits)
+    m.init_layers(seed=0)
+    return m
+
+
+def test_traced_bert_fit_names_the_kernels_in_its_profiler_file(
+        no_tf32, tmp_path):
+    """``trace_dir`` on the card: the profiler file's kernel events name
+    the flash forward and backward kernels and the LayerNorm kernel, and
+    the launch counters agree with the fit's steps."""
+    import json
+
+    import numpy as np
+    import flexflow_tpu_torch as ft
+
+    m = _bert(ft, steps_per_dispatch=2, trace_dir=str(tmp_path))
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 30522, (4 * 4, 512)).astype(np.int32)
+    y = rng.integers(0, 2, (4 * 4, 1)).astype(np.int32)
+    before = _launches()
+    m.fit(x, y, epochs=1, verbose=False)
+    after = _launches()
+    assert [a - b for a, b in zip(after, before)][2:] == [48, 48, 96]
+    with open(m.last_trace_file) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for name in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                 "flash_bwd_dq_tc_kernel", "layernorm_kernel"):
+        assert any(name in k for k in kernels), (name, sorted(kernels)[:20])
+
+
+def test_warmup_compile_builds_the_kernels_without_changing_state(
+        no_tf32):
+    import flexflow_tpu_torch as ft
+
+    m = _bert(ft, layers=1, batch=2)
+    params = {k: v.clone() for k, v in m._params.items()}
+    opt = [t.clone() for t in torch.utils._pytree.tree_leaves(m._opt_state)
+           if isinstance(t, torch.Tensor)]
+    before = _launches()
+    assert m.warmup_compile() == ["flash_attention", "fused_layernorm"]
+    assert _launches() == before and m._step == 0
+    assert all(torch.equal(params[k], v) for k, v in m._params.items())
+    now = [t for t in torch.utils._pytree.tree_leaves(m._opt_state)
+           if isinstance(t, torch.Tensor)]
+    assert len(now) == len(opt) and all(
+        torch.equal(a, b) for a, b in zip(opt, now))
+    pool = ft.build_alexnet(ft.FFConfig(batch_size=2), num_classes=10,
+                            image_size=67, device="cuda")[0]
+    pool.compile(ft.SGDOptimizer(lr=0.01))
+    pool.init_layers(seed=0)
+    assert pool.warmup_compile() == ["max_pool_nhwc"]
+
+
+def test_train_bench_runs_on_the_card(no_tf32, capsys):
+    import json
+
+    from flexflow_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train-bench", "--ks", "1,4", "--steps", "16",
+                  "--epochs", "1"])
+    assert e.value.code == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert payload["backend"] == "cuda"
+    name = torch.cuda.get_device_name(0)
+    assert payload["device_kind"] == name
+    assert [r["dispatches"] for r in payload["results"]] == [16, 4]
+    assert all(r["device"] == name and r["steps_per_sec"] > 0
+               for r in payload["results"])
+    from flexflow_tpu_torch.config import set_default_device
+    set_default_device(None)

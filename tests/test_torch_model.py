@@ -120,7 +120,6 @@ def test_model_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"steps_per_dispatch": 0}, ValueError, "steps_per_dispatch must be >= 1"),
     ({"cost_estimator": "ridge"}, ValueError,
      "estimator 'ridge' needs a calibration table"),
-    ({"trace_dir": "traces"}, NotImplementedError, "trace_dir"),
 ])
 def test_compile_refuses_what_it_cannot_run(kw, exc, match):
     """What the port cannot run yet raises NotImplementedError; a

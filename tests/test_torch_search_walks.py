@@ -12,9 +12,9 @@ the same strategies, mesh, simulated time and walk statistics.  The
 decomposition's regions, the exact DP's solutions and the graph digests
 are equal; a best-strategy store and a strategy file written by either
 package load in the other; ``compile(search_budget)`` on one process
-searches as the JAX package's ``optimize_strategies`` does, a
+searches as the JAX package's ``optimize_strategies`` does, and a
 calibration setting that does not resolve raises the JAX package's
-ValueError, and ``trace_dir`` is refused naming A.11.
+ValueError.
 """
 
 import json
@@ -241,12 +241,11 @@ def test_compile_searches_on_one_process(tmp_path, capsys):
 @pytest.mark.parametrize("field,value,exc,item", [
     ("calibration_file", "table.json", ValueError,
      "cannot load calibration table"),
-    ("cost_estimator", "ridge", ValueError, "needs a calibration table"),
-    ("trace_dir", "traces", NotImplementedError, "A.11")])
+    ("cost_estimator", "ridge", ValueError, "needs a calibration table")])
 def test_unported_settings_name_their_roadmap_item(field, value, exc, item):
-    """``trace_dir`` is refused naming A.11; a calibration setting that
-    does not resolve raises the JAX package's ValueError (the calibrated
-    search itself: ``tests/test_torch_calibration.py``)."""
+    """A calibration setting that does not resolve raises the JAX
+    package's ValueError (the calibrated search itself:
+    ``tests/test_torch_calibration.py``)."""
     m, logits = _compiled(ft, search_budget=5, **{field: value})
     with pytest.raises(exc, match=item.replace(".", r"\.")):
         m.compile(ft.AdamOptimizer(alpha=1e-3), final_tensor=logits)

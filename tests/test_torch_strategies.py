@@ -371,7 +371,6 @@ def test_eight_device_strategy_refused_with_the_jax_message():
     ("calibration_file", "table.json", ValueError,
      "cannot load calibration table"),
     ("cost_estimator", "table", ValueError, "needs a calibration table"),
-    ("trace_dir", "traces", NotImplementedError, "A.11"),
     ("mesh_shape", {"n": 2}, NotImplementedError, "A.8"),
     ("workers_per_node", 2, NotImplementedError, "A.8")])
 def test_remaining_refusals_name_their_roadmap_item(field, value, exc, item):
