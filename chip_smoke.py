@@ -86,8 +86,8 @@
    training verbs refused and a tampered report refused at warm-up;
 11c. speculative generation phase: the LayerNorm kernel at the verify
    windows' (16, gamma, 768) rows against its plain version and timed;
-   one full-width round enqueued with no host sync; then 16 greedy and
-   8 sampled requests of the generation traffic through the plain
+   one full-width round enqueued with no host sync; then 8 greedy and
+   4 sampled requests of the generation traffic through the plain
    engine and with two drafts: the target's own weights (gamma 4,
    fixed) and DistilGPT2's widths (6 x 768, seed 1, adaptive, demoted
    on accept collapse): tokens/s, TPOT, accept rates, draft
@@ -153,8 +153,8 @@
    last: see ``main``): the generation phase's LM behind the
    port's ``build_disagg`` (a prefill-role and a decode-role
    ``FleetEngine`` under a ``FleetRouter``, 16 slots each, pages of 16,
-   chunks of 256, one copy of the parameters): the first 32 greedy
-   prompts of the generation traffic x 64 tokens with the prefix cache
+   chunks of 256, one copy of the parameters): the first 16 greedy
+   prompts of the generation traffic x 32 tokens with the prefix cache
    off and on, each against one co-located engine of the same settings
    and submission order; tokens equal token for token, every stream
    migrated, ``migrated_bytes`` equal to the chains' pages x 589,824
@@ -296,6 +296,21 @@
    verbs on the card (no hand-written kernel launches), their headline
    rows printed.  The ``kernels`` line carries ``tooling_bert_traced``
    and ``tooling_metrics_alexnet``;
+17i. serving benches phase (after tooling): the runner's ``serve-bench
+   --generate`` (continuous against static batching, reference decode,
+   the SLO sweep at 1x capacity), ``--generate --prefix``, ``--generate --speculate`` (8
+   requests x 32 tokens, a 1-layer weight-shared draft), ``--fleet``
+   (cells of 0.5 s) and ``--disagg``, in this process on the card, the
+   LMs at GPT-2 small's depth and widths (12 x 768, 12 heads) over the
+   benches' own 128-token vocabulary in float32; asserts each payload's
+   logic booleans (parity, reconciliation, migration, the queue bound,
+   the swap), records its timing booleans and headline readings, and
+   counts the kernels: LayerNorm launches in the four LM benches, flash
+   forward launches = 12 a forward of ``reference_decode``'s
+   ``predict``, none in the fleet bench.  The ``kernels`` line carries
+   ``serve_bench_generate``, ``serve_bench_prefix``,
+   ``serve_bench_speculate``, ``serve_bench_disagg`` (LayerNorm) and
+   ``serve_bench_generate_reference`` (flash forward);
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -600,9 +615,13 @@ DISTILGPT2 = dict(num_layers=6, d_model=768, num_heads=12, d_ff=3072,
                   seq_len=1024, vocab_size=50257)
 SPEC_GAMMA = 4
 # traffic: the first SPEC_REQUESTS greedy prompts of gen_traffic x
-# GEN_NEW tokens, then SPEC_SAMPLED sampled ones
-SPEC_REQUESTS = 16
-SPEC_SAMPLED = 8
+# GEN_NEW tokens, then SPEC_SAMPLED sampled ones.  16 and 8 until the
+# serving benches phase needed the time: its serve-bench --generate
+# --speculate holds greedy speculation to plain decode token for token
+# and replays the sampled arm (8 requests saved 7.7 s on an H100 80GB
+# HBM3 at 700 W, PERF.md)
+SPEC_REQUESTS = 8
+SPEC_SAMPLED = 4
 # the float32 twin: the target and the DistilGPT2 draft at this depth,
 # SPEC_F32_REQUESTS x SPEC_F32_NEW greedy tokens; every token must equal
 # plain greedy decode's
@@ -621,12 +640,18 @@ SPEC_CONTROL_NEW = 32
 # sharing the model's parameters on the card), against one co-located
 # engine of the same settings; the first DISAGG_REQUESTS greedy prompts
 # of gen_traffic x DISAGG_NEW tokens, the prefix cache off and on.  A page
-# is 2 (K, V) x 12 layers x 16 tokens x 12 heads x 64 x 2 bytes
-DISAGG_REQUESTS = 32
+# is 2 (K, V) x 12 layers x 16 tokens x 12 heads x 64 x 2 bytes.
+# DISAGG_REQUESTS was 32 and DISAGG_NEW 64 until the serving benches
+# phase needed the time: its serve-bench --disagg runs the colo and
+# disagg arms at GPT-2 small's widths with token parity (prefix cache on
+# and off), reconciliation and every stream migrated (16 requests saved
+# 18.3 s on an H100 80GB HBM3 at 700 W, PERF.md)
+DISAGG_REQUESTS = 16
 DISAGG_PAGE_BYTES = 2 * 12 * 16 * 12 * 64 * 2
 # the bf16 runs' tokens a request (GEN_NEW until the calibration phase
-# needed the time) and the pacing arms' pairs after the first run
-DISAGG_NEW = 64
+# needed the time, 64 until the serving benches phase did) and the
+# pacing arms' pairs after the first run
+DISAGG_NEW = 32
 DISAGG_PACING_PAIRS = 1
 # the float32 twin: GPT2's widths at this depth, the first
 # DISAGG_F32_REQUESTS prompts x DISAGG_F32_NEW tokens
@@ -7828,6 +7853,157 @@ def tooling_phase(ft, counters, kernel_counters, card: str) -> dict:
             "overhead": traced["overhead"], "benches": benches}
 
 
+# the serving benches: the runner's serve-bench modes in this process,
+# on the card.  The LMs take GPT-2 small's depth and widths (12 x 768,
+# 12 heads) through the benches' flags and keep the benches' own
+# 128-token vocabulary and float32 (the generation phase serves the
+# 50,257-token head).  To keep the phase near a minute and a half,
+# --generate's SLO sweep offers one load (1x capacity; 0.5x, 1x and 2x
+# by default), --speculate serves 8 requests x 32 tokens (16 x 64 by
+# default) and the fleet's cells last 0.5 s (2 s by default)
+BENCH_GPT2 = ["--d-model", "768", "--heads", "12", "--layers", "12"]
+SERVE_BENCHES = (
+    ("generate", ["serve-bench", "--generate", *BENCH_GPT2, "--mults",
+                  "1"]),
+    ("prefix", ["serve-bench", "--generate", "--prefix", *BENCH_GPT2]),
+    ("speculate", ["serve-bench", "--generate", "--speculate",
+                   *BENCH_GPT2, "--draft-layers", "1", "--requests", "8",
+                   "--new-tokens", "32"]),
+    ("fleet", ["serve-bench", "--fleet", "--cell-seconds", "0.5"]),
+    ("disagg", ["serve-bench", "--disagg", "--d-model", "768",
+                "--num-heads", "12", "--layers", "12"]),
+)
+# each payload's logic booleans, asserted (the timing ones are printed)
+SERVE_BENCH_CHECKS = {
+    "generate": ("parity", ("engine_eq_reference", "schedulers_agree")),
+    "prefix": ("acceptance", ("prefix_parity", "hbm_high_water_ok",
+                              "reconciliation_ok")),
+    "speculate": ("acceptance", ("greedy_parity", "sampled_reproducible")),
+    "fleet": ("summary", ("a_queue_bounded", "swap_zero_failed",
+                          "swap_reconciled")),
+    "disagg": ("acceptance", ("tokens_bit_identical", "reconciliation_ok",
+                              "all_migrated")),
+}
+
+
+def bench_headline(name: str, p: dict) -> dict:
+    """A bench payload's headline readings: its rates, latencies and
+    timing booleans (host-bound on one card: recorded, not asserted)."""
+    if name == "generate":
+        c, st = p["continuous"], p["static"]
+        cells = p["slo_sweep"]["cells"]
+        return {"continuous_tokens_per_s": c["tokens_per_s"],
+                "static_tokens_per_s": st["tokens_per_s"],
+                "speedup_tokens": p["speedup_tokens"],
+                "ttft": c["ttft"], "tpot_p50_ms": c["tpot_p50_ms"],
+                "tpot_p99_ms": c["tpot_p99_ms"],
+                "slot_efficiency": st["slot_efficiency"],
+                "slo_ms": p["slo_sweep"]["slo_ms"],
+                "goodput_tokens_per_s": {
+                    f"{c['policy']} x{c['offered_mult']}":
+                    c["goodput_tokens_per_s"] for c in cells}}
+    if name == "prefix":
+        on, off = p["prefix_cache"]["on"], p["prefix_cache"]["off"]
+        ch = p["chunked_prefill"]
+        return {"ttft_p95_ms_on": on["ttft"]["p95_ms"],
+                "ttft_p95_ms_off": off["ttft"]["p95_ms"],
+                "prefix_hit_tokens": on["prefix_hit_tokens"],
+                "stall_ms_monolithic": ch["monolithic"]["victim_max_gap_ms"],
+                "stall_ms_chunked": ch["chunked"]["victim_max_gap_ms"],
+                "throughput_ratio": ch["throughput_ratio"],
+                "kv_high_water_bytes": p["kv_memory"],
+                **{k: p["acceptance"][k] for k in (
+                    "ttft_cache_win", "chunked_stall_win",
+                    "throughput_comparable")}}
+    if name == "speculate":
+        return {"speedup_tokens": p["speedup_tokens"],
+                "spec_tokens_win": p["acceptance"]["spec_tokens_win"],
+                "greedy": {r["arm"]: {"tokens_per_s": r["tokens_per_s"],
+                                      "tpot_p50_ms": r["tpot_p50_ms"],
+                                      "accept_rate": r["accept_rate"]}
+                           for r in p["arms"]["greedy"]}}
+    if name == "fleet":
+        return {"capacity_rps": p["capacity_rps"],
+                "slo_ms": p["config"]["slo_ms"],
+                "b_goodput_ratio": p["summary"]["b_goodput_ratio"],
+                "isolation_holds": p["summary"]["isolation_holds"],
+                "a_shed": p["contended_a_2x"]["shed"],
+                "swap_publish_s": p["swap"]["swap_publish_s"]}
+    return {"calibration": p["calibration"],
+            "victim_max_gap_ms": {
+                **{k: r["victim_max_gap_ms"] for k, r in p["colo"].items()},
+                "disagg": p["disagg"]["victim_max_gap_ms"]},
+            "wall_flood_ttft_p50_ms": {
+                **{k: r["flood_ttft"]["p50_ms"]
+                   for k, r in p["wall"]["colo"].items()},
+                "disagg": p["wall"]["disagg"]["flood_ttft"]["p50_ms"]},
+            "migrated_bytes": p["disagg"]["migrated_bytes"],
+            **{k: p["acceptance"][k] for k in (
+                "baseline_arm", "tpot_p95_better", "victim_stall_better",
+                "goodput_no_worse")}}
+
+
+def serving_benches_phase(kernel_counters, card: str) -> dict:
+    """The serving benches through the runner's verbs, in this process,
+    on the card (see SERVE_BENCHES); returns the launches by path."""
+    import torch
+    from flexflow_tpu_torch.serving.generation.bench import make_gen_trace
+
+    name = _card_name()
+    switch = sys.getswitchinterval()
+    out = {"ln": {}, "fwd": {}}
+    for bench, argv in SERVE_BENCHES:
+        free_garbage()
+        reset_counts(*kernel_counters)
+        t0 = time.perf_counter()
+        rc, text = tool_cli(argv)
+        secs = round(time.perf_counter() - t0, 3)
+        launches = [k.launches for k in kernel_counters]
+        assert rc == 0, (bench, rc, text[-2000:])
+        p = json.loads(text)
+        section, keys = SERVE_BENCH_CHECKS[bench]
+        logic = {k: p[section][k] for k in keys}
+        print(f"serving benches {bench} ({' '.join(argv)}): "
+              + json.dumps(bench_headline(bench, p))
+              + f"; logic {json.dumps(logic)}; launches (flash fwd, flash "
+              f"bwd, layernorm, pool fwd, pool bwd) {launches} ({secs} s) "
+              f"[{card}]")
+        assert p["backend"] == "cuda" and p["device_kind"] == name, p
+        assert all(logic.values()), (bench, logic)
+        # the paged attention is plain torch and the dense tenants run
+        # cuBLAS: no backward, no pool, and a flash forward only in the
+        # reference decode's predict
+        assert launches[1] == launches[3] == launches[4] == 0, launches
+        if bench == "fleet":
+            assert launches == [0] * len(kernel_counters), launches
+            continue
+        if bench == "generate":
+            # reference_decode: one 12-layer forward a token, min(budget,
+            # 8) tokens of the first parity_checks requests; the static
+            # arm alone runs a 24-launch walk a prefill and a decode step
+            c = p["config"]
+            lo, hi = (int(v) for v in c["prompt"].split("-"))
+            trace = make_gen_trace(c["requests"], lo, hi, c["short_new"],
+                                   c["long_new"], c["long_frac"], c["seed"])
+            forwards = sum(min(mn, 8) for _, mn in
+                           trace[:p["parity"]["reference_checks"]])
+            assert launches[0] == 12 * forwards, (launches, forwards)
+            out["fwd"]["serve_bench_generate_reference"] = launches[0]
+            st = p["static"]
+            assert launches[2] >= 24 * (st["decode_steps"] + st["requests"]
+                                        + forwards), (launches, st)
+        else:
+            assert launches[0] == 0, launches
+        # every walk of the target runs all 24 of its LayerNorms (a
+        # 1-layer draft 2)
+        assert launches[2] > 0 and launches[2] % (
+            2 if bench == "speculate" else 24) == 0, launches
+        out["ln"][f"serve_bench_{bench}"] = launches[2]
+    assert sys.getswitchinterval() == switch, sys.getswitchinterval()
+    torch.cuda.empty_cache()
+    return out
+
+
 def lockwatch_main(argv) -> int:
     """The FF_LOCKWATCH=1 workload of the tooling phase (d), in a process
     of its own (enablement is sampled when a lock is made, at import):
@@ -8036,6 +8212,8 @@ def main() -> int:
     phase("elastic", elastic_phase, card)
     ttool = phase("tooling", tooling_phase, ft, counters, kernel_counters,
                   card)
+    tbench = phase("serving benches", serving_benches_phase,
+                   kernel_counters, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -8169,7 +8347,8 @@ def main() -> int:
                     "fleet": tfleet["fwd"],
                     **{k: v[2] for k, v in mesh_flash.items()},
                     **{k: v[2] for k, v in search_bert.items()},
-                    "tooling_bert_traced": ttool["bert"]["fwd"]},
+                    "tooling_bert_traced": ttool["bert"]["fwd"],
+                    **tbench["fwd"]},
                    fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
@@ -8196,7 +8375,8 @@ def main() -> int:
                     **mesh_ln,
                     **{k: v[4] for k, v in search_bert.items()},
                     "frontends_keras_ln": tfront["ln"]["ln"],
-                    "tooling_bert_traced": ttool["bert"]["ln"]}, lp),
+                    "tooling_bert_traced": ttool["bert"]["ln"],
+                    **tbench["ln"]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,7 @@ dumps), and the benches ``train-bench`` (``train_bench``),
 (``precision_bench``), which take ``--device`` like a script and run on
 the card by default.  ``--metrics-port P`` (with ``--metrics-host``,
 loopback by default) serves the process metrics registry at
-``GET /metrics`` while the script runs.  ``serve-bench --generate``,
-``--fleet`` and ``--disagg`` have no bench in the port yet and exit 2
-naming ROADMAP A.11.
+``GET /metrics`` while the script runs.
 """
 
 from __future__ import annotations
@@ -56,8 +54,9 @@ def _usage() -> str:
             f"[script args]\n"
             f"       {PROG} search-bench [flags]\n"
             f"       {PROG} train-bench [--device cuda|cpu] [flags]\n"
-            f"       {PROG} serve-bench [--overload] [--device cuda|cpu] "
-            f"[flags]\n"
+            f"       {PROG} serve-bench [--overload | --generate "
+            f"[--prefix | --speculate] | --fleet | --disagg] "
+            f"[--device cuda|cpu] [flags]\n"
             f"       {PROG} precision-bench [--device cuda|cpu] "
             f"[--out f.json]\n"
             f"       {PROG} calibrate [--out table.json | --check "
@@ -74,8 +73,6 @@ def _usage() -> str:
             f"       {PROG} trace export RAW.json [--out f.json] | "
             f"trace summary RAW.json\n"
             f"       {PROG} flight dump|show [--dir D]\n"
-            f"not ported yet (ROADMAP A.11): serve-bench --generate, "
-            f"--fleet, --disagg\n"
             "flags (reference model.cc:1221-1289): -e -b --lr --wd -d "
             "--budget --alpha --search-mode --best-known "
             "--reshard-budget -s/-import -ll:gpu "
@@ -199,10 +196,6 @@ def run_bench(verb: str, argv) -> int:
     import importlib
 
     argv, device = _take_device(list(argv))
-    if verb == "serve-bench":
-        # the modes with no bench yet refuse before the device is asked
-        from .serving.bench import refuse_waiting_modes
-        refuse_waiting_modes(argv)
     _install_device(device)
     mod = importlib.import_module(f".{BENCHES[verb]}", __package__)
     mod.main(argv)

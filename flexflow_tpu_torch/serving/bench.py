@@ -31,13 +31,16 @@ admission policy, reporting goodput (rows/s completed within the SLO)
 and the shed, expired and reject counts of each cell.  ``--trace-out``
 records every request's spans and reconciles them against the engine's
 counters (the ``trace`` section); ``flexflow-tpu-torch trace export``
-reads the file.  The JAX package's ``--generate``, ``--fleet`` and
-``--disagg`` benches are not ported yet (ROADMAP A.11): they exit 2.
+reads the file.  ``--generate`` (with ``--prefix`` or ``--speculate``),
+``--fleet`` and ``--disagg`` run the token-generation, fleet and
+disaggregated-serving benches (``generation/bench.py``,
+``fleet/bench.py``, ``cluster/bench.py``), each with flags of its own.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -519,30 +522,33 @@ def _finish_trace(tracer, path: str, counters0: Dict[str, int]) -> Dict:
     }
 
 
-# the JAX package's serve-bench modes whose benches are not ported yet,
-# with the bench each waits for
-WAITING_MODES = {
-    "--generate": "the token-generation bench "
-                  "(serving/generation/bench.py)",
-    "--fleet": "the fleet bench (serving/fleet/bench.py)",
-    "--disagg": "the disaggregated prefill/decode bench "
-                "(serving/cluster/bench.py)",
+def write_payload(payload: Dict, out: str) -> None:
+    """A bench's payload as indented JSON on stdout, and into ``out``
+    when given."""
+    text = json.dumps(payload, indent=2)
+    print(text)
+    if out:
+        with open(out, "w") as f:
+            f.write(text + "\n")
+        print(f"# wrote {out}", file=sys.stderr)
+
+
+# the modes with a bench of their own: the flag and the module whose
+# main runs it, given the arguments without the flag
+MODES = {
+    "--generate": "generation.bench",
+    "--fleet": "fleet.bench",
+    "--disagg": "cluster.bench",
 }
-
-
-def refuse_waiting_modes(argv) -> None:
-    """Exit 2 naming ROADMAP A.11 when ``argv`` asks for a mode whose
-    bench the port does not have yet."""
-    for mode, what in WAITING_MODES.items():
-        if mode in argv:
-            print(f"flexflow-tpu-torch: 'serve-bench {mode}' ({what}) is "
-                  f"not ported yet (ROADMAP A.11)", file=sys.stderr)
-            raise SystemExit(2)
 
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    refuse_waiting_modes(argv)
+    for flag, module in MODES.items():
+        if flag in argv:
+            importlib.import_module(f".{module}", __package__).main(
+                [a for a in argv if a != flag])
+            return
     ap = argparse.ArgumentParser(
         prog="flexflow-tpu-torch serve-bench",
         description="the serving engine's microbenchmark: shape buckets "
@@ -664,12 +670,7 @@ def main(argv=None) -> None:
         print(f"# wrote {args.trace_out} "
               f"({payload['trace']['spans']} spans, reconciled="
               f"{payload['trace']['reconciled']})", file=sys.stderr)
-    text = json.dumps(payload, indent=2)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-        print(f"# wrote {args.out}", file=sys.stderr)
+    write_payload(payload, args.out)
     if args.prom_out:
         from ..obs.registry import render_prometheus
         with open(args.prom_out, "w") as f:

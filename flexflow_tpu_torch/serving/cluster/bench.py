@@ -1,12 +1,121 @@
-"""The disaggregated pair the cluster tests and ``chip_smoke.py`` drive:
-:func:`build_disagg` and :func:`_reconciled` from
-``flexflow_tpu/serving/cluster/bench.py``.  The rest of that benchmark
-(the interference arms and the calibrated replay) comes with the other
-benchmarks."""
+"""``serve-bench --disagg``: disaggregated prefill/decode against
+co-located chunked prefill on an adversarial prefill-heavy trace, the
+port of ``flexflow_tpu/serving/cluster/bench.py``.
+
+The scenario chunked prefill can only SOFTEN: one long-decode victim
+stream is mid-generation when a flood of long-prompt, short-decode
+requests arrives.  Co-located, every prefill chunk burns a decode-step
+boundary, so the victim's inter-token gaps stretch by one chunk dispatch
+a turn.  Disaggregated, the flood prefills on a prefill-role host while
+the victim decodes on a decode-role host that dispatches nothing but
+decode steps.
+
+Methodology, a calibrated replay over real-engine runs:
+
+1. **Wall arms** (under ``wall``): every arm runs for real: ``colo
+   chunk=C`` per requested chunk size, ``colo chunk=0`` (monolithic,
+   informational), and ``disagg`` (a :class:`~.router.FleetRouter` over
+   one prefill-role and one decode-role fleet, :func:`build_disagg`;
+   every stream prefills on ``pf0`` and its KV page chain migrates to
+   ``dc0``).  They pin the correctness half of the acceptance:
+   cross-engine ``submitted == terminals`` reconciliation, every stream
+   migrated, and the REAL per-migration costs (export, handoff, import,
+   measured in place).  Their latency rows are informational: on one
+   card both engines share the device and its default stream, so
+   cross-arm wall-clock deltas are not the two-host result.
+2. **Calibration**: solo op costs measured on the real engines (decode
+   step, chunk op per size, monolithic prefill per flood prompt) plus
+   the measured migration costs from (1).
+3. **Replay** (the primary ``colo``/``disagg`` rows): each arm's
+   dispatch discipline composed deterministically on the calibrated
+   price list, each host on its own timeline.  Colo: per boundary, at
+   most one prefill chunk (Sarathi) then the batch decode step.
+   Disagg: the prefill host runs nothing but FIFO monolithic prefills;
+   the decode host's boundaries cost a decode step, plus the measured
+   import once per adoption.
+
+Per arm: victim inter-token gap percentiles and max stall, flood TTFT
+percentiles, and TTFT-SLO goodput (tokens of flood requests whose TTFT
+met the SLO, per second; the SLO defaults to the best chunked-colo
+arm's median flood TTFT).  A parity leg pins colo against disagg tokens
+identical under greedy decoding with the prefix cache on AND off (real
+engines, real migration).  Wall arms keep their min-over-repeats run on
+the max-gap statistic.  The payload stamps ``device_kind``,
+``calibration_digest``, ``comm_plan_digest`` and ``estimator:
+calibrated-replay``.
+
+Run: ``python -m flexflow_tpu_torch.cli serve-bench --disagg
+[--d-model 768 --num-heads 12 --layers 12] [--device cuda|cpu]
+[--out f.json]``.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List
+import argparse
+import sys
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..generation.bench import VOCAB, _build_lm, _pctl, _stamp
+
+
+def make_flood_trace(n: int, prompt_lo: int, prompt_hi: int,
+                     seed: int) -> List[np.ndarray]:
+    """The adversarial flood: long prompts (prefill-heavy), decoded
+    only a couple of tokens each: pure prefill pressure."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, VOCAB,
+                         int(rng.integers(prompt_lo, prompt_hi + 1))
+                         ).astype(np.int32)
+            for _ in range(n)]
+
+
+def _victim_prompt() -> np.ndarray:
+    return np.arange(1, 5, dtype=np.int32)
+
+
+_WARM_TOKENS = 4
+
+
+def _interference_once(submit: Callable, floods: List[np.ndarray],
+                       victim_new: int, flood_new: int
+                       ) -> Tuple[List[float], List[float], float]:
+    """One interference run: start the victim, let it decode a few
+    warm-up tokens (past prefill AND, disaggregated, past its own
+    one-time migration, a per-stream cost, not steady-state
+    interference), release the flood, and keep only the victim's
+    inter-token gaps that OVERLAP the flood window.  Returns
+    ``(window_gaps_s, flood_ttfts_s, flood_elapsed_s)``."""
+    times: List[float] = []
+    tick = threading.Event()
+    victim = submit(_victim_prompt(), max_new_tokens=victim_new)
+
+    def consume():
+        for _ in victim:
+            times.append(time.perf_counter())
+            tick.set()
+
+    th = threading.Thread(target=consume, daemon=True,
+                          name="ff-disagg-bench-victim")
+    th.start()
+    deadline = time.perf_counter() + 60
+    while len(times) < _WARM_TOKENS and time.perf_counter() < deadline:
+        tick.wait(timeout=1.0)
+        tick.clear()
+    t0 = time.perf_counter()
+    streams = [submit(p, max_new_tokens=flood_new) for p in floods]
+    for s in streams:
+        s.result(timeout=600)
+    t1 = time.perf_counter()
+    victim.result(timeout=600)
+    th.join(timeout=60)
+    ttfts = [s.ttft for s in streams if s.ttft is not None]
+    gaps = [b - a for a, b in zip(times, times[1:])
+            if b > t0 and a < t1]
+    return gaps, ttfts, t1 - t0
 
 
 def _reconciled(snaps: List[Dict]) -> bool:
@@ -20,8 +129,208 @@ def _reconciled(snaps: List[Dict]) -> bool:
     return submitted == terminal
 
 
+def _mk_run(gaps: List[float], ttfts: List[float], dt: float,
+            snaps: List[Dict], flood_new: int) -> Dict:
+    return {
+        "victim_max_gap_ms": round(max(gaps) * 1e3, 3) if gaps else None,
+        "victim_tpot": _pctl(gaps),
+        "flood_ttft": _pctl(ttfts),
+        "flood_elapsed_s": round(dt, 4),
+        "reconciliation_ok": _reconciled(snaps),
+        "_ttfts": ttfts,          # raw, for the SLO goodput; dropped later
+        "_flood_new": flood_new,
+    }
+
+
+def _goodput(run: Dict, slo_ms: float) -> float:
+    met = sum(1 for t in run["_ttfts"] if t * 1e3 <= slo_ms)
+    return round(met * run["_flood_new"] / run["flood_elapsed_s"], 2)
+
+
+def _keep_best(best: Optional[Dict], run: Dict) -> Dict:
+    """min over repeats on the max-gap statistic (its noise floor)."""
+    if best is None or (run["victim_max_gap_ms"] or 1e9) < \
+            (best["victim_max_gap_ms"] or 1e9):
+        return run
+    return best
+
+
+def calibrate(model, slots: int, max_seq: int,
+              chunk_sizes: Tuple[int, ...],
+              floods: List[np.ndarray]) -> Dict:
+    """Measured solo op costs on the real engines: the per-op price list
+    the replay composes.  Medians; runs after the wall arms, so every
+    function has run before."""
+    from ..generation.engine import GenerationEngine
+
+    def _eng(chunk):
+        return GenerationEngine(model, slots=slots, max_seq=max_seq,
+                                stats_every=0, prefill_chunk=chunk,
+                                prefix_cache="off")
+
+    cal: Dict = {}
+    with _eng(0) as eng:
+        times: List[float] = []
+        for _ in eng.submit(_victim_prompt(), max_new_tokens=33):
+            times.append(time.perf_counter())
+        gaps = sorted(b - a for a, b in zip(times, times[1:]))
+        cal["decode_step_ms"] = round(gaps[len(gaps) // 2] * 1e3, 4)
+        eng.submit(floods[0], max_new_tokens=1).result(timeout=600)
+        mono = []
+        for p in floods:
+            s = eng.submit(p, max_new_tokens=1)
+            s.result(timeout=600)
+            mono.append(round(s.ttft * 1e3, 4))
+        cal["mono_prefill_ms"] = mono
+    cal["chunk_op_ms"] = {}
+    for c in chunk_sizes:
+        with _eng(c) as eng:
+            eng.submit(floods[0], max_new_tokens=1).result(timeout=600)
+            vals = []
+            for p in floods[:3]:
+                s = eng.submit(p, max_new_tokens=1)
+                s.result(timeout=600)
+                vals.append(s.ttft * 1e3 / -(-len(p) // c))
+            vals.sort()
+            cal["chunk_op_ms"][str(c)] = round(vals[len(vals) // 2], 4)
+    return cal
+
+
+def _mk_replay(gaps_s: List[float], ttfts_s: List[float],
+               elapsed_s: float, flood_new: int, chunk: int) -> Dict:
+    return {
+        "victim_max_gap_ms": round(max(gaps_s) * 1e3, 3),
+        "victim_tpot": _pctl(gaps_s),
+        "flood_ttft": _pctl(ttfts_s),
+        "flood_elapsed_s": round(elapsed_s, 4),
+        "prefill_chunk": chunk,
+        "_ttfts": list(ttfts_s),
+        "_flood_new": flood_new,
+    }
+
+
+def _replay_colo(cal: Dict, lengths: List[int], chunk: int,
+                 flood_new: int) -> Dict:
+    """Deterministic replay of the co-located discipline: per dispatch
+    boundary, at most ONE prefill chunk (Sarathi) then the decode step
+    for the active batch.  The victim emits at every boundary; a flood
+    stream's first token lands at its final chunk's boundary."""
+    cd = cal["decode_step_ms"] / 1e3
+    if chunk > 0:
+        cc = cal["chunk_op_ms"][str(chunk)] / 1e3
+        work = [[cc] * -(-length // chunk) for length in lengths]
+    else:
+        work = [[ms / 1e3] for ms in cal["mono_prefill_ms"]]
+    n = len(lengths)
+    ttft: List[float] = [0.0] * n
+    finish: List[float] = [0.0] * n
+    left = [flood_new] * n
+    active: List[int] = []
+    t, vt, i = 0.0, [0.0], 0
+    while any(x > 0 for x in left):
+        just = None
+        if i < n:
+            t += work[i].pop(0)
+            if not work[i]:
+                just, i = i, i + 1
+        t += cd
+        vt.append(t)
+        for j in list(active):
+            left[j] -= 1
+            if left[j] == 0:
+                finish[j] = t
+                active.remove(j)
+        if just is not None:
+            ttft[just] = t
+            left[just] -= 1
+            if left[just] == 0:
+                finish[just] = t
+            else:
+                active.append(just)
+    elapsed = max(finish)
+    gaps = [b - a for a, b in zip(vt, vt[1:])]
+    return _mk_replay(gaps, ttft, elapsed, flood_new, chunk)
+
+
+def _replay_disagg(cal: Dict, lengths: List[int],
+                   flood_new: int) -> Dict:
+    """Deterministic replay of the disaggregated discipline, each host
+    on its own timeline.  Prefill host: nothing but FIFO monolithic
+    prefills; a stream's first token is sampled at its prefill
+    completion there, then the chain ships (measured export and handoff
+    cost) and waits for the decode host.  Decode host: a boundary every
+    decode step; ONE adoption per boundary (the engine contract), charged
+    the measured import cost: the victim's worst gap is decode + import."""
+    cd = cal["decode_step_ms"] / 1e3
+    ship = (cal["migrate_export_ms"] + cal["migrate_handoff_ms"]) / 1e3
+    imp = cal["migrate_import_ms"] / 1e3
+    n = len(lengths)
+    done: List[float] = []
+    acc = 0.0
+    for ms in cal["mono_prefill_ms"]:
+        acc += ms / 1e3
+        done.append(acc)
+    ttft = list(done)
+    ready = [d + ship for d in done]
+    pending = list(range(n))          # FIFO == ready order
+    left = [flood_new - 1] * n
+    finish = list(done)               # overwritten when decode moves
+    active: List[int] = []
+    t, vt = 0.0, [0.0]
+    while pending or active:
+        joined = None
+        if pending and ready[pending[0]] <= t:
+            joined = pending.pop(0)
+            t += imp
+        t += cd
+        vt.append(t)
+        for j in list(active):
+            left[j] -= 1
+            if left[j] == 0:
+                finish[j] = t
+                active.remove(j)
+        if joined is not None:
+            if left[joined] <= 0:
+                finish[joined] = t
+            else:
+                left[joined] -= 1
+                if left[joined] == 0:
+                    finish[joined] = t
+                else:
+                    active.append(joined)
+    elapsed = max(finish)
+    gaps = [b - a for a, b in zip(vt, vt[1:])]
+    return _mk_replay(gaps, ttft, elapsed, flood_new, 0)
+
+
+def run_colo_arm(model, slots: int, max_seq: int, chunk: int,
+                 floods: List[np.ndarray], victim_new: int,
+                 flood_new: int, repeats: int) -> Dict:
+    from ..generation.engine import GenerationEngine
+
+    best = None
+    for _ in range(repeats):
+        eng = GenerationEngine(model, slots=slots, max_seq=max_seq,
+                               stats_every=0, prefill_chunk=chunk,
+                               prefix_cache="off")
+        with eng:
+            gaps, ttfts, dt = _interference_once(
+                eng.submit, floods, victim_new, flood_new)
+            snap = eng.stats()
+        run = _mk_run(gaps, ttfts, dt, [snap], flood_new)
+        run["engine_tpot_p95_ms"] = snap["tpot_p95_ms"]
+        best = _keep_best(best, run)
+    best["prefill_chunk"] = chunk
+    return best
+
+
+# the prefill host's pause after each dispatch (FleetEngine.pace_s): off
+# (see build_disagg's docstring for the measurement behind it)
+PF_PACE_S = 0.0
+
+
 def build_disagg(model, slots: int, max_seq: int, chunk: int,
-                 prefix_cache: str = "off", pf_pace_s: float = 0.0):
+                 prefix_cache: str = "off", pf_pace_s: float = PF_PACE_S):
     """One prefill-role and one decode-role fleet over one model's
     parameters, fronted by a started router.  On one device both engines
     share it and the parameters (no second copy); the decode engine
@@ -58,4 +367,271 @@ def build_disagg(model, slots: int, max_seq: int, chunk: int,
     return router, (pf, dc), (pf_eng, dc_eng)
 
 
-__all__ = ["build_disagg"]
+def run_disagg_arm(model, slots: int, max_seq: int, pf_chunk: int,
+                   floods: List[np.ndarray], victim_new: int,
+                   flood_new: int, repeats: int) -> Dict:
+    best = None
+    for _ in range(repeats):
+        router, fleets, (pf_eng, dc_eng) = build_disagg(
+            model, slots, max_seq, pf_chunk)
+        try:
+            gaps, ttfts, dt = _interference_once(
+                lambda p, **kw: router.submit("lm", p, **kw),
+                floods, victim_new, flood_new)
+            snaps = [pf_eng.stats(), dc_eng.stats()]
+            rstats = router.stats()
+        finally:
+            router.stop()
+            for f in fleets:
+                f.stop()
+        run = _mk_run(gaps, ttfts, dt, snaps, flood_new)
+        run["engine_tpot_p95_ms"] = snaps[1]["tpot_p95_ms"]
+        run["migrations"] = rstats["migrations"]
+        run["migrated_bytes"] = rstats["migrated_bytes"]
+        run["routes"] = rstats["routes"]
+        run["all_migrated"] = (
+            rstats["migrations"] == len(floods) + 1)
+        # the REAL per-migration costs, measured in place: the replay
+        # charges these (sorted: medians taken downstream)
+        run["_mig_export_ms"] = sorted(pf_eng.migrate_export_ms)
+        run["_mig_import_ms"] = sorted(dc_eng.migrate_import_ms)
+        run["_mig_handoff_ms"] = (rstats["migrate_ms_total"]
+                                  / max(1, rstats["migrations"]))
+        best = _keep_best(best, run)
+    # a dedicated prefill host needs no chunking to protect anyone:
+    # decode isolation comes from PLACEMENT, so a monolithic prefill
+    # (pf_chunk=0) is right on two hosts; where both engines share one
+    # device, a coarse chunk still bounds how long a decode step waits
+    best["prefill_chunk"] = pf_chunk
+    return best
+
+
+def run_parity(model, slots: int, max_seq: int, chunk: int,
+               n_prompts: int, max_new: int, seed: int) -> Dict:
+    """Greedy colo against disagg token parity, prefix cache on AND off.
+    Identical is the contract: migration moves the KV pages, it must
+    never change a token."""
+    from ..generation.engine import GenerationEngine
+
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(1, VOCAB,
+                            int(rng.integers(4, max_seq // 2))
+                            ).astype(np.int32)
+               for _ in range(n_prompts)]
+    out = {"prompts": n_prompts, "max_new": max_new}
+    for pc in ("on", "off"):
+        eng = GenerationEngine(model, slots=slots, max_seq=max_seq,
+                               stats_every=0, prefill_chunk=chunk,
+                               prefix_cache=pc)
+        with eng:
+            colo = [list(int(t) for t in
+                         eng.submit(p, max_new_tokens=max_new)
+                         .result(timeout=600))
+                    for p in prompts]
+        router, fleets, _ = build_disagg(model, slots, max_seq, chunk,
+                                         prefix_cache=pc)
+        try:
+            disagg = [list(int(t) for t in
+                           router.submit("lm", p, max_new_tokens=max_new)
+                           .result(timeout=600))
+                      for p in prompts]
+        finally:
+            router.stop()
+            for f in fleets:
+                f.stop()
+        out[f"prefix_{pc}"] = (colo == disagg)
+    return out
+
+
+def run_disagg_bench(requests: int = 6, prompt_lo: int = 192,
+                     prompt_hi: int = 224, flood_new: int = 2,
+                     victim_new: int = 64, slots: int = 8,
+                     max_seq: int = 256, d_model: int = 256,
+                     num_heads: int = 4, num_layers: int = 2,
+                     seed: int = 0, chunks: Tuple[int, ...] = (16, 32),
+                     pf_chunk: int = 32,
+                     repeats: int = 2, parity_prompts: int = 6,
+                     parity_new: int = 8, slo_ms: float = 0.0,
+                     calibration_digest=None, device=None) -> Dict:
+    """The whole ``--disagg`` payload, on ``device`` (None: the process
+    default, else the card).  The process's switch interval is tightened
+    for the wall arms and restored on every way out."""
+    import torch
+
+    model = _build_lm(slots, max_seq, d_model, num_heads, num_layers,
+                      seed, device=device)
+    stamp = _stamp(model, calibration_digest)
+    floods = make_flood_trace(requests, prompt_lo, prompt_hi, seed)
+
+    # ---- wall arms: real engines, real migrations (correctness and the
+    # in-place migration costs; latency informational).  A max-gap
+    # statistic is hostage to the interpreter lock's hand-off latency,
+    # so tighten the switch interval for every arm equally
+    prev_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        wall_colo: Dict[str, Dict] = {}
+        for chunk in (0,) + tuple(chunks):
+            wall_colo[f"chunk{chunk}"] = run_colo_arm(
+                model, slots, max_seq, chunk, floods, victim_new,
+                flood_new, repeats)
+        wall_disagg = run_disagg_arm(model, slots, max_seq, pf_chunk,
+                                     floods, victim_new, flood_new,
+                                     repeats)
+    finally:
+        sys.setswitchinterval(prev_switch)
+
+    # ---- calibration: solo op prices and the measured migration costs
+    cal = calibrate(model, slots, max_seq, tuple(chunks), floods)
+
+    def _med(xs):
+        return xs[len(xs) // 2] if xs else 0.0
+
+    cal["migrate_export_ms"] = round(
+        _med(wall_disagg.pop("_mig_export_ms")), 4)
+    cal["migrate_import_ms"] = round(
+        _med(wall_disagg.pop("_mig_import_ms")), 4)
+    cal["migrate_handoff_ms"] = round(
+        wall_disagg.pop("_mig_handoff_ms"), 4)
+
+    # ---- deterministic replay (the primary rows)
+    lengths = [len(p) for p in floods]
+    colo: Dict[str, Dict] = {}
+    for chunk in (0,) + tuple(chunks):
+        row = _replay_colo(cal, lengths, chunk, flood_new)
+        row["reconciliation_ok"] = \
+            wall_colo[f"chunk{chunk}"]["reconciliation_ok"]
+        colo[f"chunk{chunk}"] = row
+    disagg = _replay_disagg(cal, lengths, flood_new)
+    for k in ("reconciliation_ok", "engine_tpot_p95_ms", "migrations",
+              "migrated_bytes", "routes", "all_migrated"):
+        disagg[k] = wall_disagg[k]
+
+    chunked = [colo[f"chunk{c}"] for c in chunks]
+    if slo_ms <= 0:
+        # the SLO every arm is scored against: the best chunked-colo
+        # arm's median flood TTFT, so goodput deltas are about ROUTING,
+        # not about a slack (or impossibly tight) target
+        slo_ms = min(r["flood_ttft"]["p50_ms"] for r in chunked
+                     if r["flood_ttft"]["p50_ms"] is not None)
+    for row in list(colo.values()) + [disagg]:
+        row["goodput_toks_per_s"] = _goodput(row, slo_ms)
+        row.pop("_ttfts", None)
+        row.pop("_flood_new", None)
+        row.update(stamp)
+    for row in list(wall_colo.values()) + [wall_disagg]:
+        row["goodput_toks_per_s"] = _goodput(row, slo_ms)
+        row.pop("_ttfts", None)
+        row.pop("_flood_new", None)
+
+    parity = run_parity(model, slots, max_seq, chunks[0],
+                        parity_prompts, parity_new, seed)
+
+    # the comparison claimed: strictly better decode-path latency than
+    # the best co-located chunked arm AT EQUAL-OR-BETTER TTFT-SLO
+    # GOODPUT.  The stall/TPOT baseline is the best-stall arm among
+    # those that match disagg's goodput; when none reaches it, the
+    # closest goodput competitor.  Latency is what the victim OBSERVES
+    # (inter-token gap)
+    best_goodput = max(r["goodput_toks_per_s"] for r in chunked)
+    qualified = [r for r in chunked
+                 if r["goodput_toks_per_s"]
+                 >= disagg["goodput_toks_per_s"]]
+    pool = qualified or [max(chunked,
+                             key=lambda r: r["goodput_toks_per_s"])]
+    baseline = min(pool, key=lambda r: r["victim_max_gap_ms"])
+    acceptance = {
+        "baseline_arm": f"chunk{baseline['prefill_chunk']}",
+        "tpot_p95_better":
+            disagg["victim_tpot"]["p95_ms"]
+            < baseline["victim_tpot"]["p95_ms"],
+        "victim_stall_better":
+            disagg["victim_max_gap_ms"]
+            < baseline["victim_max_gap_ms"],
+        "goodput_no_worse":
+            disagg["goodput_toks_per_s"] >= best_goodput,
+        "tokens_bit_identical":
+            bool(parity["prefix_on"] and parity["prefix_off"]),
+        "reconciliation_ok": all(
+            r["reconciliation_ok"]
+            for r in list(colo.values()) + [disagg]),
+        "all_migrated": bool(disagg["all_migrated"]),
+    }
+    cuda = model.device.type == "cuda"
+    return {
+        "bench": "disagg",
+        "backend": model.device.type,
+        "num_devices": torch.cuda.device_count() if cuda else 1,
+        "estimator": "calibrated-replay",
+        **stamp,
+        "calibration": cal,
+        "wall": {"colo": wall_colo, "disagg": wall_disagg},
+        "config": {
+            "requests": requests, "prompt_lo": prompt_lo,
+            "prompt_hi": prompt_hi, "flood_new": flood_new,
+            "victim_new": victim_new, "slots": slots,
+            "max_seq": max_seq, "d_model": d_model,
+            "num_heads": num_heads, "num_layers": num_layers,
+            "seed": seed, "chunks": list(chunks),
+            "pf_chunk": pf_chunk, "repeats": repeats,
+            "slo_ms": round(float(slo_ms), 3),
+            "pf_pace_s": PF_PACE_S,
+        },
+        "colo": colo,
+        "disagg": disagg,
+        "parity": parity,
+        "acceptance": acceptance,
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    from ...fflogger import silenced
+    from ...train_bench import _device
+    from ..bench import write_payload
+
+    ap = argparse.ArgumentParser(
+        prog="flexflow-tpu-torch serve-bench --disagg",
+        description="disaggregated prefill/decode against co-located "
+                    "chunked prefill (adversarial prefill-heavy trace)")
+    ap.add_argument("--requests", type=int, default=6,
+                    help="flood size (long-prompt/short-decode)")
+    ap.add_argument("--prompt-lo", type=int, default=192)
+    ap.add_argument("--prompt-hi", type=int, default=224)
+    ap.add_argument("--flood-new", type=int, default=2)
+    ap.add_argument("--victim-new", type=int, default=64,
+                    help="victim stream's decode budget")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--num-heads", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunks", type=str, default="16,32",
+                    help="comma-separated colo prefill chunk sizes")
+    ap.add_argument("--pf-chunk", type=int, default=32,
+                    help="disagg prefill-host chunk (0 = monolithic)")
+    ap.add_argument("--repeats", type=int, default=2)
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="TTFT SLO; 0 = best chunked-colo median")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="the device to run on (default: the runner's, "
+                         "else the card)")
+    ap.add_argument("--out", type=str, default=None)
+    args = ap.parse_args(argv)
+
+    chunks = tuple(int(c) for c in args.chunks.split(",") if c)
+    device = _device(args.device)
+    with silenced("ff", "serve"):
+        payload = run_disagg_bench(
+            requests=args.requests, prompt_lo=args.prompt_lo,
+            prompt_hi=args.prompt_hi, flood_new=args.flood_new,
+            victim_new=args.victim_new, slots=args.slots,
+            max_seq=args.max_seq, d_model=args.d_model,
+            num_heads=args.num_heads, num_layers=args.layers,
+            seed=args.seed, chunks=chunks, pf_chunk=args.pf_chunk,
+            repeats=args.repeats, slo_ms=args.slo_ms, device=device)
+    write_payload(payload, args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,13 @@ the parsed flags installed (``FFModel()`` picks them up) on
 ``default_device()``'s error.  ``lint --json`` and ``explain --json``
 print what the port's verifier and ``explain_report`` give when called
 directly, with the JAX CLI's keys; ``lint --calibration`` hands the
-table's ``xla_temp_factor`` to the memory gate as ``temp_factor``.  The
-``serve-bench`` modes with no bench in the port yet exit 2 naming
-ROADMAP A.11 (the verbs of the tooling plane:
-``tests/test_torch_tooling.py``).
+table's ``xla_temp_factor`` to the memory gate as ``temp_factor``.
+``serve-bench --generate`` (with ``--prefix`` and ``--speculate``),
+``--fleet`` and ``--disagg`` exit 0 on ``--device cpu`` with their
+bench's payload (the verbs of the tooling plane:
+``tests/test_torch_tooling.py``; the benches against the JAX package's:
+``tests/test_torch_gen_bench.py``, ``tests/test_torch_fleet_bench.py``,
+``tests/test_torch_disagg_bench.py``).
 """
 
 import dataclasses
@@ -212,15 +215,43 @@ def test_runner_usage_errors_exit_2(args):
     assert e.value.code == 2
 
 
-@pytest.mark.parametrize("args", [
-    ["serve-bench", "--generate"], ["serve-bench", "--fleet"],
-    ["serve-bench", "--disagg", "--device", "cpu"]],
-    ids=lambda a: a[1])
-def test_waiting_verbs_exit_2_naming_a11(args, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(args)
-    assert e.value.code == 2
-    assert "ROADMAP A.11" in capsys.readouterr().err
+SERVE_BENCH_MODES = {
+    "--generate": (["--generate", "--requests", "4", "--d-model", "16",
+                    "--heads", "2", "--layers", "1", "--max-seq", "16",
+                    "--long-new", "6", "--mults", "1"], "serve-generate"),
+    "--prefix": (["--generate", "--prefix", "--requests", "4",
+                  "--d-model", "16", "--heads", "2", "--layers", "1",
+                  "--long-new", "4", "--slots", "2"], "gen-prefix"),
+    "--speculate": (["--generate", "--speculate", "--requests", "2",
+                     "--d-model", "16", "--heads", "2", "--layers", "2",
+                     "--max-seq", "16", "--new-tokens", "4",
+                     "--slots", "2"], "gen-spec"),
+    "--fleet": (["--fleet", "--requests", "16", "--cell-seconds", "0.1",
+                 "--hidden-a", "8", "--hidden-b", "8", "--max-batch", "4"],
+                "fleet-bench"),
+    "--disagg": (["--disagg", "--requests", "1", "--prompt-lo", "20",
+                  "--prompt-hi", "24", "--victim-new", "8", "--slots", "2",
+                  "--max-seq", "48", "--d-model", "16", "--num-heads", "2",
+                  "--layers", "1", "--repeats", "1", "--chunks", "8",
+                  "--pf-chunk", "8"], "disagg"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SERVE_BENCH_MODES))
+def test_serve_bench_modes_run_on_the_cpu(mode, capsys):
+    """Each of serve-bench's bench modes exits 0 on ``--device cpu`` and
+    prints its bench's JSON payload."""
+    from flexflow_tpu_torch.fflogger import silenced
+    args, bench = SERVE_BENCH_MODES[mode]
+    try:
+        with silenced("ff", "serve"):
+            rc, out = _run_main(["serve-bench", *args, "--device", "cpu"],
+                                capsys)
+    finally:
+        ft.set_default_device(None)
+    assert rc == 0
+    payload = json.loads(out)
+    assert payload["bench"] == bench and payload["backend"] == "cpu"
 
 
 def _run_main(argv, capsys, main=cli.main):

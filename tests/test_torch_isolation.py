@@ -71,10 +71,13 @@ def test_no_port_module_imports_jax_or_the_jax_package(path):
     "flexflow_tpu_torch.ops.norm", "flexflow_tpu_torch.ops.cuda_norm",
     "flexflow_tpu_torch.ops.elementwise", "flexflow_tpu_torch.ops.linear",
     "flexflow_tpu_torch.ops.tensor_ops",
-    "flexflow_tpu_torch.models.transformer"])
+    "flexflow_tpu_torch.models.transformer",
+    "flexflow_tpu_torch.serving.generation.bench",
+    "flexflow_tpu_torch.serving.fleet.bench",
+    "flexflow_tpu_torch.serving.cluster.bench"])
 def test_the_transformer_slice_modules_are_checked(module):
-    """The Transformer slice's modules are among those the two tests
-    above import and parse."""
+    """The Transformer slice's modules and the serving benches are among
+    those the two tests above import and parse."""
     assert module in _modules()
     path = os.path.join(REPO, *module.split(".")) + ".py"
     assert path in _port_sources()

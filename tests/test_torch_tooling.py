@@ -16,7 +16,8 @@
   counter bit-equal, and names the kernel libraries a step launches.
 * The runner's ``trace``, ``flight``, ``--metrics-port`` and bench verbs
   exit as the JAX runner's do; ``serve-bench --generate``, ``--fleet``
-  and ``--disagg`` exit 2 naming ROADMAP A.11.
+  and ``--disagg`` reach their own parsers, whose usage errors exit 2
+  as the JAX runner's.
 """
 
 import contextlib
@@ -430,15 +431,30 @@ def test_runner_benches_need_a_card_or_device_cpu(capsys):
 
 @pytest.mark.parametrize("mode", ["--generate", "--fleet", "--disagg"])
 def test_serve_bench_modes_without_a_port_exit_2(mode, capsys):
+    """Each bench mode reaches its own parser through the runner and
+    through ``serving.bench.main``: a flag that parser does not know
+    exits 2 as the JAX runner's does, naming the mode."""
+    from flexflow_tpu.cli import main as jax_main
     from flexflow_tpu_torch.serving import bench
-    for main, argv in ((cli.main, ["serve-bench", mode]),
-                       (bench.main, [mode, "--requests", "8"])):
-        with pytest.raises(SystemExit) as e:
-            main(argv)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP A.11" in err and f"serve-bench {mode}" in err
-        assert "bench.py" in err
+    with pytest.raises(SystemExit) as e:
+        jax_main(["serve-bench", mode, "--bogus"])
+    want = capsys.readouterr().err
+    assert e.value.code == 2
+    try:
+        for main, argv in ((cli.main, ["serve-bench", mode, "--bogus",
+                                       "--device", "cpu"]),
+                           (bench.main, [mode, "--bogus"])):
+            with pytest.raises(SystemExit) as e:
+                main(argv)
+            assert e.value.code == 2
+            err = capsys.readouterr().err
+            assert f"serve-bench {mode}: error: unrecognized arguments: " \
+                "--bogus" in err
+            assert err.splitlines()[-1] == \
+                want.splitlines()[-1].replace("flexflow-tpu ",
+                                              "flexflow-tpu-torch ")
+    finally:
+        ft.set_default_device(None)
 
 
 def _free_port() -> int:
