@@ -114,7 +114,7 @@
    2048 wide, 2 + 2 LSTM layers, 24 tokens, batch 256; bf16, random
    weights from seed 0, plain SGD): serving through ``ServingEngine``
    (buckets up to 2048, 256 and 32; 8 closed-loop clients, 2 rounds of
-   400 requests, each round's rows/s and latency p50/p99), ``fit`` and
+   100 requests, each round's rows/s and latency p50/p99), ``fit`` and
    10 ``train_batch`` steps on one batch (the mean of the last 3 losses
    under the first), a timed and profiled step
    (NMT's share of GEMM kernels); DLRM's tables on the sparse update
@@ -297,8 +297,9 @@
    rows printed.  The ``kernels`` line carries ``tooling_bert_traced``
    and ``tooling_metrics_alexnet``;
 17i. serving benches phase (after tooling): the runner's ``serve-bench
-   --generate`` (continuous against static batching, reference decode,
-   the SLO sweep at 1x capacity), ``--generate --prefix``, ``--generate --speculate`` (8
+   --generate`` (48 requests: continuous against static batching,
+   reference decode, the SLO sweep at 1x capacity), ``--generate
+   --prefix``, ``--generate --speculate`` (8
    requests x 32 tokens, a 1-layer weight-shared draft), ``--fleet``
    (cells of 0.5 s) and ``--disagg``, in this process on the card, the
    LMs at GPT-2 small's depth and widths (12 x 768, 12 heads) over the
@@ -311,6 +312,22 @@
    ``serve_bench_generate``, ``serve_bench_prefix``,
    ``serve_bench_speculate``, ``serve_bench_disagg`` (LayerNorm) and
    ``serve_bench_generate_reference`` (flash forward);
+17j. examples phase (last): the repo's example scripts, unchanged,
+   through the runner (``flexflow_tpu_torch.cli``), whose finder
+   resolves their ``flexflow_tpu`` imports to the port: (a)
+   examples/python/native/print_layers.py, print_input.py and
+   tensor_attach.py with ``-b 64`` in subprocesses on the card (started
+   before the frontends phase; each reads ``np.asarray(model.forward())``
+   of a model on the card): exit 0, the ``logits`` lines and
+   ``tensor_attach OK``, each one's seconds and its start-up (its
+   seconds less a warm run of the same script through ``cli.main`` in
+   this process); (b) alexnet.py (``-b 64 -e 1``: full-width AlexNet, 4
+   steps) and apps/transformer.py (``-b 16 -e 1``: BERT-base, 4 steps)
+   through ``cli.main`` in this process: 3 + 3 max-pool launches an
+   AlexNet step, 12 + 12 flash and 24 LayerNorm launches a BERT-base
+   step (the kernel phases hold each kernel against its plain version
+   at these shapes).  The ``kernels`` line carries ``examples_alexnet``
+   and ``examples_transformer``;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -421,11 +438,11 @@ ZOO = {  # builder, its arguments, training batch, serving batch, SGD lr
 # serving: ZOO_CLIENTS client threads, each sending one request at a
 # time and the next when it returns, ZOO_REQUESTS requests a round over
 # ZOO_ROUNDS rounds (400 a round until the calibration phase needed the
-# time); sizes log-uniform from 1 row to the serving batch, drawn once,
-# so the rounds repeat one load.
+# time, 200 until the examples phase did); sizes log-uniform from 1 row
+# to the serving batch, drawn once, so the rounds repeat one load.
 # The rows of the first ZOO_CHECKED requests are held against predict()
 ZOO_CLIENTS = 8
-ZOO_REQUESTS = 200
+ZOO_REQUESTS = 100
 ZOO_ROUNDS = 2
 ZOO_CHECKED = 32
 ZOO_FIT_BATCHES = 4
@@ -5895,7 +5912,7 @@ GEN_MESH_RUNS = {"gen_n2c2": ("bfloat16", GPT2["num_layers"]),
                  "gen_f32_n2c2": ("float32", 2)}
 GEN_MESH_SLOTS = 8
 GEN_MESH_PROMPTS = 8
-GEN_MESH_NEW = 32
+GEN_MESH_NEW = 16   # 32 until the examples phase needed the time
 GEN_MESH_PROMPT = (32, 96)
 GEN_MESH_OPS = ("tok_embedding",) + tuple(
     f"{op}_{i}" for i in range(GPT2["num_layers"])
@@ -7858,13 +7875,14 @@ def tooling_phase(ft, counters, kernel_counters, card: str) -> dict:
 # 12 heads) through the benches' flags and keep the benches' own
 # 128-token vocabulary and float32 (the generation phase serves the
 # 50,257-token head).  To keep the phase near a minute and a half,
-# --generate's SLO sweep offers one load (1x capacity; 0.5x, 1x and 2x
-# by default), --speculate serves 8 requests x 32 tokens (16 x 64 by
-# default) and the fleet's cells last 0.5 s (2 s by default)
+# --generate serves 48 requests (96 by default; cut to make room for the
+# examples phase) and its SLO sweep offers one load (1x capacity; 0.5x,
+# 1x and 2x by default), --speculate serves 8 requests x 32 tokens (16 x
+# 64 by default) and the fleet's cells last 0.5 s (2 s by default)
 BENCH_GPT2 = ["--d-model", "768", "--heads", "12", "--layers", "12"]
 SERVE_BENCHES = (
-    ("generate", ["serve-bench", "--generate", *BENCH_GPT2, "--mults",
-                  "1"]),
+    ("generate", ["serve-bench", "--generate", *BENCH_GPT2, "--requests",
+                  "48", "--mults", "1"]),
     ("prefix", ["serve-bench", "--generate", "--prefix", *BENCH_GPT2]),
     ("speculate", ["serve-bench", "--generate", "--speculate",
                    *BENCH_GPT2, "--draft-layers", "1", "--requests", "8",
@@ -8000,6 +8018,181 @@ def serving_benches_phase(kernel_counters, card: str) -> dict:
             2 if bench == "speculate" else 24) == 0, launches
         out["ln"][f"serve_bench_{bench}"] = launches[2]
     assert sys.getswitchinterval() == switch, sys.getswitchinterval()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# the examples phase: the repo's example scripts, unchanged, through the
+# runner, whose finder resolves their flexflow_tpu imports to the port
+# ----------------------------------------------------------------------
+EX_DIR = os.path.join(HERE, "examples")
+# (a) in subprocesses, started beside the frontends phase: the scripts
+# that read model.forward() with numpy, and what each prints once done
+EX_CONSOLE = {"print_layers": ("python/native/print_layers.py", "logits[0]:"),
+              "print_input": ("python/native/print_input.py",
+                              "logits: shape"),
+              "tensor_attach": ("python/native/tensor_attach.py",
+                                "tensor_attach OK")}
+EX_TIMEOUT = 300
+# (b) in this process: the scripts that carry the kernels (each fits 4
+# batches of its -b), their flags, and their launches a step (flash fwd,
+# flash bwd, layernorm, pool fwd, pool bwd)
+EX_KERNEL_SCRIPTS = {
+    "examples_alexnet": ("python/native/alexnet.py",
+                         ("-b", str(BATCH), "-e", "1"), (0, 0, 0, 3, 3)),
+    "examples_transformer": ("apps/transformer.py",
+                             ("-b", str(BERT_BATCH), "-e", "1"),
+                             (12, 12, 24, 0, 0)),
+}
+
+
+def examples_start(workdir: str) -> dict:
+    """Start (a)'s scripts through ``python -m flexflow_tpu_torch.cli``
+    with no ``--device`` (the card), each beside a thread that notes
+    when it exits; their output goes to files in ``workdir``."""
+    cli = [sys.executable, "-m", "flexflow_tpu_torch.cli"]
+    procs = {}
+    for name, (rel, _) in EX_CONSOLE.items():
+        out = open(os.path.join(workdir, f"{name}.out"), "w")
+        err = open(os.path.join(workdir, f"{name}.err"), "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cli + [os.path.join(EX_DIR, rel), "-b", str(BATCH)], cwd=HERE,
+            stdout=out, stderr=err)
+        done = {}
+
+        def note(proc=proc, done=done):
+            proc.wait()
+            done["t"] = time.perf_counter()
+
+        threading.Thread(target=note, daemon=True).start()
+        procs[name] = (proc, out, err, t0, done)
+    return procs
+
+
+def examples_stop(procs) -> None:
+    """Leave no process of :func:`examples_start` behind."""
+    for proc, out, err, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def examples_cli(rel: str, flags, counters=()) -> tuple:
+    """Run ``examples/<rel>`` through the runner's ``main`` in this
+    process: (its stdout, its seconds, the ``counters``' launches, its
+    ``ff`` events).  The runner installs the default config and device,
+    ``sys.argv``, its excepthooks and the import finder; all five are
+    put back, so the phases after run as before.  A script that raises
+    or exits fails the smoke."""
+    from flexflow_tpu_torch import cli, config, script_imports
+    from flexflow_tpu_torch.fflogger import capture_events
+    from flexflow_tpu_torch.obs import flight
+
+    saved = (config._default_config, config.get_default_device(),
+             list(sys.argv), sys.excepthook, threading.excepthook,
+             flight._orig_excepthook, flight._orig_thread_hook)
+    free_garbage()
+    reset_counts(*counters)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), \
+                capture_events("ff") as events:
+            cli.main([os.path.join(EX_DIR, rel), *flags])
+        secs = time.perf_counter() - t0
+    except SystemExit as e:
+        raise AssertionError(f"examples/{rel} exited {e.code}: "
+                             f"{buf.getvalue()[-2000:]}") from e
+    finally:
+        script_imports.uninstall()
+        config.set_default_config(saved[0])
+        config.set_default_device(saved[1])
+        sys.argv[:] = saved[2]
+        sys.excepthook, threading.excepthook = saved[3:5]
+        flight._orig_excepthook, flight._orig_thread_hook = saved[5:]
+    launches = [k.launches for k in counters]
+    assert not any(n == "flexflow_tpu" or n.startswith("flexflow_tpu.")
+                   for n in sys.modules), "the finder's names stayed"
+    return buf.getvalue(), secs, launches, events
+
+
+def examples_finish(procs, workdir: str, card: str) -> dict:
+    """Wait for (a)'s scripts and check what each printed; returns each
+    one's seconds from its start to its exit."""
+    walls = {}
+    for name, (proc, out, err, t0, done) in procs.items():
+        rc = proc.wait(timeout=EX_TIMEOUT)
+        out.close()
+        err.close()
+        with open(os.path.join(workdir, f"{name}.out")) as f:
+            text = f.read()
+        with open(os.path.join(workdir, f"{name}.err")) as f:
+            errtext = f.read()
+        assert rc == 0, (name, rc, errtext[-3000:])
+        marker = EX_CONSOLE[name][1]
+        assert marker in text, (name, text[-2000:])
+        while "t" not in done:
+            time.sleep(0.01)
+        walls[name] = done["t"] - t0
+        shown = [ln for ln in text.splitlines() if ln.startswith(marker)]
+        print(f"examples {name}: python -m flexflow_tpu_torch.cli "
+              f"examples/{EX_CONSOLE[name][0]} -b {BATCH} (the card) exit "
+              f"0 in {walls[name]:.3f} s from its start; {shown[0][:120]}"
+              f" [{card}]")
+    return walls
+
+
+def examples_phase(procs, workdir: str, kernel_counters,
+                   card: str) -> dict:
+    """The repo's example scripts on the card through the runner, as a
+    user runs them: (a) print_layers.py, print_input.py and
+    tensor_attach.py in subprocesses (started before the frontends
+    phase; each reads ``np.asarray(model.forward())`` of a model on the
+    card), checked here, then run again in this process, warm, through
+    the runner's ``main``: a subprocess's seconds less the warm run's
+    are its start-up (torch's import and the card's context, beside the
+    phases it ran with); (b) alexnet.py (full-width AlexNet, 229 px,
+    batch 64) and apps/transformer.py (BERT-base, 12 x 768, s 512, batch
+    16, Adam 1e-4) through the runner's ``main`` in this process, each
+    fitting 4 batches: the max-pool kernels launch 3 + 3 times an
+    AlexNet step, flash attention 12 + 12 and LayerNorm 24 times a
+    BERT-base step.  The kernel phases above hold each kernel against
+    its plain version at these shapes (AlexNet's pools at batch 64;
+    flash and LayerNorm at BERT-base's (16, 512, 12, 64) and 8192 rows),
+    so this phase does not repeat them.  Returns each path's launches
+    (in ``kernel_counters``' order)."""
+    import torch
+
+    walls = examples_finish(procs, workdir, card)
+    for name, (rel, marker) in EX_CONSOLE.items():
+        text, secs, _, _ = examples_cli(rel, ("-b", str(BATCH)))
+        assert marker in text, (name, text[-2000:])
+        print(f"examples {name} in this process: {secs:.3f} s warm; its "
+              f"subprocess's start-up {walls[name] - secs:.3f} s "
+              f"[{card}]")
+    out = {}
+    for path, (rel, flags, per_step) in EX_KERNEL_SCRIPTS.items():
+        text, secs, launches, events = examples_cli(rel, flags,
+                                                    kernel_counters)
+        epochs = [e for e in events if e.get("event") == "epoch"]
+        assert len(epochs) == 1 and "THROUGHPUT" in text, text[-2000:]
+        steps = epochs[0]["step"]
+        assert steps == 4 and epochs[0]["samples"] == 4 * int(flags[1]), \
+            epochs
+        assert launches == [steps * n for n in per_step], (path, launches)
+        assert math.isfinite(epochs[0]["dispatch_ms"]), epochs
+        print(f"examples {path}: flexflow_tpu_torch.cli.main "
+              f"examples/{rel} {' '.join(flags)}: exit 0 in {secs:.3f} s, "
+              f"{steps} steps, {epochs[0]['dispatch_ms']} ms a dispatch; "
+              f"launches (flash fwd, flash bwd, layernorm, pool fwd, pool "
+              f"bwd) {launches} ({list(per_step)} a step); "
+              + next(ln for ln in text.splitlines() if "THROUGHPUT" in ln)
+              + f" [{card}]")
+        out[path] = launches
     torch.cuda.empty_cache()
     return out
 
@@ -8201,6 +8394,18 @@ def main() -> int:
     phase("verifier", verifier_phase, ft, card)
     tsearch = phase("search", search_phase, ft, card)
     tcalib = phase("calibration", calibration_phase, ft, card)
+    # the examples phase's console scripts start up beside the
+    # frontends phase (and its own runner subprocesses); the examples
+    # phase below checks them
+    import atexit
+    import shutil
+    import tempfile
+    ex_dir = tempfile.mkdtemp(prefix="ff-examples-")
+    ex_procs = examples_start(ex_dir)
+    # a failure in any phase before the examples phase leaves no
+    # process behind (atexit runs last-in first-out)
+    atexit.register(shutil.rmtree, ex_dir, ignore_errors=True)
+    atexit.register(examples_stop, ex_procs)
     tfront = phase("frontends", frontends_phase, ft, cuda_pool, counters,
                    card)
     # last: each engine thread that ran a matmul leaves its cuBLAS
@@ -8214,6 +8419,8 @@ def main() -> int:
                   card)
     tbench = phase("serving benches", serving_benches_phase,
                    kernel_counters, card)
+    tex = phase("examples", examples_phase, ex_procs, ex_dir,
+                kernel_counters, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -8324,6 +8531,11 @@ def main() -> int:
     # printed by the script and asserted in the phase)
     fwd_paths["tooling_metrics_alexnet"] = ttool["alexnet"]["fwd"]
     bwd_paths["tooling_metrics_alexnet"] = ttool["alexnet"]["bwd"]
+    # the example scripts run by the runner in this process (counts in
+    # kernel_counters' order)
+    fwd_paths["examples_alexnet"] = tex["examples_alexnet"][3]
+    bwd_paths["examples_alexnet"] = tex["examples_alexnet"][4]
+    ex_tf = tex["examples_transformer"]
     kp["max_abs_err"] = max(kp["max_abs_err"], tfront["keras"]["err_fwd"])
     bp["max_abs_err"] = max(bp["max_abs_err"], tfront["keras"]["err_bwd"])
     lp["max_abs_err"] = max(lp["max_abs_err"], tfront["ln"]["err"])
@@ -8348,7 +8560,7 @@ def main() -> int:
                     **{k: v[2] for k, v in mesh_flash.items()},
                     **{k: v[2] for k, v in search_bert.items()},
                     "tooling_bert_traced": ttool["bert"]["fwd"],
-                    **tbench["fwd"]},
+                    **tbench["fwd"], "examples_transformer": ex_tf[0]},
                    fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
@@ -8358,7 +8570,8 @@ def main() -> int:
                     "bert_pinned": bpin["bwd"],
                     **{k: v[3] for k, v in mesh_flash.items()},
                     **{k: v[3] for k, v in search_bert.items()},
-                    "tooling_bert_traced": ttool["bert"]["bwd"]},
+                    "tooling_bert_traced": ttool["bert"]["bwd"],
+                    "examples_transformer": ex_tf[1]},
                    fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
@@ -8376,7 +8589,7 @@ def main() -> int:
                     **{k: v[4] for k, v in search_bert.items()},
                     "frontends_keras_ln": tfront["ln"]["ln"],
                     "tooling_bert_traced": ttool["bert"]["ln"],
-                    **tbench["ln"]}, lp),
+                    **tbench["ln"], "examples_transformer": ex_tf[2]}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ keras ``compile`` and ``nn_compat.Module`` read it; scripts may also call
 ``FFConfig.parse_args()`` themselves, same flags).  ``--device cuda|cpu``
 (cuda by default) installs the device entry points run on; without a card
 and without ``--device cpu`` the runner stops with ``default_device()``'s
-error rather than fall back to the CPU.
+error rather than fall back to the CPU.  The script's ``flexflow_tpu``
+imports resolve to the port (``script_imports.py``), so the repo's
+``examples/`` run unchanged; ``import jax`` in it raises ImportError, and
+a process that already holds jax or the JAX package exits 2.
 
 Built-in verbs: ``lint`` (``--concurrency``: the lock-discipline pass
 over the port's tree, ``analysis/concurrency.py``) and ``explain``
@@ -146,6 +149,11 @@ def main(argv=None) -> None:
         print(_usage(), file=sys.stderr)
         raise SystemExit(2)
     flags = [a for a in argv if a != script]
+    from . import script_imports
+    mixing = script_imports.mixing_error()
+    if mixing:
+        print(f"{PROG}: {mixing}", file=sys.stderr)
+        raise SystemExit(2)
     cfg = FFConfig.parse_args(flags)
     from .config import set_default_config
     _install_device(device)
@@ -171,8 +179,10 @@ def main(argv=None) -> None:
     initialize_distributed(
         world_size=cfg.num_devices if cfg.num_nodes > 1 else None,
         device_type=device)
-    # the script sees the remaining argv like any __main__
+    # the script sees the remaining argv like any __main__, and its
+    # flexflow_tpu imports resolve to the port (script_imports.py)
     sys.argv = [script] + flags
+    script_imports.install(script)
     runpy.run_path(script, run_name="__main__")
 
 

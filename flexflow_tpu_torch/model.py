@@ -1945,11 +1945,17 @@ class FFModel:
         self._batch = self._device_batch(arrays)
 
     def forward(self) -> torch.Tensor:
-        """The inference forward on the batch of ``set_batch``."""
+        """The inference forward on the batch of ``set_batch``, as a host
+        tensor that numpy reads on any device (the JAX package returns an
+        array numpy reads): float32 where the output is bf16 or f16 (the
+        exact upcast), else the output's own dtype.  The copy to the host
+        is blocking, so it syncs the stream."""
         if self._batch is None:
             raise RuntimeError("set_batch() first")
         with torch.no_grad():
-            return self._forward(self._params, self._batch[:-1])
+            out = self._forward(self._params, self._batch[:-1]).cpu()
+        return (out.float() if out.dtype in (torch.bfloat16, torch.float16)
+                else out)
 
     def zero_gradients(self) -> None:
         self._cached_grads = None

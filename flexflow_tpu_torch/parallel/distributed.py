@@ -204,9 +204,14 @@ def _collective(name: str):
 
 def rank_device(device_type: Optional[str] = None) -> torch.device:
     """This rank's device: ``cuda:{local_rank % device_count()}``, or the
-    CPU when ``device_type`` (default: the runtime's, else ``"cuda"``)
-    is ``"cpu"``.  Raises when CUDA is asked for and absent."""
-    device_type = device_type or _RUNTIME["device_type"] or "cuda"
+    CPU when ``device_type`` (default: the runtime's, else the process
+    default of ``config.set_default_device`` (the runner's ``--device``),
+    else ``"cuda"``) is ``"cpu"``.  Raises when CUDA is asked for and
+    absent."""
+    if not device_type:
+        from ..config import get_default_device
+        device_type = (_RUNTIME["device_type"] or get_default_device()
+                       or "cuda")
     if device_type == "cpu":
         return torch.device("cpu")
     if device_type != "cuda":

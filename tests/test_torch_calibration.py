@@ -505,7 +505,15 @@ def test_harvest_ops_records_structure_and_analytic_halves():
             assert entry["features"] == jc.op_features(jo, dims)
             for d, b in (("fwd", False), ("bwd", True)):
                 rec = entry[d]
-                assert rec["n"] == 1 and rec["measured_ms"] > 0
+                assert rec["n"] == 1
+                # the backward half is the forward-and-backward time less
+                # the forward's, clamped at zero in both packages
+                # (profiling.profile_op): at iters=1 it can be 0.0
+                if d == "fwd":
+                    assert rec["measured_ms"] > 0
+                else:
+                    assert math.isfinite(rec["measured_ms"]) \
+                        and rec["measured_ms"] >= 0
                 assert rec["analytic_ms"] == port_cost.op_compute_time(
                     po, dims, cases.REF, 4, b, device="cpu",
                     compute_dtype="float32") * 1e3

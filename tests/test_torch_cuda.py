@@ -1625,3 +1625,30 @@ def test_train_bench_runs_on_the_card(no_tf32, capsys):
                for r in payload["results"])
     from flexflow_tpu_torch.config import set_default_device
     set_default_device(None)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_forward_returns_a_host_tensor_numpy_reads(no_tf32, dtype):
+    """``forward()`` on the card returns a host tensor (float32 for a
+    bf16 model), as print_layers.py, print_input.py and tensor_attach.py
+    read it with ``np.asarray``: the blocking copy of the device
+    forward, equal to ``predict`` on the same rows."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ft
+
+    cfg = ft.FFConfig(batch_size=16, compute_dtype=dtype)
+    m = ft.FFModel(cfg, device="cuda")
+    x = m.create_tensor((16, 784), name="input")
+    t = m.dense(x, 64, activation="relu", name="dense1")
+    t = m.dense(t, 10, name="dense2")
+    m.compile(ft.SGDOptimizer(lr=0.01),
+              ft.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, final_tensor=t)
+    m.init_layers(seed=0)
+    xb = torch.randn(16, 784, generator=no_tf32, device="cuda").cpu()
+    m.set_batch(xb.numpy(), np.zeros((16, 1), np.int32))
+    out = m.forward()
+    assert out.device.type == "cpu" and out.dtype == torch.float32
+    got = np.asarray(out)
+    assert got.shape == (16, 10) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, m.predict(xb.numpy()))

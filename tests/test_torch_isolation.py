@@ -1,8 +1,12 @@
 """The port stands alone: importing flexflow_tpu_torch loads neither jax
 nor flexflow_tpu, and no module of the port (nor chip_smoke.py) imports
-either of them."""
+either of them.  The twins of the example scripts under
+``flexflow_tpu_torch/examples/`` are scripts of the runner, not modules:
+their ``flexflow_tpu`` imports are names the runner resolves to port
+modules (``script_imports.py``), and they are never imported."""
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -11,6 +15,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "flexflow_tpu_torch")
+SCRIPTS = os.path.join(PKG, "examples")
 
 
 def _port_sources():
@@ -22,9 +27,15 @@ def _port_sources():
     return sorted(out)
 
 
+def _is_script(path: str) -> bool:
+    return path.startswith(SCRIPTS + os.sep)
+
+
 def _modules():
     mods = []
     for path in _port_sources()[1:]:
+        if _is_script(path):
+            continue
         rel = os.path.relpath(path, REPO)[:-len(".py")]
         mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     return mods
@@ -33,6 +44,14 @@ def _modules():
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
     return root in ("jax", "jaxlib", "flexflow_tpu")
+
+
+def _resolves_to_the_port(name: str) -> bool:
+    """A ``flexflow_tpu`` name that the runner resolves to a module of
+    the port."""
+    from flexflow_tpu_torch.script_imports import port_name
+    return (name.split(".")[0] == "flexflow_tpu"
+            and importlib.util.find_spec(port_name(name)) is not None)
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
@@ -61,7 +80,8 @@ def test_no_port_module_imports_jax_or_the_jax_package(path):
             names = [node.module or ""] if node.level == 0 else []
         else:
             continue
-        bad = [n for n in names if _forbidden(n)]
+        bad = [n for n in names if _forbidden(n)
+               and not (_is_script(path) and _resolves_to_the_port(n))]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
@@ -188,3 +208,26 @@ def test_the_native_simulator_source_is_the_ports_own():
         loader = f.read()
     assert "flexflow_tpu.native" not in loader
     assert "flexflow_tpu/native" not in loader
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.script_imports", "flexflow_tpu_torch.cli"])
+def test_the_examples_slice_modules_are_checked(module):
+    """The runner and its import finder are among the modules the two
+    tests above import and parse."""
+    assert module in _modules()
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    assert path in _port_sources()
+
+
+@pytest.mark.parametrize("rel", [
+    "examples/python/native/pipeline_moe_transformer.py",
+    "examples/apps/longcontext.py"])
+def test_the_twin_scripts_are_parsed_and_never_imported(rel):
+    """Each twin is parsed by the import test above (no jax, and only
+    ``flexflow_tpu`` names the runner resolves to the port), and is not
+    among the modules imported in a plain interpreter."""
+    path = os.path.join(PKG, rel)
+    assert path in _port_sources()
+    assert not any(m.startswith("flexflow_tpu_torch.examples")
+                   for m in _modules())
