@@ -207,10 +207,11 @@
    each on one rank: the float32 mesh steps equal it within rtol 1e-4,
    the bf16 ones and the composed program (whose microbatches route
    otherwise than one rank's whole batch) within 15% by the L2 norm of
-   the change (the first moment under Adam).  Then a one-rank group on the default backend
-   (NCCL): a {"n": 1} mesh step bit-equal to the step without a mesh;
-   the ranks then reshard BERT-base (6 layers) in process and serve
-   the sharded generation engine, and then compile BERT-base (bf16, 12
+   the change (the first moment under Adam).  Beside those checks, a
+   one-rank group on the default backend (NCCL): a {"n": 1} mesh step
+   bit-equal to the step without a mesh; the ranks also reshard
+   BERT-base (4 layers) in process and serve the sharded generation
+   engine (the LM at 6 layers), and then compile BERT-base (bf16, 12
    layers) and its float32 twin (2 layers) with ``search_budget``: each
    rank searches the analytic objective for the four ranks, every
    rank's strategy equals the one this process searched (one digest,
@@ -312,9 +313,9 @@
    ``serve_bench_generate``, ``serve_bench_prefix``,
    ``serve_bench_speculate``, ``serve_bench_disagg`` (LayerNorm) and
    ``serve_bench_generate_reference`` (flash forward);
-17j. examples phase (last): the repo's example scripts, unchanged,
-   through the runner (``flexflow_tpu_torch.cli``), whose finder
-   resolves their ``flexflow_tpu`` imports to the port: (a)
+17j. examples phase (after the serving benches): the repo's example
+   scripts, unchanged, through the runner (``flexflow_tpu_torch.cli``),
+   whose finder resolves their ``flexflow_tpu`` imports to the port: (a)
    examples/python/native/print_layers.py, print_input.py and
    tensor_attach.py with ``-b 64`` in subprocesses on the card (started
    before the frontends phase; each reads ``np.asarray(model.forward())``
@@ -328,6 +329,30 @@
    step (the kernel phases hold each kernel against its plain version
    at these shapes).  The ``kernels`` line carries ``examples_alexnet``
    and ``examples_transformer``;
+17k. capi phase (last): the C API over the port
+   (``flexflow_tpu_torch/capi/``: capi/flexflow_tpu_c.cpp, unchanged,
+   its imports wrapped onto the port at link time, built with g++ and no
+   libpython; the build and (a)'s hosts
+   started before the frontends phase): (a) capi/test_capi.c and
+   capi/examples/alexnet.c (``-b 64 -e 1``, 64 px), unchanged, as C
+   hosts linked with the library and libpython, on the card (exit 0,
+   their lines, a finite final loss, their seconds to exit; the probe of
+   ``sysconfig`` and g++ printed); the pool kernels at alexnet.c's three
+   pool shapes and the LayerNorm kernel at test_capi.c's block's
+   (8, 8, 16), bf16 and f32, against their plain versions (the block's
+   attention, (8, 8, 2, 8), in the flash phase); (b) both programs
+   again in this process (test_capi.c as its twin, whose files are
+   relative paths), built as shared objects, ``main`` called through
+   ctypes in the phase's directory: 15 + 15 max-pool launches (alexnet.c's warm-up and 4
+   steps) and 12 + 12 flash and 24 LayerNorm (test_capi.c's 12 Adam
+   steps of its block), a host's start-up its seconds less these; (c)
+   test_capi.c's block at BERT-base's widths (batch 16, s 512, d 768,
+   12 heads, causal, FFN 3072 gelu, vocab 30522, 4 classes) through the
+   C functions (``capi/abi.py``): 4 bf16 Adam steps, their ms, 4 + 4
+   flash and 8 LayerNorm launches, then one float32 step within 1e-5 of
+   the same graph through the Python API from the same weights.  The
+   ``kernels`` line carries ``capi_alexnet``, ``capi_test_transformer``
+   and ``capi_bert_block``;
 18. prints each phase's seconds, one ``kernels`` JSON line and, last,
    the ok line.
 
@@ -962,9 +987,12 @@ def pool_timing_rows(cuda_pool, gen, shapes, iters, plain_iters):
             # the channels per access of the last timed launch
             "vec": cuda_pool.max_pool_nhwc.last_vec,
             "kernel_ms": kernel_ms,
+            # a plain version timed once (the large windows': 1.4-7.3 s a
+            # call) takes no warm-up call, which would double its cost:
+            # the checks already ran it at this shape
             "plain_ms": time_ms(
                 lambda t: cuda_pool.max_pool_nhwc_reference(t, k, s, p),
-                xs, plain_iters, warmup=min(3, plain_iters)),
+                xs, plain_iters, warmup=min(3, plain_iters - 1)),
             "library_ms": time_ms(
                 lambda t: F.max_pool2d(t, k, s, p), xs, iters),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1057,10 +1085,12 @@ def pool_backward_timing_rows(cuda_pool, gen, shapes, iters, plain_iters):
             # launch
             "tile": dict(plan._asdict(), route=type(plan).__name__),
             "kernel_ms": kernel_ms,
+            # no warm-up for a plain version timed once, as in
+            # pool_timing_rows
             "plain_ms": time_ms(
                 lambda t: cuda_pool.max_pool_nhwc_backward_reference(
                     *t, k, s, p), pairs, plain_iters,
-                warmup=min(3, plain_iters)),
+                warmup=min(3, plain_iters - 1)),
             "library_ms": time_ms(
                 lambda t: torch.ops.aten.max_pool2d_with_indices_backward(
                     t[1], t[0], list(k), list(s), list(p), [1, 1], False,
@@ -1698,6 +1728,10 @@ def flash_phase(cuda_attention, gen, card: str) -> dict:
         check((2, 200, 4, 64), torch.bfloat16, causal, sweep,
               unaligned=True)
 
+    # capi/test_capi.c's transformer block through the C API (bf16,
+    # causal, 2 heads of 8)
+    check(CAPI_TEST_ATTENTION, torch.bfloat16, True, sweep,
+          " (test_capi.c's block)")
     # the shape the main path gives the kernels: BERT-base at batch 16 in
     # bf16, not causal (build_transformer) and causal
     # (build_transformer_lm)
@@ -5807,7 +5841,7 @@ def hold_mesh_state(name, shape, dtype, mesh_losses, losses, one, got,
 def mesh_phase(ft, card: str) -> dict:
     """MESH_WORLD ranks on the card over MESH_BACKEND run MESH_RUNS; then
     this process runs each one on one rank, and holds the mesh's against
-    it; then a one-rank NCCL group.  Returns the kernels' launches by
+    it, beside a one-rank NCCL group.  Returns the kernels' launches by
     run, summed over the ranks."""
     import tempfile
 
@@ -5821,6 +5855,18 @@ def mesh_phase(ft, card: str) -> dict:
     mesh_children(["--mesh-rank"], MESH_WORLD, workdir)
     print(f"mesh ranks: {MESH_WORLD} processes on one card over "
           f"{MESH_BACKEND} in {time.perf_counter() - t0:.1f} s [{card}]")
+    # the one-rank NCCL group runs in its own process beside the checks
+    # below, which need no card time of their own while it starts
+    nccl_error = []
+
+    def run_nccl():
+        try:
+            mesh_children(["--mesh-nccl"], 1, workdir)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            nccl_error.append(e)
+
+    nccl = threading.Thread(target=run_nccl)
+    nccl.start()
     ranks = []
     for r in range(MESH_WORLD):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
@@ -5875,7 +5921,9 @@ def mesh_phase(ft, card: str) -> dict:
                 c["bytes"] += v["bytes"]
     print("mesh collectives over the ranks and runs (host: staged through "
           f"pinned host memory) [{card}]: " + json.dumps(colls))
-    mesh_children(["--mesh-nccl"], 1, workdir)
+    nccl.join()
+    if nccl_error:
+        raise nccl_error[0]
     return {"launches": launches, "collectives": colls}
 
 
@@ -5884,7 +5932,8 @@ def mesh_phase(ft, card: str) -> dict:
 # and the strategy-sharded generation engine
 # ----------------------------------------------------------------------
 # bert_reshard: BERT-base (bf16, batch 16, s 512, Adam; RESHARD_BERT_LAYERS
-# of its 12 layers, cut from 12 to make room for the calibration phase)
+# of its 12 layers: the move, its checkpoint and the launches a step are
+# the same at every depth, and the smoke's later phases need the time)
 # with the bert_n2c2 strategies, 2 steps at {"n": 2, "c": 2}, the step-2
 # checkpoint, FFModel.reshard in process to {"n": 4}, 2 more steps; the
 # reference is a model fixed at {"n": 4} that loads the checkpoint and
@@ -5894,21 +5943,25 @@ def mesh_phase(ft, card: str) -> dict:
 # launch a layer, the LayerNorms on the local rows.  The float32 twin
 # (BERT-base's widths at RESHARD_TWIN_LAYERS layers) must match its
 # reference bit for bit; bf16 is held by the L2 share (MESH_L2_SHARE)
+RESHARD_BERT_LAYERS = 4
 RESHARD_RUNS = {
-    "bert_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 6, 6, 12), 2),
+    "bert_reshard": ({"n": 2, "c": 2}, {"n": 4},
+                     (0, 0, RESHARD_BERT_LAYERS, RESHARD_BERT_LAYERS,
+                      2 * RESHARD_BERT_LAYERS), 2),
     "bert_f32_reshard": ({"n": 2, "c": 2}, {"n": 4}, (0, 0, 2, 2, 4), 2),
 }
 RESHARD_TWIN_LAYERS = 2
-RESHARD_BERT_LAYERS = 6
-# gen_n2c2: the generation LM (GPT2 above) through
+# gen_n2c2: the generation LM (GPT2 above, at 6 of its 12 layers: the
+# sharding is the same in every layer, and later phases need the time)
+# through
 # GenerationEngine.from_strategy at {"n": 2, "c": 2} (attention, FFN and
 # token embedding (2, 1, 2), tests/test_generation.py's strategy), 8
-# greedy prompts x 32 tokens on 8 slots; its float32 twin at 2 layers.
-# Predicted on each rank: 2 LayerNorm launches a layer a dispatch (24 at
-# 12 layers, 4 in the twin), warm-up dispatches included, no flash
-# launch (the paged attention is plain torch), a KV pool half of one
-# device's
-GEN_MESH_RUNS = {"gen_n2c2": ("bfloat16", GPT2["num_layers"]),
+# greedy prompts x GEN_MESH_NEW tokens on 8 slots; its float32 twin at 2
+# layers.  Predicted on each rank: 2 LayerNorm launches a layer a
+# dispatch (12 at 6 layers, 4 in the twin), warm-up dispatches included,
+# no flash launch (the paged attention is plain torch), a KV pool half
+# of one device's
+GEN_MESH_RUNS = {"gen_n2c2": ("bfloat16", 6),
                  "gen_f32_n2c2": ("float32", 2)}
 GEN_MESH_SLOTS = 8
 GEN_MESH_PROMPTS = 8
@@ -6287,20 +6340,21 @@ def elastic_run(workdir: str, nprocs: int, fault: str, max_restarts=2):
     return report, recs, wall
 
 
-# the elastic phase's runs: two chains that run side by side (each a
-# supervisor with its four ranks): the uninterrupted run then the
-# recovery run, and the shrink then the fixed two-rank run that resumes
-# from the shrink's step-4 checkpoint.  The recovery run's plan: rank 3
-# killed at step 3 (attempt 0); attempt 1 resumes from step 2 and every
-# checkpoint it publishes is truncated (corrupt_ckpt:latest), rank 3
-# killed again at step 5; attempt 2 skips the corrupt step-4 file and
-# falls back to step 2
+# the elastic phase's runs: three chains that run side by side (each a
+# supervisor with its ranks): the uninterrupted run then the fixed
+# two-rank run that resumes from its step-4 checkpoint (which the phase
+# holds equal to the shrink's), the recovery run, and the shrink; as
+# three chains they take the time of the longest, not of the sum.  The
+# recovery run's plan: rank 3 killed at step 3
+# (attempt 0); attempt 1 resumes from step 2 and every checkpoint it
+# publishes is truncated (corrupt_ckpt:latest), rank 3 killed again at
+# step 5; attempt 2 skips the corrupt step-4 file and falls back to
+# step 2
 ELASTIC_CHAINS = (
-    (("clean", MESH_WORLD, ""),
-     ("recover", MESH_WORLD, "kill_at_step:3,rank=3;corrupt_ckpt:latest,"
-                             "attempt=1;kill_at_step:5,rank=3,attempt=1")),
-    (("shrink", MESH_WORLD, "shrink_at_step:4"),
-     ("fixed2", MESH_WORLD // 2, "")),
+    (("clean", MESH_WORLD, ""), ("fixed2", MESH_WORLD // 2, "")),
+    (("recover", MESH_WORLD, "kill_at_step:3,rank=3;corrupt_ckpt:latest,"
+                             "attempt=1;kill_at_step:5,rank=3,attempt=1"),),
+    (("shrink", MESH_WORLD, "shrink_at_step:4"),),
 )
 
 
@@ -6311,12 +6365,13 @@ def elastic_phase(card: str) -> dict:
     (kill_at_step:3,rank=3) and after a fallback past a corrupt
     checkpoint (corrupt_ckpt:latest); the shrink_at_step:4 run a planned
     resize to 2 ranks through the supervisor, bit-equal to the fixed
-    2-rank run from the same checkpoint.  Returns each run's wall
+    2-rank run from an equal step-4 checkpoint.  Returns each run's wall
     seconds."""
     import shutil
     import tempfile
     import threading
 
+    import numpy as np
     from flexflow_tpu_torch.fflogger import capture_events
 
     root = tempfile.mkdtemp(prefix="ff-elastic-")
@@ -6328,7 +6383,7 @@ def elastic_phase(card: str) -> dict:
                 wd = os.path.join(root, tag)
                 os.makedirs(os.path.join(wd, "ckpt"))
                 if tag == "fixed2":
-                    shutil.copy(os.path.join(root, "shrink", "ckpt",
+                    shutil.copy(os.path.join(root, "clean", "ckpt",
                                              "elastic_step4.npz"),
                                 os.path.join(wd, "ckpt"))
                 runs[tag] = elastic_run(wd, nprocs, fault,
@@ -6383,6 +6438,17 @@ def elastic_phase(card: str) -> dict:
     # step 4's loss is not recorded: the resize exits inside its step
     assert recs[0]["losses"] == clean[:3], (recs[0], clean)
     assert "reshard_on_resume" in recs[1]["events"], recs[1]
+    # the fixed run resumed from the uninterrupted run's step-4
+    # checkpoint: the shrink's holds the same state, bit for bit
+    ckpts = [np.load(os.path.join(root, tag, "ckpt", "elastic_step4.npz"))
+             for tag in ("clean", "shrink")]
+    with ckpts[0] as a, ckpts[1] as b:
+        keys = [k for k in a.files if k != "meta:manifest"]
+        assert sorted(keys) == sorted(k for k in b.files
+                                      if k != "meta:manifest"), \
+            (a.files, b.files)
+        for k in keys:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     fixed = runs["fixed2"][1][0]
     assert recs[1]["losses"] == fixed["losses"], (recs[1], fixed)
     resizes = [e for e in events if e["event"] == "reshard"]
@@ -6393,8 +6459,9 @@ def elastic_phase(card: str) -> dict:
           f"uninterrupted run (losses {clean}); the shrink to "
           f"{MESH_WORLD // 2} ranks through the supervisor bit-equal to "
           f"the fixed {MESH_WORLD // 2}-rank run from the step-4 "
-          f"checkpoint ({fixed['losses']}); {wall:.1f} s for the two "
-          f"chains side by side [{card}]")
+          f"checkpoint ({fixed['losses']}; the two step-4 checkpoints "
+          f"bit-equal); {wall:.1f} s for the {len(ELASTIC_CHAINS)} chains "
+          f"side by side [{card}]")
     shutil.rmtree(root, ignore_errors=True)
     return {tag: round(r[2], 3) for tag, r in runs.items()}
 
@@ -7253,18 +7320,18 @@ def front_nn_path(ft, cuda_pool, card: str) -> dict:
     return {"fwd": counts[0], "bwd": counts[1], "twin": twin}
 
 
-def front_pool_checks(cuda_pool, gen) -> tuple:
-    """(b)'s two pool shapes at batch BATCH, bf16 and f32: the kernels
-    against the plain version, forward and backward, bit for bit (these
-    launches are comparisons, counted by no path)."""
+def pool_checks(cuda_pool, gen, pools, label: str) -> tuple:
+    """The pool kernels at ``pools`` ((C, H, W), (k, s, p)) at batch
+    BATCH, bf16 and f32, against the plain version, forward and
+    backward, bit for bit; returns the largest errors (0.0)."""
     import torch
     err_f = err_b = 0.0
-    for (c, h, w), (k, s, p) in FRONT_KERAS_POOLS:
+    for (c, h, w), (k, s, p) in pools:
         for dtype in (torch.bfloat16, torch.float32):
             x = rand_input((BATCH, c, h, w), dtype, gen)
             y = cuda_pool.max_pool_nhwc(x, k, s, p)
             ref = cuda_pool.max_pool_nhwc_reference(x, k, s, p)
-            name = f"frontends keras {h}x{w}x{c} {str(dtype)[6:]}"
+            name = f"{label} {h}x{w}x{c} {str(dtype)[6:]}"
             err_f = max(err_f, assert_bit_equal(y, ref, name))
             oh, ow = cuda_pool.out_hw(h, w, k, s, p)
             g = rand_input((BATCH, c, oh, ow), dtype, gen)
@@ -7284,7 +7351,8 @@ def front_keras_path(ft, cuda_pool, gen, card: str) -> dict:
     import numpy as np
     from flexflow_tpu_torch import keras
 
-    err_f, err_b = front_pool_checks(cuda_pool, gen)
+    err_f, err_b = pool_checks(cuda_pool, gen, FRONT_KERAS_POOLS,
+                               "frontends keras")
     # cifar10 warns that it falls back to its synthetic set
     x, y = front_cifar_data(keras, BATCH * FRONT_KERAS_STEPS)
     xt, yt = front_cifar_data(keras, 8 * BATCH, split=1)
@@ -8197,6 +8265,391 @@ def examples_phase(procs, workdir: str, kernel_counters,
     return out
 
 
+# ----------------------------------------------------------------------
+# the C API over the port (flexflow_tpu_torch/capi/): capi/'s C programs,
+# unchanged, against a library that embeds the port
+# ----------------------------------------------------------------------
+CAPI_DIR = os.path.join(HERE, "capi")
+# the programs: their source under capi/, their arguments and the lines
+# a run prints once done
+CAPI_PROGRAMS = {
+    "test_capi": ("test_capi.c", (),
+                  ("MLP OK", "transformer OK", "lstm OK", "C API OK")),
+    "alexnet": ("examples/alexnet.c", ("-b", str(BATCH), "-e", "1"),
+                ("THROUGHPUT",)),
+}
+# (b) runs test_capi.c's twin, whose checkpoint and strategy file are
+# relative paths, in the phase's own directory: capi/test_capi.c writes
+# fixed paths under /tmp
+CAPI_IN_PROCESS = {"test_capi": os.path.join(HERE, "flexflow_tpu_torch",
+                                             "capi", "test_capi.c")}
+CAPI_TIMEOUT = 300
+# each program's launches in this process (flash fwd, flash bwd,
+# layernorm, pool fwd, pool bwd), counted from its graph: alexnet.c
+# trains 1 warm-up and 4 steps (-e 1) of 3 max pools; test_capi.c's
+# transformer block 12 Adam steps of one causal attention and two
+# LayerNorms (its MLP and LSTM launch no kernel of the port's)
+CAPI_LAUNCHES = {"test_capi": (12, 12, 24, 0, 0),
+                 "alexnet": (0, 0, 0, 15, 15)}
+# the shapes these give the kernels: alexnet.c's 64 px input makes
+# pools over 15x15x64, 7x7x192 and 3x3x256 (3x3, stride 2); test_capi.c's
+# block (8 x 8 tokens, d 16) attention over 2 heads of 8 and LayerNorm
+# over (8, 8, 16)
+CAPI_ALEXNET_POOLS = [((64, 15, 15), POOL_GEOM), ((192, 7, 7), POOL_GEOM),
+                      ((256, 3, 3), POOL_GEOM)]
+CAPI_TEST_ATTENTION = (8, 8, 2, 8)
+CAPI_TEST_LN = (8, 8, 16)
+# (c): test_capi.c's block at BERT-base's widths (its 4 classes), bf16
+# steps with Adam, then one float32 step against the Python API's
+CAPI_BERT = dict(batch=BERT_BATCH, seq=BERT["seq_len"], d=BERT["d_model"],
+                 heads=BERT["num_heads"], ffn=BERT["d_ff"],
+                 vocab=BERT["vocab_size"], classes=4)
+CAPI_BERT_STEPS = 4
+CAPI_BERT_ALPHA = 1e-4
+CAPI_F32_TOL = 1e-5
+
+
+def capi_start(workdir: str) -> dict:
+    """In a thread beside the phases that follow: build the port's C
+    library and capi/'s programs against it, as shared objects for (b)
+    and, where this Python can be embedded, as executables, and start
+    (a)'s hosts on the card (FLEXFLOW_PLATFORM dropped from their
+    environment), their output in files in ``workdir``."""
+    from flexflow_tpu_torch.capi import build
+
+    state = {"procs": {}, "builds": {}, "shared": {}}
+
+    def note(proc, done):
+        proc.wait()
+        done["t"] = time.perf_counter()
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            state["library"] = build.build_library()
+            state["builds"]["library"] = time.perf_counter() - t0
+            for name, (src, _, _) in CAPI_PROGRAMS.items():
+                t0 = time.perf_counter()
+                state["shared"][name] = build.build_host(
+                    CAPI_IN_PROCESS.get(name, os.path.join(CAPI_DIR, src)),
+                    name, shared=True)
+                state["builds"][f"{name}.so"] = time.perf_counter() - t0
+            try:
+                build.python_link()
+            except RuntimeError as e:
+                state["no_host"] = str(e)
+                return
+            env = build.host_env()
+            env.pop("FLEXFLOW_PLATFORM", None)
+            for name, (src, args, _) in CAPI_PROGRAMS.items():
+                t0 = time.perf_counter()
+                exe = build.build_host(os.path.join(CAPI_DIR, src), name)
+                state["builds"][name] = time.perf_counter() - t0
+                out = open(os.path.join(workdir, f"{name}.out"), "w")
+                err = open(os.path.join(workdir, f"{name}.err"), "w")
+                t0 = time.perf_counter()
+                proc = subprocess.Popen([exe, *args], cwd=workdir, env=env,
+                                        stdout=out, stderr=err)
+                done = {}
+                threading.Thread(target=note, args=(proc, done),
+                                 daemon=True).start()
+                state["procs"][name] = (proc, out, err, t0, done)
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            state["error"] = e
+
+    state["thread"] = threading.Thread(target=run, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def capi_stop(state) -> None:
+    """Leave no process of :func:`capi_start` behind."""
+    state["thread"].join()
+    for proc, out, err, _, _ in state["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def capi_finish(state, workdir: str, card: str) -> dict:
+    """The build's probe and times, then (a): wait for each host and
+    check what it printed; returns each one's (seconds from its start to
+    its exit, its stdout)."""
+    import sysconfig
+
+    state["thread"].join(CAPI_TIMEOUT)
+    assert not state["thread"].is_alive(), "capi build still running"
+    if "error" in state:
+        raise state["error"]
+    inc = sysconfig.get_config_var("INCLUDEPY")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    print(f"capi probe: INCLUDEPY {inc} (Python.h "
+          f"{os.path.exists(os.path.join(inc, 'Python.h'))}), LIBDIR "
+          f"{sysconfig.get_config_var('LIBDIR')}, LDLIBRARY "
+          f"{sysconfig.get_config_var('LDLIBRARY')}, Py_ENABLE_SHARED "
+          f"{sysconfig.get_config_var('Py_ENABLE_SHARED')}; {gxx}")
+    print(f"capi build: {os.path.relpath(state['library'], HERE)}; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in state["builds"].items())
+          + f" (beside the frontends phase) [{card}]")
+    if "no_host" in state:
+        print(f"capi (a): no C host on this machine: {state['no_host']}")
+        return {}
+    hosts = {}
+    for name, (proc, out, err, t0, done) in state["procs"].items():
+        rc = proc.wait(timeout=CAPI_TIMEOUT)
+        out.close()
+        err.close()
+        with open(os.path.join(workdir, f"{name}.out")) as f:
+            text = f.read()
+        with open(os.path.join(workdir, f"{name}.err")) as f:
+            errtext = f.read()
+        assert rc == 0, (name, rc, text[-2000:], errtext[-3000:])
+        markers = CAPI_PROGRAMS[name][2]
+        assert all(m in text for m in markers), (name, text[-2000:])
+        capi_final_loss(text)
+        while "t" not in done:
+            time.sleep(0.01)
+        hosts[name] = (done["t"] - t0, text)
+        print(f"capi (a) host {name} ({capi_command(name)}, the card): "
+              f"exit 0 in "
+              f"{hosts[name][0]:.3f} s from its start; "
+              + "; ".join(ln for ln in text.splitlines()
+                          if any(m in ln for m in markers)
+                          or ln.startswith("final loss"))
+              + f" [{card}]")
+    return hosts
+
+
+def capi_command(name: str, in_process: bool = False) -> str:
+    src, args, _ = CAPI_PROGRAMS[name]
+    path = f"capi/{src}"
+    if in_process and name in CAPI_IN_PROCESS:
+        path = os.path.relpath(CAPI_IN_PROCESS[name], HERE)
+    return " ".join((path,) + args)
+
+
+def capi_final_loss(text: str) -> None:
+    """alexnet.c's ``final loss`` line, where a program prints one, must
+    read a finite loss."""
+    for ln in text.splitlines():
+        if ln.startswith("final loss"):
+            assert math.isfinite(float(ln.split()[-1])), ln
+
+
+def capi_main(path: str, argv, cwd: str) -> tuple:
+    """Call ``main(argc, argv)`` of the shared object ``path`` in this
+    process (``ctypes.PyDLL``: the C layer runs on this interpreter, and
+    a Python exception it leaves set raises here), in the directory
+    ``cwd``.  Its stdout goes to a file while it runs and C's buffers are
+    flushed before fd 1 comes back, so no C line lands after this
+    process's own.  Returns (exit code, its stdout, seconds)."""
+    import ctypes
+    import tempfile
+
+    lib = ctypes.PyDLL(path)
+    lib.main.restype = ctypes.c_int
+    lib.main.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)]
+    args = (ctypes.c_char_p * len(argv))(*(a.encode() for a in argv))
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    saved = os.dup(1)
+    here = os.getcwd()
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        os.chdir(cwd)
+        t0 = time.perf_counter()
+        try:
+            rc = lib.main(len(argv), args)
+        finally:
+            libc.fflush(None)
+            secs = time.perf_counter() - t0
+            os.chdir(here)
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        text = f.read().decode()
+    return rc, text, secs
+
+
+def capi_py_block(ft, dtype: str):
+    """(c)'s block through the port's Python API: the calls the C layer
+    makes for abi.transformer_block, then compile and init."""
+    b = CAPI_BERT
+    m = ft.FFModel(ft.FFConfig.parse_args(["-b", str(b["batch"]),
+                                           "--compute-dtype", dtype]))
+    tok = m.create_tensor((b["batch"], b["seq"]), "int32", "tokens")
+    emb = m.embedding(tok, b["vocab"], b["d"], aggr="none",
+                      name="tok_embed")
+    pos = m.position_embedding(emb, name="pos_embed")
+    attn = m.multihead_attention(pos, embed_dim=b["d"],
+                                 num_heads=b["heads"], dropout=0.0,
+                                 bias=True, causal=True, name="attn")
+    ln1 = m.layer_norm(m.add(pos, attn, name="res1"), name="ln1")
+    up = m.dense(ln1, b["ffn"], activation="gelu", use_bias=True,
+                 name="ffn_up")
+    dn = m.dense(up, b["d"], use_bias=True, name="ffn_down")
+    ln2 = m.layer_norm(m.add(ln1, dn, name="res2"), name="ln2")
+    fl = m.reshape(ln2, (b["batch"], b["seq"] * b["d"]), name="fl")
+    out = m.dense(fl, b["classes"], use_bias=True, name="cls")
+    m.compile(ft.AdamOptimizer(alpha=CAPI_BERT_ALPHA, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0, epsilon=1e-8),
+              "sparse_categorical_crossentropy", final_tensor=out)
+    m.init_layers(SEED)
+    return m
+
+
+def capi_bert_block(ft, counters, card: str) -> dict:
+    """(c): test_capi.c's transformer block at BERT-base's widths
+    through the C functions (ctypes, abi.transformer_block): the bf16
+    steps' ms and launches (one flash forward and backward and two
+    LayerNorms a step), then one float32 step against the same graph
+    through the Python API from the same weights (carried by
+    flexflow_model_set_weights)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.capi import abi
+
+    lib = abi.load()
+    assert lib.flexflow_init() == 0, abi.last_error(lib)
+    b = CAPI_BERT
+    rng = np.random.default_rng(SEED)
+    tok = rng.integers(0, b["vocab"], (b["batch"], b["seq"])).astype(
+        np.int32)
+    y = rng.integers(0, b["classes"], b["batch"]).astype(np.int32)
+
+    def block(dtype):
+        cfg = abi.config(lib, "-b", str(b["batch"]), "--compute-dtype",
+                         dtype)
+        m, logits = abi.transformer_block(
+            lib, cfg, b["batch"], b["seq"], b["d"], b["heads"], b["ffn"],
+            b["vocab"], b["classes"])
+        opt = abi.check(lib, lib.flexflow_adam_optimizer_create(
+            CAPI_BERT_ALPHA, 0.9, 0.999, 0.0, 1e-8), "adam")
+        assert lib.flexflow_model_compile_opt(
+            m, opt, abi.FF_LOSS_SPARSE_CCE, logits) == 0, abi.last_error(lib)
+        assert lib.flexflow_model_init_layers(m, SEED) == 0, \
+            abi.last_error(lib)
+        return m, (logits, opt, cfg)
+
+    def release(m, handles):
+        logits, opt, cfg = handles
+        lib.flexflow_tensor_destroy(logits)
+        lib.flexflow_optimizer_destroy(opt)
+        lib.flexflow_model_destroy(m)
+        lib.flexflow_config_destroy(cfg)
+        free_garbage()
+        torch.cuda.empty_cache()
+
+    def step(m):
+        # the C layer reads the loss with PyFloat_AsDouble: a sync
+        loss = lib.flexflow_model_train_batch(m, 1, abi.batch(tok),
+                                              y.ctypes.data)
+        assert math.isfinite(loss), abi.last_error(lib)
+        return loss
+
+    free_garbage()
+    m, handles = block("bfloat16")
+    reset_counts(*counters)
+    ms, losses = [], []
+    for _ in range(CAPI_BERT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(m))
+        ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+    launches = [c.launches for c in counters]
+    want = [CAPI_BERT_STEPS, CAPI_BERT_STEPS, 2 * CAPI_BERT_STEPS]
+    assert launches == want, (launches, want)
+    release(m, handles)
+    print(f"capi (c) test_capi.c's block at BERT-base's widths through the "
+          f"C ABI (batch {b['batch']}, s {b['seq']}, d {b['d']}, "
+          f"{b['heads']} heads, causal, FFN {b['ffn']} gelu, vocab "
+          f"{b['vocab']}, bf16, Adam {CAPI_BERT_ALPHA}): "
+          f"{CAPI_BERT_STEPS} steps, ms a step {ms} (each ends in the "
+          f"loss's read), mean of steps 2-{CAPI_BERT_STEPS} "
+          f"{sum(ms[1:]) / (len(ms) - 1):.3f} ms; losses "
+          f"{[round(v, 4) for v in losses]}; launches (flash fwd, flash "
+          f"bwd, layernorm) {launches} [{card}]")
+
+    m, handles = block("float32")
+    pm = capi_py_block(ft, "float32")
+    for p in pm.parameters:
+        w = np.ascontiguousarray(pm.get_weights(p.name), np.float32).ravel()
+        assert lib.flexflow_model_set_weights(
+            m, p.name.encode(), w.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)), w.size) == 0, \
+            abi.last_error(lib)
+    got = step(m)
+    want_loss = float(pm.train_batch(tok, y))
+    print(f"capi (c) float32 step through the C ABI: loss {got!r} against "
+          f"the Python API's {want_loss!r} from the same weights "
+          f"({len(pm.parameters)} parameters), |diff| "
+          f"{abs(got - want_loss):.3g} (tol {CAPI_F32_TOL}) [{card}]")
+    assert abs(got - want_loss) <= CAPI_F32_TOL * max(1.0, abs(want_loss))
+    del pm
+    release(m, handles)
+    return {"launches": launches, "ms": ms}
+
+
+def capi_phase(ft, state, workdir: str, kernel_counters,
+               card: str) -> dict:
+    """The C API over the port on the card: (a) capi/test_capi.c and
+    capi/examples/alexnet.c (-b 64 -e 1), unchanged, as C hosts linked
+    with the port's library and libpython (started before the frontends
+    phase), checked here; the kernels held against their plain versions
+    at the shapes these programs give them (alexnet.c's three pools,
+    test_capi.c's block's LayerNorm; its attention in the flash phase);
+    (b) both programs again in this process (built as shared objects,
+    test_capi.c as its twin CAPI_IN_PROCESS, ``main`` called through
+    ctypes in ``workdir``), their launches counted:
+    CAPI_LAUNCHES; a host's seconds less this run's are its start-up;
+    (c) capi_bert_block.  Returns each path's launches (in
+    ``kernel_counters``' order) and the errors of the kernel checks."""
+    import torch
+    from flexflow_tpu_torch.ops import cuda_norm, cuda_pool
+
+    hosts = capi_finish(state, workdir, card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    err_f, err_b = pool_checks(cuda_pool, gen, CAPI_ALEXNET_POOLS,
+                               "capi alexnet.c")
+    d = CAPI_TEST_LN[-1]
+    x = torch.randn(CAPI_TEST_LN, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    err_ln = ln_check(cuda_norm, x, None, scale, bias,
+                      " (test_capi.c's block)")
+    out = {"err_fwd": err_f, "err_bwd": err_b, "err_ln": err_ln}
+    for name, (src, args, markers) in CAPI_PROGRAMS.items():
+        free_garbage()
+        reset_counts(*kernel_counters)
+        rc, text, secs = capi_main(state["shared"][name], [name, *args],
+                                   workdir)
+        launches = [k.launches for k in kernel_counters]
+        assert rc == 0, (name, rc, text[-2000:])
+        assert all(m in text for m in markers), (name, text[-2000:])
+        assert launches == list(CAPI_LAUNCHES[name]), (name, launches)
+        capi_final_loss(text)
+        shown = [ln for ln in text.splitlines()
+                 if any(m in ln for m in markers)
+                 or ln.startswith("final loss")]
+        start = (f"; its host's start-up {hosts[name][0] - secs:.3f} s"
+                 if name in hosts else "")
+        print(f"capi (b) {name} in this process "
+              f"({capi_command(name, in_process=True)}, "
+              f"main through ctypes): exit 0 in "
+              f"{secs:.3f} s{start}; launches (flash fwd, flash bwd, "
+              f"layernorm, pool fwd, pool bwd) {launches}; "
+              + "; ".join(shown) + f" [{card}]")
+        out[name] = launches
+    out["bert"] = capi_bert_block(ft, kernel_counters[:3], card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def lockwatch_main(argv) -> int:
     """The FF_LOCKWATCH=1 workload of the tooling phase (d), in a process
     of its own (enablement is sampled when a lock is made, at import):
@@ -8406,6 +8859,11 @@ def main() -> int:
     # process behind (atexit runs last-in first-out)
     atexit.register(shutil.rmtree, ex_dir, ignore_errors=True)
     atexit.register(examples_stop, ex_procs)
+    # the capi phase's build and C hosts, likewise
+    capi_dir = tempfile.mkdtemp(prefix="ff-capi-")
+    capi_state = capi_start(capi_dir)
+    atexit.register(shutil.rmtree, capi_dir, ignore_errors=True)
+    atexit.register(capi_stop, capi_state)
     tfront = phase("frontends", frontends_phase, ft, cuda_pool, counters,
                    card)
     # last: each engine thread that ran a matmul leaves its cuBLAS
@@ -8421,6 +8879,8 @@ def main() -> int:
                    kernel_counters, card)
     tex = phase("examples", examples_phase, ex_procs, ex_dir,
                 kernel_counters, card)
+    tcapi = phase("capi", capi_phase, ft, capi_state, capi_dir,
+                  kernel_counters, card)
     worst = max(MEMORY, key=lambda r: r["ratio"])
     print(f"memory factor: largest ratio {worst['ratio']:.4f} "
           f"({worst['step']}) over {len(MEMORY)} training steps [{card}]")
@@ -8536,9 +8996,18 @@ def main() -> int:
     fwd_paths["examples_alexnet"] = tex["examples_alexnet"][3]
     bwd_paths["examples_alexnet"] = tex["examples_alexnet"][4]
     ex_tf = tex["examples_transformer"]
-    kp["max_abs_err"] = max(kp["max_abs_err"], tfront["keras"]["err_fwd"])
-    bp["max_abs_err"] = max(bp["max_abs_err"], tfront["keras"]["err_bwd"])
-    lp["max_abs_err"] = max(lp["max_abs_err"], tfront["ln"]["err"])
+    # the C API's programs in this process (counts in kernel_counters'
+    # order) and test_capi.c's block at BERT-base's widths
+    fwd_paths["capi_alexnet"] = tcapi["alexnet"][3]
+    bwd_paths["capi_alexnet"] = tcapi["alexnet"][4]
+    capi_tf = {"capi_test_transformer": tcapi["test_capi"],
+               "capi_bert_block": tcapi["bert"]["launches"]}
+    kp["max_abs_err"] = max(kp["max_abs_err"], tfront["keras"]["err_fwd"],
+                            tcapi["err_fwd"])
+    bp["max_abs_err"] = max(bp["max_abs_err"], tfront["keras"]["err_bwd"],
+                            tcapi["err_bwd"])
+    lp["max_abs_err"] = max(lp["max_abs_err"], tfront["ln"]["err"],
+                            tcapi["err_ln"])
     lp["max_abs_err"] = max(lp["max_abs_err"], tpipe["max_abs_err"])
     print(json.dumps({"kernels": [
         entry("max_pool_nhwc", "flexflow_tpu/ops/pallas_pool.py:89",
@@ -8560,7 +9029,8 @@ def main() -> int:
                     **{k: v[2] for k, v in mesh_flash.items()},
                     **{k: v[2] for k, v in search_bert.items()},
                     "tooling_bert_traced": ttool["bert"]["fwd"],
-                    **tbench["fwd"], "examples_transformer": ex_tf[0]},
+                    **tbench["fwd"], "examples_transformer": ex_tf[0],
+                    **{k: v[0] for k, v in capi_tf.items()}},
                    fp["fwd"]),
         call_entry("flash_attention_bwd", flash_src,
                    "flexflow_tpu/ops/attention.py:81",
@@ -8571,7 +9041,8 @@ def main() -> int:
                     **{k: v[3] for k, v in mesh_flash.items()},
                     **{k: v[3] for k, v in search_bert.items()},
                     "tooling_bert_traced": ttool["bert"]["bwd"],
-                    "examples_transformer": ex_tf[1]},
+                    "examples_transformer": ex_tf[1],
+                    **{k: v[1] for k, v in capi_tf.items()}},
                    fp["bwd"]),
         call_entry("fused_layernorm",
                    "flexflow_tpu_torch/csrc/fused_layernorm.cu",
@@ -8589,7 +9060,8 @@ def main() -> int:
                     **{k: v[4] for k, v in search_bert.items()},
                     "frontends_keras_ln": tfront["ln"]["ln"],
                     "tooling_bert_traced": ttool["bert"]["ln"],
-                    **tbench["ln"], "examples_transformer": ex_tf[2]}, lp),
+                    **tbench["ln"], "examples_transformer": ex_tf[2],
+                    **{k: v[2] for k, v in capi_tf.items()}}, lp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

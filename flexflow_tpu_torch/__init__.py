@@ -5,7 +5,9 @@ operators in PyTorch, running on an NVIDIA GPU (Hopper), with the JAX
 package's Pallas kernels rewritten by hand in CUDA (``csrc/``).  It
 imports neither jax nor flexflow_tpu.  Entry points run on CUDA unless
 the caller passes ``device="cpu"`` or the process has a default device
-(:func:`set_default_device`, the runner's ``--device``).  On several
+(:func:`set_default_device`, the runner's ``--device``, or the
+``FLEXFLOW_PLATFORM`` environment variable read at import: ``cpu``, or
+``cuda``/``gpu``; the JAX package reads the same variable).  On several
 devices it runs one process per device and a ``MachineMesh`` over them
 (``parallel/distributed.py``).
 
@@ -19,7 +21,8 @@ which installs the parsed flags as the default config
 from . import losses, metrics, resilience
 from .config import (DeviceType, FFConfig, MemoryType, ParallelConfig,
                      get_default_config, get_default_device,
-                     set_default_config, set_default_device)
+                     platform_device, set_default_config,
+                     set_default_device)
 from .data import synthetic_dataset
 from .initializers import (ConstantInitializer, GlorotUniform,
                            NormInitializer, UniformInitializer,
@@ -48,6 +51,10 @@ from .serving import (DeadlineExceeded, GenerationCancelled,
                       OverloadError, SamplingParams, ServingEngine,
                       ServingError, SheddedError)
 from .tensor import Parameter, Tensor
+
+# FLEXFLOW_PLATFORM, where set, names the default device (a C host has no
+# device argument; see config.platform_device)
+set_default_device(platform_device())
 
 __all__ = ["DeviceType", "FFConfig", "MemoryType",
            "ParallelConfig", "get_default_config", "get_default_device",

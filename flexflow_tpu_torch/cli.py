@@ -10,12 +10,13 @@ The script runs under CPython with ``FFConfig.parse_args``'s result
 available via :func:`flexflow_tpu_torch.get_default_config` (``FFModel()``,
 keras ``compile`` and ``nn_compat.Module`` read it; scripts may also call
 ``FFConfig.parse_args()`` themselves, same flags).  ``--device cuda|cpu``
-(cuda by default) installs the device entry points run on; without a card
-and without ``--device cpu`` the runner stops with ``default_device()``'s
-error rather than fall back to the CPU.  The script's ``flexflow_tpu``
-imports resolve to the port (``script_imports.py``), so the repo's
-``examples/`` run unchanged; ``import jax`` in it raises ImportError, and
-a process that already holds jax or the JAX package exits 2.
+(by default what ``FLEXFLOW_PLATFORM`` names, else cuda) installs the
+device entry points run on; without a card and without ``--device cpu``
+the runner stops with ``default_device()``'s error rather than fall back
+to the CPU.  The script's ``flexflow_tpu`` imports resolve to the port
+(``script_imports.py``), so the repo's ``examples/`` run unchanged;
+``import jax`` in it raises ImportError, and a process that already
+holds jax or the JAX package exits 2.
 
 Built-in verbs: ``lint`` (``--concurrency``: the lock-discipline pass
 over the port's tree, ``analysis/concurrency.py``) and ``explain``
@@ -187,12 +188,14 @@ def main(argv=None) -> None:
 
 
 def _install_device(device) -> None:
-    """Install ``device`` (None: the card) as the process default; with
-    no card and no ``--device cpu`` exit 1 with ``default_device()``'s
-    error, running nothing."""
+    """Install ``device``, where given, as the process default (else the
+    default stays what ``FLEXFLOW_PLATFORM`` installed at import, or the
+    card); with no card and no ``--device cpu`` exit 1 with
+    ``default_device()``'s error, running nothing."""
     from .config import set_default_device
     from .model import default_device
-    set_default_device(device)
+    if device:
+        set_default_device(device)
     try:
         default_device()
     except RuntimeError as e:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
@@ -423,3 +424,22 @@ def set_default_device(device: Optional[str]) -> None:
 def get_default_device() -> Optional[str]:
     """The installed default device, or None (the card)."""
     return _default_device
+
+
+# FLEXFLOW_PLATFORM's values (the JAX package's backend switch,
+# flexflow_tpu/__init__.py) and the device each names
+PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def platform_device() -> Optional[str]:
+    """The device the ``FLEXFLOW_PLATFORM`` environment variable names,
+    or None where it is unset or empty.  The package installs it as the
+    default device at import; a C host, which has no device argument,
+    asks for the CPU so.  Raises ImportError on any other value."""
+    name = os.environ.get("FLEXFLOW_PLATFORM")
+    if not name:
+        return None
+    if name not in PLATFORMS:
+        raise ImportError(f"FLEXFLOW_PLATFORM={name!r}: flexflow_tpu_torch "
+                          f"runs on 'cpu' or 'cuda' (also 'gpu')")
+    return PLATFORMS[name]

@@ -143,15 +143,20 @@ class DataLoader:
 
 
 def upload(arrays, device: torch.device) -> tuple:
-    """Host arrays to ``device`` tensors.  To a CUDA device the copy is
-    issued from pinned memory without waiting for it; the caching host
-    allocator keeps each pinned buffer until its copy has run."""
+    """Host arrays to ``device`` tensors, each a copy, as the JAX
+    package's placement copies: the caller may rewrite an array (a C
+    host's buffer) before the tensor is read.  To a CUDA device the copy
+    is issued from pinned memory without waiting for it; the caching
+    host allocator keeps each pinned buffer until its copy has run."""
     out = []
     for a in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
+            t = torch.from_numpy(np.ascontiguousarray(a))
             t = t.pin_memory().to(device, non_blocking=True)
         else:
+            # np.array copies (with ascontiguousarray's at least 1-d),
+            # where from_numpy alone would alias the caller's array
+            t = torch.from_numpy(np.array(a, order="C", ndmin=1))
             t = t.to(device)
         out.append(t)
     return tuple(out)

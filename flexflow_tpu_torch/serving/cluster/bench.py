@@ -316,7 +316,9 @@ def run_colo_arm(model, slots: int, max_seq: int, chunk: int,
         with eng:
             gaps, ttfts, dt = _interference_once(
                 eng.submit, floods, victim_new, flood_new)
-            snap = eng.stats()
+        # after the stop: the dispatcher has counted the last request
+        # (a stream's consumer wakes before its engine counts it)
+        snap = eng.stats()
         run = _mk_run(gaps, ttfts, dt, [snap], flood_new)
         run["engine_tpot_p95_ms"] = snap["tpot_p95_ms"]
         best = _keep_best(best, run)
@@ -378,12 +380,14 @@ def run_disagg_arm(model, slots: int, max_seq: int, pf_chunk: int,
             gaps, ttfts, dt = _interference_once(
                 lambda p, **kw: router.submit("lm", p, **kw),
                 floods, victim_new, flood_new)
-            snaps = [pf_eng.stats(), dc_eng.stats()]
-            rstats = router.stats()
         finally:
             router.stop()
             for f in fleets:
                 f.stop()
+        # after the stops, as in run_colo_arm: every dispatcher has
+        # counted its last request
+        snaps = [pf_eng.stats(), dc_eng.stats()]
+        rstats = router.stats()
         run = _mk_run(gaps, ttfts, dt, snaps, flood_new)
         run["engine_tpot_p95_ms"] = snaps[1]["tpot_p95_ms"]
         run["migrations"] = rstats["migrations"]

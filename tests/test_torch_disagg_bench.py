@@ -13,9 +13,14 @@ against the JAX package's, on the CPU.
   the torch device type and ``config.pf_pace_s`` 0.0.
 * The bench restores the process's switch interval on every way out,
   a failing arm included.
+* Each wall arm reads its engines' ``stats()`` after they stop: with the
+  engine's count of a finished request delayed 50 ms, a snapshot taken
+  while the engines run (the order before the repair) misses the last
+  request, and the arms' snapshots do not.
 """
 
 import sys
+import time
 
 import pytest
 
@@ -24,6 +29,9 @@ from flexflow_tpu.fflogger import silenced as jax_silenced
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.fflogger import silenced
 from flexflow_tpu_torch.serving.cluster import bench as port_cb
+from flexflow_tpu_torch.serving.generation import bench as port_gb
+from flexflow_tpu_torch.serving.generation.engine import (GenerationEngine,
+                                                          GenerationMetrics)
 
 from test_torch_gen_bench import _assert_keys
 
@@ -110,3 +118,53 @@ def test_switch_interval_restored_when_an_arm_fails(monkeypatch):
     with pytest.raises(RuntimeError, match="arm failed"):
         port_cb.run_disagg_bench(**SMALL, device="cpu")
     assert sys.getswitchinterval() == before
+
+
+def _snapshot_while_running(arm, model, floods):
+    """The wall arm as it was before the repair: the engines' stats()
+    read as soon as the streams end, while the engines still run."""
+    args = (floods, SMALL["victim_new"], SMALL["flood_new"])
+    if arm == "colo":
+        eng = GenerationEngine(model, slots=SMALL["slots"],
+                               max_seq=SMALL["max_seq"], stats_every=0,
+                               prefill_chunk=SMALL["pf_chunk"],
+                               prefix_cache="off")
+        with eng:
+            gaps, ttfts, dt = port_cb._interference_once(eng.submit, *args)
+            snaps = [eng.stats()]
+    else:
+        router, fleets, engines = port_cb.build_disagg(
+            model, SMALL["slots"], SMALL["max_seq"], SMALL["pf_chunk"])
+        try:
+            gaps, ttfts, dt = port_cb._interference_once(
+                lambda p, **kw: router.submit("lm", p, **kw), *args)
+            snaps = [e.stats() for e in engines]
+        finally:
+            router.stop()
+            for f in fleets:
+                f.stop()
+    return port_cb._mk_run(gaps, ttfts, dt, snaps, SMALL["flood_new"])
+
+
+@pytest.mark.parametrize("arm", ["colo", "disagg"])
+def test_arm_snapshots_count_a_delayed_last_request(arm, monkeypatch):
+    counted = GenerationMetrics.record_request
+
+    def late(self, *a, **kw):
+        time.sleep(0.05)
+        counted(self, *a, **kw)
+
+    monkeypatch.setattr(GenerationMetrics, "record_request", late)
+    model = port_gb._build_lm(SMALL["slots"], SMALL["max_seq"],
+                              SMALL["d_model"], SMALL["num_heads"],
+                              SMALL["num_layers"], SMALL["seed"],
+                              device="cpu")
+    floods = port_cb.make_flood_trace(SMALL["requests"], SMALL["prompt_lo"],
+                                      SMALL["prompt_hi"], SMALL["seed"])
+    assert not _snapshot_while_running(arm, model,
+                                       floods)["reconciliation_ok"]
+    run = (port_cb.run_colo_arm if arm == "colo" else
+           port_cb.run_disagg_arm)
+    got = run(model, SMALL["slots"], SMALL["max_seq"], SMALL["pf_chunk"],
+              floods, SMALL["victim_new"], SMALL["flood_new"], 1)
+    assert got["reconciliation_ok"], got

@@ -231,3 +231,30 @@ def test_the_twin_scripts_are_parsed_and_never_imported(rel):
     assert path in _port_sources()
     assert not any(m.startswith("flexflow_tpu_torch.examples")
                    for m in _modules())
+
+
+def test_the_c_api_imports_only_the_port_and_numpy():
+    """The port's C library is ``capi/flexflow_tpu_c.cpp`` linked with
+    its ``PyImport_ImportModule`` wrapped by ``import_port.cpp``: every
+    module that source names is numpy or the JAX package's, which the
+    wrapper maps onto the port's, and the capi Python modules are among
+    those the two tests above import and parse."""
+    import re
+    from flexflow_tpu_torch.capi import build
+    src = os.path.join(REPO, "capi", "flexflow_tpu_c.cpp")
+    assert src in build.SOURCES
+    assert "-Wl,--wrap=PyImport_ImportModule" in build.LDFLAGS
+    with open(src, encoding="utf-8") as f:
+        names = re.findall(r'PyImport_ImportModule\("([^"]*)"\)', f.read())
+    assert names
+    for name in names:
+        assert name in ("numpy", "flexflow_tpu") or \
+            name.startswith("flexflow_tpu."), name
+    with open(os.path.join(PKG, "capi", "import_port.cpp"),
+              encoding="utf-8") as f:
+        shim = f.read()
+    assert '"flexflow_tpu_torch%s"' in shim
+    for module in ("flexflow_tpu_torch.capi", "flexflow_tpu_torch.capi.abi",
+                   "flexflow_tpu_torch.capi.build",
+                   "flexflow_tpu_torch.capi.__main__"):
+        assert module in _modules()
